@@ -1,0 +1,310 @@
+"""Fused MiT transformer block and whole-stage forward: Hopper CUDA kernels
+(``csrc/mit_block.cu``) and their plain PyTorch versions.
+
+Port of ``surgical_tpu/kernels/mit_block.py``. One block kernel serves both
+``fused_mit_block`` and ``fused_mit_block_hb`` of the JAX package (they
+compute the same function; the latter differs only in its TPU attention
+schedule), and one stage kernel serves ``fused_mit_stage``.
+
+A wrapper runs its kernel's plain version only for a tensor that lies on the
+CPU. For a CUDA tensor it launches the kernel or raises. Each wrapper counts
+its kernel launches in ``<wrapper>.launches``.
+
+Weight dicts keep the JAX package's layout ([in, out] matrices, dy-major
+depthwise taps ``wdw [9, hidden]``, stacked per-depth stage weights with the
+same keys and shapes), so the kernels read them as they are.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from surgical_tpu_torch.kernels import _build
+
+HEAD_DIM = 64  # every MiT variant
+MAX_KV = 64    # keys per head the attention kernel holds in shared memory
+LN_MAX_C = 512  # widest row the LayerNorm stages hold in registers
+
+
+# -- plain PyTorch versions -------------------------------------------------
+
+def layer_norm(x, scale, bias, eps=1e-6):
+    """LayerNorm with eps 1e-6 and the biased variance, computed in fp32 and
+    rounded to x.dtype: every LayerNorm of the fused graph
+    (surgical_tpu mit_block.py::_layernorm, mit_fused.py::_ln)."""
+    x32 = x.float()
+    m = x32.mean(-1, keepdim=True)
+    v = ((x32 - m) ** 2).mean(-1, keepdim=True)
+    return ((x32 - m) * torch.rsqrt(v + eps) * scale.float() + bias.float()).to(x.dtype)
+
+
+def _linear(x, w, b):
+    """fp32-accumulated x @ w + b (w in [in, out] layout), kept in fp32."""
+    return x.float() @ w.float() + b.float().reshape(-1)
+
+
+def _attention(q, k, v, heads):
+    """Per-image, per-head softmax attention; probabilities rounded to
+    q.dtype before P.V, the context rounded to q.dtype."""
+    B, N, C = q.shape
+    Nkv = k.shape[1]
+    hd = C // heads
+    qh = q.float().reshape(B, N, heads, hd).transpose(1, 2)
+    kh = k.float().reshape(B, Nkv, heads, hd).transpose(1, 2)
+    vh = v.float().reshape(B, Nkv, heads, hd).transpose(1, 2)
+    scores = (qh @ kh.transpose(-1, -2)) * (1.0 / math.sqrt(hd))
+    probs = torch.softmax(scores, dim=-1).to(q.dtype).float()
+    return (probs @ vh).transpose(1, 2).reshape(B, N, C).to(q.dtype)
+
+
+def _dwconv3x3(h, wdw, bdw, H, W):
+    """3x3 depthwise conv with zero edges on tokens [B, N, hidden]; fp32
+    accumulate in dy-major tap order, + bias, rounded to h.dtype."""
+    B, N, Ch = h.shape
+    g = F.pad(h.float().reshape(B, H, W, Ch), (0, 0, 1, 1, 1, 1))
+    acc = torch.zeros(B, H, W, Ch, dtype=torch.float32, device=h.device)
+    k = 0
+    for dy in (0, 1, 2):
+        for dx in (0, 1, 2):
+            acc = acc + g[:, dy:dy + H, dx:dx + W] * wdw[k].float()
+            k += 1
+    return (acc + bdw.float().reshape(-1)).to(h.dtype).reshape(B, N, Ch)
+
+
+def _attn_residual(x, xln, k, v, wq, bq, wo, bo, heads):
+    """x + out_proj(attention(q_proj(xln), k, v)), rounded to x.dtype."""
+    dt = x.dtype
+    q = _linear(xln, wq, bq).to(dt)
+    ctx = _attention(q, k, v, heads)
+    return (x.float() + _linear(ctx, wo, bo)).to(dt)
+
+
+def _mlp_residual(x, ln2_scale, ln2_bias, w1, b1, wdw, bdw, w2, b2, H, W):
+    """x + fc2(gelu_tanh(dwconv(fc1(LN2(x))))), with the Pallas body's
+    roundings (fc1, dwconv and GELU outputs in x.dtype)."""
+    dt = x.dtype
+    h = _linear(layer_norm(x, ln2_scale, ln2_bias), w1, b1).to(dt)
+    h = _dwconv3x3(h, wdw, bdw, H, W)
+    h = F.gelu(h.float(), approximate="tanh").to(dt)
+    return (x.float() + _linear(h, w2, b2)).to(dt)
+
+
+def fused_mit_block_plain(x, k, v, weights, *, heads, H, W):
+    """Plain version of the block kernel (fused_mit_block with LN1 in the
+    block, xln=None): x [B, N, C], k/v [B, Nkv, C] -> [B, N, C]."""
+    w = weights
+    xln = layer_norm(x, w["ln1_scale"], w["ln1_bias"])
+    x1 = _attn_residual(x, xln, k, v, w["wq"], w["bq"], w["wo"], w["bo"], heads)
+    return _mlp_residual(x1, w["ln2_scale"], w["ln2_bias"], w["w1"], w["b1"],
+                         w["wdw"], w["bdw"], w["w2"], w["b2"], H, W)
+
+
+def _sr_patches(x, H, W, sr):
+    """[B, N, C] -> [B, (H/sr)*(W/sr), sr*sr*C]: each stride-sr patch's
+    tokens in (dy, dx, c) order, the row order of the flattened conv kernel."""
+    B, N, C = x.shape
+    g = x.reshape(B, H // sr, sr, W // sr, sr, C).permute(0, 1, 3, 2, 4, 5)
+    return g.reshape(B, (H // sr) * (W // sr), sr * sr * C)
+
+
+def fused_mit_stage_plain(x, base, sw, *, heads, H, W, sr):
+    """Plain version of the stage kernel: all blocks of one stage, with the
+    per-depth prompt add (tanh GELU, as in-kernel), LN1 and the SR/kv path
+    inside the stage. x [B, N, C], base [B, N, Cb] or None."""
+    dt = x.dtype
+    C = x.shape[-1]
+    for d in range(sw["wq"].shape[0]):
+        if base is not None:
+            feat = F.gelu(_linear(base, sw["lww"][d], sw["lwb"][d]),
+                          approximate="tanh").to(dt)
+            x = (x.float() + _linear(feat, sw["sharedw"], sw["sharedb"])).to(dt)
+        xln = layer_norm(x, sw["ln1"][d, 0], sw["ln1"][d, 1])
+        kv_in = xln
+        if sr > 1:
+            red = _linear(_sr_patches(xln, H, W, sr), sw["srw"][d], sw["srb"][d]).to(dt)
+            kv_in = layer_norm(red, sw["lnkv"][d, 0], sw["lnkv"][d, 1])
+        kv = _linear(kv_in, sw["wkv"][d], sw["bkv"][d]).to(dt)
+        x = _attn_residual(x, xln, kv[..., :C], kv[..., C:], sw["wq"][d], sw["bq"][d],
+                           sw["wo"][d], sw["bo"][d], heads)
+        x = _mlp_residual(x, sw["ln2"][d, 0], sw["ln2"][d, 1], sw["w1"][d], sw["b1"][d],
+                          sw["wdw"][d], sw["bdw"][d], sw["w2"][d], sw["b2"][d], H, W)
+    return x
+
+
+# -- weights ----------------------------------------------------------------
+
+def block_weights_from_params(block, dtype=torch.bfloat16) -> dict:
+    """Kernel weights of one port MiT block (``MiTBlock`` module, reference
+    key names) in the JAX layout, contiguous, cast to ``dtype``."""
+    attn, mlp = block.attn, block.mlp
+    dw = mlp.dwconv.dwconv.weight  # [hidden, 1, 3, 3]
+    cast = lambda t: t.detach().to(dtype).contiguous()
+    return {
+        "wq": cast(attn.q.weight.t()), "bq": cast(attn.q.bias),
+        "wo": cast(attn.proj.weight.t()), "bo": cast(attn.proj.bias),
+        "ln1_scale": cast(block.norm1.weight), "ln1_bias": cast(block.norm1.bias),
+        "ln2_scale": cast(block.norm2.weight), "ln2_bias": cast(block.norm2.bias),
+        "w1": cast(mlp.fc1.weight.t()), "b1": cast(mlp.fc1.bias),
+        "wdw": cast(dw.reshape(dw.shape[0], 9).t()), "bdw": cast(mlp.dwconv.dwconv.bias),
+        "w2": cast(mlp.fc2.weight.t()), "b2": cast(mlp.fc2.bias),
+    }
+
+
+def stage_weights_from_params(model, stage: int, dtype=torch.bfloat16) -> dict:
+    """One stage's per-block weights (+ the per-depth prompt MLPs) of a port
+    ``MiTEVP``, stacked on a leading depth axis in the JAX package's
+    ``stage_weights_from_params`` layout."""
+    blocks = getattr(model, f"block{stage}")
+    bws = [block_weights_from_params(b, dtype) for b in blocks]
+    cast = lambda t: t.detach().to(dtype).contiguous()
+    stack = lambda key: torch.stack([w[key] for w in bws])
+    row = lambda key: torch.stack([w[key].reshape(1, -1) for w in bws])
+    ln = lambda s, b: torch.stack([torch.stack([w[s], w[b]]) for w in bws])
+    out = {
+        "ln1": ln("ln1_scale", "ln1_bias"), "ln2": ln("ln2_scale", "ln2_bias"),
+        "wq": stack("wq"), "bq": row("bq"), "wo": stack("wo"), "bo": row("bo"),
+        "w1": stack("w1"), "b1": row("b1"), "wdw": stack("wdw"), "bdw": row("bdw"),
+        "w2": stack("w2"), "b2": row("b2"),
+        "wkv": torch.stack([cast(b.attn.kv.weight.t()) for b in blocks]),
+        "bkv": torch.stack([cast(b.attn.kv.bias.reshape(1, -1)) for b in blocks]),
+    }
+    if hasattr(blocks[0].attn, "sr"):
+        # torch conv [C, C, sr, sr] -> rows ordered (dy, dx, c_in)
+        out["srw"] = torch.stack([
+            cast(b.attn.sr.weight.permute(2, 3, 1, 0).reshape(-1, b.attn.sr.weight.shape[0]))
+            for b in blocks])
+        out["srb"] = torch.stack([cast(b.attn.sr.bias.reshape(1, -1)) for b in blocks])
+        out["lnkv"] = torch.stack([
+            cast(torch.stack([b.attn.norm.weight, b.attn.norm.bias])) for b in blocks])
+    pg = model.prompt_generator
+    if hasattr(pg, f"lightweight_mlp{stage}_0"):
+        lws = [getattr(pg, f"lightweight_mlp{stage}_{d}")[0] for d in range(len(blocks))]
+        shared = getattr(pg, f"shared_mlp{stage}")
+        out["lww"] = torch.stack([cast(lw.weight.t()) for lw in lws])
+        out["lwb"] = torch.stack([cast(lw.bias.reshape(1, -1)) for lw in lws])
+        out["sharedw"] = cast(shared.weight.t())
+        out["sharedb"] = cast(shared.bias.reshape(1, -1))
+    return out
+
+
+# -- wrappers -----------------------------------------------------------------
+
+def _ptr(t: torch.Tensor, shape, name: str) -> int:
+    if t.dtype != torch.bfloat16 or not t.is_cuda or not t.is_contiguous():
+        raise ValueError(f"{name}: kernel takes contiguous bf16 CUDA tensors, got "
+                         f"{t.dtype} on {t.device}, contiguous={t.is_contiguous()}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)} != {tuple(shape)}")
+    return t.data_ptr()
+
+
+def _check_dims(C, heads, Nkv, hidden, H, W, x):
+    if C != heads * HEAD_DIM:
+        raise ValueError(f"kernel takes head_dim {HEAD_DIM}: C={C}, heads={heads}")
+    if Nkv > MAX_KV:
+        raise ValueError(f"kernel takes at most {MAX_KV} keys per head, got {Nkv}")
+    if C > LN_MAX_C or hidden % 8:
+        raise ValueError(f"kernel takes C <= {LN_MAX_C} and hidden % 8 == 0: {C}, {hidden}")
+    if x.shape[1] != H * W:
+        raise ValueError(f"token count {x.shape[1]} != H*W = {H * W}")
+
+
+def fused_mit_block(x, k, v, weights, *, heads: int, H: int, W: int):
+    """One MiT block: LN1 -> q -> attention over the precomputed SR k/v ->
+    out proj + residual -> LN2 -> fc1 -> 3x3 dwconv -> tanh GELU -> fc2 +
+    residual. x [B, N, C], k/v [B, Nkv, C] -> [B, N, C]."""
+    if x.device.type == "cpu":
+        return fused_mit_block_plain(x, k, v, weights, heads=heads, H=H, W=W)
+    if not x.is_cuda:
+        raise ValueError(f"fused_mit_block: no kernel for device {x.device}")
+    B, N, C = x.shape
+    Nkv = k.shape[1]
+    hidden = weights["w1"].shape[1]
+    _check_dims(C, heads, Nkv, hidden, H, W, x)
+    w = weights
+    y = torch.empty_like(x)
+    new = lambda width: torch.empty(B * N, width, dtype=x.dtype, device=x.device)
+    q, ctx, hid, act = new(C), new(C), new(hidden), new(hidden)
+    err = _build.load().mit_block_forward(
+        _ptr(x, (B, N, C), "x"), _ptr(k, (B, Nkv, C), "k"), _ptr(v, (B, Nkv, C), "v"),
+        _ptr(w["ln1_scale"], (C,), "ln1_scale"), _ptr(w["ln1_bias"], (C,), "ln1_bias"),
+        _ptr(w["wq"], (C, C), "wq"), _ptr(w["bq"], (C,), "bq"),
+        _ptr(w["wo"], (C, C), "wo"), _ptr(w["bo"], (C,), "bo"),
+        _ptr(w["ln2_scale"], (C,), "ln2_scale"), _ptr(w["ln2_bias"], (C,), "ln2_bias"),
+        _ptr(w["w1"], (C, hidden), "w1"), _ptr(w["b1"], (hidden,), "b1"),
+        _ptr(w["wdw"], (9, hidden), "wdw"), _ptr(w["bdw"], (hidden,), "bdw"),
+        _ptr(w["w2"], (hidden, C), "w2"), _ptr(w["b2"], (C,), "b2"),
+        q.data_ptr(), ctx.data_ptr(), hid.data_ptr(), act.data_ptr(), y.data_ptr(),
+        B, H, W, C, heads, Nkv, hidden, torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, "mit_block_forward")
+    fused_mit_block.launches += 1
+    return y
+
+
+fused_mit_block.launches = 0
+
+
+def fused_mit_stage(x, base, sw, *, heads: int, H: int, W: int, sr: int):
+    """All blocks of one MiT stage (per block: prompt add from ``base``, LN1,
+    SR conv + LN for sr > 1, kv/q projections, attention, MLP).
+    x [B, N, C], base [B, N, Cb] or None -> [B, N, C]."""
+    if x.device.type == "cpu":
+        return fused_mit_stage_plain(x, base, sw, heads=heads, H=H, W=W, sr=sr)
+    if not x.is_cuda:
+        raise ValueError(f"fused_mit_stage: no kernel for device {x.device}")
+    B, N, C = x.shape
+    D, _, hidden = sw["w1"].shape
+    Nkv = (H // sr) * (W // sr)
+    _check_dims(C, heads, Nkv, hidden, H, W, x)
+    if H % sr or W % sr:
+        raise ValueError(f"grid {H}x{W} is not a multiple of sr={sr}")
+    Cb = C4 = 0
+    prompt = [None] * 5
+    if base is not None:
+        Cb, C4 = sw["lww"].shape[1:]
+        if C4 % 8 or Cb % 8:
+            raise ValueError(f"prompt widths must be multiples of 8: {Cb}, {C4}")
+        prompt = [_ptr(base, (B, N, Cb), "base"),
+                  _ptr(sw["sharedw"], (C4, C), "sharedw"),
+                  _ptr(sw["sharedb"], (1, C), "sharedb"),
+                  _ptr(sw["lww"], (D, Cb, C4), "lww"), _ptr(sw["lwb"], (D, 1, C4), "lwb")]
+    sr_args = [None] * 3
+    if sr > 1:
+        sr_args = [_ptr(sw["srw"], (D, sr * sr * C, C), "srw"),
+                   _ptr(sw["srb"], (D, 1, C), "srb"), _ptr(sw["lnkv"], (D, 2, C), "lnkv")]
+    y = torch.empty_like(x)
+    new = lambda rows, width: torch.empty(rows, max(width, 1), dtype=x.dtype,
+                                          device=x.device)
+    M, Mkv = B * N, B * Nkv
+    xln, feat, q, ctx = new(M, C), new(M, C4), new(M, C), new(M, C)
+    patches = new(Mkv, sr * sr * C if sr > 1 else 0)
+    red, kvin, kv = new(Mkv, C), new(Mkv, C), new(Mkv, 2 * C)
+    hid, act = new(M, hidden), new(M, hidden)
+    err = _build.load().mit_stage_forward(
+        _ptr(x, (B, N, C), "x"), *prompt, *sr_args,
+        _ptr(sw["ln1"], (D, 2, C), "ln1"), _ptr(sw["wkv"], (D, C, 2 * C), "wkv"),
+        _ptr(sw["bkv"], (D, 1, 2 * C), "bkv"), _ptr(sw["wq"], (D, C, C), "wq"),
+        _ptr(sw["bq"], (D, 1, C), "bq"), _ptr(sw["wo"], (D, C, C), "wo"),
+        _ptr(sw["bo"], (D, 1, C), "bo"), _ptr(sw["ln2"], (D, 2, C), "ln2"),
+        _ptr(sw["w1"], (D, C, hidden), "w1"), _ptr(sw["b1"], (D, 1, hidden), "b1"),
+        _ptr(sw["wdw"], (D, 9, hidden), "wdw"), _ptr(sw["bdw"], (D, 1, hidden), "bdw"),
+        _ptr(sw["w2"], (D, hidden, C), "w2"), _ptr(sw["b2"], (D, 1, C), "b2"),
+        y.data_ptr(), xln.data_ptr(), feat.data_ptr(), patches.data_ptr(), red.data_ptr(),
+        kvin.data_ptr(), kv.data_ptr(), q.data_ptr(), ctx.data_ptr(), hid.data_ptr(),
+        act.data_ptr(), B, H, W, C, heads, sr, D, Cb, C4, hidden,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, "mit_stage_forward")
+    fused_mit_stage.launches += 1
+    return y
+
+
+fused_mit_stage.launches = 0
+
+
+def reset_launches() -> None:
+    """Set every wrapper's launch count to 0."""
+    fused_mit_block.launches = 0
+    fused_mit_stage.launches = 0

@@ -1,0 +1,125 @@
+"""Weights between the JAX package and the port.
+
+The port keeps the reference's state-dict key names, so the JAX package's own
+converters (``surgical_tpu/models/convert.py``, numpy only) carry weights both
+ways: its ``import_*_state_dict`` functions read a port state dict, its
+``export_*_state_dict`` functions write one. The MiT-EVP backbone has only an
+importer there; ``export_evp_state_dict`` here is its inverse.
+"""
+
+from __future__ import annotations
+
+from typing import Mapping
+
+import numpy as np
+import torch
+
+from surgical_tpu.models.convert import export_mstcn_state_dict, export_refiner_state_dict
+
+
+def _put_dense(sd, key, p):
+    sd[f"{key}.weight"] = np.asarray(p["kernel"]).T
+    if "bias" in p:
+        sd[f"{key}.bias"] = np.asarray(p["bias"])
+
+
+def _put_conv(sd, key, p):
+    # flax [kh, kw, in, out] -> torch [out, in, kh, kw] (depthwise: in = 1)
+    sd[f"{key}.weight"] = np.asarray(p["kernel"]).transpose(3, 2, 0, 1)
+    if "bias" in p:
+        sd[f"{key}.bias"] = np.asarray(p["bias"])
+
+
+def _put_ln(sd, key, p):
+    sd[f"{key}.weight"] = np.asarray(p["scale"])
+    sd[f"{key}.bias"] = np.asarray(p["bias"])
+
+
+def _put_bn(sd, key, p, stats):
+    _put_ln(sd, key, p)
+    sd[f"{key}.running_mean"] = np.asarray(stats["mean"])
+    sd[f"{key}.running_var"] = np.asarray(stats["var"])
+    sd[f"{key}.num_batches_tracked"] = np.asarray(0, np.int64)
+
+
+def export_evp_state_dict(params: Mapping, batch_stats: Mapping) -> dict:
+    """JAX ``MiTEVP`` (params, batch_stats) of numpy arrays -> the reference
+    key state dict that the port's ``MiTEVP.load_state_dict`` takes: the
+    inverse of ``surgical_tpu.models.convert.import_evp_state_dict``."""
+    sd: dict = {}
+    for s in range(1, 5):
+        _put_conv(sd, f"patch_embed{s}.proj", params[f"patch_embed{s}"]["proj"])
+        _put_ln(sd, f"patch_embed{s}.norm", params[f"patch_embed{s}"]["norm"])
+        d = 0
+        while f"block{s}_{d}" in params:
+            b, pre = params[f"block{s}_{d}"], f"block{s}.{d}"
+            _put_ln(sd, f"{pre}.norm1", b["norm1"])
+            for name in ("q", "kv", "proj"):
+                _put_dense(sd, f"{pre}.attn.{name}", b["attn"][name])
+            if "sr" in b["attn"]:
+                _put_conv(sd, f"{pre}.attn.sr", b["attn"]["sr"])
+                _put_ln(sd, f"{pre}.attn.norm", b["attn"]["norm"])
+            _put_ln(sd, f"{pre}.norm2", b["norm2"])
+            _put_dense(sd, f"{pre}.mlp.fc1", b["mlp"]["fc1"])
+            _put_conv(sd, f"{pre}.mlp.dwconv.dwconv", b["mlp"]["dwconv"]["dwconv"])
+            _put_dense(sd, f"{pre}.mlp.fc2", b["mlp"]["fc2"])
+            d += 1
+        _put_ln(sd, f"norm{s}", params[f"norm{s}"])
+
+    P = "prompt_generator"
+    for key, p in params[P].items():
+        if key.startswith("handcrafted_generator"):
+            _put_conv(sd, f"{P}.{key}.proj", p["proj"])
+            _put_ln(sd, f"{P}.{key}.norm", p["norm"])
+        elif key.startswith("lightweight_mlp"):
+            _put_dense(sd, f"{P}.{key}.0", p)
+        else:  # embedding_generator{s}, shared_mlp{s}
+            _put_dense(sd, f"{P}.{key}", p)
+
+    fe, fs = params["flow_encoder"], batch_stats["flow_encoder"]
+    for i in (1, 2, 3, 4):
+        _put_conv(sd, f"flow_encoder.conv{i}", fe[f"conv{i}"])
+        _put_bn(sd, f"flow_encoder.bn{i}", fe[f"bn{i}"], fs[f"bn{i}"])
+
+    for name in ("cross_attn_s3", "cross_attn_s4"):
+        p = params[name]
+        qkv = [p[f"{n}_proj"] for n in "qkv"]
+        sd[f"{name}.cross_attn.in_proj_weight"] = np.concatenate(
+            [np.asarray(x["kernel"]).T for x in qkv])
+        sd[f"{name}.cross_attn.in_proj_bias"] = np.concatenate(
+            [np.asarray(x["bias"]) for x in qkv])
+        _put_dense(sd, f"{name}.cross_attn.out_proj", p["out_proj"])
+        _put_ln(sd, f"{name}.norm", p["norm"])
+
+    hp = params["head"]
+    for i in (1, 2, 3, 4):
+        _put_dense(sd, f"head.linear_c{i}.proj", hp[f"linear_c{i}"])
+    _put_conv(sd, "head.linear_fuse.conv", hp["linear_fuse"])
+    _put_bn(sd, "head.linear_fuse.bn", hp["fuse_bn"], batch_stats["head"]["fuse_bn"])
+    for name in ("fc", "fc_ant"):
+        _put_dense(sd, f"head.{name}.0", hp[f"{name}_1"])
+        _put_dense(sd, f"head.{name}.2", hp[f"{name}_2"])
+    return sd
+
+
+def to_torch(sd: Mapping) -> dict:
+    """numpy state dict -> torch tensors (copies, contiguous)."""
+    return {k: torch.from_numpy(np.array(v)) for k, v in sd.items()}
+
+
+def load_evp_params(model, params: Mapping, batch_stats: Mapping) -> None:
+    """Load JAX ``MiTEVP`` weights into a port ``MiTEVP`` (strict)."""
+    model.load_state_dict(to_torch(export_evp_state_dict(params, batch_stats)), strict=True)
+
+
+def load_mstcn_params(model, params: Mapping) -> None:
+    """Load JAX ``MultiStageTCN`` params into a port ``MultiStageTCN``."""
+    cfg = model.cfg
+    sd = export_mstcn_state_dict(params, cfg.stages, cfg.layers)
+    model.load_state_dict(to_torch(sd), strict=True)
+
+
+def load_refiner_params(model, params: Mapping) -> None:
+    """Load JAX ``RefinementTransformer`` params into the port's."""
+    sd = export_refiner_state_dict(params, model.cfg.n_layers)
+    model.load_state_dict(to_torch(sd), strict=True)
