@@ -7,14 +7,24 @@ nonzero without printing a result:
 
 1. toolchain: torch, CUDA, nvcc, the card's name and power limit;
 2. build: the Hopper kernels from ``surgical_tpu_torch/csrc`` (nvcc, sm_90a);
-3. kernel checks: each kernel against its plain PyTorch version on the card,
-   in bf16, at the main path's shapes (MiT-b3, 224x224, B=8), with timings;
-4. slice: seeded random-init MiT-b3 EVP + MS-TCN + refiner; three synthetic
-   200-frame videos in the wire format -> make_raw_feature_fn ->
+3. kernel checks: each kernel against its plain PyTorch version on the card
+   at the main paths' shapes, with timings and the card's bound for the same
+   work: the MiT kernels in bf16 (MiT-b3, 224x224, B=8), the selective scan
+   in fp32 (d_inner 128, d_state 64; 2000 and 6000 frames, and 3 ragged
+   videos of 777);
+4. extraction slice: seeded random-init MiT-b3 EVP + MS-TCN + refiner; three
+   synthetic 200-frame videos in the wire format -> make_raw_feature_fn ->
    extract_to_store -> predict_and_write -> relaxed evaluation, with the
    kernel launch counts of that run and the kernel-vs-plain feature cosine;
    then the extraction rate over 3 runs of 12 batches of 200 frames;
-5. result: a JSON line of per-kernel numbers, the card line, and the last line
+5. temporal serving slice: seeded random Mamba (``MambaConfig()``) and
+   refiner weights saved through ``CheckpointStore`` into a work dir whose
+   ``val`` split is the extraction slice's three videos and whose ``test``
+   split is two videos of 2000 and 6000 frames of random features; then
+   ``cli predict --model mamba`` on test (8 scan launches per video),
+   ``cli predict --model mamba --online`` on val, online vs offline logits,
+   ``cli evaluate``, and Mamba + refiner latency per video;
+6. result: a JSON line of per-kernel numbers, the card line, and the last line
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -45,6 +55,24 @@ BOUNDS = {1: (1e-3, 0.125), 2: (1e-3, 0.125), 3: (2e-3, 0.125), 4: (1e-2, 0.25)}
 COSINE_BOUND = 0.9999  # per-frame cosine, kernel path vs plain path (read: min 0.999995)
 
 SOURCE = "surgical_tpu_torch/csrc/mit_block.cu"
+SCAN_SOURCE = "surgical_tpu_torch/csrc/selective_scan.cu"
+
+# Selective scan at MambaConfig() widths: (videos, frames) per check.
+SCAN_D, SCAN_N = 128, 64
+SCAN_SHAPES = ((1, 2000), (1, 6000), (3, 777))
+# Kernel vs plain, both fp32 with expf: they differ by the summation order
+# over N. A few times the H100 readings (rel L2 1.1e-7, max abs 7.6e-6 on
+# outputs up to |y| ~ 46).
+SCAN_BOUNDS = (1e-6, 5e-5)
+TEST_LENGTHS = (2000, 6000)        # the temporal slice's test videos (Cholec80 lengths)
+# Max abs logits, streaming vs offline Mamba + refiner on the val videos, both
+# fp32: a few times the H100 reading (7.2e-7).
+ONLINE_BOUND = 5e-6
+
+# Peak rates of one H100 SXM (NVIDIA's data sheet, dense, at 700 W): HBM
+# bytes/s, bf16 tensor-core FLOP/s, fp32 CUDA-core FLOP/s; SFU results/s
+# from 132 SMs x 16 per clock x the 1.98 GHz boost clock.
+HBM_BPS, BF16_FLOPS, FP32_FLOPS, SFU_OPS = 3.35e12, 989e12, 67e12, 132 * 16 * 1.98e9
 
 
 def smi_line() -> str:
@@ -89,6 +117,82 @@ def time_ms(fn, reps: int = 20) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def bound_ms(nbytes: float, op_seconds: float) -> tuple[float, str]:
+    """The least time the card could take: the larger of the bytes over the
+    memory rate and the operations over their peak rate."""
+    t_bytes = nbytes / HBM_BPS
+    return max(t_bytes, op_seconds) * 1e3, "bytes" if t_bytes >= op_seconds else "operations"
+
+
+def block_work(B, N, C, Nkv, hidden):
+    """(bytes, bf16 FLOPs) of one MiT block: x, k, v read and y written once,
+    its weights once; q/out/fc1/fc2 GEMMs, QK^T and PV, the 3x3 dwconv."""
+    flops = B * N * (4 * C * C + 4 * C * hidden + 4 * Nkv * C + 18 * hidden)
+    weights = 2 * C * C + 2 * C * hidden + 11 * hidden + 7 * C
+    return 2 * (2 * B * N * C + 2 * B * Nkv * C + weights), flops
+
+
+def block_train_work(B, N, C, Nkv, hidden):
+    """(bytes, bf16 FLOPs) of one MiT block's training forward and backward,
+    the function of ``fused_mit_block_train`` (not ported yet): x, xln, k, v,
+    dy read and y, dx, dxln, dk, dv written once, the weights once; the
+    forward of ``block_work``, then the backward's fc1 and dwconv recompute,
+    the fc2, dwconv and fc1 input gradients, the q and QK^T recompute, the
+    out-projection gradient, dP, dV, dQ, dK and the q-projection gradient.
+    No weight gradients: the trunk is frozen."""
+    _, fwd = block_work(B, N, C, Nkv, hidden)
+    bwd = B * N * (6 * C * hidden + 36 * hidden + 6 * C * C + 10 * Nkv * C)
+    weights = 2 * C * C + 2 * C * hidden + 11 * hidden + 7 * C
+    return 2 * (6 * B * N * C + 4 * B * Nkv * C + weights), fwd + bwd
+
+
+def print_unported_bounds() -> None:
+    """The card's bound for the TPU kernel still to port, at the b3 stage
+    shapes of the kernel checks (B=8, 224x224)."""
+    for stage, C, side, sr in ((1, 64, 56, 8), (2, 128, 28, 4), (3, 320, 14, 2), (4, 512, 7, 1)):
+        N, Nkv = side * side, (side // sr) ** 2
+        nbytes, flops = block_train_work(CHECK_B, N, C, Nkv, 4 * C)
+        bms, by = bound_ms(nbytes, flops / BF16_FLOPS)
+        print(f"bound fused_mit_block_train (not ported) stage{stage} [B={CHECK_B}, N={N}, "
+              f"C={C}]: {bms:.4f} ms ({by}: {nbytes / 1e6:.2f} MB, {flops / 1e9:.2f} GFLOP)")
+
+
+def stage_work(B, N, C, hidden, depth, Cb, C4):
+    """(bytes, bf16 FLOPs) of the stage-4 kernel (sr = 1, so Nkv = N): x and
+    the prompt base read, y written, every block's weights once; per block
+    the prompt MLP, the kv projection and the block."""
+    per_flops = B * N * (2 * Cb * C4 + 2 * C4 * C + 4 * C * C)
+    _, blk_flops = block_work(B, N, C, N, hidden)
+    weights = depth * (2 * C * C + 2 * C * hidden + 11 * hidden + 7 * C   # block
+                       + 2 * C * C + 2 * C + Cb * C4 + C4) + C4 * C + C  # kv, prompt
+    nbytes = 2 * (2 * B * N * C + B * N * Cb + weights)
+    return nbytes, depth * (per_flops + blk_flops)
+
+
+def scan_work(Bt, T, D, N):
+    """(bytes, seconds of operations) of the selective scan: x, dt read and y
+    written ([Bt, T, D] fp32), B and C read ([Bt, T, N]), A and D once; per
+    (t, d, n) one exp on the SFUs and 5 fp32 flops (dt*A, the state FMA, the
+    y FMA)."""
+    nbytes = 4 * (3 * Bt * T * D + 2 * Bt * T * N + D * N + D)
+    elems = Bt * T * D * N
+    return nbytes, max(5 * elems / FP32_FLOPS, elems / SFU_OPS)
+
+
+def median_ms(fn, runs: int = 5) -> float:
+    """Median host-clock time of ``runs`` calls of ``fn``, each between two
+    synchronizations, after one warm-up call."""
+    fn()
+    times = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    return float(np.median(times))
 
 
 def _rand(rng, shape, scale=1.0, offset=0.0):
@@ -144,9 +248,12 @@ def phase_kernel_checks() -> dict:
         rel, mx = _compare(f"block {shape}", got, want, stage)
         ms = time_ms(lambda: mb.fused_mit_block(x, k, v, w, **kw))
         plain_ms = time_ms(lambda: mb.fused_mit_block_plain(x, k, v, w, **kw))
-        print(f"time block stage{stage}: kernel {ms:.4f} ms plain {plain_ms:.4f} ms")
+        nbytes, flops = block_work(B, N, C, Nkv, hidden)
+        bms, by = bound_ms(nbytes, flops / BF16_FLOPS)
+        print(f"time block stage{stage}: kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
+              f"bound {bms:.4f} ms ({by}: {nbytes / 1e6:.2f} MB, {flops / 1e9:.2f} GFLOP)")
         block_rows.append({"shape": shape, "rel_l2": rel, "max_abs_err": mx, "ms": ms,
-                           "plain_ms": plain_ms})
+                           "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by})
     res["block"] = block_rows
 
     C, heads, side, depth, Cb, C4 = 512, 8, 7, 3, 128, 128
@@ -171,9 +278,54 @@ def phase_kernel_checks() -> dict:
                        got, want, 4)
     ms = time_ms(lambda: mb.fused_mit_stage(x, base, sw, **kw))
     plain_ms = time_ms(lambda: mb.fused_mit_stage_plain(x, base, sw, **kw))
-    print(f"time stage4: kernel {ms:.4f} ms plain {plain_ms:.4f} ms")
-    res["stage"] = {"rel_l2": rel, "max_abs_err": mx, "ms": ms, "plain_ms": plain_ms}
+    nbytes, flops = stage_work(B, N, C, 4 * C, depth, Cb, C4)
+    bms, by = bound_ms(nbytes, flops / BF16_FLOPS)
+    print(f"time stage4: kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
+          f"bound {bms:.4f} ms ({by}: {nbytes / 1e6:.2f} MB, {flops / 1e9:.2f} GFLOP)")
+    res["stage"] = {"rel_l2": rel, "max_abs_err": mx, "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": bms, "bound_by": by}
     return res
+
+
+def scan_inputs(rng, Bt, T, D=SCAN_D, N=SCAN_N):
+    """fp32 scan inputs on the card with Mamba's ranges: dt through softplus,
+    A = -exp(.) of the A_log init's size."""
+    f = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32)).cuda()
+    dt = torch.nn.functional.softplus(f(Bt, T, D) - 3.0)
+    A = -torch.exp(0.5 * f(D, N) + 1.0)
+    return f(Bt, T, D), dt, A, f(Bt, T, N), f(Bt, T, N), f(D)
+
+
+def phase_scan_checks() -> list:
+    from surgical_tpu_torch.kernels import selective_scan as ss
+
+    rng = np.random.default_rng(SEED + 5)
+    rows = []
+    for Bt, T in SCAN_SHAPES:
+        args = scan_inputs(rng, Bt, T)
+        got, want = ss.selective_scan(*args), ss.selective_scan_plain(*args)
+        torch.cuda.synchronize()
+        if not torch.isfinite(got).all():
+            raise AssertionError("selective_scan: kernel output is not finite")
+        rel = ((got - want).norm() / want.norm()).item()
+        mx = (got - want).abs().max().item()
+        ok = rel <= SCAN_BOUNDS[0] and mx <= SCAN_BOUNDS[1]
+        print(f"check scan [Bt={Bt}, T={T}, D={SCAN_D}, N={SCAN_N}]: rel_l2 {rel:.3e} "
+              f"(bound {SCAN_BOUNDS[0]}) max_abs {mx:.3e} (bound {SCAN_BOUNDS[1]}) "
+              f"max|plain| {want.abs().max().item():.3e} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("selective_scan: kernel disagrees with its plain version")
+        ms = time_ms(lambda: ss.selective_scan(*args))
+        plain_ms = time_ms(lambda: ss.selective_scan_plain(*args), reps=3)
+        nbytes, op_s = scan_work(Bt, T, SCAN_D, SCAN_N)
+        bms, by = bound_ms(nbytes, op_s)
+        print(f"time scan [Bt={Bt}, T={T}]: kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
+              f"bound {bms:.4f} ms ({by}: {nbytes / 1e6:.2f} MB, "
+              f"{Bt * T * SCAN_D * SCAN_N / 1e6:.1f} M exp)")
+        rows.append({"shape": f"[Bt={Bt}, T={T}, D={SCAN_D}, N={SCAN_N}]", "rel_l2": rel,
+                     "max_abs_err": mx, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+                     "bound_by": by})
+    return rows
 
 
 def _wire_videos(rng):
@@ -248,15 +400,7 @@ def phase_slice(workdir: str) -> dict:
     lat = []
     for i in range(VIDEOS):
         lfb = torch.tensor(ds.video_arrays(i)[0], device=dev)
-        predict_video(temporal, refiner, lfb)
-        runs = []
-        for _ in range(5):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            predict_video(temporal, refiner, lfb)
-            torch.cuda.synchronize()
-            runs.append((time.perf_counter() - t) * 1e3)
-        lat.append(float(np.median(runs)))
+        lat.append(median_ms(lambda: predict_video(temporal, refiner, lfb)))
     print(f"slice: temporal+refiner latency per {FRAMES}-frame video (median of 5) ms: "
           + ", ".join(f"{v:.3f}" for v in lat))
 
@@ -301,31 +445,168 @@ def phase_slice(workdir: str) -> dict:
     print(f"throughput: extraction {THROUGHPUT_RUNS} runs of {THROUGHPUT_BATCHES} batches "
           f"of {BATCH} frames, frames/s: " + ", ".join(f"{r:.1f}" for r in rates)
           + f" (median {fps:.1f})")
-    return {"launches": launches, "fps": fps, "latency_ms": lat}
+    return {"launches": launches, "fps": fps, "latency_ms": lat,
+            "lfb": os.path.join(workdir, "lfb"), "labels": labels}
+
+
+def _index_split(work, split, labels_phase, lengths, ids, rng):
+    """index/<split>_*.npy in the CLI's layout: [phase, 7 tools, 7 ant]."""
+    idx = os.path.join(work, "index")
+    os.makedirs(idx, exist_ok=True)
+    n = len(labels_phase)
+    labels = np.concatenate([np.asarray(labels_phase, np.float32)[:, None],
+                             rng.integers(0, 2, (n, 7)), rng.uniform(0, 1, (n, 7))], 1)
+    np.save(os.path.join(idx, f"{split}_labels.npy"), labels)
+    np.save(os.path.join(idx, f"{split}_num_each.npy"), np.asarray(lengths))
+    np.save(os.path.join(idx, f"{split}_video_ids.npy"), np.asarray(ids, np.int64))
+
+
+def phase_temporal(workdir: str, slice_res: dict) -> dict:
+    from surgical_tpu_torch import cli
+    from surgical_tpu_torch.core.checkpoint import CheckpointStore
+    from surgical_tpu_torch.core.config import MambaConfig, RefinerConfig
+    from surgical_tpu_torch.data.feature_store import FeatureStore
+    from surgical_tpu_torch.eval.predictions import read_phase_txt, video_txt_name, write_phase_txt
+    from surgical_tpu_torch.kernels import selective_scan as ss
+    from surgical_tpu_torch.models.mamba import CausalMambaModel
+    from surgical_tpu_torch.models.transsv import RefinementTransformer
+    from surgical_tpu_torch.serving.online import OnlineMamba, OnlineRefiner, run_pipeline
+    from surgical_tpu_torch.train.refiner import predict_video
+
+    t0 = time.perf_counter()
+    work, rng = os.path.join(workdir, "temporal"), np.random.default_rng(SEED + 6)
+    gt_dir = os.path.join(workdir, "gt")
+    val = FeatureStore.open(slice_res["lfb"])
+    val_ids, test_ids = list(range(1, VIDEOS + 1)), [41, 42]
+    FeatureStore.create(os.path.join(work, "lfb", "val"), np.asarray(val.features),
+                        val.lengths, meta={"split": "val"})
+    _index_split(work, "val", slice_res["labels"], val.lengths, val_ids, rng)
+    n = sum(TEST_LENGTHS)
+    test_feats = rng.standard_normal((n, 2048)).astype(np.float16).astype(np.float32)
+    FeatureStore.create(os.path.join(work, "lfb", "test"), test_feats, TEST_LENGTHS,
+                        meta={"split": "test"})
+    test_labels = np.concatenate([np.sort(rng.integers(0, 7, L)) for L in TEST_LENGTHS])
+    _index_split(work, "test", test_labels, TEST_LENGTHS, test_ids, rng)
+    for vid, s, L in zip(test_ids, np.cumsum((0,) + TEST_LENGTHS[:-1]), TEST_LENGTHS):
+        write_phase_txt(os.path.join(gt_dir, video_txt_name(vid)), test_labels[s:s + L])
+
+    mamba = CausalMambaModel(MambaConfig(), seed=SEED + 3)
+    refiner = RefinementTransformer(RefinerConfig(), seed=SEED + 4)
+    CheckpointStore(os.path.join(work, "ckpt", "temporal")).save(
+        0, mamba.state_dict(), metrics={"val_acc": 0.0}, config={"model": "mamba"})
+    CheckpointStore(os.path.join(work, "ckpt", "refiner")).save(
+        0, refiner.state_dict(), metrics={"val_acc": 0.0})
+    print(f"temporal: work dir (val {val.lengths.tolist()}, test {list(TEST_LENGTHS)} frames) "
+          f"and MambaConfig() + RefinerConfig() checkpoints ready in "
+          f"{time.perf_counter() - t0:.2f} s")
+
+    # offline predict through the CLI: the main path of this slice
+    ss.reset_launches()
+    t = time.perf_counter()
+    if cli.main(["predict", "--work", work, "--split", "test", "--model", "mamba"]) != 0:
+        raise AssertionError("cli predict --model mamba failed")
+    torch.cuda.synchronize()
+    predict_s = time.perf_counter() - t
+    launches = ss.selective_scan.launches
+    want = mamba.cfg.layers * len(TEST_LENGTHS)
+    print(f"temporal: cli predict --model mamba on {len(TEST_LENGTHS)} test videos in "
+          f"{predict_s:.3f} s; selective_scan launches {launches} (expected {want})")
+    if launches != want:
+        raise AssertionError("the Mamba path did not launch the scan kernel 8 times per video")
+    test = FeatureStore.open(os.path.join(work, "lfb", "test"))
+    for i, vid in enumerate(test_ids):
+        lfb = torch.tensor(np.asarray(test.video(i)), device="cuda")
+        out = predict_video(mamba, refiner, lfb)
+        if out.shape != (TEST_LENGTHS[i], 14) or not torch.isfinite(out).all():
+            raise AssertionError(f"video {vid}: outputs {tuple(out.shape)} not finite or misshapen")
+        txt = read_phase_txt(os.path.join(work, "output", "Test", video_txt_name(vid)))
+        if not np.array_equal(txt, out[:, :7].argmax(-1).cpu().numpy()):
+            raise AssertionError(f"video {vid}: the phase txt does not hold the predictions")
+
+    # streaming through the CLI, then streaming vs offline logits
+    if cli.main(["predict", "--work", work, "--split", "val", "--model", "mamba",
+                 "--online"]) != 0:
+        raise AssertionError("cli predict --model mamba --online failed")
+    t_on, r_on = OnlineMamba(mamba), OnlineRefiner(refiner)
+    worst, agree = 0.0, []
+    for i, vid in enumerate(val_ids):
+        lfb = torch.tensor(np.asarray(val.video(i)), dtype=torch.float32, device="cuda")
+        offline, online = predict_video(mamba, refiner, lfb), run_pipeline(t_on, r_on, lfb)
+        worst = max(worst, (offline - online).abs().max().item())
+        agree.append((offline[:, :7].argmax(-1) == online[:, :7].argmax(-1)).float().mean().item())
+        txt = read_phase_txt(os.path.join(work, "output", "Val", video_txt_name(vid)))
+        if not np.array_equal(txt, online[:, :7].argmax(-1).cpu().numpy()):
+            raise AssertionError(f"val video {vid}: the online txt does not hold its predictions")
+    print(f"temporal: online vs offline Mamba + refiner on {VIDEOS} val videos: max abs "
+          f"logits {worst:.3e} (bound {ONLINE_BOUND}), argmax agreement "
+          + ", ".join(f"{a:.4f}" for a in agree))
+    if not worst <= ONLINE_BOUND:
+        raise AssertionError("streaming Mamba disagrees with the offline path")
+
+    if cli.main(["evaluate", "--gt", gt_dir, "--pred", os.path.join(work, "output", "Test"),
+                 "--first", str(test_ids[0]), "--last", str(test_ids[-1])]) != 0:
+        raise AssertionError("cli evaluate failed")
+
+    # Mamba + refiner latency per video, with the kernel and (for
+    # information) with the plain scan in its place
+    videos = {FRAMES: torch.tensor(np.asarray(val.video(0)), dtype=torch.float32, device="cuda")}
+    for i, L in enumerate(TEST_LENGTHS):
+        videos[L] = torch.tensor(np.asarray(test.video(i)), device="cuda")
+    lat, lat_plain = {}, {}
+    for L, lfb in videos.items():
+        lat[L] = median_ms(lambda: predict_video(mamba, refiner, lfb))
+    kernel = ss.selective_scan
+    ss.selective_scan = ss.selective_scan_plain
+    try:
+        for L, lfb in videos.items():
+            lat_plain[L] = median_ms(lambda: predict_video(mamba, refiner, lfb))
+    finally:
+        ss.selective_scan = kernel
+    print("temporal: Mamba + refiner latency per video (median of 5) ms: "
+          + ", ".join(f"T={L} {lat[L]:.3f} (plain scan {lat_plain[L]:.3f})" for L in lat))
+    return {"launches": launches, "online_max_abs": worst, "latency_ms": lat,
+            "latency_plain_ms": lat_plain}
 
 
 def main() -> int:
     smi = phase_toolchain()
     phase_build()
     checks = phase_kernel_checks()
+    scan = phase_scan_checks()
+    print_unported_bounds()
     with tempfile.TemporaryDirectory() as workdir:
         sl = phase_slice(workdir)
+        tp = phase_temporal(workdir, sl)
     blk, stg = checks["block"], checks["stage"]
+    main_scan = [r for r in scan if r["shape"].startswith("[Bt=1,")]  # the test videos' shapes
+    summed = lambda rows, key: sum(r[key] for r in rows)
+    by = lambda rows: max(("bytes", "operations"),
+                          key=lambda b: sum(r["bound_ms"] for r in rows if r["bound_by"] == b))
     kernels = [
         {"name": "mit_block_forward", "route": "cuda", "source": SOURCE,
          "replaces": "surgical_tpu/kernels/mit_block.py:236",
          "also_replaces": "surgical_tpu/kernels/mit_block.py:449",
          "launches": sl["launches"]["mit_block_forward"],
          "max_abs_err": max(r["max_abs_err"] for r in blk),
-         "ms": sum(r["ms"] for r in blk), "plain_ms": sum(r["plain_ms"] for r in blk),
+         "ms": summed(blk, "ms"), "plain_ms": summed(blk, "plain_ms"),
+         "bound_ms": summed(blk, "bound_ms"), "bound_by": by(blk), "library_ms": None,
          "shapes": blk},
         {"name": "mit_stage_forward", "route": "cuda", "source": SOURCE,
          "replaces": "surgical_tpu/kernels/mit_block.py:1202",
          "launches": sl["launches"]["mit_stage_forward"],
-         "max_abs_err": stg["max_abs_err"], "ms": stg["ms"], "plain_ms": stg["plain_ms"]},
+         "max_abs_err": stg["max_abs_err"], "ms": stg["ms"], "plain_ms": stg["plain_ms"],
+         "bound_ms": stg["bound_ms"], "bound_by": stg["bound_by"], "library_ms": None},
+        {"name": "selective_scan_forward", "route": "cuda", "source": SCAN_SOURCE,
+         "replaces": "surgical_tpu/kernels/selective_scan.py:130",
+         "launches": tp["launches"],
+         "max_abs_err": max(r["max_abs_err"] for r in scan),
+         "ms": summed(main_scan, "ms"), "plain_ms": summed(main_scan, "plain_ms"),
+         "bound_ms": summed(main_scan, "bound_ms"), "bound_by": by(main_scan),
+         "library_ms": None, "shapes": scan},
     ]
-    if any(m.split(".")[0] in ("jax", "flax", "optax", "orbax") for m in sys.modules):
-        raise AssertionError("the port's run imported JAX")
+    banned = ("jax", "flax", "optax", "orbax", "surgical_tpu")
+    if any(m.split(".")[0] in banned for m in sys.modules):
+        raise AssertionError("the port's run imported JAX or the JAX package")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

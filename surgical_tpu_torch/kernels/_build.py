@@ -29,6 +29,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _ENTRY_POINTS = {
     "mit_block_forward": (22, 7),
     "mit_stage_forward": (34, 10),
+    "selective_scan_forward": (7, 4),
 }
 
 _lib: ctypes.CDLL | None = None

@@ -1,10 +1,12 @@
 """Weights between the JAX package and the port.
 
-The port keeps the reference's state-dict key names, so the JAX package's own
-converters (``surgical_tpu/models/convert.py``, numpy only) carry weights both
-ways: its ``import_*_state_dict`` functions read a port state dict, its
-``export_*_state_dict`` functions write one. The MiT-EVP backbone has only an
-importer there; ``export_evp_state_dict`` here is its inverse.
+The port keeps the reference's state-dict key names, so a JAX parameter tree
+becomes a port state dict through the numpy exporters below, copied from
+``surgical_tpu/models/convert.py`` (the port imports nothing of the JAX
+package): ``export_mstcn_state_dict``, ``export_refiner_state_dict`` and
+``export_mamba_state_dict``. The MiT-EVP backbone has only an importer
+there; ``export_evp_state_dict`` here is its inverse. The ``load_*_params``
+functions load JAX weights into a port module with ``strict=True``.
 """
 
 from __future__ import annotations
@@ -13,8 +15,6 @@ from typing import Mapping
 
 import numpy as np
 import torch
-
-from surgical_tpu.models.convert import export_mstcn_state_dict, export_refiner_state_dict
 
 
 def _put_dense(sd, key, p):
@@ -102,6 +102,89 @@ def export_evp_state_dict(params: Mapping, batch_stats: Mapping) -> dict:
     return sd
 
 
+def export_mstcn_state_dict(params: Mapping, stages: int, layers: int) -> dict:
+    """MultiStageTCN params -> torch MultiStageModel_S layout (round-trip)."""
+    sd = {}
+
+    def put_conv1x1(key, p):
+        sd[f"{key}.weight"] = np.asarray(p["kernel"]).T[:, :, None]
+        sd[f"{key}.bias"] = np.asarray(p["bias"])
+
+    def put_stage(prefix, p):
+        put_conv1x1(f"{prefix}.conv_1x1", p["in_proj"])
+        put_conv1x1(f"{prefix}.conv_out_classes", p["out_proj"])
+        for i in range(layers):
+            lp = p[f"layer_{i}"]
+            sd[f"{prefix}.layers.{i}.conv_dilated.weight"] = (
+                np.asarray(lp["conv_dilated"]["kernel"]).transpose(2, 1, 0)
+            )
+            sd[f"{prefix}.layers.{i}.conv_dilated.bias"] = np.asarray(lp["conv_dilated"]["bias"])
+            put_conv1x1(f"{prefix}.layers.{i}.conv_1x1", lp["conv_1x1"])
+
+    put_stage("stage1_phase", params["stage_0"])
+    for s in range(1, stages):
+        put_stage(f"stages.{s - 1}", params[f"stage_{s}"])
+    return sd
+
+
+def export_refiner_state_dict(params: Mapping, n_layers: int = 1) -> dict:
+    """RefinementTransformer params -> the reference ``Transformer`` wrapper
+    layout (inverse of import_refiner_state_dict; LN/bias state that has no
+    torch slot — inline LayerNorms, FFN biases — must be identity/zero and is
+    asserted so a lossy export cannot pass silently)."""
+    sd = {"fc.weight": np.asarray(params["fc"]["kernel"]).T}
+
+    def put_attn(pre, p):
+        sd[f"{pre}.W_Q.weight"] = np.asarray(p["w_q"]["kernel"]).T
+        sd[f"{pre}.W_K.weight"] = np.asarray(p["w_k"]["kernel"]).T
+        sd[f"{pre}.W_V.weight"] = np.asarray(p["w_v"]["kernel"]).T
+        sd[f"{pre}.fc.weight"] = np.asarray(p["w_o"]["kernel"]).T
+        assert np.allclose(p["ln"]["scale"], 1.0) and np.allclose(p["ln"]["bias"], 0.0), \
+            f"{pre}: non-identity LayerNorm has no slot in the torch layout"
+
+    def put_ffn(pre, p):
+        sd[f"{pre}.fc.0.weight"] = np.asarray(p["fc1"]["kernel"]).T
+        sd[f"{pre}.fc.2.weight"] = np.asarray(p["fc2"]["kernel"]).T
+        assert np.allclose(p["fc1"]["bias"], 0.0) and np.allclose(p["fc2"]["bias"], 0.0), \
+            f"{pre}: nonzero FFN bias has no slot in the torch layout"
+        assert np.allclose(p["ln"]["scale"], 1.0) and np.allclose(p["ln"]["bias"], 0.0), \
+            f"{pre}: non-identity LayerNorm has no slot in the torch layout"
+
+    t = params["transformer"]
+    for i in range(n_layers):
+        put_attn(f"transformer.encoder.layers.{i}.enc_self_attn", t[f"enc_{i}"]["self_attn"])
+        put_ffn(f"transformer.encoder.layers.{i}.pos_ffn", t[f"enc_{i}"]["ffn"])
+        put_attn(f"transformer.decoder.layers.{i}.dec_self_attn", t[f"dec_{i}"]["self_attn"])
+        put_attn(f"transformer.decoder.layers.{i}.dec_enc_attn", t[f"dec_{i}"]["cross_attn"])
+        put_ffn(f"transformer.decoder.layers.{i}.pos_ffn", t[f"dec_{i}"]["ffn"])
+    return sd
+
+
+def export_mamba_state_dict(params: Mapping, layers: int) -> dict:
+    """CausalMambaModel params -> reference torch layout (round-trip)."""
+    sd = {
+        "in_proj.weight": np.asarray(params["in_proj"]["kernel"]).T,
+        "in_proj.bias": np.asarray(params["in_proj"]["bias"]),
+        "norm.weight": np.asarray(params["norm"]["scale"]),
+        "norm.bias": np.asarray(params["norm"]["bias"]),
+        "head.weight": np.asarray(params["head"]["kernel"]).T,
+        "head.bias": np.asarray(params["head"]["bias"]),
+    }
+    for i in range(layers):
+        p = params[f"block_{i}"]
+        pre = f"blocks.{i}"
+        sd[f"{pre}.in_proj.weight"] = np.asarray(p["in_proj"]["kernel"]).T
+        sd[f"{pre}.conv1d.weight"] = np.asarray(p["conv1d"]["kernel"]).transpose(2, 1, 0)
+        sd[f"{pre}.conv1d.bias"] = np.asarray(p["conv1d"]["bias"])
+        sd[f"{pre}.x_proj.weight"] = np.asarray(p["x_proj"]["kernel"]).T
+        sd[f"{pre}.dt_proj.weight"] = np.asarray(p["dt_proj"]["kernel"]).T
+        sd[f"{pre}.dt_proj.bias"] = np.asarray(p["dt_proj"]["bias"])
+        sd[f"{pre}.A_log"] = np.asarray(p["A_log"])
+        sd[f"{pre}.D"] = np.asarray(p["D"])
+        sd[f"{pre}.out_proj.weight"] = np.asarray(p["out_proj"]["kernel"]).T
+    return sd
+
+
 def to_torch(sd: Mapping) -> dict:
     """numpy state dict -> torch tensors (copies, contiguous)."""
     return {k: torch.from_numpy(np.array(v)) for k, v in sd.items()}
@@ -122,4 +205,10 @@ def load_mstcn_params(model, params: Mapping) -> None:
 def load_refiner_params(model, params: Mapping) -> None:
     """Load JAX ``RefinementTransformer`` params into the port's."""
     sd = export_refiner_state_dict(params, model.cfg.n_layers)
+    model.load_state_dict(to_torch(sd), strict=True)
+
+
+def load_mamba_params(model, params: Mapping) -> None:
+    """Load JAX ``CausalMambaModel`` params into the port's."""
+    sd = export_mamba_state_dict(params, model.cfg.layers)
     model.load_state_dict(to_torch(sd), strict=True)

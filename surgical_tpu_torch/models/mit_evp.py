@@ -24,6 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from surgical_tpu_torch.core.config import BackboneConfig, HeadConfig
+from surgical_tpu_torch.core.device import DEFAULT_DEVICE, resolve_device
 from surgical_tpu_torch.models import _ops
 from surgical_tpu_torch.models.segformer_head import SegFormerPoolHead
 
@@ -221,8 +222,9 @@ class MiTEVP(nn.Module):
     """
 
     def __init__(self, cfg: BackboneConfig = BackboneConfig(),
-                 head_cfg: HeadConfig = HeadConfig(), *, seed: int = 0, device=None):
+                 head_cfg: HeadConfig = HeadConfig(), *, seed: int = 0, device=DEFAULT_DEVICE):
         super().__init__()
+        device = resolve_device(device)
         _check_supported(cfg)
         self.cfg, self.head_cfg = cfg, head_cfg
         dims = cfg.embed_dims
@@ -242,8 +244,7 @@ class MiTEVP(nn.Module):
         self.head = SegFormerPoolHead(head_cfg, dims)
         _init_weights(self, torch.Generator().manual_seed(seed))
         self.eval()
-        if device is not None:
-            self.to(device)
+        self.to(device)
 
     def forward(self, images, segmaps, flow=None, return_features: bool = True):
         from surgical_tpu_torch.models.mit_fused import fused_forward

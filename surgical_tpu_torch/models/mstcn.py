@@ -17,6 +17,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from surgical_tpu_torch.core.config import MSTCNConfig
+from surgical_tpu_torch.core.device import DEFAULT_DEVICE, resolve_device
 
 
 def torch_like_uniform_(module: nn.Module, g: torch.Generator) -> None:
@@ -69,8 +70,10 @@ class MultiStageTCN(nn.Module):
     """Input [B, T, f_dim] -> [S, B, T, out_features]. Refinement stages take
     the softmax over all out_features channels, as the reference does."""
 
-    def __init__(self, cfg: MSTCNConfig = MSTCNConfig(), *, seed: int = 0, device=None):
+    def __init__(self, cfg: MSTCNConfig = MSTCNConfig(), *, seed: int = 0,
+                 device=DEFAULT_DEVICE):
         super().__init__()
+        device = resolve_device(device)
         self.cfg = cfg
         self.stage1_phase = SingleStageTCN(cfg.layers, cfg.f_maps, cfg.f_dim,
                                            cfg.out_features, cfg.causal)
@@ -80,8 +83,7 @@ class MultiStageTCN(nn.Module):
             for _ in range(cfg.stages - 1))
         torch_like_uniform_(self, torch.Generator().manual_seed(seed))
         self.eval()
-        if device is not None:
-            self.to(device)
+        self.to(device)
 
     def forward(self, x):
         out = self.stage1_phase(x.transpose(1, 2))

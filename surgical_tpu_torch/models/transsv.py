@@ -17,6 +17,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from surgical_tpu_torch.core.config import RefinerConfig
+from surgical_tpu_torch.core.device import DEFAULT_DEVICE, resolve_device
 from surgical_tpu_torch.models.mstcn import torch_like_uniform_
 
 LN_EPS = 1e-6
@@ -116,18 +117,26 @@ class RefinementTransformer(nn.Module):
     """forward(temporal_logits [T, out_features], lfb [T, f_dim])
     -> refined logits [T, out_features]."""
 
-    def __init__(self, cfg: RefinerConfig = RefinerConfig(), *, seed: int = 0, device=None):
+    def __init__(self, cfg: RefinerConfig = RefinerConfig(), *, seed: int = 0,
+                 device=DEFAULT_DEVICE):
         super().__init__()
+        device = resolve_device(device)
         self.cfg = cfg
         self.fc = nn.Linear(cfg.f_dim, cfg.out_features, bias=False)
         self.transformer = Transformer231(cfg.out_features, cfg.f_maps, cfg.d_k, cfg.d_k,
                                           cfg.n_layers, cfg.n_heads)
         torch_like_uniform_(self, torch.Generator().manual_seed(seed))
         self.eval()
-        if device is not None:
-            self.to(device)
+        self.to(device)
 
     def forward(self, temporal_logits, lfb):
         windows = causal_windows(temporal_logits, self.cfg.len_q)
         feas = torch.tanh(self.fc(lfb))[:, None, :]
         return self.transformer(windows, feas)[:, 0, :]
+
+    def refine_window(self, window, lfb_t):
+        """Streaming form: one zero-left-padded causal window [len_q,
+        out_features] + this frame's LFB feature [f_dim] -> refined logits
+        [out_features]."""
+        feas = torch.tanh(self.fc(lfb_t[None]))[:, None, :]
+        return self.transformer(window[None], feas)[0, 0]

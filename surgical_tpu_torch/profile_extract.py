@@ -10,8 +10,10 @@ wire-format frames, it measures:
   of 5 runs of 6 batches, in one process;
 - a ``torch.profiler`` trace of 3 host-fed batches: device time by kernel
   kind, and the device's idle share of the traced wall time;
-- MS-TCN + refiner latency per video at T = 200 / 2000 / 6000 (median of 7),
-  and the kernel count and device busy time of one T = 2000 run.
+- MS-TCN + refiner and Mamba + refiner latency per video at T = 200 / 2000 /
+  6000 (median of 7), and for one T = 2000 and one T = 6000 run of each the
+  device kernel count, busy time, idle share and the selective-scan kernel's
+  share.
 
 It prints one line per measurement and writes them all to ``--out`` as JSON.
 """
@@ -31,6 +33,7 @@ SEED, BATCH, RUN_BATCHES, RUNS = 0, 200, 6, 5
 
 # (kind, substrings of the device kernel name), first match wins
 KINDS = (
+    ("selective scan kernel", ("selective_scan_kernel",)),
     ("block/stage GEMMs (gemm_bf16)", ("gemm_bf16",)),
     ("attention kernel", ("attention_kernel",)),
     ("dwconv + GELU kernel", ("dwconv_gelu",)),
@@ -80,8 +83,9 @@ def main() -> int:
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_extract: needs a CUDA GPU")
-    from surgical_tpu_torch.core.config import (BackboneConfig, HeadConfig, MSTCNConfig,
-                                                RefinerConfig)
+    from surgical_tpu_torch.core.config import (BackboneConfig, HeadConfig, MambaConfig,
+                                                MSTCNConfig, RefinerConfig)
+    from surgical_tpu_torch.models.mamba import CausalMambaModel
     from surgical_tpu_torch.models.mit_evp import MiTEVP
     from surgical_tpu_torch.models.mstcn import MultiStageTCN
     from surgical_tpu_torch.models.transsv import RefinementTransformer
@@ -142,29 +146,40 @@ def main() -> int:
     for k, v in res["trace"]["ms_by_kind"].items():
         print(f"trace: {100 * v * 1e3 / total:5.1f}% {v:9.3f} ms  {k}")
 
-    temporal = MultiStageTCN(MSTCNConfig(), seed=SEED + 1, device=dev)
     refiner = RefinementTransformer(RefinerConfig(), seed=SEED + 2, device=dev)
-    res["temporal_ms"] = {}
-    for T in (200, 2000, 6000):
-        lfb = torch.from_numpy(rng.standard_normal((T, 2048), dtype=np.float32)).to(dev)
-        predict_video(temporal, refiner, lfb)
-        runs = []
-        for _ in range(7):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
+    for name, temporal in (("mstcn", MultiStageTCN(MSTCNConfig(), seed=SEED + 1, device=dev)),
+                           ("mamba", CausalMambaModel(MambaConfig(), seed=SEED + 3,
+                                                      device=dev))):
+        res[f"{name}_ms"], res[f"{name}_trace"] = {}, {}
+        for T in (200, 2000, 6000):
+            lfb = torch.from_numpy(rng.standard_normal((T, 2048), dtype=np.float32)).to(dev)
             predict_video(temporal, refiner, lfb)
-            torch.cuda.synchronize()
-            runs.append((time.perf_counter() - t) * 1e3)
-        res["temporal_ms"][T] = float(np.median(runs))
-        print(f"temporal: T = {T}: {np.median(runs):.3f} ms (median of 7)")
-        if T == 2000:
-            with torch.profiler.profile(activities=acts) as prof:
+            runs = []
+            for _ in range(7):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
                 predict_video(temporal, refiner, lfb)
                 torch.cuda.synchronize()
+                runs.append((time.perf_counter() - t) * 1e3)
+            res[f"{name}_ms"][T] = float(np.median(runs))
+            print(f"{name} + refiner: T = {T}: {np.median(runs):.3f} ms (median of 7)")
+            if T == 200:
+                continue
+            with torch.profiler.profile(activities=acts) as prof:
+                t0 = time.perf_counter()
+                predict_video(temporal, refiner, lfb)
+                torch.cuda.synchronize()
+                wall_us = (time.perf_counter() - t0) * 1e6
             evs = _device_events(prof)
-            res["temporal_trace_T2000"] = {"kernels": len(evs), "busy_ms": _busy_us(evs) / 1e3}
-            print(f"temporal: T = 2000 trace: {len(evs)} device kernels, "
-                  f"busy {_busy_us(evs) / 1e3:.3f} ms")
+            scan_us = sum(e.time_range.end - e.time_range.start for e in evs
+                          if _kind(e.name) == "selective scan kernel")
+            busy = _busy_us(evs)
+            res[f"{name}_trace"][T] = {"kernels": len(evs), "wall_ms": wall_us / 1e3,
+                                       "busy_ms": busy / 1e3, "idle_share": 1 - busy / wall_us,
+                                       "scan_ms": scan_us / 1e3}
+            print(f"{name} + refiner: T = {T} trace: {len(evs)} device kernels, wall "
+                  f"{wall_us / 1e3:.3f} ms, busy {busy / 1e3:.3f} ms, idle share "
+                  f"{1 - busy / wall_us:.4f}, selective scan {scan_us / 1e3:.3f} ms")
 
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:

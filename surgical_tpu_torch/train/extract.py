@@ -21,13 +21,15 @@ import numpy as np
 import torch
 
 from surgical_tpu_torch.core.config import CHOLEC80_MEAN, CHOLEC80_STD
+from surgical_tpu_torch.core.device import DEFAULT_DEVICE, resolve_device
 from surgical_tpu_torch.data.feature_store import FeatureStore
 from surgical_tpu_torch.models.mit_fused import fused_forward
 
 
-def wire_dequant(device=None):
+def wire_dequant(device=DEFAULT_DEVICE):
     """bf16 (x - mean) / std with the Cholec80 channel stats, segmap
     broadcast to 3 channels: fn(img_u8 [B,H,W,3], seg_u8 [B,H,W,1])."""
+    device = resolve_device(device)
     mean = (torch.tensor(CHOLEC80_MEAN, dtype=torch.float32, device=device) * 255.0
             ).to(torch.bfloat16)
     inv_std = (1.0 / (torch.tensor(CHOLEC80_STD, dtype=torch.float32, device=device) * 255.0)

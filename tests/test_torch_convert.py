@@ -23,7 +23,7 @@ HEAD = HeadConfig(embedding_dim=32, hidden=16)
 
 
 def test_evp_state_dict_round_trip():
-    model = MiTEVP(CFG, HEAD, seed=3)
+    model = MiTEVP(CFG, HEAD, seed=3, device="cpu")
     with torch.no_grad():  # non-trivial BN statistics
         for name, buf in model.named_buffers():
             if name.endswith(("running_mean", "running_var")):
@@ -40,13 +40,13 @@ def test_evp_state_dict_round_trip():
 
 def test_unsupported_prompt_config_raises():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        MiTEVP(BackboneConfig(input_type="srm"))
+        MiTEVP(BackboneConfig(input_type="srm"), device="cpu")
 
 
 def test_mstcn_loads_jax_weights_strictly():
     cfg = MSTCNConfig(stages=3, layers=4, f_maps=8, f_dim=24)
     params = JaxMSTCN(cfg).init(jax.random.key(0), jnp.zeros((1, 8, cfg.f_dim)))["params"]
-    model = MultiStageTCN(cfg)
+    model = MultiStageTCN(cfg, device="cpu")
     convert.load_mstcn_params(model, jax.tree.map(np.asarray, params))
     want = np.asarray(params["stage_1"]["layer_2"]["conv_dilated"]["kernel"]).transpose(2, 1, 0)
     got = model.stages[0].layers[2].conv_dilated.weight.detach().numpy()
@@ -57,7 +57,7 @@ def test_refiner_loads_jax_weights_strictly():
     cfg = RefinerConfig(f_maps=8, f_dim=24, n_layers=2)
     params = JaxRefiner(cfg).init(jax.random.key(1), jnp.zeros((8, cfg.out_features)),
                                   jnp.zeros((8, cfg.f_dim)))["params"]
-    model = RefinementTransformer(cfg)
+    model = RefinementTransformer(cfg, device="cpu")
     convert.load_refiner_params(model, jax.tree.map(np.asarray, params))
     want = np.asarray(params["transformer"]["dec_1"]["cross_attn"]["w_q"]["kernel"]).T
     np.testing.assert_array_equal(

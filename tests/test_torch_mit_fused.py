@@ -77,7 +77,7 @@ def seeded_evp(cfg, head, batch, seed=0):
 @pytest.fixture(scope="module")
 def setup():
     variables, img, seg, flow = seeded_evp(CFG, HEAD, B)
-    model = MiTEVP(CFG, HEAD)
+    model = MiTEVP(CFG, HEAD, device="cpu")
     load_evp_params(model, variables["params"], variables["batch_stats"])
     return variables, model, img, seg, flow
 
@@ -110,10 +110,10 @@ def test_logits_match_jax(setup):
 def test_kernel_weights_cached_until_parameters_change():
     """Built once per parameter state: the same dicts on a second call, new
     ones holding the new values after load_state_dict."""
-    model = MiTEVP(CFG, HEAD, seed=0)
+    model = MiTEVP(CFG, HEAD, seed=0, device="cpu")
     first = kernel_weights(model)
     assert kernel_weights(model) is first
-    other = MiTEVP(CFG, HEAD, seed=1)
+    other = MiTEVP(CFG, HEAD, seed=1, device="cpu")
     model.load_state_dict(other.state_dict())
     second = kernel_weights(model)
     assert second is not first

@@ -49,14 +49,14 @@ def _wire_batches(seed=0):
 def test_wire_dequant_matches_jax():
     img, seg, _ = _wire_batches()[0]
     want_i, want_s = jax_wire_dequant()(jnp.asarray(img), jnp.asarray(seg))
-    got_i, got_s = wire_dequant()(torch.from_numpy(img), torch.from_numpy(seg))
+    got_i, got_s = wire_dequant("cpu")(torch.from_numpy(img), torch.from_numpy(seg))
     np.testing.assert_array_equal(got_i.float().numpy(), np.asarray(want_i, np.float32))
     np.testing.assert_array_equal(got_s.float().numpy(), np.asarray(want_s, np.float32))
 
 
 def test_slice_end_to_end(tmp_path):
     variables, *_ = seeded_evp(CFG, HEAD, 1)
-    model = MiTEVP(CFG, HEAD)
+    model = MiTEVP(CFG, HEAD, device="cpu")
     load_evp_params(model, variables["params"], variables["batch_stats"])
     batches = _wire_batches()
 
@@ -82,8 +82,10 @@ def test_slice_end_to_end(tmp_path):
     labels = np.sort(rng.integers(0, 7, n))
     starts = np.concatenate([[0], np.cumsum(LENGTHS)[:-1]])
     ds = VideoDataset(store, labels, rng.uniform(0, 1, (n, 7)), np.asarray(LENGTHS), starts)
-    temporal = MultiStageTCN(MSTCNConfig(f_maps=16, f_dim=HEAD.embedding_dim))
-    refiner = RefinementTransformer(RefinerConfig(f_maps=16, f_dim=HEAD.embedding_dim))
+    temporal = MultiStageTCN(MSTCNConfig(f_maps=16, f_dim=HEAD.embedding_dim),
+                             device="cpu")
+    refiner = RefinementTransformer(RefinerConfig(f_maps=16, f_dim=HEAD.embedding_dim),
+                                    device="cpu")
     ids = [41, 42]
     metrics, preds, _ = predict_and_write(temporal, refiner, ds, str(tmp_path / "out"), ids)
     got = [read_phase_txt(os.path.join(tmp_path, "out", video_txt_name(v))) for v in ids]
@@ -97,9 +99,11 @@ def test_slice_end_to_end(tmp_path):
 
 
 def test_port_never_imports_jax():
-    banned = {"jax", "flax", "optax", "orbax"}
+    """Neither the port nor chip_smoke.py imports JAX or the JAX package
+    (the root name only: ``surgical_tpu_torch`` is the port itself)."""
+    banned = {"jax", "flax", "optax", "orbax", "surgical_tpu"}
     offenders = []
-    for path in sorted(PORT.rglob("*.py")):
+    for path in sorted(PORT.rglob("*.py")) + [PORT.parent / "chip_smoke.py"]:
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Import):
                 names = [a.name for a in node.names]

@@ -34,7 +34,8 @@ def _models():
     rparams = JaxRefiner(REFINER).init(jax.random.key(1), jnp.zeros((8, 14)),
                                        jnp.zeros((8, F_DIM)))["params"]
     tparams, rparams = jax.tree.map(np.asarray, (tparams, rparams))
-    temporal, refiner = MultiStageTCN(MSTCN), RefinementTransformer(REFINER)
+    temporal = MultiStageTCN(MSTCN, device="cpu")
+    refiner = RefinementTransformer(REFINER, device="cpu")
     load_mstcn_params(temporal, tparams)
     load_refiner_params(refiner, rparams)
     return tparams, rparams, temporal, refiner
