@@ -1,4 +1,4 @@
-"""Smoke run of the PyTorch/CUDA port's main path on one NVIDIA GPU.
+"""Smoke run of the PyTorch/CUDA port's main paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -9,9 +9,10 @@ nonzero without printing a result:
 2. build: the Hopper kernels from ``surgical_tpu_torch/csrc`` (nvcc, sm_90a);
 3. kernel checks: each kernel against its plain PyTorch version on the card
    at the main paths' shapes, with timings and the card's bound for the same
-   work: the MiT kernels in bf16 (MiT-b3, 224x224, B=8), the selective scan
-   in fp32 (d_inner 128, d_state 64; 2000 and 6000 frames, and 3 ragged
-   videos of 777);
+   work: the MiT serving kernels in bf16 (MiT-b3, 224x224, B=8), the
+   selective scan in fp32 (d_inner 128, d_state 64; 2000 and 6000 frames,
+   and 3 ragged videos of 777), and the three kernels of the training block
+   in bf16 at the four b3 stages (B=8, DropPath factors with zeros);
 4. extraction slice: seeded random-init MiT-b3 EVP + MS-TCN + refiner; three
    synthetic 200-frame videos in the wire format -> make_raw_feature_fn ->
    extract_to_store -> predict_and_write -> relaxed evaluation, with the
@@ -24,7 +25,14 @@ nonzero without printing a result:
    ``cli predict --model mamba`` on test (8 scan launches per video),
    ``cli predict --model mamba --online`` on val, online vs offline logits,
    ``cli evaluate``, and Mamba + refiner latency per video;
-6. result: a JSON line of per-kernel numbers, the card line, and the last line
+6. backbone training: ``BackboneTrainer(use_fused=True)`` at b3, batch 88,
+   224 crop, SGD, over a seeded ``FrameCache`` (3 train batches, one val and
+   one test batch) for 2 epochs of ``train_epoch`` with mid-epoch
+   validation, then ``evaluate``: 28 launches of each train kernel per step,
+   step time, peak memory, a frozen trunk, moved trainable tensors and
+   BatchNorm statistics, a checkpoint round trip with the optimizer state,
+   and one step's loss and gradients against the plain train kernels;
+7. result: a JSON line of per-kernel numbers, the card line, and the last line
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -53,6 +61,34 @@ THROUGHPUT_BATCHES, THROUGHPUT_RUNS = 12, 3  # extraction rate: 3 runs of 12 bat
 # {stage: (rel L2 bound, max abs bound)}
 BOUNDS = {1: (1e-3, 0.125), 2: (1e-3, 0.125), 3: (2e-3, 0.125), 4: (1e-2, 0.25)}
 COSINE_BOUND = 0.9999  # per-frame cosine, kernel path vs plain path (read: min 0.999995)
+
+# The training block at b3's four stages, 224x224: (stage, C, heads, grid
+# side, sr); Nkv = 49 at every stage.
+TRAIN_STAGES = ((1, 64, 1, 56, 8), (2, 128, 2, 28, 4), (3, 320, 5, 14, 2), (4, 512, 8, 7, 1))
+# Train kernels vs plain, both bf16 with the same rounding points (the
+# backward's dS, dctx, dh and dx1 roundings included): they differ by fp32
+# summation order and the dk/dv atomics' order, which flips occasional bf16
+# roundings. {output: (rel L2 bound, max abs bound as a fraction of the plain
+# output's max |.|)}: a few times the H100 readings at the four stages (rel
+# L2 at most 8.5e-4 y, 1.7e-4 x1, 3.3e-4 dx, 2.7e-3 dxln, 2.3e-3 dk, 1.6e-3
+# dv; max abs at most 1.1e-2 of max |plain|).
+TRAIN_BOUNDS = {"y": (5e-3, 5e-2), "x1": (1e-3, 5e-2), "dx": (2e-3, 5e-2),
+                "dxln": (1e-2, 5e-2), "dk": (1e-2, 5e-2), "dv": (1e-2, 5e-2)}
+
+# Backbone training at the reference recipe's widths: MiT-b3 EVP
+# (BackboneConfig(), HeadConfig()), bf16 compute, 250-px wire frames cropped
+# to 224, batch 88 (the JAX CLI default), SGD lr 1e-3 momentum 0.9, from a
+# FrameCache of TRAIN_BATCHES train batches and one val and one test batch.
+TRAIN_B, TRAIN_BATCHES, TRAIN_EPOCHS = 88, 3, 2
+# Trainable gradients on one batch with injected masks, kernel path vs the
+# plain versions of the three train kernels (both bf16, summation orders
+# differ through 28 blocks): cosine per parameter group, and the loss's
+# relative difference. A few times the H100 readings (min cosine 0.9979,
+# loss rel 2.7e-5).
+GRAD_COS_BOUND, LOSS_REL_BOUND = 0.99, 2e-4
+# Conv biases right before a train-mode BatchNorm: the batch mean removes
+# them, so their gradient is zero up to rounding and they need not move.
+BN_FED_BIASES = tuple(f"flow_encoder.conv{i}.bias" for i in (1, 2, 3, 4))
 
 SOURCE = "surgical_tpu_torch/csrc/mit_block.cu"
 SCAN_SOURCE = "surgical_tpu_torch/csrc/selective_scan.cu"
@@ -134,29 +170,28 @@ def block_work(B, N, C, Nkv, hidden):
     return 2 * (2 * B * N * C + 2 * B * Nkv * C + weights), flops
 
 
-def block_train_work(B, N, C, Nkv, hidden):
-    """(bytes, bf16 FLOPs) of one MiT block's training forward and backward,
-    the function of ``fused_mit_block_train`` (not ported yet): x, xln, k, v,
-    dy read and y, dx, dxln, dk, dv written once, the weights once; the
-    forward of ``block_work``, then the backward's fc1 and dwconv recompute,
-    the fc2, dwconv and fc1 input gradients, the q and QK^T recompute, the
-    out-projection gradient, dP, dV, dQ, dK and the q-projection gradient.
-    No weight gradients: the trunk is frozen."""
-    _, fwd = block_work(B, N, C, Nkv, hidden)
-    bwd = B * N * (6 * C * hidden + 36 * hidden + 6 * C * C + 10 * Nkv * C)
-    weights = 2 * C * C + 2 * C * hidden + 11 * hidden + 7 * C
-    return 2 * (6 * B * N * C + 4 * B * Nkv * C + weights), fwd + bwd
-
-
-def print_unported_bounds() -> None:
-    """The card's bound for the TPU kernel still to port, at the b3 stage
-    shapes of the kernel checks (B=8, 224x224)."""
-    for stage, C, side, sr in ((1, 64, 56, 8), (2, 128, 28, 4), (3, 320, 14, 2), (4, 512, 7, 1)):
-        N, Nkv = side * side, (side // sr) ** 2
-        nbytes, flops = block_train_work(CHECK_B, N, C, Nkv, 4 * C)
-        bms, by = bound_ms(nbytes, flops / BF16_FLOPS)
-        print(f"bound fused_mit_block_train (not ported) stage{stage} [B={CHECK_B}, N={N}, "
-              f"C={C}]: {bms:.4f} ms ({by}: {nbytes / 1e6:.2f} MB, {flops / 1e9:.2f} GFLOP)")
+def block_train_work(B, N, C, Nkv, hidden) -> dict:
+    """(bytes, bf16 FLOPs) of each kernel of ``fused_mit_block_train``, its
+    inputs read and outputs written once, its weights once. No weight
+    gradients: the trunk is frozen.
+    forward: x, xln, k, v in, y and x1 out; the FLOPs of ``block_work``.
+    mlp_backward: h2ln, dmlp in, dh2ln (fp32) out; the fc1 and dwconv
+      recompute and the fc2, dwconv and fc1 input gradients.
+    attn_backward: xln, dx1, k, v in, dxln, dk, dv out; the q and QK^T
+      recompute, the out-projection gradient, dP, dV, dQ, dK and the
+      q-projection gradient."""
+    M, kv = B * N, B * Nkv * C
+    _, fwd_flops = block_work(B, N, C, Nkv, hidden)
+    mlp_weights = 2 * C * hidden + 11 * hidden
+    attn_weights = 2 * C * C + C
+    return {
+        "forward": (2 * (4 * M * C + 2 * kv + 2 * C * C + 2 * C * hidden + 11 * hidden + 7 * C),
+                    fwd_flops),
+        "mlp_backward": (2 * (2 * M * C + mlp_weights) + 4 * M * C,
+                         M * (6 * C * hidden + 36 * hidden)),
+        "attn_backward": (2 * (3 * M * C + 4 * kv + attn_weights),
+                          M * (6 * C * C + 10 * Nkv * C)),
+    }
 
 
 def stage_work(B, N, C, hidden, depth, Cb, C4):
@@ -213,17 +248,22 @@ def _block_weights(rng, C, hidden, lead=()):
     }
 
 
-def _compare(name, got, want, stage):
+def _errors(name, got, want):
+    """(rel L2, max abs error, max |want|) of a kernel output against its
+    plain version; raises on a non-finite output."""
     got, want = got.float(), want.float()
     if not torch.isfinite(got).all():
         raise AssertionError(f"{name}: kernel output is not finite")
     rel = ((got - want).norm() / want.norm()).item()
-    mx = (got - want).abs().max().item()
+    return rel, (got - want).abs().max().item(), want.abs().max().item()
+
+
+def _compare(name, got, want, stage):
+    rel, mx, scale = _errors(name, got, want)
     rel_bound, abs_bound = BOUNDS[stage]
     ok = rel <= rel_bound and mx <= abs_bound
     print(f"check {name}: rel_l2 {rel:.3e} (bound {rel_bound}) max_abs {mx:.3e} "
-          f"(bound {abs_bound}) max|plain| {want.abs().max().item():.3e} "
-          f"{'ok' if ok else 'FAIL'}")
+          f"(bound {abs_bound}) max|plain| {scale:.3e} {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"{name}: kernel disagrees with its plain version")
     return rel, mx
@@ -325,6 +365,83 @@ def phase_scan_checks() -> list:
         rows.append({"shape": f"[Bt={Bt}, T={T}, D={SCAN_D}, N={SCAN_N}]", "rel_l2": rel,
                      "max_abs_err": mx, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
                      "bound_by": by})
+    return rows
+
+
+def phase_train_kernel_checks() -> dict:
+    """The three kernels of fused_mit_block_train at the b3 training shapes
+    (224x224, B = CHECK_B), each against its plain version on the same
+    inputs: the forward's y and x1, and the backward's dx, dxln, dk, dv
+    (the backward through both kernels and the plain LayerNorm-2 backward
+    between them, against the whole plain backward, from the kernel's x1)."""
+    from surgical_tpu_torch.kernels import mit_block as mb
+
+    rng = np.random.default_rng(SEED + 7)
+    B, rows, failed = CHECK_B, {"forward": [], "mlp_backward": [], "attn_backward": []}, []
+    mb.reset_launches()
+    for stage, C, heads, side, sr in TRAIN_STAGES:
+        N, Nkv, hidden = side * side, (side // sr) ** 2, 4 * C
+        x, xln = _rand(rng, (B, N, C)), _rand(rng, (B, N, C))
+        k, v, dy = _rand(rng, (B, Nkv, C)), _rand(rng, (B, Nkv, C)), _rand(rng, (B, N, C))
+        # DropPath factors at keep 0.9: some images dropped (0), the rest 1/keep
+        keep = 0.9
+        m1, m2 = (torch.from_numpy((rng.uniform(size=B) < keep) / keep).float().cuda()
+                  for _ in range(2))
+        m1[0], m2[1] = 0.0, 0.0
+        w = _block_weights(rng, C, hidden)
+        kw = dict(heads=heads, H=side, W=side)
+        y, x1 = mb.block_train_forward(x, xln, k, v, w, m1, m2, **kw)
+        want_y, want_x1 = mb.fused_mit_block_train_fwd_plain(x, xln, k, v, w, m1, m2, **kw)
+        grads = mb._block_train_bwd(x1, xln, k, v, w, m1, m2, dy, **kw,
+                                    mlp_bwd=mb.block_train_mlp_backward,
+                                    attn_bwd=mb.block_train_attn_backward)
+        want_grads = mb.fused_mit_block_train_bwd_plain(x1, xln, k, v, w, m1, m2, dy, **kw)
+        torch.cuda.synchronize()
+        shape = f"stage{stage} [B={B}, N={N}, C={C}, heads={heads}, Nkv={Nkv}]"
+        errs = {}
+        for name, got, want in zip(("y", "x1", "dx", "dxln", "dk", "dv"),
+                                   (y, x1, *grads), (want_y, want_x1, *want_grads)):
+            rel, mx, scale = _errors(f"train {name} {shape}", got, want)
+            bound = TRAIN_BOUNDS[name]
+            ok = rel <= bound[0] and mx <= bound[1] * scale
+            errs[name] = (rel, mx)
+            print(f"check train {name} {shape}: rel_l2 {rel:.3e} (bound {bound[0]}) max_abs "
+                  f"{mx:.3e} (bound {bound[1]} x max|plain| {scale:.3e}) "
+                  f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                failed.append(f"{name} {shape}")
+
+        # the MLP backward's inputs as the backward forms them
+        h2ln = mb.layer_norm(x1, w["ln2_scale"], w["ln2_bias"])
+        dmlp = (dy.float() * m2[:, None, None]).to(x.dtype)
+        dx1 = grads[0]
+        timed = {
+            "forward": (lambda: mb.block_train_forward(x, xln, k, v, w, m1, m2, **kw),
+                        lambda: mb.fused_mit_block_train_fwd_plain(x, xln, k, v, w, m1, m2, **kw),
+                        ("y", "x1")),
+            "mlp_backward": (lambda: mb.block_train_mlp_backward(h2ln, dmlp, w, H=side, W=side),
+                             lambda: mb._mlp_bwd_plain(h2ln, dmlp, w, H=side, W=side), ("dx",)),
+            "attn_backward": (lambda: mb.block_train_attn_backward(xln, k, v, dx1, m1, w,
+                                                                   heads=heads),
+                              lambda: mb._attn_bwd_plain(xln, k, v, dx1, m1, w, heads=heads),
+                              ("dxln", "dk", "dv")),
+        }
+        work = block_train_work(B, N, C, Nkv, hidden)
+        for kname, (kern, plain, outs) in timed.items():
+            ms, plain_ms = time_ms(kern), time_ms(plain)
+            nbytes, flops = work[kname]
+            bms, by = bound_ms(nbytes, flops / BF16_FLOPS)
+            print(f"time train {kname} stage{stage}: kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
+                  f"bound {bms:.4f} ms ({by}: {nbytes / 1e6:.2f} MB, {flops / 1e9:.2f} GFLOP)")
+            rows[kname].append({"shape": shape, "max_abs_err": max(errs[o][1] for o in outs),
+                                "rel_l2": max(errs[o][0] for o in outs), "ms": ms,
+                                "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by})
+    print(f"train kernel checks: launches block_train_forward {mb.block_train_forward.launches}, "
+          f"block_train_mlp_backward {mb.block_train_mlp_backward.launches}, "
+          f"block_train_attn_backward {mb.block_train_attn_backward.launches} "
+          "(checks and timing only; not the main path's)")
+    if failed:
+        raise AssertionError(f"train kernels disagree with their plain versions: {failed}")
     return rows
 
 
@@ -447,6 +564,178 @@ def phase_slice(workdir: str) -> dict:
           + f" (median {fps:.1f})")
     return {"launches": launches, "fps": fps, "latency_ms": lat,
             "lfb": os.path.join(workdir, "lfb"), "labels": labels}
+
+
+class _WireFrames:
+    """Seeded wire-format frames (uint8 images and segmaps, f16 flow at 250
+    px) and Cholec80-layout labels, as a ``FrameCache.build`` source."""
+
+    resize, with_flow, ant_cols = 250, True, (8, 15)
+
+    def __init__(self, n, rng):
+        r = self.resize
+        self.img = rng.integers(0, 256, (n, r, r, 3), dtype=np.uint8)
+        self.seg = rng.integers(0, 256, (n, r, r, 1), dtype=np.uint8)
+        self.flow = rng.standard_normal((n, r, r, 2), dtype=np.float32).astype(np.float16)
+        self.labels = np.concatenate([rng.integers(0, 7, (n, 1)), rng.integers(0, 2, (n, 7)),
+                                      rng.uniform(0, 1, (n, 7))], 1).astype(np.float32)
+
+    def __len__(self):
+        return len(self.img)
+
+    def frames(self, idx):
+        return (self.img[idx], self.seg[idx], self.flow[idx],
+                self.labels[idx, 0].astype(np.int32), self.labels[idx, 8:15])
+
+
+def phase_train(workdir: str) -> dict:
+    """BackboneTrainer(use_fused=True) at b3, batch 88: two epochs of
+    train_epoch over a FrameCache (ClipSampler -> prefetch_batches), with
+    mid-epoch validation, then evaluate; launch counts, step time, peak
+    memory, what moved and what did not, a checkpoint round trip, and one
+    step's gradients against the plain versions of the train kernels."""
+    from surgical_tpu_torch.core.checkpoint import CheckpointStore
+    from surgical_tpu_torch.core.config import BackboneConfig, HeadConfig, OptimConfig, TrainConfig
+    from surgical_tpu_torch.core.rng import generator
+    from surgical_tpu_torch.data.datasets import (ClipSampler, FrameCache, clip_start_indices,
+                                                  prefetch_batches)
+    from surgical_tpu_torch.data.transforms import draw_params
+    from surgical_tpu_torch.kernels import mit_block as mb
+    from surgical_tpu_torch.models.mit_evp import MiTEVP
+    from surgical_tpu_torch.models.mit_train import draw_masks
+    from surgical_tpu_torch.train.backbone import BackboneTrainer, is_trainable
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED + 8)
+    caches = {name: FrameCache.build(_WireFrames(n, rng), os.path.join(workdir, "frames", name))
+              for name, n in (("train", TRAIN_BATCHES * TRAIN_B), ("val", TRAIN_B),
+                              ("test", TRAIN_B))}
+    cfg, head_cfg = BackboneConfig(), HeadConfig()
+    model = MiTEVP(cfg, head_cfg, seed=SEED, device=dev)
+    tcfg = TrainConfig(optim=OptimConfig(name="sgd", lr=1e-3, weight_decay=0.0,
+                                         grad_clip_norm=None))
+    trainer = BackboneTrainer(model, tcfg, val_every=TRAIN_BATCHES, use_fused=True)
+    opt = trainer.init()
+    try:
+        import PIL  # noqa: F401
+        pil = "importable"
+    except ImportError:
+        pil = "not importable"
+    print(f"train: b3 model, frame caches (train {TRAIN_BATCHES}x{TRAIN_B}, val {TRAIN_B}, "
+          f"test {TRAIN_B} frames) ready in {time.perf_counter() - t0:.2f} s; data route: "
+          f"FrameCache memmaps -> ClipSampler -> prefetch_batches (PIL {pil}; the PIL-decoded "
+          "cli train-backbone runs in the CPU tests)")
+
+    before = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    batches = lambda name, idx: prefetch_batches(caches[name], idx, TRAIN_B)
+    n_train = len(caches["train"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mb.reset_launches()
+    epochs, step_ms = [], []
+    for epoch in range(TRAIN_EPOCHS):
+        idx = ClipSampler(1, clip_start_indices(1, [n_train])).indices(epoch=epoch, shuffle=True)
+        tm = trainer.train_epoch(batches("train", idx), epoch,
+                                 val_batches=list(batches("val", np.arange(TRAIN_B))))
+        epochs.append(tm)
+        step_ms += trainer.step_ms
+    torch.cuda.synchronize()
+    launches = {"mit_block_train_forward": mb.block_train_forward.launches,
+                "mit_block_train_mlp_backward": mb.block_train_mlp_backward.launches,
+                "mit_block_train_attn_backward": mb.block_train_attn_backward.launches}
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    steps = TRAIN_EPOCHS * TRAIN_BATCHES
+    blocks = sum(cfg.depths)
+    want = {k: blocks * steps for k in launches}
+    med = float(np.median(step_ms[1:]))  # the first step is the warm-up
+    print("train: step ms " + ", ".join(f"{v:.2f}" for v in step_ms)
+          + f"; median after warm-up {med:.3f} ms = {TRAIN_B / med * 1e3:.1f} frames/s; "
+          f"peak memory {peak_gib:.2f} GiB")
+    for e, tm in enumerate(epochs):
+        print(f"train: epoch {e}: loss {tm['train_loss']:.4f} acc {tm['train_acc']:.4f} "
+              f"{tm['frames_per_s']:.1f} frames/s over the epoch (mid-epoch validation included)")
+    print(f"train: launches {launches} (expected {want}: {blocks} per kernel per step)")
+    if launches != want:
+        raise AssertionError("the training path did not launch every train kernel 28 times "
+                             "per step")
+    if not all(np.isfinite(tm["train_loss"]) for tm in epochs):
+        raise AssertionError("train loss is not finite")
+
+    after = model.state_dict()
+    trainable = {n for n, p in model.named_parameters() if p.requires_grad}
+    moved = {k for k in after if not torch.equal(after[k], before[k])}
+    trunk_moved = [k for k in moved if not is_trainable(k)]
+    still = sorted(trainable - moved - set(BN_FED_BIASES))
+    bn_moved = [k for k in after if k.endswith(("running_mean", "running_var")) and k in moved]
+    n_bn = sum(k.endswith(("running_mean", "running_var")) for k in after)
+    print(f"train: {len(trainable & moved)} of {len(trainable)} trainable tensors moved "
+          f"(not required: {', '.join(BN_FED_BIASES)}); trunk tensors moved: "
+          f"{len(trunk_moved)} of {sum(not is_trainable(k) for k in after)}; BatchNorm "
+          f"statistics moved: {len(bn_moved)} of {n_bn}")
+    if trunk_moved or still or len(bn_moved) != n_bn:
+        raise AssertionError(f"trunk moved {trunk_moved[:5]}, trainable still {still[:5]}, "
+                             f"BN statistics moved {len(bn_moved)} of {n_bn}")
+
+    ev = trainer.evaluate(batches("test", np.arange(TRAIN_B)), num_each=[TRAIN_B])
+    if not all(np.isfinite(ev[k]) for k in ("acc", "precision_macro", "recall_macro")):
+        raise AssertionError(f"evaluate: metrics not finite: {ev}")
+    print(f"train: evaluate on {TRAIN_B} test frames (serving graph): acc {ev['acc']:.4f} "
+          f"acc_video {ev['acc_video']:.4f} (random weights: only finiteness is checked)")
+
+    # checkpoint round trip: parameters, BatchNorm statistics, optimizer state
+    store = CheckpointStore(os.path.join(workdir, "ckpt", "backbone"))
+    store.save(TRAIN_EPOCHS - 1, model.state_dict(), metrics={"val_acc": ev["acc"]},
+               aux={"optimizer": opt.state_dict()})
+    model2 = MiTEVP(cfg, head_cfg, seed=SEED + 9, device=dev)
+    trainer2 = BackboneTrainer(model2, tcfg, use_fused=True)
+    opt2 = trainer2.init()
+    store.restore(TRAIN_EPOCHS - 1, model2, dev)
+    opt2.load_state_dict(store.restore_aux(TRAIN_EPOCHS - 1)["optimizer"])
+    sd2 = model2.state_dict()
+    same_model = all(torch.equal(sd2[k], v) for k, v in model.state_dict().items())
+    st1, st2 = opt.state_dict()["state"], opt2.state_dict()["state"]
+    same_opt = st1.keys() == st2.keys() and all(
+        torch.equal(st1[i]["momentum_buffer"], st2[i]["momentum_buffer"]) for i in st1)
+    print(f"train: checkpoint round trip: model {'equal' if same_model else 'DIFFERS'}, "
+          f"optimizer state ({len(st1)} momentum buffers) {'equal' if same_opt else 'DIFFERS'}")
+    if not (same_model and same_opt):
+        raise AssertionError("the backbone checkpoint does not round-trip")
+    del model2, trainer2, opt2
+
+    # one batch, the same augmentation and masks, through the train kernels
+    # and through their plain versions: loss and trainable gradients
+    img, seg, flow, labels, ant = caches["train"].frames(np.arange(TRAIN_B))
+    ap = draw_params(generator(SEED, 0, purpose="augment", device=dev), trainer.aug_cfg, TRAIN_B)
+    masks = draw_masks(cfg, head_cfg, TRAIN_B, generator(SEED, 0, purpose="droppath", device=dev))
+
+    def grads():
+        out, _ = trainer.loss_and_grad(img, seg, flow, labels, ant, aug_params=ap, masks=masks)
+        groups = {}
+        for n, p in model.named_parameters():
+            if p.requires_grad:
+                groups.setdefault(n.split(".")[0], []).append(p.grad.flatten())
+        return out["loss"].item(), {g: torch.cat(v) for g, v in groups.items()}
+
+    loss_k, g_k = grads()
+    saved = (mb.block_train_forward, mb.block_train_mlp_backward, mb.block_train_attn_backward)
+    mb.block_train_forward = mb.fused_mit_block_train_fwd_plain
+    mb.block_train_mlp_backward = mb._mlp_bwd_plain
+    mb.block_train_attn_backward = mb._attn_bwd_plain
+    try:
+        loss_p, g_p = grads()
+    finally:
+        mb.block_train_forward, mb.block_train_mlp_backward, mb.block_train_attn_backward = saved
+    model.zero_grad(set_to_none=True)
+    cos = {g: torch.nn.functional.cosine_similarity(g_k[g], g_p[g], dim=0).item() for g in g_k}
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    print(f"train: kernel vs plain path on one batch: loss {loss_k:.5f} vs {loss_p:.5f} "
+          f"(rel {loss_rel:.2e}, bound {LOSS_REL_BOUND}); gradient cosine per group "
+          + ", ".join(f"{g} {c:.6f}" for g, c in cos.items()) + f" (bound {GRAD_COS_BOUND})")
+    if loss_rel > LOSS_REL_BOUND or min(cos.values()) < GRAD_COS_BOUND:
+        raise AssertionError("the training path's kernels disagree with their plain versions")
+    return {"launches": launches, "step_ms": med, "fps": TRAIN_B / med * 1e3,
+            "peak_gib": peak_gib, "grad_cos": cos, "loss_rel": loss_rel}
 
 
 def _index_split(work, split, labels_phase, lengths, ids, rng):
@@ -573,10 +862,11 @@ def main() -> int:
     phase_build()
     checks = phase_kernel_checks()
     scan = phase_scan_checks()
-    print_unported_bounds()
+    train_checks = phase_train_kernel_checks()
     with tempfile.TemporaryDirectory() as workdir:
         sl = phase_slice(workdir)
         tp = phase_temporal(workdir, sl)
+        tr = phase_train(workdir)
     blk, stg = checks["block"], checks["stage"]
     main_scan = [r for r in scan if r["shape"].startswith("[Bt=1,")]  # the test videos' shapes
     summed = lambda rows, key: sum(r[key] for r in rows)
@@ -604,6 +894,18 @@ def main() -> int:
          "bound_ms": summed(main_scan, "bound_ms"), "bound_by": by(main_scan),
          "library_ms": None, "shapes": scan},
     ]
+    for name, line, key in (("mit_block_train_forward", 1645, "forward"),
+                            ("mit_block_train_mlp_backward", 1695, "mlp_backward"),
+                            ("mit_block_train_attn_backward", 1729, "attn_backward")):
+        rows = train_checks[key]
+        kernels.append({
+            "name": name, "route": "cuda", "source": SOURCE,
+            "replaces": f"surgical_tpu/kernels/mit_block.py:{line}",
+            "launches": tr["launches"][name],
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "ms": summed(rows, "ms"), "plain_ms": summed(rows, "plain_ms"),
+            "bound_ms": summed(rows, "bound_ms"), "bound_by": by(rows), "library_ms": None,
+            "shapes": rows})
     banned = ("jax", "flax", "optax", "orbax", "surgical_tpu")
     if any(m.split(".")[0] in banned for m in sys.modules):
         raise AssertionError("the port's run imported JAX or the JAX package")

@@ -5,8 +5,11 @@ Port of ``surgical_tpu/core/checkpoint.py`` on ``torch.save`` /
 ``step_XXXXXXXX.manifest.json`` with the keys ``step``, ``metrics``,
 ``config``, ``extra`` and ``has_aux``, so ``steps``, ``latest_step`` and
 ``best_step(metric, mode)`` answer the same queries over either store's
-manifests. A step's weights are a state dict in ``step_XXXXXXXX.pt`` (plus
-``step_XXXXXXXX.aux.pt`` for training state).
+manifests. A step's weights are a state dict in ``step_XXXXXXXX.pt``: a
+module's parameters and buffers (a backbone's BatchNorm running statistics
+among them). Training state that continues a run (an optimizer's
+``state_dict``) goes to ``step_XXXXXXXX.aux.pt``, any nesting of dicts and
+lists over tensors and numbers.
 
 The JAX store's orbax directories are not read: orbax is JAX's own format.
 Weights enter this store as state dicts in the reference's key names: a
@@ -46,11 +49,11 @@ class CheckpointStore:
         aux: Mapping | None = None,
     ) -> None:
         """Save ``state_dict`` (tensors or numpy arrays, kept on the CPU) and
-        the manifest; ``aux`` is a second state dict for what continues
-        training but is not needed to use the model."""
+        the manifest; ``aux`` holds what continues training but is not
+        needed to use the model (e.g. ``{"optimizer": opt.state_dict()}``)."""
         torch.save(_cpu_tensors(state_dict), self._path(step, ".pt"))
         if aux is not None:
-            torch.save(_cpu_tensors(aux), self._path(step, ".aux.pt"))
+            torch.save(_cpu_tree(aux), self._path(step, ".aux.pt"))
         manifest = {
             "step": step,
             "metrics": _jsonable(metrics or {}),
@@ -98,10 +101,28 @@ class CheckpointStore:
         model.load_state_dict(sd, strict=True)
         return model.to(device)
 
+    def has_aux(self, step: int) -> bool:
+        return os.path.exists(self._path(step, ".aux.pt"))
+
+    def restore_aux(self, step: int):
+        """The ``aux`` saved with ``step``, its tensors on the CPU (an
+        optimizer's ``load_state_dict`` moves them to its parameters')."""
+        return torch.load(self._path(step, ".aux.pt"), map_location="cpu", weights_only=True)
+
 
 def _cpu_tensors(sd: Mapping) -> dict:
     as_tensor = lambda v: v if isinstance(v, torch.Tensor) else torch.from_numpy(np.array(v))
     return {k: as_tensor(v).detach().cpu().contiguous() for k, v in sd.items()}
+
+
+def _cpu_tree(tree: Any) -> Any:
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu().clone()
+    if isinstance(tree, Mapping):
+        return {k: _cpu_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_cpu_tree(v) for v in tree)
+    return tree
 
 
 def _jsonable(tree: Any) -> Any:

@@ -22,6 +22,14 @@ __device__ __forceinline__ float gelu_tanh(float x) {
   return 0.5f * x * (1.f + tanhf(c * (x + 0.044715f * x * x * x)));
 }
 
+// Its derivative, in the order of mit_block.py::_gelu_tanh_grad.
+__device__ __forceinline__ float gelu_tanh_grad(float x) {
+  const float c = 0.7978845608028654f;
+  const float t = tanhf(c * (x + 0.044715f * x * x * x));
+  const float dinner = c * (1.f + 0.134145f * x * x);  // 3 * 0.044715
+  return 0.5f * (1.f + t) + 0.5f * x * (1.f - t * t) * dinner;
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL_MASK, v, o);

@@ -1,17 +1,30 @@
-// MiT transformer block and whole-stage forward for Hopper (sm_90a).
+// MiT transformer block and whole-stage forward, and the frozen-trunk
+// training block forward and backward, for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernels of surgical_tpu/kernels/mit_block.py:
 //   mit_block_forward  <- fused_mit_block (_block_kernel) and
 //                         fused_mit_block_hb (_block_kernel_hb): the same
 //                         function, the latter only a TPU attention schedule
 //   mit_stage_forward  <- fused_mit_stage (_stage_kernel)
+//   mit_block_train_forward        <- fused_mit_block_train's forward
+//                                     (_block_train_fwd_kernel)
+//   mit_block_train_mlp_backward   <- its MLP backward (_mlp_bwd_kernel)
+//   mit_block_train_attn_backward  <- its attention backward (_attn_bwd_kernel)
+//
+// The backward entry points recompute the forward's intermediates from the
+// saved inputs, as the Pallas kernels do, and put them through the same
+// GEMM with a transposed-B load for the input gradients. The TPU's hidden-
+// chunk grid of the MLP backward has no counterpart: each GEMM here runs
+// over the whole hidden width, with the recomputed [B*N, hidden]
+// intermediates in device-memory scratch.
 //
 // What bounds it on the H100: at stages 1-2 the block GEMMs have K = 64-512
 // and move the [B*N, C] activation (and the 4x wider MLP hidden) through
 // device memory for a few hundred FLOPs per byte at most, so they are bound
 // by bytes, not by the tensor cores; stage 3-4 GEMMs are closer to the
 // ridge. The attention over the 49 spatially-reduced keys is small work
-// that the TPU spread over MXU dots; here it runs on the CUDA cores.
+// that the TPU spread over MXU dots; here the forward runs on the CUDA cores
+// and the training backward's five products on the tensor cores (wmma).
 //
 // This first design is simple and right, not fast: each entry point is a
 // short chain of hand-written kernels on the caller's stream --
@@ -33,6 +46,7 @@
 #include <mma.h>
 
 #include <cmath>
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -41,14 +55,48 @@ using namespace nvcuda;
 namespace {
 
 // ---------------------------------------------------------------- GEMM ----
-// out[M, N] = bf16( [res +] [gelu]( A'[M, K] @ Bw[K, N] + bias ) ),
-// A' = A or LayerNorm(A) (bf16-rounded, as the Pallas body rounds xln).
+// out[M, N] = epilogue( A'[M, K] @ B[K, N] ): B is Bw[K, N], or with BT the
+// transpose of Bw[N, K] (a forward weight read transposed for an input
+// gradient). A' by prologue:
+//   kPlain      A
+//   kLayerNorm  bf16(LayerNorm(A)), as the Pallas body rounds xln
+//   kRowScale   bf16(A * rowscale[row / mrows]) (a per-image DropPath factor)
+// and with v the fp32 product, the epilogue writes:
+//   kBias          bf16(v + bias)
+//   kBiasGelu      bf16(gelu_tanh(v + bias))
+//   kBiasRes       bf16(res + (v + bias))
+//   kBiasResScale  bf16(res + rowscale[row / mrows] * (v + bias))
+//   kGeluGrad      bf16(v * gelu_tanh'(aux))
+//   kPlain         bf16(v)
+//   kF32           v in fp32
 // bf16 wmma 16x16x16 with fp32 accumulate; 64x64 output tile per CTA, four
 // warps of 32x32. Ragged M/N/K edges are zero-filled on load and masked on
 // store. K, N and every leading dimension are multiples of 8 (checked by the
 // wrapper) so each 8-wide chunk is 16-byte aligned and wholly in or out.
 constexpr int BM = 64, BN = 64, BK = 32, GEMM_THREADS = 128;
 constexpr int LN_MAX_K = 512;  // a LayerNorm row is held in registers
+
+enum class Pro { kPlain, kLayerNorm, kRowScale };
+enum class Epi { kBias, kBiasGelu, kBiasRes, kBiasResScale, kGeluGrad, kPlain, kF32 };
+
+struct GemmArgs {
+  const bf16* A;
+  int lda;
+  const bf16* Bw;
+  int ldb;
+  const bf16* bias;
+  const bf16* ln_g;
+  const bf16* ln_b;
+  const float* rowscale;  // kRowScale / kBiasResScale: one factor per mrows rows
+  int mrows;
+  const bf16* res;  // kBiasRes*: may alias out (same thread reads, then writes)
+  int ldr;
+  const bf16* aux;  // kGeluGrad: the GELU input
+  int ldx;
+  void* out;
+  int ldo;
+  int M, N, K;
+};
 
 // LayerNorm statistics of one row of K <= LN_MAX_K values, one warp per row:
 // mean, then rstd from the biased variance and LN_EPS. vals[i] receives
@@ -73,27 +121,25 @@ __device__ __forceinline__ void row_stats(const bf16* row, int K, int lane,
   rstd = rsqrtf(warp_sum(ss) / K + LN_EPS);
 }
 
-template <bool LN, bool GELU, bool RES>
-__global__ void __launch_bounds__(GEMM_THREADS)
-gemm_bf16(const bf16* __restrict__ A, int lda, const bf16* __restrict__ Bw, int ldb,
-          const bf16* __restrict__ bias, const bf16* __restrict__ ln_g,
-          const bf16* __restrict__ ln_b, const bf16* res, int ldr, bf16* out, int ldo,
-          int M, int N, int K) {
+template <Pro PRO, Epi EPI, bool BT>
+__global__ void __launch_bounds__(GEMM_THREADS) gemm_bf16(const GemmArgs a) {
   __shared__ __align__(32) bf16 As[BM][BK + 8];
-  __shared__ __align__(32) bf16 Bs[BK][BN + 8];
+  // B tile as [k][n] (row-major operand) or [n][k] (transposed operand)
+  __shared__ __align__(32) bf16 Bs[BT ? BN : BK][BT ? BK + 8 : BN + 8];
   __shared__ __align__(32) float Cs[BM][BN + 4];
   __shared__ float s_mean[BM], s_rstd[BM];
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  const int M = a.M, N = a.N, K = a.K;
 
-  if (LN) {  // row statistics of this CTA's rows
+  if constexpr (PRO == Pro::kLayerNorm) {  // row statistics of this CTA's rows
     for (int r = warp; r < BM; r += GEMM_THREADS / 32) {
       const int gm = m0 + r;
       float mean = 0.f, rstd = 0.f;
       if (gm < M) {
         float vals[LN_MAX_K / 32];
-        row_stats(A + (size_t)gm * lda, K, lane, vals, mean, rstd);
+        row_stats(a.A + (size_t)gm * a.lda, K, lane, vals, mean, rstd);
       }
       if (lane == 0) {
         s_mean[r] = mean;
@@ -116,34 +162,55 @@ gemm_bf16(const bf16* __restrict__ A, int lda, const bf16* __restrict__ Bw, int 
       const int gm = m0 + r, gk = k0 + kc;
       uint4 val = make_uint4(0, 0, 0, 0);
       if (gm < M && gk < K) {
-        val = load8(A + (size_t)gm * lda + gk);
-        if (LN) {
-          uint4 gv = load8(ln_g + gk), bv = load8(ln_b + gk);
-          bf16 *e = lanes8(val), *ge = lanes8(gv), *be = lanes8(bv);
+        val = load8(a.A + (size_t)gm * a.lda + gk);
+        bf16* e = lanes8(val);
+        if constexpr (PRO == Pro::kLayerNorm) {
+          uint4 gv = load8(a.ln_g + gk), bv = load8(a.ln_b + gk);
+          bf16 *ge = lanes8(gv), *be = lanes8(bv);
           const float mu = s_mean[r], rs = s_rstd[r];
 #pragma unroll
           for (int i = 0; i < 8; ++i)
             e[i] = f2bf((bf2f(e[i]) - mu) * rs * bf2f(ge[i]) + bf2f(be[i]));
+        } else if constexpr (PRO == Pro::kRowScale) {
+          const float sc = a.rowscale[gm / a.mrows];
+#pragma unroll
+          for (int i = 0; i < 8; ++i) e[i] = f2bf(bf2f(e[i]) * sc);
         }
       }
       store8(&As[r][kc], val);
     }
-    for (int c = tid; c < BK * BN / 8; c += GEMM_THREADS) {
-      const int r = c / (BN / 8), nc = (c % (BN / 8)) * 8;
-      const int gk = k0 + r, gn = n0 + nc;
-      uint4 val = make_uint4(0, 0, 0, 0);
-      if (gk < K && gn < N) val = load8(Bw + (size_t)gk * ldb + gn);
-      store8(&Bs[r][nc], val);
+    if constexpr (BT) {
+      for (int c = tid; c < BN * BK / 8; c += GEMM_THREADS) {
+        const int r = c / (BK / 8), kc = (c % (BK / 8)) * 8;
+        const int gn = n0 + r, gk = k0 + kc;
+        uint4 val = make_uint4(0, 0, 0, 0);
+        if (gn < N && gk < K) val = load8(a.Bw + (size_t)gn * a.ldb + gk);
+        store8(&Bs[r][kc], val);
+      }
+    } else {
+      for (int c = tid; c < BK * BN / 8; c += GEMM_THREADS) {
+        const int r = c / (BN / 8), nc = (c % (BN / 8)) * 8;
+        const int gk = k0 + r, gn = n0 + nc;
+        uint4 val = make_uint4(0, 0, 0, 0);
+        if (gk < K && gn < N) val = load8(a.Bw + (size_t)gk * a.ldb + gn);
+        store8(&Bs[r][nc], val);
+      }
     }
     __syncthreads();
 #pragma unroll
     for (int kk = 0; kk < BK; kk += 16) {
       wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> af[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bfr[2];
+      using BLayout = typename std::conditional<BT, wmma::col_major, wmma::row_major>::type;
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, BLayout> bfr[2];
 #pragma unroll
       for (int i = 0; i < 2; ++i) wmma::load_matrix_sync(af[i], &As[wm + 16 * i][kk], BK + 8);
 #pragma unroll
-      for (int j = 0; j < 2; ++j) wmma::load_matrix_sync(bfr[j], &Bs[kk][wn + 16 * j], BN + 8);
+      for (int j = 0; j < 2; ++j) {
+        if constexpr (BT)
+          wmma::load_matrix_sync(bfr[j], &Bs[wn + 16 * j][kk], BK + 8);
+        else
+          wmma::load_matrix_sync(bfr[j], &Bs[kk][wn + 16 * j], BN + 8);
+      }
 #pragma unroll
       for (int i = 0; i < 2; ++i)
 #pragma unroll
@@ -166,17 +233,33 @@ gemm_bf16(const bf16* __restrict__ A, int lda, const bf16* __restrict__ Bw, int 
     const int r = c / (BN / 8), nc = (c % (BN / 8)) * 8;
     const int gm = m0 + r, gn = n0 + nc;
     if (gm >= M || gn >= N) continue;
-    uint4 bv = load8(bias + gn), rv = make_uint4(0, 0, 0, 0), ov;
-    if (RES) rv = load8(res + (size_t)gm * ldr + gn);
-    bf16 *be = lanes8(bv), *re = lanes8(rv), *oe = lanes8(ov);
+    if constexpr (EPI == Epi::kF32) {
+      float* o = static_cast<float*>(a.out) + (size_t)gm * a.ldo + gn;
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      float v = Cs[r][nc + i] + bf2f(be[i]);
-      if (GELU) v = gelu_tanh(v);
-      if (RES) v = bf2f(re[i]) + v;
-      oe[i] = f2bf(v);
+      for (int i = 0; i < 8; ++i) o[i] = Cs[r][nc + i];
+    } else {
+      constexpr bool BIAS = EPI == Epi::kBias || EPI == Epi::kBiasGelu || EPI == Epi::kBiasRes ||
+                            EPI == Epi::kBiasResScale;
+      constexpr bool RES = EPI == Epi::kBiasRes || EPI == Epi::kBiasResScale;
+      uint4 bv = make_uint4(0, 0, 0, 0), rv = bv, xv = bv, ov;
+      if constexpr (BIAS) bv = load8(a.bias + gn);
+      if constexpr (RES) rv = load8(a.res + (size_t)gm * a.ldr + gn);
+      if constexpr (EPI == Epi::kGeluGrad) xv = load8(a.aux + (size_t)gm * a.ldx + gn);
+      float sc = 1.f;
+      if constexpr (EPI == Epi::kBiasResScale) sc = a.rowscale[gm / a.mrows];
+      bf16 *be = lanes8(bv), *re = lanes8(rv), *xe = lanes8(xv), *oe = lanes8(ov);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        float v = Cs[r][nc + i];
+        if constexpr (BIAS) v = v + bf2f(be[i]);
+        if constexpr (EPI == Epi::kBiasGelu) v = gelu_tanh(v);
+        if constexpr (EPI == Epi::kBiasResScale) v = __fmul_rn(sc, v);
+        if constexpr (RES) v = bf2f(re[i]) + v;
+        if constexpr (EPI == Epi::kGeluGrad) v = v * gelu_tanh_grad(bf2f(xe[i]));
+        oe[i] = f2bf(v);
+      }
+      store8(static_cast<bf16*>(a.out) + (size_t)gm * a.ldo + gn, ov);
     }
-    store8(out + (size_t)gm * ldo + gn, ov);
   }
 }
 
@@ -255,10 +338,11 @@ attention_kernel(const bf16* __restrict__ q, int ldq, const bf16* __restrict__ k
 // ------------------------------------------------- depthwise conv + GELU ----
 // Channel-last [B, H, W, C] 3x3 depthwise conv with zero edges, fp32
 // accumulate in the tap order of mit_block.py::_dwconv3x3, + bias, rounded to
-// bf16, then tanh GELU, rounded to bf16. One thread per 8 channels.
-__global__ void dwconv_gelu_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
-                                   const bf16* __restrict__ bias, bf16* __restrict__ out,
-                                   int B, int H, int W, int C) {
+// bf16, then (GELU) tanh GELU, rounded to bf16. One thread per 8 channels.
+template <bool GELU>
+__global__ void dwconv3x3_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
+                                 const bf16* __restrict__ bias, bf16* __restrict__ out,
+                                 int B, int H, int W, int C) {
   const int C8 = C / 8;
   const size_t total = (size_t)B * H * W * C8;
   for (size_t t = blockIdx.x * (size_t)blockDim.x + threadIdx.x; t < total;
@@ -286,9 +370,225 @@ __global__ void dwconv_gelu_kernel(const bf16* __restrict__ x, const bf16* __res
     uint4 bv = load8(bias + c), ov;
     bf16 *be = lanes8(bv), *oe = lanes8(ov);
 #pragma unroll
-    for (int i = 0; i < 8; ++i) oe[i] = f2bf(gelu_tanh(bf2f(f2bf(acc[i] + bf2f(be[i])))));
+    for (int i = 0; i < 8; ++i) {
+      const bf16 h = f2bf(acc[i] + bf2f(be[i]));
+      oe[i] = GELU ? f2bf(gelu_tanh(bf2f(h))) : h;
+    }
     store8(out + ((b * H + yy) * W + xx) * C + c, ov);
   }
+}
+
+// The conv's input gradient (mit_block.py::_dwconv3x3_T): the flipped-tap
+// conv out[y, x] = sum_k g[y - dy_k, x - dx_k] * w_k over the taps whose
+// source (y - dy_k, x - dx_k) lies in the grid -- exactly the positions
+// that fired tap k in the forward. No bias; fp32 accumulate in tap order,
+// rounded to bf16.
+__global__ void dwconv3x3_t_kernel(const bf16* __restrict__ g, const bf16* __restrict__ w,
+                                   bf16* __restrict__ out, int B, int H, int W, int C) {
+  const int C8 = C / 8;
+  const size_t total = (size_t)B * H * W * C8;
+  for (size_t t = blockIdx.x * (size_t)blockDim.x + threadIdx.x; t < total;
+       t += (size_t)gridDim.x * blockDim.x) {
+    const int c = (int)(t % C8) * 8;
+    size_t p = t / C8;
+    const int xx = (int)(p % W);
+    p /= W;
+    const int yy = (int)(p % H);
+    const size_t b = p / H;
+    float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int dy = -1; dy <= 1; ++dy) {
+#pragma unroll
+      for (int dx = -1; dx <= 1; ++dx) {
+        const int sy = yy - dy, sx = xx - dx;
+        if (sy < 0 || sy >= H || sx < 0 || sx >= W) continue;
+        uint4 gv = load8(g + ((b * H + sy) * W + sx) * C + c);
+        uint4 wv = load8(w + (size_t)((dy + 1) * 3 + (dx + 1)) * C + c);
+        bf16 *ge = lanes8(gv), *we = lanes8(wv);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) acc[i] += bf2f(ge[i]) * bf2f(we[i]);
+      }
+    }
+    uint4 ov;
+    bf16* oe = lanes8(ov);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) oe[i] = f2bf(acc[i]);
+    store8(out + ((b * H + yy) * W + xx) * C + c, ov);
+  }
+}
+
+// ------------------------------------------------- attention backward ----
+// The softmax/context backward of mit_block.py::_attn_bwd_kernel for one
+// (image, head, ABW_TILES tiles of ABW_R query rows) per CTA, on the tensor
+// cores (bf16 wmma 16x16x16, fp32 accumulate). K and V of the head (keys
+// zero-padded to 64) stay in shared memory; per tile of rows:
+//   S = q k^T and dP = dctx v^T (wmma, fp32 to shared);
+//   a warp per row: P = softmax(S * scale) in fp32, rowsum(dP * P),
+//     dS = bf16(P * (dP - rowsum) * scale), bf16(P) (rows past N: zeros);
+//   dq = dS k (wmma) rounded to bf16; dv += bf16(P)^T dctx and
+//   dk += dS^T q in wmma accumulators that live across the CTA's tiles.
+// dk and dv sum over every query row of the image, which spans CTAs: each
+// CTA adds its fp32 partial sums into an fp32 workspace with atomics, rounded
+// to bf16 once by f32_to_bf16_kernel afterwards. The operands are rounded
+// where the plain version rounds them, so only summation order differs.
+constexpr int ABW_R = 64, ABW_TILES = 2, ABW_THREADS = 256;
+constexpr int ABW_LD = HD + 8, ABW_LDF = HD + 4;  // padded row strides (elements)
+static_assert(MAX_KV == HD, "the key and head-dim tiles share one layout");
+
+struct AbwSmem {
+  bf16 K[MAX_KV][ABW_LD], V[MAX_KV][ABW_LD];  // [key][d]
+  bf16 Q[ABW_R][ABW_LD], D[ABW_R][ABW_LD];    // [row][d]: q and dctx
+  bf16 P[ABW_R][ABW_LD], S[ABW_R][ABW_LD];    // [row][key]: bf16(P), dS
+  float F0[ABW_R][ABW_LDF], F1[ABW_R][ABW_LDF];  // S then dq; dP
+};
+
+__global__ void __launch_bounds__(ABW_THREADS)
+attention_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v, const bf16* __restrict__ dctx,
+                     bf16* __restrict__ dq, float* __restrict__ dk_ws,
+                     float* __restrict__ dv_ws, int N, int Nkv, int C, int heads, float scale) {
+  extern __shared__ __align__(128) unsigned char abw_smem[];
+  AbwSmem& sm = *reinterpret_cast<AbwSmem*>(abw_smem);
+  typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> FragA;
+  typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> FragAT;
+  typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> FragB;
+  typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> FragBT;
+  typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> FragC;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int b = blockIdx.y / heads, h = blockIdx.y % heads;
+  const size_t kv_row0 = (size_t)b * Nkv;
+  const uint4 zero8 = make_uint4(0, 0, 0, 0);
+  for (int idx = tid; idx < MAX_KV * HD / 8; idx += ABW_THREADS) {
+    const int j = idx / (HD / 8), d = (idx % (HD / 8)) * 8;
+    const size_t off = (kv_row0 + j) * C + h * HD + d;
+    store8(&sm.K[j][d], j < Nkv ? load8(k + off) : zero8);
+    store8(&sm.V[j][d], j < Nkv ? load8(v + off) : zero8);
+  }
+
+  // warp -> 16-row block wr and the two 16-column blocks 2 wc, 2 wc + 1 of
+  // every 64x64 product; dk/dv rows are keys
+  const int wr = warp >> 1, wc = warp & 1;
+  FragC acc_dk[2], acc_dv[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    wmma::fill_fragment(acc_dk[i], 0.f);
+    wmma::fill_fragment(acc_dv[i], 0.f);
+  }
+
+  for (int tile = 0; tile < ABW_TILES; ++tile) {
+    const int row0 = (blockIdx.x * ABW_TILES + tile) * ABW_R;
+    if (row0 >= N) break;  // the same for every thread of the CTA
+    __syncthreads();  // the previous tile's readers of Q, D, P, S, F0 are done
+    for (int idx = tid; idx < ABW_R * HD / 8; idx += ABW_THREADS) {
+      const int r = idx / (HD / 8), d = (idx % (HD / 8)) * 8, row = row0 + r;
+      const size_t off = ((size_t)b * N + row) * C + h * HD + d;
+      store8(&sm.Q[r][d], row < N ? load8(q + off) : zero8);
+      store8(&sm.D[r][d], row < N ? load8(dctx + off) : zero8);
+    }
+    __syncthreads();
+
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {  // S = q k^T, dP = dctx v^T
+      const int cb = 16 * (2 * wc + i);
+      FragC cs, cp;
+      wmma::fill_fragment(cs, 0.f);
+      wmma::fill_fragment(cp, 0.f);
+#pragma unroll
+      for (int kk = 0; kk < HD; kk += 16) {
+        FragA a;
+        FragBT bt;
+        wmma::load_matrix_sync(a, &sm.Q[16 * wr][kk], ABW_LD);
+        wmma::load_matrix_sync(bt, &sm.K[cb][kk], ABW_LD);
+        wmma::mma_sync(cs, a, bt, cs);
+        wmma::load_matrix_sync(a, &sm.D[16 * wr][kk], ABW_LD);
+        wmma::load_matrix_sync(bt, &sm.V[cb][kk], ABW_LD);
+        wmma::mma_sync(cp, a, bt, cp);
+      }
+      wmma::store_matrix_sync(&sm.F0[16 * wr][cb], cs, ABW_LDF, wmma::mem_row_major);
+      wmma::store_matrix_sync(&sm.F1[16 * wr][cb], cp, ABW_LDF, wmma::mem_row_major);
+    }
+    __syncthreads();
+
+    for (int r = warp; r < ABW_R; r += ABW_THREADS / 32) {  // softmax backward
+      const bool valid = row0 + r < N;
+      float s[2], e[2], p[2], dp[2];
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+        const int j = lane + 32 * jj;
+        s[jj] = j < Nkv ? sm.F0[r][j] * scale : -CUDART_INF_F;
+        dp[jj] = sm.F1[r][j];
+      }
+      const float m = warp_max(fmaxf(s[0], s[1]));
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) e[jj] = (lane + 32 * jj < Nkv) ? expf(s[jj] - m) : 0.f;
+      const float denom = warp_sum(e[0] + e[1]);
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) p[jj] = e[jj] / denom;
+      const float rs = warp_sum(dp[0] * p[0] + dp[1] * p[1]);
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+        const int j = lane + 32 * jj;
+        sm.P[r][j] = f2bf(valid ? p[jj] : 0.f);
+        sm.S[r][j] = f2bf(valid ? p[jj] * (dp[jj] - rs) * scale : 0.f);
+      }
+    }
+    __syncthreads();
+
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int cb = 16 * (2 * wc + i);
+      FragC cq;
+      wmma::fill_fragment(cq, 0.f);
+#pragma unroll
+      for (int kk = 0; kk < MAX_KV; kk += 16) {
+        FragA a;
+        FragB bm;
+        FragAT at;
+        wmma::load_matrix_sync(a, &sm.S[16 * wr][kk], ABW_LD);  // dq = dS k
+        wmma::load_matrix_sync(bm, &sm.K[kk][cb], ABW_LD);
+        wmma::mma_sync(cq, a, bm, cq);
+        wmma::load_matrix_sync(at, &sm.P[kk][16 * wr], ABW_LD);  // dv += P^T dctx
+        wmma::load_matrix_sync(bm, &sm.D[kk][cb], ABW_LD);
+        wmma::mma_sync(acc_dv[i], at, bm, acc_dv[i]);
+        wmma::load_matrix_sync(at, &sm.S[kk][16 * wr], ABW_LD);  // dk += dS^T q
+        wmma::load_matrix_sync(bm, &sm.Q[kk][cb], ABW_LD);
+        wmma::mma_sync(acc_dk[i], at, bm, acc_dk[i]);
+      }
+      wmma::store_matrix_sync(&sm.F0[16 * wr][cb], cq, ABW_LDF, wmma::mem_row_major);
+    }
+    __syncthreads();
+    for (int idx = tid; idx < ABW_R * HD / 8; idx += ABW_THREADS) {
+      const int r = idx / (HD / 8), d = (idx % (HD / 8)) * 8, row = row0 + r;
+      if (row >= N) continue;
+      uint4 ov;
+      bf16* oe = lanes8(ov);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) oe[i] = f2bf(sm.F0[r][d + i]);
+      store8(dq + ((size_t)b * N + row) * C + h * HD + d, ov);
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int cb = 16 * (2 * wc + i);
+    wmma::store_matrix_sync(&sm.F0[16 * wr][cb], acc_dk[i], ABW_LDF, wmma::mem_row_major);
+    wmma::store_matrix_sync(&sm.F1[16 * wr][cb], acc_dv[i], ABW_LDF, wmma::mem_row_major);
+  }
+  __syncthreads();
+  for (int idx = tid; idx < Nkv * HD; idx += ABW_THREADS) {
+    const int j = idx / HD, d = idx % HD;
+    const size_t off = (kv_row0 + j) * C + h * HD + d;
+    atomicAdd(dk_ws + off, sm.F0[j][d]);
+    atomicAdd(dv_ws + off, sm.F1[j][d]);
+  }
+}
+
+__global__ void f32_to_bf16_kernel(const float* __restrict__ in, bf16* __restrict__ out,
+                                   size_t n) {
+  for (size_t t = blockIdx.x * (size_t)blockDim.x + threadIdx.x; t < n;
+       t += (size_t)gridDim.x * blockDim.x)
+    out[t] = f2bf(in[t]);
 }
 
 // ------------------------------------------------------------ LayerNorm ----
@@ -334,13 +634,34 @@ __global__ void sr_patches_kernel(const bf16* __restrict__ x, bf16* __restrict__
 }
 
 // ------------------------------------------------------------- launchers ----
+template <Pro PRO, Epi EPI, bool BT = false>
+void launch_gemm(cudaStream_t s, const GemmArgs& a) {
+  dim3 grid((a.M + BM - 1) / BM, (a.N + BN - 1) / BN);
+  gemm_bf16<PRO, EPI, BT><<<grid, GEMM_THREADS, 0, s>>>(a);
+}
+
+// The forward's products: out = bf16([res +] [gelu](A' @ Bw + bias)),
+// A' = A or LayerNorm(A); Bw [K, N].
 template <bool LN, bool GELU, bool RES>
 void gemm(cudaStream_t s, const bf16* A, int lda, const bf16* Bw, int ldb, const bf16* bias,
           const bf16* ln_g, const bf16* ln_b, const bf16* res, int ldr, bf16* out, int ldo,
           int M, int N, int K) {
-  dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN);
-  gemm_bf16<LN, GELU, RES><<<grid, GEMM_THREADS, 0, s>>>(A, lda, Bw, ldb, bias, ln_g, ln_b,
-                                                         res, ldr, out, ldo, M, N, K);
+  static_assert(!(GELU && RES), "no forward product has both");
+  GemmArgs a{};
+  a.A = A, a.lda = lda, a.Bw = Bw, a.ldb = ldb, a.bias = bias, a.ln_g = ln_g, a.ln_b = ln_b;
+  a.res = res, a.ldr = ldr, a.out = out, a.ldo = ldo, a.M = M, a.N = N, a.K = K;
+  constexpr Epi E = GELU ? Epi::kBiasGelu : RES ? Epi::kBiasRes : Epi::kBias;
+  launch_gemm<LN ? Pro::kLayerNorm : Pro::kPlain, E>(s, a);
+}
+
+// A GemmArgs for out[M, N] = A[M, K] @ B with every leading dimension the
+// matrices' own widths (B: Bw [K, N], or Bw [N, K] when transposed).
+GemmArgs dense_args(const bf16* A, const bf16* Bw, void* out, int M, int N, int K,
+                    bool transposed) {
+  GemmArgs a{};
+  a.A = A, a.lda = K, a.Bw = Bw, a.ldb = transposed ? K : N, a.out = out, a.ldo = N;
+  a.M = M, a.N = N, a.K = K;
+  return a;
 }
 
 int grid_for(size_t work, int threads) {
@@ -365,8 +686,8 @@ void attn_out_and_mlp(cudaStream_t s, const bf16* x, const bf16* ctx, const bf16
   gemm<false, false, true>(s, ctx, C, wo, C, bo, nullptr, nullptr, x, C, y, C, M, C, C);
   gemm<true, false, false>(s, y, C, w1, hidden, b1, ln2_g, ln2_b, nullptr, 0, hid, hidden, M,
                            hidden, C);
-  dwconv_gelu_kernel<<<grid_for((size_t)M * hidden / 8, 256), 256, 0, s>>>(hid, wdw, bdw, act,
-                                                                           B, H, W, hidden);
+  dwconv3x3_kernel<true><<<grid_for((size_t)M * hidden / 8, 256), 256, 0, s>>>(
+      hid, wdw, bdw, act, B, H, W, hidden);
   gemm<false, false, true>(s, act, hidden, w2, C, b2, nullptr, nullptr, y, C, y, C, M, C,
                            hidden);
 }
@@ -454,6 +775,103 @@ int mit_stage_forward(const void* x, const void* base, const void* sharedw, cons
                      (P)w2 + (size_t)d * hidden * C, (P)b2 + (size_t)d * C, (bf16*)hid,
                      (bf16*)act, Y, B, H, W, C, hidden);
   }
+  return (int)cudaGetLastError();
+}
+
+// ---- training: fused_mit_block_train (surgical_tpu/kernels/mit_block.py) ----
+// The trunk is frozen, so the backward computes input gradients only.
+
+// Forward (_block_train_fwd_kernel, mit_block.py:1339): the block with xln =
+// LN1(x) given, the per-image DropPath factors m1/m2 [B] (fp32, 0 or
+// 1/keep) applied to each fp32 branch before its residual rounding, and the
+// post-attention residual x1 written out for the backward. Scratch: q, ctx
+// [B*N, C]; hid, act [B*N, hidden].
+int mit_block_train_forward(const void* x, const void* xln, const void* k, const void* v,
+                            const void* m1, const void* m2, const void* wq, const void* bq,
+                            const void* wo, const void* bo, const void* ln2_g,
+                            const void* ln2_b, const void* w1, const void* b1, const void* wdw,
+                            const void* bdw, const void* w2, const void* b2, void* q, void* ctx,
+                            void* hid, void* act, void* x1, void* y, int B, int H, int W, int C,
+                            int heads, int Nkv, int hidden, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  typedef const bf16* P;
+  const int N = H * W, M = B * N;
+  GemmArgs a = dense_args((P)xln, (P)wq, q, M, C, C, false);
+  a.bias = (P)bq;
+  launch_gemm<Pro::kPlain, Epi::kBias>(s, a);
+  attention(s, (P)q, (P)k, (P)v, C, (bf16*)ctx, B, N, Nkv, C, heads);
+  a = dense_args((P)ctx, (P)wo, x1, M, C, C, false);  // x1 = x + m1 * (ctx wo + bo)
+  a.bias = (P)bo, a.res = (P)x, a.ldr = C, a.rowscale = (const float*)m1, a.mrows = N;
+  launch_gemm<Pro::kPlain, Epi::kBiasResScale>(s, a);
+  gemm<true, false, false>(s, (P)x1, C, (P)w1, hidden, (P)b1, (P)ln2_g, (P)ln2_b, nullptr, 0,
+                           (bf16*)hid, hidden, M, hidden, C);
+  dwconv3x3_kernel<true><<<grid_for((size_t)M * hidden / 8, 256), 256, 0, s>>>(
+      (P)hid, (P)wdw, (P)bdw, (bf16*)act, B, H, W, hidden);
+  a = dense_args((P)act, (P)w2, y, M, C, hidden, false);  // y = x1 + m2 * mlp
+  a.bias = (P)b2, a.res = (P)x1, a.ldr = C, a.rowscale = (const float*)m2, a.mrows = N;
+  launch_gemm<Pro::kPlain, Epi::kBiasResScale>(s, a);
+  return (int)cudaGetLastError();
+}
+
+// MLP backward (_mlp_bwd_kernel, mit_block.py:1419) over all of hidden at
+// once: recompute a1 = bf16(h2ln w1 + b1) and hd = bf16(dwconv(a1) + bdw),
+// then dh = bf16((dmlp w2^T) * gelu'(hd)), da1 = dwconv^T(dh) and
+// dh2ln = da1 w1^T in fp32 [B*N, C]. Scratch bufA, bufB [B*N, hidden]
+// (a1 then dh; hd then da1).
+int mit_block_train_mlp_backward(const void* h2ln, const void* dmlp, const void* w1,
+                                 const void* b1, const void* wdw, const void* bdw,
+                                 const void* w2, void* bufA, void* bufB, void* dh2ln, int B,
+                                 int H, int W, int C, int hidden, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  typedef const bf16* P;
+  const int M = B * H * W;
+  const int conv_grid = grid_for((size_t)M * hidden / 8, 256);
+  GemmArgs a = dense_args((P)h2ln, (P)w1, bufA, M, hidden, C, false);
+  a.bias = (P)b1;
+  launch_gemm<Pro::kPlain, Epi::kBias>(s, a);
+  dwconv3x3_kernel<false><<<conv_grid, 256, 0, s>>>((P)bufA, (P)wdw, (P)bdw, (bf16*)bufB, B, H,
+                                                    W, hidden);
+  a = dense_args((P)dmlp, (P)w2, bufA, M, hidden, C, true);
+  a.aux = (P)bufB, a.ldx = hidden;
+  launch_gemm<Pro::kPlain, Epi::kGeluGrad, true>(s, a);
+  dwconv3x3_t_kernel<<<conv_grid, 256, 0, s>>>((P)bufA, (P)wdw, (bf16*)bufB, B, H, W, hidden);
+  launch_gemm<Pro::kPlain, Epi::kF32, true>(s, dense_args((P)bufB, (P)w1, dh2ln, M, C, hidden,
+                                                          true));
+  return (int)cudaGetLastError();
+}
+
+// Attention backward (_attn_bwd_kernel, mit_block.py:1472): recompute
+// q = bf16(xln wq + bq); dctx = bf16(bf16(dx1 * m1) wo^T); the softmax and
+// context backward (attention_bwd_kernel) into dq and the fp32 dk/dv
+// workspaces dk_ws, dv_ws [B*Nkv, C], which the caller zeroes; then
+// dxln = bf16(dq wq^T), dk = bf16(dk_ws), dv = bf16(dv_ws). Scratch: q,
+// dctx, dq [B*N, C].
+int mit_block_train_attn_backward(const void* xln, const void* k, const void* v,
+                                  const void* dx1, const void* m1, const void* wq,
+                                  const void* bq, const void* wo, void* q, void* dctx, void* dq,
+                                  void* dk_ws, void* dv_ws, void* dxln, void* dk, void* dv, int B,
+                                  int N, int C, int heads, int Nkv, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  typedef const bf16* P;
+  const int M = B * N;
+  GemmArgs a = dense_args((P)xln, (P)wq, q, M, C, C, false);
+  a.bias = (P)bq;
+  launch_gemm<Pro::kPlain, Epi::kBias>(s, a);
+  a = dense_args((P)dx1, (P)wo, dctx, M, C, C, true);
+  a.rowscale = (const float*)m1, a.mrows = N;
+  launch_gemm<Pro::kRowScale, Epi::kPlain, true>(s, a);
+  const int rows_per_cta = ABW_R * ABW_TILES;
+  dim3 grid((N + rows_per_cta - 1) / rows_per_cta, B * heads);
+  static const cudaError_t smem_ok = cudaFuncSetAttribute(
+      attention_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, sizeof(AbwSmem));
+  if (smem_ok != cudaSuccess) return (int)smem_ok;
+  attention_bwd_kernel<<<grid, ABW_THREADS, sizeof(AbwSmem), s>>>(
+      (P)q, (P)k, (P)v, (P)dctx, (bf16*)dq, (float*)dk_ws, (float*)dv_ws, N, Nkv, C, heads,
+      1.0f / sqrtf((float)HD));
+  launch_gemm<Pro::kPlain, Epi::kPlain, true>(s, dense_args((P)dq, (P)wq, dxln, M, C, C, true));
+  const size_t nkv = (size_t)B * Nkv * C;
+  f32_to_bf16_kernel<<<grid_for(nkv, 256), 256, 0, s>>>((const float*)dk_ws, (bf16*)dk, nkv);
+  f32_to_bf16_kernel<<<grid_for(nkv, 256), 256, 0, s>>>((const float*)dv_ws, (bf16*)dv, nkv);
   return (int)cudaGetLastError();
 }
 

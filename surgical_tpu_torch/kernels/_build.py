@@ -1,10 +1,11 @@
 """Build and load the hand-written CUDA kernels of ``surgical_tpu_torch/csrc``.
 
-At first use, every ``csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a``
-(Hopper) into one shared library with a plain C interface, loaded with
-``ctypes``. The library lands in ``build/kernels/`` at the repository root
-(listed in ``.gitignore``) under a name keyed by a hash of the sources and
-flags, so an edited source rebuilds and an unchanged one loads from disk.
+At first use, every ``csrc/*.cu`` is compiled for ``sm_90a`` (Hopper) by
+its own ``nvcc``, all started together, and the objects are linked into one
+shared library with a plain C interface, loaded with ``ctypes``. The
+library lands in ``build/kernels/`` at the repository root (listed in
+``.gitignore``) under a name keyed by a hash of the sources and flags, so
+an edited source rebuilds and an unchanged one loads from disk.
 
 There is no fallback: a missing ``nvcc`` or a failed build raises with the
 compiler's output.
@@ -29,6 +30,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _ENTRY_POINTS = {
     "mit_block_forward": (22, 7),
     "mit_stage_forward": (34, 10),
+    "mit_block_train_forward": (24, 7),
+    "mit_block_train_mlp_backward": (10, 5),
+    "mit_block_train_attn_backward": (16, 5),
     "selective_scan_forward": (7, 4),
 }
 
@@ -59,12 +63,29 @@ def build() -> Path:
     nvcc = _nvcc()
     so.parent.mkdir(parents=True, exist_ok=True)
     tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
-           *[str(p) for p in sorted(CSRC.glob("*.cu"))]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"kernel build failed ({' '.join(cmd)}):\n{proc.stdout}{proc.stderr}")
+    # one nvcc per source, all at once, then one link
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    objs, procs = [], []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = tmp.with_name(f"{tmp.name}.{src.stem}.o")
+        cmd = [nvcc, *compile_flags, "-c", "-o", str(obj), str(src)]
+        procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.STDOUT, text=True)))
+        objs.append(obj)
+    failed = []
+    for cmd, proc in procs:
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(cmd)}:\n{out}")
+    link = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, objs)]
+    if not failed:
+        proc = subprocess.run(link, capture_output=True, text=True)
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(link)}:\n{proc.stdout}{proc.stderr}")
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError("kernel build failed\n" + "\n".join(failed))
     os.replace(tmp, so)
     return so
 

@@ -1,10 +1,14 @@
-"""Fused MiT transformer block and whole-stage forward: Hopper CUDA kernels
-(``csrc/mit_block.cu``) and their plain PyTorch versions.
+"""Fused MiT transformer block and whole-stage forward, and the frozen-trunk
+training block: Hopper CUDA kernels (``csrc/mit_block.cu``) and their plain
+PyTorch versions.
 
 Port of ``surgical_tpu/kernels/mit_block.py``. One block kernel serves both
 ``fused_mit_block`` and ``fused_mit_block_hb`` of the JAX package (they
 compute the same function; the latter differs only in its TPU attention
 schedule), and one stage kernel serves ``fused_mit_stage``.
+``fused_mit_block_train`` is a ``torch.autograd.Function`` over three
+kernels, as the JAX custom VJP is over three Pallas calls: the forward,
+the MLP backward and the attention backward.
 
 A wrapper runs its kernel's plain version only for a tensor that lies on the
 CPU. For a CUDA tensor it launches the kernel or raises. Each wrapper counts
@@ -74,22 +78,29 @@ def _dwconv3x3(h, wdw, bdw, H, W):
     return (acc + bdw.float().reshape(-1)).to(h.dtype).reshape(B, N, Ch)
 
 
-def _attn_residual(x, xln, k, v, wq, bq, wo, bo, heads):
-    """x + out_proj(attention(q_proj(xln), k, v)), rounded to x.dtype."""
-    dt = x.dtype
-    q = _linear(xln, wq, bq).to(dt)
+def _residual(x, branch, m=None):
+    """x + branch in fp32 (branch scaled per image by m [B] when given),
+    rounded to x.dtype."""
+    if m is not None:
+        branch = m.float()[:, None, None] * branch
+    return (x.float() + branch).to(x.dtype)
+
+
+def _attn_residual(x, xln, k, v, wq, bq, wo, bo, heads, m=None):
+    """x + [m *] out_proj(attention(q_proj(xln), k, v)), rounded to x.dtype."""
+    q = _linear(xln, wq, bq).to(x.dtype)
     ctx = _attention(q, k, v, heads)
-    return (x.float() + _linear(ctx, wo, bo)).to(dt)
+    return _residual(x, _linear(ctx, wo, bo), m)
 
 
-def _mlp_residual(x, ln2_scale, ln2_bias, w1, b1, wdw, bdw, w2, b2, H, W):
-    """x + fc2(gelu_tanh(dwconv(fc1(LN2(x))))), with the Pallas body's
+def _mlp_residual(x, ln2_scale, ln2_bias, w1, b1, wdw, bdw, w2, b2, H, W, m=None):
+    """x + [m *] fc2(gelu_tanh(dwconv(fc1(LN2(x))))), with the Pallas body's
     roundings (fc1, dwconv and GELU outputs in x.dtype)."""
     dt = x.dtype
     h = _linear(layer_norm(x, ln2_scale, ln2_bias), w1, b1).to(dt)
     h = _dwconv3x3(h, wdw, bdw, H, W)
     h = F.gelu(h.float(), approximate="tanh").to(dt)
-    return (x.float() + _linear(h, w2, b2)).to(dt)
+    return _residual(x, _linear(h, w2, b2), m)
 
 
 def fused_mit_block_plain(x, k, v, weights, *, heads, H, W):
@@ -132,6 +143,105 @@ def fused_mit_stage_plain(x, base, sw, *, heads, H, W, sr):
         x = _mlp_residual(x, sw["ln2"][d, 0], sw["ln2"][d, 1], sw["w1"][d], sw["b1"][d],
                           sw["wdw"][d], sw["bdw"][d], sw["w2"][d], sw["b2"][d], H, W)
     return x
+
+
+# -- training block: plain versions ----------------------------------------
+# fused_mit_block_train (surgical_tpu/kernels/mit_block.py:1766) for the
+# frozen-trunk recipe: the forward takes xln = LN1(x) as an input, scales
+# each residual branch per image by the DropPath factors m1, m2 [B] (0 or
+# 1/keep, fp32), and keeps the post-attention residual x1 for the backward.
+# The backward gives the input gradients dx, dxln, dk, dv only: the block
+# weights are frozen and the masks are data. The plain backward is written
+# out with the Pallas bodies' rounding points, not taken by autograd.
+
+def fused_mit_block_train_fwd_plain(x, xln, k, v, weights, m1, m2, *, heads, H, W):
+    """Plain version of the train-forward kernel: (y, x1), both [B, N, C]."""
+    w = weights
+    x1 = _attn_residual(x, xln, k, v, w["wq"], w["bq"], w["wo"], w["bo"], heads, m1)
+    y = _mlp_residual(x1, w["ln2_scale"], w["ln2_bias"], w["w1"], w["b1"], w["wdw"],
+                      w["bdw"], w["w2"], w["b2"], H, W, m2)
+    return y, x1
+
+
+def _gelu_tanh_grad(x32):
+    """d/dx of the tanh-form GELU (mit_block.py::_gelu_tanh_grad)."""
+    c = math.sqrt(2.0 / math.pi)
+    t = torch.tanh(c * (x32 + 0.044715 * x32 * x32 * x32))
+    dinner = c * (1.0 + 3 * 0.044715 * x32 * x32)
+    return 0.5 * (1.0 + t) + 0.5 * x32 * (1.0 - t * t) * dinner
+
+
+def _dwconv3x3_t(g, wdw, H, W):
+    """Input gradient of ``_dwconv3x3`` (mit_block.py::_dwconv3x3_T): the
+    flipped-tap conv out[y, x] = sum_k g[y - dy_k, x - dx_k] * w_k over the
+    in-grid sources, fp32 accumulate in tap order, rounded to g.dtype."""
+    B, N, Ch = g.shape
+    gp = F.pad(g.float().reshape(B, H, W, Ch), (0, 0, 1, 1, 1, 1))
+    acc = torch.zeros(B, H, W, Ch, dtype=torch.float32, device=g.device)
+    k = 0
+    for dy in (-1, 0, 1):
+        for dx in (-1, 0, 1):
+            acc = acc + gp[:, 1 - dy:1 - dy + H, 1 - dx:1 - dx + W] * wdw[k].float()
+            k += 1
+    return acc.to(g.dtype).reshape(B, N, Ch)
+
+
+def _mlp_bwd_plain(h2ln, dmlp, w, *, H, W):
+    """Plain version of the MLP-backward kernel: recompute fc1 and the
+    dwconv, then dh2ln = dwconv^T((dmlp w2^T) * gelu'(hd)) w1^T in fp32."""
+    dt = h2ln.dtype
+    a1 = _linear(h2ln, w["w1"], w["b1"]).to(dt)
+    hd = _dwconv3x3(a1, w["wdw"], w["bdw"], H, W)
+    dh = ((dmlp.float() @ w["w2"].float().t()) * _gelu_tanh_grad(hd.float())).to(dt)
+    return _dwconv3x3_t(dh, w["wdw"], H, W).float() @ w["w1"].float().t()
+
+
+def _attn_bwd_plain(xln, k, v, dx1, m1, w, *, heads):
+    """Plain version of the attention-backward kernel: (dxln, dk, dv)."""
+    dt = xln.dtype
+    B, N, C = xln.shape
+    Nkv, hd = k.shape[1], C // heads
+    scale = 1.0 / math.sqrt(hd)
+    q = _linear(xln, w["wq"], w["bq"]).to(dt)
+    dattn = (dx1.float() * m1.float()[:, None, None]).to(dt)
+    dctx = (dattn.float() @ w["wo"].float().t()).to(dt)
+    split = lambda t, n: t.float().reshape(B, n, heads, hd).transpose(1, 2)
+    qh, kh, vh, dch = split(q, N), split(k, Nkv), split(v, Nkv), split(dctx, N)
+    P = torch.softmax((qh @ kh.transpose(-1, -2)) * scale, dim=-1)
+    dP = dch @ vh.transpose(-1, -2)
+    dv = P.to(dt).float().transpose(-1, -2) @ dch
+    dS = (P * (dP - (dP * P).sum(-1, keepdim=True)) * scale).to(dt).float()
+    merge = lambda t, n: t.transpose(1, 2).reshape(B, n, C).to(dt)
+    dq = merge(dS @ kh, N)
+    dxln = (dq.float() @ w["wq"].float().t()).to(dt)
+    return dxln, merge(dS.transpose(-1, -2) @ qh, Nkv), merge(dv, Nkv)
+
+
+def _block_train_bwd(x1, xln, k, v, w, m1, m2, dy, *, heads, H, W, mlp_bwd, attn_bwd):
+    """The backward around its two halves (mit_block.py:1665-1760): the
+    LayerNorm-2 statistics and backward in plain ops, as the JAX package
+    runs them in XLA between its two kernels. (dx, dxln, dk, dv)."""
+    dt = x1.dtype
+    x32 = x1.float()
+    mu = x32.mean(-1, keepdim=True)
+    var = ((x32 - mu) ** 2).mean(-1, keepdim=True)
+    inv = torch.rsqrt(var + 1e-6)
+    hhat = (x32 - mu) * inv
+    gamma = w["ln2_scale"].float()
+    h2ln = (hhat * gamma + w["ln2_bias"].float()).to(dt)
+    dy32 = dy.float()
+    dmlp = (dy32 * m2.float()[:, None, None]).to(dt)
+    dhhat = mlp_bwd(h2ln, dmlp, w, H=H, W=W) * gamma
+    mh = dhhat.mean(-1, keepdim=True)
+    mh2 = (dhhat * hhat).mean(-1, keepdim=True)
+    dx1 = (dy32 + inv * (dhhat - mh - hhat * mh2)).to(dt)
+    return (dx1, *attn_bwd(xln, k, v, dx1, m1, w, heads=heads))
+
+
+def fused_mit_block_train_bwd_plain(x1, xln, k, v, weights, m1, m2, dy, *, heads, H, W):
+    """Plain version of the whole backward: (dx, dxln, dk, dv)."""
+    return _block_train_bwd(x1, xln, k, v, weights, m1, m2, dy, heads=heads, H=H, W=W,
+                            mlp_bwd=_mlp_bwd_plain, attn_bwd=_attn_bwd_plain)
 
 
 # -- weights ----------------------------------------------------------------
@@ -192,9 +302,9 @@ def stage_weights_from_params(model, stage: int, dtype=torch.bfloat16) -> dict:
 
 # -- wrappers -----------------------------------------------------------------
 
-def _ptr(t: torch.Tensor, shape, name: str) -> int:
-    if t.dtype != torch.bfloat16 or not t.is_cuda or not t.is_contiguous():
-        raise ValueError(f"{name}: kernel takes contiguous bf16 CUDA tensors, got "
+def _ptr(t: torch.Tensor, shape, name: str, dtype=torch.bfloat16) -> int:
+    if t.dtype != dtype or not t.is_cuda or not t.is_contiguous():
+        raise ValueError(f"{name}: kernel takes contiguous {dtype} CUDA tensors, got "
                          f"{t.dtype} on {t.device}, contiguous={t.is_contiguous()}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: shape {tuple(t.shape)} != {tuple(shape)}")
@@ -304,7 +414,139 @@ def fused_mit_stage(x, base, sw, *, heads: int, H: int, W: int, sr: int):
 fused_mit_stage.launches = 0
 
 
+def block_train_forward(x, xln, k, v, weights, m1, m2, *, heads: int, H: int, W: int):
+    """The train-forward kernel: (y, x1) from x, xln = LN1(x) [B, N, C], k/v
+    [B, Nkv, C] and the DropPath factors m1, m2 [B] (fp32)."""
+    if x.device.type == "cpu":
+        return fused_mit_block_train_fwd_plain(x, xln, k, v, weights, m1, m2,
+                                               heads=heads, H=H, W=W)
+    if not x.is_cuda:
+        raise ValueError(f"block_train_forward: no kernel for device {x.device}")
+    B, N, C = x.shape
+    Nkv = k.shape[1]
+    hidden = weights["w1"].shape[1]
+    _check_dims(C, heads, Nkv, hidden, H, W, x)
+    w = weights
+    y, x1 = torch.empty_like(x), torch.empty_like(x)
+    new = lambda width: torch.empty(B * N, width, dtype=x.dtype, device=x.device)
+    q, ctx, hid, act = new(C), new(C), new(hidden), new(hidden)
+    err = _build.load().mit_block_train_forward(
+        _ptr(x, (B, N, C), "x"), _ptr(xln, (B, N, C), "xln"),
+        _ptr(k, (B, Nkv, C), "k"), _ptr(v, (B, Nkv, C), "v"),
+        _ptr(m1, (B,), "m1", torch.float32), _ptr(m2, (B,), "m2", torch.float32),
+        _ptr(w["wq"], (C, C), "wq"), _ptr(w["bq"], (C,), "bq"),
+        _ptr(w["wo"], (C, C), "wo"), _ptr(w["bo"], (C,), "bo"),
+        _ptr(w["ln2_scale"], (C,), "ln2_scale"), _ptr(w["ln2_bias"], (C,), "ln2_bias"),
+        _ptr(w["w1"], (C, hidden), "w1"), _ptr(w["b1"], (hidden,), "b1"),
+        _ptr(w["wdw"], (9, hidden), "wdw"), _ptr(w["bdw"], (hidden,), "bdw"),
+        _ptr(w["w2"], (hidden, C), "w2"), _ptr(w["b2"], (C,), "b2"),
+        q.data_ptr(), ctx.data_ptr(), hid.data_ptr(), act.data_ptr(), x1.data_ptr(),
+        y.data_ptr(), B, H, W, C, heads, Nkv, hidden,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, "mit_block_train_forward")
+    block_train_forward.launches += 1
+    return y, x1
+
+
+block_train_forward.launches = 0
+
+
+def block_train_mlp_backward(h2ln, dmlp, weights, *, H: int, W: int):
+    """The MLP-backward kernel: dh2ln [B, N, C] fp32 from h2ln = LN2(x1) and
+    dmlp = m2 * dy (both [B, N, C])."""
+    if h2ln.device.type == "cpu":
+        return _mlp_bwd_plain(h2ln, dmlp, weights, H=H, W=W)
+    if not h2ln.is_cuda:
+        raise ValueError(f"block_train_mlp_backward: no kernel for device {h2ln.device}")
+    B, N, C = h2ln.shape
+    hidden = weights["w1"].shape[1]
+    if C % 8 or hidden % 8 or N != H * W:
+        raise ValueError(f"kernel takes C % 8 == hidden % 8 == 0 and N == H*W: "
+                         f"C={C}, hidden={hidden}, N={N}, H={H}, W={W}")
+    w = weights
+    buf_a, buf_b = (torch.empty(B * N, hidden, dtype=h2ln.dtype, device=h2ln.device)
+                    for _ in range(2))
+    dh2ln = torch.empty(B, N, C, dtype=torch.float32, device=h2ln.device)
+    err = _build.load().mit_block_train_mlp_backward(
+        _ptr(h2ln, (B, N, C), "h2ln"), _ptr(dmlp, (B, N, C), "dmlp"),
+        _ptr(w["w1"], (C, hidden), "w1"), _ptr(w["b1"], (hidden,), "b1"),
+        _ptr(w["wdw"], (9, hidden), "wdw"), _ptr(w["bdw"], (hidden,), "bdw"),
+        _ptr(w["w2"], (hidden, C), "w2"), buf_a.data_ptr(), buf_b.data_ptr(),
+        dh2ln.data_ptr(), B, H, W, C, hidden, torch.cuda.current_stream(h2ln.device).cuda_stream)
+    _build.check(err, "mit_block_train_mlp_backward")
+    block_train_mlp_backward.launches += 1
+    return dh2ln
+
+
+block_train_mlp_backward.launches = 0
+
+
+def block_train_attn_backward(xln, k, v, dx1, m1, weights, *, heads: int):
+    """The attention-backward kernel: (dxln, dk, dv) from xln, k, v, the
+    residual gradient dx1 [B, N, C] and m1 [B]."""
+    if xln.device.type == "cpu":
+        return _attn_bwd_plain(xln, k, v, dx1, m1, weights, heads=heads)
+    if not xln.is_cuda:
+        raise ValueError(f"block_train_attn_backward: no kernel for device {xln.device}")
+    B, N, C = xln.shape
+    Nkv = k.shape[1]
+    if C != heads * HEAD_DIM or Nkv > MAX_KV or C % 8:
+        raise ValueError(f"kernel takes head_dim {HEAD_DIM}, at most {MAX_KV} keys and "
+                         f"C % 8 == 0: C={C}, heads={heads}, Nkv={Nkv}")
+    w = weights
+    q, dctx, dq, dxln = (torch.empty_like(xln) for _ in range(4))
+    dk_ws, dv_ws = (torch.zeros(B, Nkv, C, dtype=torch.float32, device=xln.device)
+                    for _ in range(2))
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    err = _build.load().mit_block_train_attn_backward(
+        _ptr(xln, (B, N, C), "xln"), _ptr(k, (B, Nkv, C), "k"), _ptr(v, (B, Nkv, C), "v"),
+        _ptr(dx1, (B, N, C), "dx1"), _ptr(m1, (B,), "m1", torch.float32),
+        _ptr(w["wq"], (C, C), "wq"), _ptr(w["bq"], (C,), "bq"), _ptr(w["wo"], (C, C), "wo"),
+        q.data_ptr(), dctx.data_ptr(), dq.data_ptr(), dk_ws.data_ptr(), dv_ws.data_ptr(),
+        dxln.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, N, C, heads, Nkv,
+        torch.cuda.current_stream(xln.device).cuda_stream)
+    _build.check(err, "mit_block_train_attn_backward")
+    block_train_attn_backward.launches += 1
+    return dxln, dk, dv
+
+
+block_train_attn_backward.launches = 0
+
+
+class _FusedBlockTrain(torch.autograd.Function):
+    """The JAX custom VJP ``_fused_block_train`` (mit_block.py:1608-1763):
+    the forward kernel saves x1; the backward runs the MLP-backward kernel,
+    the plain LayerNorm-2 backward, then the attention-backward kernel."""
+
+    @staticmethod
+    def forward(ctx, x, xln, k, v, m1, m2, weights, heads, H, W):
+        y, x1 = block_train_forward(x, xln, k, v, weights, m1, m2, heads=heads, H=H, W=W)
+        ctx.save_for_backward(x1, xln, k, v, m1, m2)
+        ctx.weights, ctx.dims = weights, (heads, H, W)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x1, xln, k, v, m1, m2 = ctx.saved_tensors
+        heads, H, W = ctx.dims
+        dx, dxln, dk, dv = _block_train_bwd(
+            x1, xln, k, v, ctx.weights, m1, m2, dy.contiguous(), heads=heads, H=H, W=W,
+            mlp_bwd=block_train_mlp_backward, attn_bwd=block_train_attn_backward)
+        # frozen weights and data masks: no gradient (JAX returns zeros there)
+        return dx, dxln, dk, dv, None, None, None, None, None, None
+
+
+def fused_mit_block_train(x, xln, k, v, weights, m1, m2, *, heads: int, H: int, W: int):
+    """Differentiable MiT block for frozen-trunk training: x [B, N, C], xln =
+    LN1(x), k/v [B, Nkv, C], DropPath factors m1, m2 [B] -> y [B, N, C].
+    Gradients reach x, xln, k and v; the block weights get none."""
+    return _FusedBlockTrain.apply(x, xln, k, v, m1, m2, weights, heads, H, W)
+
+
 def reset_launches() -> None:
     """Set every wrapper's launch count to 0."""
     fused_mit_block.launches = 0
     fused_mit_stage.launches = 0
+    block_train_forward.launches = 0
+    block_train_mlp_backward.launches = 0
+    block_train_attn_backward.launches = 0

@@ -195,6 +195,36 @@ def load_evp_params(model, params: Mapping, batch_stats: Mapping) -> None:
     model.load_state_dict(to_torch(export_evp_state_dict(params, batch_stats)), strict=True)
 
 
+def load_torch_pth(path: str) -> dict:
+    """A reference ``.pth`` state dict (a ``{"state_dict": ...}`` wrapper
+    unwrapped, DataParallel ``module.`` prefixes stripped)."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(sd, dict) and "state_dict" in sd:
+        sd = sd["state_dict"]
+    return {k.removeprefix("module."): v for k, v in sd.items()}
+
+
+_TRUNK = ("patch_embed", "block", "norm")
+
+
+def load_mit_trunk(model, sd: Mapping) -> list[str]:
+    """Load the trunk keys of an ImageNet SegFormer ``mit_b*.pth``
+    (``patch_embed{s}``, ``block{s}``, ``norm{s}``) into a port ``MiTEVP``
+    by key name; every other key (the ImageNet head) is dropped and the
+    prompt generator, flow encoder, fusions and head keep their init: the
+    reference's strict=False partial load (train_evp.py:365-375). Raises on
+    a trunk key the model lacks or whose shape differs. Returns the loaded
+    keys."""
+    own = model.state_dict()
+    trunk = {k: v for k, v in sd.items() if k.split(".")[0].rstrip("1234") in _TRUNK}
+    for k, v in trunk.items():
+        if k not in own or tuple(own[k].shape) != tuple(v.shape):
+            raise KeyError(f"trunk key {k} {tuple(v.shape)} does not fit the model "
+                           f"({tuple(own[k].shape) if k in own else 'absent'})")
+    model.load_state_dict({k: torch.as_tensor(v) for k, v in trunk.items()}, strict=False)
+    return sorted(trunk)
+
+
 def load_mstcn_params(model, params: Mapping) -> None:
     """Load JAX ``MultiStageTCN`` params into a port ``MultiStageTCN``."""
     cfg = model.cfg

@@ -1,4 +1,4 @@
-"""Where the time goes on the port's main path, on one CUDA GPU.
+"""Where the time goes on the port's paths, on one CUDA GPU.
 
     python3 -m surgical_tpu_torch.profile_extract [--out chiprun_out/profile_extract.json]
 
@@ -13,7 +13,11 @@ wire-format frames, it measures:
 - MS-TCN + refiner and Mamba + refiner latency per video at T = 200 / 2000 /
   6000 (median of 7), and for one T = 2000 and one T = 6000 run of each the
   device kernel count, busy time, idle share and the selective-scan kernel's
-  share.
+  share;
+- backbone training with the fused trunk (``BackboneTrainer(use_fused=True)``,
+  b3, batch 88, 224 crop, SGD): step ms (median of 5 after 2 warm-up steps)
+  and peak memory, and a trace of 3 steps: device time by kernel kind, the
+  three train kernels' share, and the idle share.
 
 It prints one line per measurement and writes them all to ``--out`` as JSON.
 """
@@ -30,13 +34,16 @@ import numpy as np
 import torch
 
 SEED, BATCH, RUN_BATCHES, RUNS = 0, 200, 6, 5
+TRAIN_B, TRAIN_STEPS, TRAIN_TRACED = 88, 7, 3  # step time over 5 steps after 2 warm-ups
 
 # (kind, substrings of the device kernel name), first match wins
 KINDS = (
     ("selective scan kernel", ("selective_scan_kernel",)),
     ("block/stage GEMMs (gemm_bf16)", ("gemm_bf16",)),
     ("attention kernel", ("attention_kernel",)),
-    ("dwconv + GELU kernel", ("dwconv_gelu",)),
+    ("attention backward kernel", ("attention_bwd_kernel",)),
+    ("dwconv kernels (+ GELU; transposed)", ("dwconv3x3",)),
+    ("dk/dv fp32 -> bf16 kernel", ("f32_to_bf16",)),
     ("stage LN / SR regroup kernels", ("layernorm_kernel", "sr_patches")),
     ("H2D copy", ("Memcpy HtoD",)),
     ("D2H copy", ("Memcpy DtoH",)),
@@ -70,6 +77,80 @@ def _busy_us(events) -> float:
             busy += t - max(s, end)
             end = t
     return busy
+
+
+def _trace_by_kind(evs, wall_us) -> dict:
+    by_kind = {}
+    for e in evs:
+        k = _kind(e.name)
+        by_kind[k] = by_kind.get(k, 0.0) + (e.time_range.end - e.time_range.start)
+    busy = _busy_us(evs)
+    return {"wall_ms": wall_us / 1e3, "busy_ms": busy / 1e3, "idle_share": 1 - busy / wall_us,
+            "ms_by_kind": {k: v / 1e3 for k, v in sorted(by_kind.items(), key=lambda kv: -kv[1])}}
+
+
+def _print_kinds(prefix, trace):
+    total = sum(trace["ms_by_kind"].values())
+    for k, v in trace["ms_by_kind"].items():
+        print(f"{prefix}: {100 * v / total:5.1f}% {v:9.3f} ms  {k}")
+
+
+def profile_train(dev, acts) -> dict:
+    """BackboneTrainer(use_fused=True) at b3, batch 88, on seeded 250-px wire
+    batches held on the host: step time, peak memory, and one trace."""
+    from surgical_tpu_torch.core.config import BackboneConfig, HeadConfig, OptimConfig, TrainConfig
+    from surgical_tpu_torch.kernels import mit_block as mb
+    from surgical_tpu_torch.models.mit_evp import MiTEVP
+    from surgical_tpu_torch.train.backbone import BackboneTrainer
+
+    model = MiTEVP(BackboneConfig(), HeadConfig(), seed=SEED, device=dev)
+    trainer = BackboneTrainer(model, TrainConfig(optim=OptimConfig(
+        name="sgd", lr=1e-3, weight_decay=0.0, grad_clip_norm=None)), use_fused=True)
+    trainer.init()
+    rng = np.random.default_rng(SEED + 1)
+    r = trainer.aug_cfg.resize
+    batches = [(rng.integers(0, 256, (TRAIN_B, r, r, 3), dtype=np.uint8),
+                rng.integers(0, 256, (TRAIN_B, r, r, 1), dtype=np.uint8),
+                rng.standard_normal((TRAIN_B, r, r, 2), dtype=np.float32).astype(np.float16),
+                rng.integers(0, 7, TRAIN_B).astype(np.int32),
+                rng.uniform(0, 1, (TRAIN_B, 7)).astype(np.float32)) for _ in range(2)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    trainer.train_epoch((batches[i % 2] for i in range(TRAIN_STEPS)), 0)
+    steps = trainer.step_ms[2:]
+    med = float(np.median(steps))
+    res = {"batch": TRAIN_B, "step_ms": med, "step_ms_runs": steps,
+           "frames_per_s": TRAIN_B / med * 1e3,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    print(f"train b3 B={TRAIN_B}: step {med:.3f} ms (median of {len(steps)} after 2 warm-up: "
+          + ", ".join(f"{v:.2f}" for v in steps) + f") = {res['frames_per_s']:.1f} frames/s, "
+          f"peak {res['peak_gib']:.2f} GiB")
+    mb.reset_launches()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        trainer.train_epoch((batches[i % 2] for i in range(TRAIN_TRACED)), 1)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    evs = _device_events(prof)
+    trace = _trace_by_kind(evs, wall_us)
+    # the three train kernels: their GEMMs, dwconvs, attention backward and
+    # rounding run under the wrappers' launches (the serving kernels do not
+    # run in a train step)
+    mine = ("gemm_bf16", "attention_kernel", "attention_bwd_kernel", "dwconv3x3", "f32_to_bf16")
+    kern_us = sum(e.time_range.end - e.time_range.start for e in evs
+                  if any(k in e.name for k in mine))
+    trace.update(steps=TRAIN_TRACED, kernels=len(evs), train_kernels_ms=kern_us / 1e3,
+                 train_kernels_share=kern_us / 1e3 / trace["busy_ms"],
+                 launches={"forward": mb.block_train_forward.launches,
+                           "mlp_backward": mb.block_train_mlp_backward.launches,
+                           "attn_backward": mb.block_train_attn_backward.launches})
+    res["trace"] = trace
+    print(f"train trace: {TRAIN_TRACED} steps, {len(evs)} device kernels, wall "
+          f"{trace['wall_ms']:.2f} ms, busy {trace['busy_ms']:.2f} ms, idle share "
+          f"{trace['idle_share']:.4f}; train kernels {trace['train_kernels_ms']:.2f} ms = "
+          f"{100 * trace['train_kernels_share']:.1f}% of busy; launches {trace['launches']}")
+    _print_kinds("train trace", trace)
+    return res
 
 
 def _median_fps(run, reps=RUNS):
@@ -131,20 +212,11 @@ def main() -> int:
     evs = _device_events(prof)
     if not evs:
         raise AssertionError("the profiler saw no device kernels")
-    by_kind = {}
-    for e in evs:
-        k = _kind(e.name)
-        by_kind[k] = by_kind.get(k, 0.0) + (e.time_range.end - e.time_range.start)
-    busy = _busy_us(evs)
-    total = sum(by_kind.values())
-    res["trace"] = {"frames": n, "wall_ms": wall_us / 1e3, "busy_ms": busy / 1e3,
-                    "idle_share": 1 - busy / wall_us,
-                    "ms_by_kind": {k: v / 1e3 for k, v in sorted(by_kind.items(),
-                                                                 key=lambda kv: -kv[1])}}
-    print(f"trace: {n} frames, wall {wall_us / 1e3:.2f} ms, device busy {busy / 1e3:.2f} ms, "
-          f"idle share {1 - busy / wall_us:.4f}")
-    for k, v in res["trace"]["ms_by_kind"].items():
-        print(f"trace: {100 * v * 1e3 / total:5.1f}% {v:9.3f} ms  {k}")
+    res["trace"] = {"frames": n, **_trace_by_kind(evs, wall_us)}
+    t = res["trace"]
+    print(f"trace: {n} frames, wall {t['wall_ms']:.2f} ms, device busy {t['busy_ms']:.2f} ms, "
+          f"idle share {t['idle_share']:.4f}")
+    _print_kinds("trace", t)
 
     refiner = RefinementTransformer(RefinerConfig(), seed=SEED + 2, device=dev)
     for name, temporal in (("mstcn", MultiStageTCN(MSTCNConfig(), seed=SEED + 1, device=dev)),
@@ -180,6 +252,8 @@ def main() -> int:
             print(f"{name} + refiner: T = {T} trace: {len(evs)} device kernels, wall "
                   f"{wall_us / 1e3:.3f} ms, busy {busy / 1e3:.3f} ms, idle share "
                   f"{1 - busy / wall_us:.4f}, selective scan {scan_us / 1e3:.3f} ms")
+
+    res["train"] = profile_train(dev, acts)
 
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:

@@ -107,6 +107,57 @@ def test_logits_match_jax(setup):
         assert np.corrcoef(g.float().numpy().ravel(), w.ravel())[0, 1] > 0.999
 
 
+def test_trainer_evaluate_runs_the_serving_graph_like_jax(setup):
+    """BackboneTrainer.evaluate runs the serving graph: its logits are held
+    to JAX's fused_forward on the same wire batch, dequantized (bf16) and
+    centre-cropped as the JAX trainer's eval step does, not to the flax graph
+    that step applies (a known difference, ROADMAP Queue 3); its metrics are
+    the JAX package's metric functions of those logits."""
+    from surgical_tpu.data import transforms as jtf
+    from surgical_tpu.eval import metrics as jmetrics
+    from surgical_tpu_torch.core.config import TrainConfig
+    from surgical_tpu_torch.data.transforms import AugConfig
+    from surgical_tpu_torch.train.backbone import BackboneTrainer
+
+    variables, model, *_ = setup
+    rng = np.random.default_rng(3)
+    r, crop = CFG.img_size + 8, CFG.img_size
+    img = rng.integers(0, 256, (B, r, r, 3), dtype=np.uint8)
+    seg = rng.integers(0, 256, (B, r, r, 1), dtype=np.uint8)
+    flow = rng.standard_normal((B, r, r, 2)).astype(np.float16)
+    labels = rng.integers(0, HEAD.num_phases, B).astype(np.int32)
+    ant = rng.uniform(0, 1, (B, HEAD.num_phases)).astype(np.float32)
+
+    bf = jnp.bfloat16
+    jimg = jnp.asarray(img).astype(bf) / jnp.asarray(255.0, bf)
+    jseg = jnp.broadcast_to(jnp.asarray(seg).astype(bf) / jnp.asarray(255.0, bf), jimg.shape)
+    want = jax_fused_interpret(variables, *jtf.eval_preprocess_clip(
+        jimg, jseg, jnp.asarray(flow).astype(bf), jtf.AugConfig(resize=r, crop=crop)),
+        return_features=False)
+
+    trainer = BackboneTrainer(model, TrainConfig(), aug_cfg=AugConfig(resize=r, crop=crop),
+                              use_fused=True)
+    got = trainer.eval_step(img, seg, flow)
+    for g, w in zip(got, want):
+        w = np.asarray(w, np.float32)
+        assert g.dtype == torch.float32 and g.shape == w.shape == (B, HEAD.num_phases)
+        assert np.corrcoef(g.numpy().ravel(), w.ravel())[0, 1] > 0.999
+
+    metrics = trainer.evaluate([(img, seg, flow, labels, ant)], num_each=[B // 2, B // 2])
+    pred = got[0].argmax(-1).numpy()
+    triad = jmetrics.MAETriad(horizon=TrainConfig().horizon)
+    triad.update(got[1].numpy(), ant)
+    prj = jmetrics.precision_recall_jaccard(labels, pred)
+    ref = {"acc": jmetrics.frame_accuracy(labels, pred), **triad.result(),
+           **{k: v for k, v in prj.items() if np.isscalar(v)},
+           "acc_video": float(np.mean([jmetrics.frame_accuracy(labels[i:i + B // 2],
+                                                               pred[i:i + B // 2])
+                                       for i in (0, B // 2)]))}
+    assert metrics.keys() == ref.keys()
+    for k, v in ref.items():
+        np.testing.assert_allclose(metrics[k], v, rtol=1e-12, err_msg=k)
+
+
 def test_kernel_weights_cached_until_parameters_change():
     """Built once per parameter state: the same dicts on a second call, new
     ones holding the new values after load_state_dict."""
