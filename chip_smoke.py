@@ -9,7 +9,8 @@ nonzero without printing a result:
 2. build: the Hopper kernels from ``surgical_tpu_torch/csrc`` (nvcc, sm_90a);
 3. kernel checks: each kernel against its plain PyTorch version on the card
    at the main paths' shapes, with timings and the card's bound for the same
-   work: the MiT serving kernels in bf16 (MiT-b3, 224x224, B=8), the
+   work: the MiT serving kernels in bf16 (MiT-b3, 224x224, B=8; packed2 at
+   stage 1 with row_chunks 1 and 2, beside the block kernel's time), the
    selective scan in fp32 (d_inner 128, d_state 64; 2000 and 6000 frames,
    and 3 ragged videos of 777), and the three kernels of the training block
    in bf16 at the four b3 stages (B=8, DropPath factors with zeros);
@@ -17,7 +18,10 @@ nonzero without printing a result:
    synthetic 200-frame videos in the wire format -> make_raw_feature_fn ->
    extract_to_store -> predict_and_write -> relaxed evaluation, with the
    kernel launch counts of that run and the kernel-vs-plain feature cosine;
-   then the extraction rate over 3 runs of 12 batches of 200 frames;
+   then the same batches with ``mit_fused._ROUTE_PACKED2`` set (3 packed2,
+   22 block and 1 stage launches per batch; feature cosine against the
+   route-off features), and the extraction rate over 3 runs of 12 batches
+   of 200 frames with the route off and on in turns;
 5. temporal serving slice: seeded random Mamba (``MambaConfig()``) and
    refiner weights saved through ``CheckpointStore`` into a work dir whose
    ``val`` split is the extraction slice's three videos and whose ``test``
@@ -32,7 +36,15 @@ nonzero without printing a result:
    step time, peak memory, a frozen trunk, moved trainable tensors and
    BatchNorm statistics, a checkpoint round trip with the optimizer state,
    and one step's loss and gradients against the plain train kernels;
-7. result: a JSON line of per-kernel numbers, the card line, and the last line
+7. extraction CLI at b3 widths through ``cli.main`` on 250-px frames: a
+   synthetic Cholec80-layout corpus of 4 videos, ``prepare-data --scheme
+   smoke``, a seeded ``FrameCache`` per split (``cache-frames`` too where
+   Pillow is importable), seeded models saved as reference ``.pth`` files,
+   ``extract-features --pretrained-evp --frame-cache --reference-pickles``
+   (each store against ``extract_features`` on the same frames, the pickles
+   read back), ``reference-parity --online`` on those stores (finite
+   metrics, online/offline agreement), and the seconds of each verb;
+8. result: a JSON line of per-kernel numbers, the card line, and the last line
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -101,6 +113,9 @@ SCAN_SHAPES = ((1, 2000), (1, 6000), (3, 777))
 # outputs up to |y| ~ 46).
 SCAN_BOUNDS = (1e-6, 5e-5)
 TEST_LENGTHS = (2000, 6000)        # the temporal slice's test videos (Cholec80 lengths)
+# The extraction CLI phase's videos in 1-fps frames: the smoke split makes
+# videos 1-2 train, 3 val and 4 test; ragged last batches at batch 200.
+CLI_LENGTHS = (150, 120, 200, 230)
 # Max abs logits, streaming vs offline Mamba + refiner on the val videos, both
 # fp32: a few times the H100 reading (7.2e-7).
 ONLINE_BOUND = 5e-6
@@ -295,6 +310,38 @@ def phase_kernel_checks() -> dict:
         block_rows.append({"shape": shape, "rel_l2": rel, "max_abs_err": mx, "ms": ms,
                            "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by})
     res["block"] = block_rows
+
+    # packed2 at b3 stage 1: image pairs in 128-wide rows, the packed
+    # weights of pack_weights2, at row_chunks 1 and 2 (the route's rule for
+    # the 56x56 grid); the bound is the function's work, block_work's
+    C, side, Nkv, hidden = 64, 56, 49, 256
+    N = side * side
+    x, k, v = _rand(rng, (B, N, C)), _rand(rng, (B, Nkv, C)), _rand(rng, (B, Nkv, C))
+    w = _block_weights(rng, C, hidden)
+    packed = mb.pack_weights2(w)
+    nbytes, flops = block_work(B, N, C, Nkv, hidden)
+    bms, by = bound_ms(nbytes, flops / BF16_FLOPS)
+    block_ms = time_ms(lambda: mb.fused_mit_block(x, k, v, w, heads=1, H=side, W=side))
+    unpacked = mb.fused_mit_block(x, k, v, w, heads=1, H=side, W=side)
+    packed_rows = []
+    for rc in (1, 2):
+        kw = dict(H=side, W=side, row_chunks=rc)
+        got = mb.fused_mit_block_packed2(x, k, v, packed, **kw)
+        want = mb.fused_mit_block_packed2_plain(x, k, v, packed, **kw)
+        torch.cuda.synchronize()
+        shape = f"stage1 [B={B}, N={N}, C={C}, Nkv={Nkv}, hidden={hidden}, row_chunks={rc}]"
+        rel, mx = _compare(f"packed2 {shape}", got, want, 1)
+        vs_block = _errors("packed2", got, unpacked)
+        ms = time_ms(lambda: mb.fused_mit_block_packed2(x, k, v, packed, **kw))
+        plain_ms = time_ms(lambda: mb.fused_mit_block_packed2_plain(x, k, v, packed, **kw))
+        print(f"time packed2 rc={rc}: kernel {ms:.4f} ms plain {plain_ms:.4f} ms bound "
+              f"{bms:.4f} ms ({by}: {nbytes / 1e6:.2f} MB, {flops / 1e9:.2f} GFLOP) | "
+              f"mit_block_forward on the same unpacked inputs {block_ms:.4f} ms (outputs "
+              f"rel L2 {vs_block[0]:.3e}, max abs {vs_block[1]:.3e} apart)")
+        packed_rows.append({"shape": shape, "rel_l2": rel, "max_abs_err": mx, "ms": ms,
+                            "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+                            "block_ms": block_ms})
+    res["packed2"] = packed_rows
 
     C, heads, side, depth, Cb, C4 = 512, 8, 7, 3, 128, 128
     N = side * side
@@ -548,22 +595,58 @@ def phase_slice(workdir: str) -> dict:
     agree = float((plain_preds == preds[0]).mean())
     print(f"slice: phase argmax agreement kernel vs plain path, video 1: {agree:.4f} (information)")
 
+    # the packed2 route: the same batches with mit_fused._ROUTE_PACKED2 set,
+    # so that stage 1 runs the lane-packed kernel (row_chunks 2 at 56x56)
+    mf._ROUTE_PACKED2 = True
+    try:
+        feature_fn(*batches[0])  # warm-up of the route's shapes
+        torch.cuda.synchronize()
+        mb.reset_launches()
+        route_feats, _ = extract_features(feature_fn, iter(batches), VIDEOS * FRAMES,
+                                          HeadConfig().embedding_dim, BATCH)
+        torch.cuda.synchronize()
+        route_launches = {"mit_block_packed2_forward": mb.fused_mit_block_packed2.launches,
+                          "mit_block_forward": mb.fused_mit_block.launches,
+                          "mit_stage_forward": mb.fused_mit_stage.launches}
+    finally:
+        mf._ROUTE_PACKED2 = False
+    want_route = {"mit_block_packed2_forward": 3 * n_batches,
+                  "mit_block_forward": 22 * n_batches, "mit_stage_forward": n_batches}
+    print(f"slice: packed2 route: launches {route_launches} (expected {want_route})")
+    if route_launches != want_route:
+        raise AssertionError("the packed2 route did not launch the kernels as expected")
+    cos = torch.nn.functional.cosine_similarity(torch.tensor(route_feats), torch.tensor(feats),
+                                                dim=-1)
+    print(f"slice: per-frame cosine route on vs off features: min {cos.min().item():.6f} "
+          f"median {cos.median().item():.6f} (bound {COSINE_BOUND})")
+    if not np.isfinite(route_feats).all() or cos.min().item() < COSINE_BOUND:
+        raise AssertionError("the packed2 route's features disagree with the route-off path")
+
     # extraction rate over more batches than the slice holds: the same
-    # host batches in turn, through the same entry point
+    # host batches in turn, through the same entry point, with the packed2
+    # route off and on in turns
     n = THROUGHPUT_BATCHES * BATCH
-    rates = []
-    for _ in range(THROUGHPUT_RUNS):
-        cycled = (batches[i % n_batches] for i in range(THROUGHPUT_BATCHES))
-        feats, st = extract_features(feature_fn, cycled, n, HeadConfig().embedding_dim, BATCH)
-        if not np.isfinite(feats).all():
-            raise AssertionError("throughput run: features are not finite")
-        rates.append(st["fps"])
-    fps = float(np.median(rates))
-    print(f"throughput: extraction {THROUGHPUT_RUNS} runs of {THROUGHPUT_BATCHES} batches "
-          f"of {BATCH} frames, frames/s: " + ", ".join(f"{r:.1f}" for r in rates)
-          + f" (median {fps:.1f})")
-    return {"launches": launches, "fps": fps, "latency_ms": lat,
-            "lfb": os.path.join(workdir, "lfb"), "labels": labels}
+    rates = {False: [], True: []}
+    for run in range(THROUGHPUT_RUNS):
+        for route in ((False, True) if run % 2 == 0 else (True, False)):
+            cycled = (batches[i % n_batches] for i in range(THROUGHPUT_BATCHES))
+            mf._ROUTE_PACKED2 = route
+            try:
+                out, st = extract_features(feature_fn, cycled, n, HeadConfig().embedding_dim,
+                                           BATCH)
+            finally:
+                mf._ROUTE_PACKED2 = False
+            if not np.isfinite(out).all():
+                raise AssertionError("throughput run: features are not finite")
+            rates[route].append(st["fps"])
+    fps, fps_route = (float(np.median(rates[r])) for r in (False, True))
+    for route, med in ((False, fps), (True, fps_route)):
+        print(f"throughput: extraction, packed2 route {'on' if route else 'off'}, "
+              f"{THROUGHPUT_RUNS} runs of {THROUGHPUT_BATCHES} batches of {BATCH} frames, "
+              f"frames/s: " + ", ".join(f"{r:.1f}" for r in rates[route]) + f" (median {med:.1f})")
+    return {"launches": launches, "route_launches": route_launches, "fps": fps,
+            "fps_route": fps_route, "latency_ms": lat, "lfb": os.path.join(workdir, "lfb"),
+            "labels": labels}
 
 
 class _WireFrames:
@@ -572,13 +655,15 @@ class _WireFrames:
 
     resize, with_flow, ant_cols = 250, True, (8, 15)
 
-    def __init__(self, n, rng):
+    def __init__(self, n, rng, labels=None):
         r = self.resize
         self.img = rng.integers(0, 256, (n, r, r, 3), dtype=np.uint8)
         self.seg = rng.integers(0, 256, (n, r, r, 1), dtype=np.uint8)
         self.flow = rng.standard_normal((n, r, r, 2), dtype=np.float32).astype(np.float16)
-        self.labels = np.concatenate([rng.integers(0, 7, (n, 1)), rng.integers(0, 2, (n, 7)),
-                                      rng.uniform(0, 1, (n, 7))], 1).astype(np.float32)
+        if labels is None:
+            labels = np.concatenate([rng.integers(0, 7, (n, 1)), rng.integers(0, 2, (n, 7)),
+                                     rng.uniform(0, 1, (n, 7))], 1).astype(np.float32)
+        self.labels = labels
 
     def __len__(self):
         return len(self.img)
@@ -857,6 +942,143 @@ def phase_temporal(workdir: str, slice_res: dict) -> dict:
             "latency_plain_ms": lat_plain}
 
 
+def _write_phase_annotations(root: str, lengths, rng) -> None:
+    """Cholec80-layout annotations: phase_annotations/video<NN>-phase.txt,
+    one ``frame<TAB>Phase`` row per 25-fps frame, ``lengths`` 1-fps frames
+    per video, phases sorted as in a procedure."""
+    from surgical_tpu_torch.core.config import PHASE_NAMES
+
+    d = os.path.join(root, "phase_annotations")
+    os.makedirs(d, exist_ok=True)
+    for v, n in enumerate(lengths, start=1):
+        phases = np.sort(rng.integers(0, len(PHASE_NAMES), n * 25))
+        with open(os.path.join(d, f"video{v:02d}-phase.txt"), "w") as f:
+            f.write("Frame\tPhase\n")
+            f.writelines(f"{i}\t{PHASE_NAMES[p]}\n" for i, p in enumerate(phases))
+
+
+def _write_frames(root: str, paths, rng) -> None:
+    """Small JPEG frames and segmaps at the indexed paths (the Cholec80
+    layout: cutMargin/<v>/<frame>.jpg, segmaps under ss_Bimasks_pos_ep10)."""
+    from PIL import Image
+
+    for p in paths:
+        for path in (p, p.replace("cutMargin", "ss_Bimasks_pos_ep10")):
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            Image.fromarray(rng.integers(0, 256, (64, 64, 3), dtype=np.uint8)).save(path)
+
+
+def phase_extract_cli(workdir: str, cfg=None, head_cfg=None, model_flags=(), device="cuda",
+                      lengths=CLI_LENGTHS, batch=BATCH) -> dict:
+    """The extraction CLI at b3 widths (``BackboneConfig()``,
+    ``HeadConfig()``) through ``cli.main``: a synthetic Cholec80-layout
+    corpus -> ``prepare-data --scheme smoke``; a seeded ``FrameCache`` per
+    split written here (and ``cache-frames`` over JPEGs when Pillow is
+    importable); seeded port models saved as reference-format ``.pth``
+    files -> ``extract-features --pretrained-evp --frame-cache
+    --reference-pickles`` (each store against ``extract_features`` run
+    directly on the same frames, each pickle read back) -> ``reference-parity
+    --online`` on those stores. ``cfg``, ``head_cfg``, ``model_flags`` and
+    ``device`` size the phase down for a rehearsal on the CPU."""
+    from surgical_tpu_torch import cli
+    from surgical_tpu_torch.core.config import (BackboneConfig, HeadConfig, MSTCNConfig,
+                                                RefinerConfig)
+    from surgical_tpu_torch.data.datasets import FrameCache, prefetch_batches
+    from surgical_tpu_torch.data.feature_store import FeatureStore
+    from surgical_tpu_torch.models.mit_evp import MiTEVP
+    from surgical_tpu_torch.models.mstcn import MultiStageTCN
+    from surgical_tpu_torch.models.transsv import RefinementTransformer
+    from surgical_tpu_torch.train.extract import extract_features, make_raw_feature_fn
+
+    cfg, head_cfg = cfg or BackboneConfig(), head_cfg or HeadConfig()
+    rng = np.random.default_rng(SEED + 11)
+    root, work = os.path.join(workdir, "cli", "cholec80"), os.path.join(workdir, "cli", "work")
+    cache_root = os.path.join(work, "frame_cache")
+    seconds = {}
+
+    def run(verb, *args):
+        t = time.perf_counter()
+        if cli.main([verb, *args]) != 0:
+            raise AssertionError(f"cli {verb} failed")
+        if device == "cuda":
+            torch.cuda.synchronize()
+        seconds[verb] = time.perf_counter() - t
+
+    _write_phase_annotations(root, lengths, rng)
+    run("prepare-data", "--root", root, "--out", work, "--num-videos", str(len(lengths)),
+        "--scheme", "smoke")
+    idx = os.path.join(work, "index")
+    splits = ("train", "val", "test")
+    caches = {}
+    for split in splits:
+        labels = np.load(os.path.join(idx, f"{split}_labels.npy"))
+        caches[split] = FrameCache.build(_WireFrames(len(labels), rng, labels),
+                                         os.path.join(cache_root, split))
+    try:
+        import PIL  # noqa: F401
+        pil = True
+    except ImportError:
+        pil = False
+    if pil:
+        with open(os.path.join(idx, "val_paths.json")) as f:
+            _write_frames(root, json.load(f), rng)
+        run("cache-frames", "--work", work, "--out", os.path.join(work, "pil_cache"),
+            "--splits", "val")
+        fc = FrameCache(os.path.join(work, "pil_cache", "val"))
+        if (len(fc), fc.meta["resize"], fc.meta["with_flow"]) != (len(caches["val"]), 250, True):
+            raise AssertionError(f"cache-frames: {len(fc)} frames, meta {fc.meta}")
+    pil_note = ("importable: cache-frames ran on the val split's JPEGs" if pil
+                else "not importable: cache-frames not run")
+    print(f"cli: corpus of {len(lengths)} videos ({', '.join(map(str, lengths))} frames), "
+          f"index and seeded frame caches ready; Pillow {pil_note}")
+
+    ckpt = {name: os.path.join(workdir, "cli", f"{name}.pth")
+            for name in ("evp", "temporal", "refiner")}
+    evp = MiTEVP(cfg, head_cfg, seed=SEED + 12, device=device)
+    torch.save({k: v.cpu() for k, v in evp.state_dict().items()}, ckpt["evp"])
+    f_dim = head_cfg.embedding_dim
+    torch.save(MultiStageTCN(MSTCNConfig(f_dim=f_dim), seed=SEED + 13,
+                             device="cpu").state_dict(), ckpt["temporal"])
+    torch.save(RefinementTransformer(RefinerConfig(f_dim=f_dim), seed=SEED + 14,
+                                     device="cpu").state_dict(), ckpt["refiner"])
+
+    common = [*model_flags, "--batch-size", str(batch), "--device", device]
+    run("extract-features", "--work", work, *common, "--pretrained-evp", ckpt["evp"],
+        "--frame-cache", cache_root, "--reference-pickles")
+    feature_fn = make_raw_feature_fn(evp)
+    for split in splits:
+        fc = caches[split]
+        batches = (b[:3] for b in prefetch_batches(fc, np.arange(len(fc)), batch))
+        want, _ = extract_features(feature_fn, batches, len(fc), f_dim, batch)
+        store = FeatureStore.open(os.path.join(work, "lfb", split))
+        got = np.asarray(store.features)
+        pickled = FeatureStore.from_reference_pickle(
+            os.path.join(work, "lfb", f"evp_LFB_{split}.pkl"), store.lengths,
+            os.path.join(workdir, "cli", "from_pickle", split))
+        if got.shape != (len(fc), f_dim) or not np.array_equal(got, want):
+            raise AssertionError(f"{split}: the store differs from extract_features on its frames")
+        if not np.array_equal(np.asarray(pickled.features), got):
+            raise AssertionError(f"{split}: the reference pickle does not hold the store")
+    print("cli: extract-features stores equal extract_features on the same frames, "
+          "split by split; the reference pickles load")
+
+    run("reference-parity", "--root", root, "--work", work, *common, "--evp", ckpt["evp"],
+        "--temporal", ckpt["temporal"], "--refiner", ckpt["refiner"], "--num-videos",
+        str(len(lengths)), "--scheme", "smoke", "--online")
+    with open(os.path.join(work, "reference_parity.json")) as f:
+        report = json.load(f)
+    table = ("acc_frame", "acc_video", "inMAE", "pMAE", "eMAE", "relaxed_acc")
+    values = [report[s][k] for s in ("val", "test") for k in table]
+    agree = report["online_offline_agreement"]
+    print("cli: reference-parity report: " + ", ".join(
+        f"{s} {k} {report[s][k]:.4f}" for s in ("val", "test") for k in table)
+        + f"; online/offline agreement {agree:.4f} (random weights: finiteness is checked)")
+    if not np.isfinite(values).all() or agree < 0.999:
+        raise AssertionError(f"reference-parity: metrics {values}, agreement {agree}")
+    print("cli: seconds per verb: " + ", ".join(f"{v} {s:.3f}" for v, s in seconds.items()))
+    return {"seconds": seconds, "agreement": agree}
+
+
 def main() -> int:
     smi = phase_toolchain()
     phase_build()
@@ -867,7 +1089,8 @@ def main() -> int:
         sl = phase_slice(workdir)
         tp = phase_temporal(workdir, sl)
         tr = phase_train(workdir)
-    blk, stg = checks["block"], checks["stage"]
+        phase_extract_cli(workdir)
+    blk, stg, pk = checks["block"], checks["stage"], checks["packed2"]
     main_scan = [r for r in scan if r["shape"].startswith("[Bt=1,")]  # the test videos' shapes
     summed = lambda rows, key: sum(r[key] for r in rows)
     by = lambda rows: max(("bytes", "operations"),
@@ -881,6 +1104,12 @@ def main() -> int:
          "ms": summed(blk, "ms"), "plain_ms": summed(blk, "plain_ms"),
          "bound_ms": summed(blk, "bound_ms"), "bound_by": by(blk), "library_ms": None,
          "shapes": blk},
+        {"name": "mit_block_packed2_forward", "route": "cuda", "source": SOURCE,
+         "replaces": "surgical_tpu/kernels/mit_block.py:801",
+         "launches": sl["route_launches"]["mit_block_packed2_forward"],
+         "max_abs_err": max(r["max_abs_err"] for r in pk),
+         "ms": pk[1]["ms"], "plain_ms": pk[1]["plain_ms"], "bound_ms": pk[1]["bound_ms"],
+         "bound_by": pk[1]["bound_by"], "library_ms": None, "shapes": pk},
         {"name": "mit_stage_forward", "route": "cuda", "source": SOURCE,
          "replaces": "surgical_tpu/kernels/mit_block.py:1202",
          "launches": sl["launches"]["mit_stage_forward"],

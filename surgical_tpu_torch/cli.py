@@ -1,23 +1,34 @@
-"""Command-line interface of the port: the backbone-training and serving
-verbs of ``surgical_tpu/cli.py`` over the same work-dir layout.
+"""Command-line interface of the port: the data, extraction, backbone-
+training and serving verbs of ``surgical_tpu/cli.py`` over the same
+work-dir layout.
 
+    python -m surgical_tpu_torch.cli prepare-data --root data/cholec80 --out work/
+    python -m surgical_tpu_torch.cli cache-frames --work work/
+    python -m surgical_tpu_torch.cli extract-features --work work/ --frame-cache work/frame_cache
     python -m surgical_tpu_torch.cli train-backbone --work work/ --fused
     python -m surgical_tpu_torch.cli predict --work work/ --split test --model mamba
     python -m surgical_tpu_torch.cli predict --work work/ --split test --online
     python -m surgical_tpu_torch.cli evaluate --gt data/cholec80/gt-phase --pred work/output/Test
+    python -m surgical_tpu_torch.cli reference-parity --root data/cholec80 --work work/ \
+        --evp evp.pth --temporal tecno.pth --refiner trans.pth --online
 
 A work dir holds ``index/<split>_{labels,num_each,video_ids}.npy`` and
-``index/<split>_paths.json``, ``lfb/<split>/`` (a ``FeatureStore``), and the
-port's checkpoint stores ``ckpt/backbone``, ``ckpt/temporal`` and
-``ckpt/refiner`` (``core/checkpoint.py``; the JAX package's orbax stores
-are not read). ``train-backbone`` trains the frozen-trunk backbone on the
-fused train kernels (``--fused``; the flax training graph is not ported)
-and saves one step per epoch with its val/test metrics, the model's
-parameters and BatchNorm statistics, and the optimizer state.
-``predict`` restores each store's best step by ``val_acc`` and writes
+``index/<split>_paths.json`` (``prepare-data``), ``frame_cache/<split>/``
+(``cache-frames``), ``lfb/<split>/`` (a ``FeatureStore``,
+``extract-features``), and the port's checkpoint stores ``ckpt/backbone``,
+``ckpt/temporal`` and ``ckpt/refiner`` (``core/checkpoint.py``; the JAX
+package's orbax stores are not read). ``train-backbone`` trains the
+frozen-trunk backbone on the fused train kernels (``--fused``; the flax
+training graph is not ported) and saves one step per epoch with its
+val/test metrics, the model's parameters and BatchNorm statistics, and the
+optimizer state. ``extract-features`` runs the serving graph
+(``models/mit_fused.py``) over every split with the backbone of a
+reference ``.pth`` or of ``ckpt/backbone``. ``predict`` restores each
+store's best step by ``val_acc`` and writes
 ``output/<Split>/video<NN>-phase.txt``. Every video runs at its true
-length. The verbs run on the card unless ``--device`` names another
-device.
+length. ``reference-parity`` goes from a data root and the reference's
+three ``.pth`` files to the quality table. The verbs run on the card unless
+``--device`` names another device.
 """
 
 from __future__ import annotations
@@ -108,13 +119,140 @@ def _clip_datasets(work: str, with_flow: bool) -> dict:
 
 
 def _backbone(args, device):
-    """MiT-EVP + head from --variant / --no-flow (the JAX CLI's presets)."""
+    """MiT-EVP + head from --variant / --depths / --no-flow / --head-dim /
+    --head-hidden (the JAX CLI's ``_build_model``)."""
     from surgical_tpu_torch.core.config import BackboneConfig, HeadConfig
     from surgical_tpu_torch.models.mit_evp import MiTEVP
 
-    cfg = BackboneConfig.preset(args.variant, with_flow=not args.no_flow)
+    overrides = {"with_flow": not args.no_flow}
+    if getattr(args, "depths", None):
+        overrides["depths"] = tuple(int(d) for d in args.depths.split(","))
+    cfg = BackboneConfig.preset(args.variant, **overrides)
     head = HeadConfig(embedding_dim=32, hidden=16) if args.variant == "tiny" else HeadConfig()
+    head_dim, head_hidden = getattr(args, "head_dim", None), getattr(args, "head_hidden", None)
+    if head_dim or head_hidden:
+        head = HeadConfig(embedding_dim=head_dim or head.embedding_dim,
+                          hidden=head_hidden or head.hidden)
     return MiTEVP(cfg, head, device=device)
+
+
+def _restore_backbone(args, model, device):
+    """The frozen backbone that extraction runs (the JAX CLI's
+    ``_restore_backbone_variables``): the reference stage-2 ``.pth``
+    (``--pretrained-evp``, loaded strictly), else the port's
+    ``ckpt/backbone`` store at ``--step``, else its best step by
+    ``val_acc``, else its latest step, with parameters and BatchNorm
+    statistics. Returns the restored step (None for a ``.pth`` or an empty
+    store, which leaves the model's own initialization)."""
+    from surgical_tpu_torch.core.checkpoint import CheckpointStore
+    from surgical_tpu_torch.models.convert import load_torch_pth
+
+    if args.pretrained_evp:
+        model.load_state_dict(load_torch_pth(args.pretrained_evp), strict=True)
+        print(f"loaded full EVP stage-2 weights from {args.pretrained_evp}")
+        return None
+    store = CheckpointStore(os.path.join(args.work, "ckpt", "backbone"))
+    step = args.step if args.step >= 0 else store.best_step("val_acc")
+    step = step if step is not None else store.latest_step()
+    if step is None:
+        print(f"no backbone checkpoint under {args.work}: extracting with the model's "
+              "initialization", file=sys.stderr)
+        return None
+    store.restore(step, model, device)
+    print(f"restored backbone checkpoint step {step}")
+    return step
+
+
+def cmd_prepare_data(args) -> int:
+    """Index a Cholec80 / M2CAI16 root into ``index/`` (get_path_labels.py):
+    per split the label table, frames per video, video ids and frame paths;
+    optionally the reference's 9-element pickle."""
+    from surgical_tpu_torch.data.cholec80 import index_dataset, make_splits, to_reference_pickle
+
+    videos = index_dataset(args.root, num_videos=args.num_videos,
+                           horizon=args.horizon, dataset=args.dataset)
+    train, val, test = make_splits(videos, scheme=args.scheme)
+    out = _work_paths(args.out)["index"]
+    os.makedirs(out, exist_ok=True)
+    for name, split in (("train", train), ("val", val), ("test", test)):
+        np.save(os.path.join(out, f"{name}_labels.npy"), split.labels)
+        np.save(os.path.join(out, f"{name}_num_each.npy"), np.asarray(split.num_each))
+        np.save(os.path.join(out, f"{name}_video_ids.npy"),
+                np.asarray(split.video_ids, dtype=np.int64))
+        with open(os.path.join(out, f"{name}_paths.json"), "w") as f:
+            json.dump(split.paths, f)
+    if args.reference_pickle:
+        to_reference_pickle(train, val, test, args.reference_pickle)
+    print(f"indexed {len(videos)} videos -> {out}")
+    return 0
+
+
+def cmd_cache_frames(args) -> int:
+    """Decode each split once into a packed memmap ``FrameCache`` (the
+    reference's disk-cache idea, data_process.py:327-393), so extraction
+    reads frames at page-cache speed. Resumable."""
+    from surgical_tpu_torch.data.datasets import FrameCache
+
+    datasets = _clip_datasets(args.work, with_flow=not args.no_flow)
+    splits = [s.strip() for s in args.splits.split(",") if s.strip()] or list(datasets)
+    out_root = args.out or os.path.join(args.work, "frame_cache")
+    for name in splits:
+        d = os.path.join(out_root, name)
+        fc = FrameCache.build(datasets[name], d, batch_size=args.batch_size)
+        print(f"{name}: {len(fc)} frames cached -> {d}")
+    return 0
+
+
+def cmd_extract_features(args) -> int:
+    """LFB extraction (generate_evp_LFB.py): the frozen backbone over each
+    split into ``lfb/<split>/`` FeatureStores, with ``--reference-pickles``
+    also ``lfb/evp_LFB_<split>.pkl``. Batches run one after another through
+    ``make_raw_feature_fn`` (the serving graph on the kernels); a split with
+    a frame cache under ``--frame-cache`` is read from it. ``--chain-depth``
+    is accepted for the JAX CLI's command lines and has no effect: there is
+    no dispatch chain to build. An error raises; nothing is retried."""
+    from surgical_tpu_torch.core.device import resolve_device
+    from surgical_tpu_torch.data.datasets import FrameCache, prefetch_batches
+    from surgical_tpu_torch.train.extract import extract_to_store, make_raw_feature_fn
+
+    device = resolve_device(args.device)
+    model = _backbone(args, device)
+    _restore_backbone(args, model, device)
+    datasets = _clip_datasets(args.work, with_flow=not args.no_flow)
+    wanted = [s.strip() for s in args.splits.split(",") if s.strip()] or list(datasets)
+    if args.frame_cache:
+        for name in list(datasets):
+            d = os.path.join(args.frame_cache, name)
+            if not FrameCache.exists(d):
+                continue
+            fc = FrameCache(d)
+            # the cache must carry the modalities and size this run's model
+            # takes: a flow-less cache under a flow model would skip the
+            # flow fusion and write other features
+            if not args.no_flow and not fc.meta["with_flow"]:
+                raise SystemExit(f"{d}: cache was built --no-flow but this run's model uses "
+                                 "flow fusion; rebuild the cache with flow or pass --no-flow")
+            if fc.meta["resize"] != datasets[name].resize:
+                raise SystemExit(f"{d}: cache resize={fc.meta['resize']} != run "
+                                 f"resize={datasets[name].resize}; rebuild the cache")
+            datasets[name] = fc
+            print(f"{name}: serving frames from cache {d}")
+    fn = make_raw_feature_fn(model)
+    idx = _work_paths(args.work)["index"]
+    for name, ds in datasets.items():
+        if name not in wanted:
+            continue
+        num_each = np.load(os.path.join(idx, f"{name}_num_each.npy"))
+        batches = ((i, s, f) for (i, s, f, _p, _a)
+                   in prefetch_batches(ds, np.arange(len(ds)), args.batch_size))
+        fstore, stats = extract_to_store(
+            fn, batches, num_each.tolist(), feature_dim=model.head_cfg.embedding_dim,
+            batch_size=args.batch_size, directory=os.path.join(_work_paths(args.work)["lfb"], name),
+            meta={"split": name})
+        print(f"{name}: {stats['frames']} frames at {stats['fps']:.0f} fps")
+        if args.reference_pickles:
+            fstore.to_reference_pickle(os.path.join(args.work, "lfb", f"evp_LFB_{name}.pkl"))
+    return 0
 
 
 def cmd_train_backbone(args) -> int:
@@ -283,10 +421,188 @@ def cmd_evaluate(args) -> int:
     return 0
 
 
+def cmd_reference_parity(args) -> int:
+    """From the reference's data layout (``cutMargin/`` +
+    ``phase_annotations/``, with segmaps and flow) and its three trained
+    ``.pth`` files -- the stage-2 EVP backbone, ``MultiStageModel_S``
+    (trans_SV_output.py:196-201) and the refiner ``Transformer``
+    (:205-211) -- run index -> LFB extraction -> MS-TCN -> refiner ->
+    predict -> relaxed evaluation and print the BASELINE.md quality table.
+    The index and the val/test stores are reused when present; the temporal
+    and refiner dims are read off their checkpoints. ``--online`` also
+    streams the test split and reports its agreement with the offline
+    predictions."""
+    from surgical_tpu_torch.core.config import MSTCNConfig, RefinerConfig
+    from surgical_tpu_torch.core.device import resolve_device
+    from surgical_tpu_torch.eval.relaxed import evaluate_videos
+    from surgical_tpu_torch.models.convert import (infer_mstcn_dims, infer_refiner_dims,
+                                                   load_torch_pth)
+    from surgical_tpu_torch.models.mstcn import MultiStageTCN
+    from surgical_tpu_torch.models.transsv import RefinementTransformer
+    from surgical_tpu_torch.serving.online import OnlineMSTCN, OnlineRefiner, run_pipeline
+    from surgical_tpu_torch.train.refiner import predict_and_write
+
+    device = resolve_device(args.device)
+    paths = _work_paths(args.work)
+    if not os.path.exists(os.path.join(paths["index"], "test_labels.npy")):
+        if main(["prepare-data", "--root", args.root, "--out", args.work,
+                 "--num-videos", str(args.num_videos), "--scheme", args.scheme]) != 0:
+            raise RuntimeError("prepare-data failed")
+
+    # LFB extraction with the reference EVP weights; existing stores are
+    # reused unless --force-extract
+    need = [s for s in ("val", "test")
+            if args.force_extract or not os.path.exists(os.path.join(paths["lfb"], s,
+                                                                     "manifest.json"))]
+    if need:
+        cmd = ["extract-features", "--work", args.work, "--variant", args.variant,
+               "--pretrained-evp", args.evp, "--splits", ",".join(need),
+               "--batch-size", str(args.batch_size), "--device", args.device]
+        if args.no_flow:
+            cmd.append("--no-flow")
+        for flag, val in (("--depths", args.depths), ("--head-dim", args.head_dim),
+                          ("--head-hidden", args.head_hidden)):
+            if val:
+                cmd += [flag, str(val)]
+        if main(cmd) != 0:
+            raise RuntimeError("extract-features failed")
+    else:
+        print("reusing existing LFB stores (pass --force-extract to redo)")
+
+    tsd = load_torch_pth(args.temporal)
+    td = infer_mstcn_dims(tsd)
+    print(f"temporal checkpoint: {td}")
+    temporal = MultiStageTCN(MSTCNConfig(dropout=0.0, **td), device=device)
+    temporal.load_state_dict(tsd, strict=True)
+    rsd = load_torch_pth(args.refiner)
+    rd = infer_refiner_dims(rsd)
+    print(f"refiner checkpoint: {rd}")
+    refiner = RefinementTransformer(RefinerConfig(len_q=args.len_q, **rd), device=device)
+    refiner.load_state_dict(rsd, strict=True)
+
+    report = {}
+    for split in ("val", "test"):
+        ds = _load_split(args.work, split)
+        vids = _split_video_ids(args.work, split, ds.num_videos)
+        out_dir = os.path.join(paths["output"], split.capitalize())
+        metrics, preds, _ = predict_and_write(temporal, refiner, ds, out_dir, vids)
+        gts = [ds.labels_phase[s:s + n] for s, n in zip(ds.starts, ds.lengths)]
+        res = evaluate_videos(gts, preds)
+        report[split] = {
+            **{k: float(v) for k, v in metrics.items() if np.isscalar(v)},
+            "relaxed_acc": res.mean_acc, "relaxed_acc_std": res.std_acc,
+            "relaxed_jacc": res.mean_jacc, "relaxed_jacc_std": res.std_jacc,
+            "relaxed_prec": res.mean_prec, "relaxed_prec_std": res.std_prec,
+            "relaxed_rec": res.mean_rec, "relaxed_rec_std": res.std_rec,
+        }
+        if split == "test" and args.online:
+            t_on, r_on = OnlineMSTCN(temporal), OnlineRefiner(refiner)
+            _, preds_on, _ = predict_and_write(
+                temporal, refiner, ds, out_dir + "Online", vids,
+                predict_fn=lambda lfb: run_pipeline(t_on, r_on, lfb))
+            # every video, at its length, on both sides (no silent zip)
+            if [p.shape for p in preds_on] != [p.shape for p in preds]:
+                raise AssertionError(f"online predictions {[p.shape for p in preds_on]} != "
+                                     f"offline {[p.shape for p in preds]}")
+            agree = float(np.mean(np.concatenate([a == b for a, b in zip(preds, preds_on)])))
+            report["online_offline_agreement"] = agree
+            print(f"streaming (--online) vs offline prediction agreement under the "
+                  f"reference weights: {agree:.4f}")
+
+    out_path = os.path.join(args.work, "reference_parity.json")
+    with open(out_path, "w") as f:
+        json.dump(report, f, indent=2)
+    print("\n== reference-parity quality table (compare BASELINE.md) ==")
+    print(f"{'split':<6} {'acc_frame':>9} {'acc_video':>9} "
+          f"{'inMAE':>7} {'pMAE':>7} {'eMAE':>7}")
+    for split in ("val", "test"):
+        m = report[split]
+        print(f"{split:<6} {m['acc_frame']:9.4f} {m['acc_video']:9.4f} "
+              f"{m['inMAE']:7.4f} {m['pMAE']:7.4f} {m['eMAE']:7.4f}")
+    m = report["test"]
+    print(f"relaxed (test): Acc {m['relaxed_acc']:.2f}±{m['relaxed_acc_std']:.2f}  "
+          f"Jacc {m['relaxed_jacc']:.2f}±{m['relaxed_jacc_std']:.2f}  "
+          f"Prec {m['relaxed_prec']:.2f}±{m['relaxed_prec_std']:.2f}  "
+          f"Rec {m['relaxed_rec']:.2f}±{m['relaxed_rec_std']:.2f}")
+    print(f"report -> {out_path}")
+    return 0
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="surgical_tpu_torch", description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     sub = p.add_subparsers(dest="cmd", required=True)
+    schemes = ["stage1", "stage2", "m2cai", "m2cai_all", "smoke"]
+
+    def backbone_flags(sp):
+        sp.add_argument("--variant", default="b3")
+        sp.add_argument("--no-flow", action="store_true")
+        sp.add_argument("--depths", default=None,
+                        help="override backbone depths, e.g. '2,1,1,1' (matching a "
+                             "non-preset checkpoint)")
+        sp.add_argument("--head-dim", type=int, default=None)
+        sp.add_argument("--head-hidden", type=int, default=None)
+        sp.add_argument("--batch-size", type=int, default=200)
+        sp.add_argument("--chain-depth", type=int, default=16,
+                        help="accepted for the JAX CLI's command lines; no effect (the port "
+                             "dispatches per batch)")
+        sp.add_argument("--device", default="cuda",
+                        help="torch device to run on (default: the card)")
+
+    sp = sub.add_parser("prepare-data")
+    sp.add_argument("--root", required=True)
+    sp.add_argument("--out", required=True)
+    sp.add_argument("--num-videos", type=int, default=80)
+    sp.add_argument("--horizon", type=float, default=5.0)
+    sp.add_argument("--dataset", choices=["cholec80", "m2cai16"], default="cholec80")
+    sp.add_argument("--scheme", choices=schemes, default="stage2")
+    sp.add_argument("--reference-pickle", default=None)
+    sp.set_defaults(fn=cmd_prepare_data)
+
+    sp = sub.add_parser("cache-frames",
+                        help="pre-decode frames into packed memmap caches")
+    sp.add_argument("--work", required=True)
+    sp.add_argument("--out", default=None, help="cache root (default <work>/frame_cache)")
+    sp.add_argument("--splits", default="")
+    sp.add_argument("--batch-size", type=int, default=256)
+    sp.add_argument("--no-flow", action="store_true")
+    sp.set_defaults(fn=cmd_cache_frames)
+
+    sp = sub.add_parser("extract-features")
+    sp.add_argument("--work", required=True)
+    backbone_flags(sp)
+    sp.add_argument("--step", type=int, default=-1,
+                    help="backbone checkpoint step (-1 = best by val_acc, else latest)")
+    sp.add_argument("--pretrained-evp", default=None,
+                    help="reference stage-2 .pth to extract with, loaded strictly")
+    sp.add_argument("--reference-pickles", action="store_true")
+    sp.add_argument("--splits", default="",
+                    help="comma list of splits to extract (default: all)")
+    sp.add_argument("--frame-cache", default=None,
+                    help="frame-cache root (cache-frames output); splits with a cache are "
+                         "read from it")
+    sp.set_defaults(fn=cmd_extract_features)
+
+    sp = sub.add_parser("reference-parity",
+                        help="quality drive from the reference's data and .pth files to the "
+                             "BASELINE quality table")
+    sp.add_argument("--root", required=True,
+                    help="data root with cutMargin/ + phase_annotations/ "
+                         "(+ ss_Bimasks_pos_ep10/, raft_flow_npy/)")
+    sp.add_argument("--work", required=True)
+    sp.add_argument("--evp", required=True, help="stage-2 EVP .pth")
+    sp.add_argument("--temporal", required=True, help="MultiStageModel_S .pth")
+    sp.add_argument("--refiner", required=True, help="refiner Transformer .pth")
+    backbone_flags(sp)
+    sp.add_argument("--num-videos", type=int, default=80)
+    sp.add_argument("--scheme", choices=schemes, default="stage2")
+    sp.add_argument("--len-q", type=int, default=30,
+                    help="refiner sliding window (trans_SV_output.py:157)")
+    sp.add_argument("--force-extract", action="store_true")
+    sp.add_argument("--online", action="store_true",
+                    help="also stream the test split and report the online/offline "
+                         "agreement")
+    sp.set_defaults(fn=cmd_reference_parity)
 
     sp = sub.add_parser("train-backbone")
     sp.add_argument("--work", required=True)

@@ -5,6 +5,10 @@
 //   mit_block_forward  <- fused_mit_block (_block_kernel) and
 //                         fused_mit_block_hb (_block_kernel_hb): the same
 //                         function, the latter only a TPU attention schedule
+//   mit_block_packed2_forward <- fused_mit_block_packed2 (_block_kernel_packed2
+//                         and its banded form _block_kernel_packed2s): the
+//                         1-head C = 64 block on image pairs packed into
+//                         128-wide rows
 //   mit_stage_forward  <- fused_mit_stage (_stage_kernel)
 //   mit_block_train_forward        <- fused_mit_block_train's forward
 //                                     (_block_train_fwd_kernel)
@@ -60,6 +64,8 @@ namespace {
 // gradient). A' by prologue:
 //   kPlain      A
 //   kLayerNorm  bf16(LayerNorm(A)), as the Pallas body rounds xln
+//   kGroupLN    bf16(LayerNorm of each K/2-wide half of A) with fp32 scale
+//               and bias (lnf_g, lnf_b): the lane-packed rows of packed2
 //   kRowScale   bf16(A * rowscale[row / mrows]) (a per-image DropPath factor)
 // and with v the fp32 product, the epilogue writes:
 //   kBias          bf16(v + bias)
@@ -76,7 +82,7 @@ namespace {
 constexpr int BM = 64, BN = 64, BK = 32, GEMM_THREADS = 128;
 constexpr int LN_MAX_K = 512;  // a LayerNorm row is held in registers
 
-enum class Pro { kPlain, kLayerNorm, kRowScale };
+enum class Pro { kPlain, kLayerNorm, kGroupLN, kRowScale };
 enum class Epi { kBias, kBiasGelu, kBiasRes, kBiasResScale, kGeluGrad, kPlain, kF32 };
 
 struct GemmArgs {
@@ -87,6 +93,8 @@ struct GemmArgs {
   const bf16* bias;
   const bf16* ln_g;
   const bf16* ln_b;
+  const float* lnf_g;  // kGroupLN: fp32 scale and bias [K]
+  const float* lnf_b;
   const float* rowscale;  // kRowScale / kBiasResScale: one factor per mrows rows
   int mrows;
   const bf16* res;  // kBiasRes*: may alias out (same thread reads, then writes)
@@ -121,29 +129,61 @@ __device__ __forceinline__ void row_stats(const bf16* row, int K, int lane,
   rstd = rsqrtf(warp_sum(ss) / K + LN_EPS);
 }
 
+// The same statistics for each K/2-wide half of the row (the two images of
+// a lane-packed row; mit_block.py::_ln_packed2). K/2 is a multiple of 32, so
+// element lane + 32 i lies in half (32 i >= K/2) whatever the lane.
+__device__ __forceinline__ void row_stats2(const bf16* row, int K, int lane, float (&mean)[2],
+                                           float (&rstd)[2]) {
+  const int G = K / 2;
+  float vals[LN_MAX_K / 32], s0 = 0.f, s1 = 0.f;
+#pragma unroll
+  for (int i = 0; i < LN_MAX_K / 32; ++i) {
+    const int c = lane + 32 * i;
+    vals[i] = c < K ? bf2f(row[c]) : 0.f;
+    if (32 * i < G) s0 += vals[i];
+    else s1 += vals[i];  // 0 past K
+  }
+  mean[0] = warp_sum(s0) / G;
+  mean[1] = warp_sum(s1) / G;
+  float ss0 = 0.f, ss1 = 0.f;
+#pragma unroll
+  for (int i = 0; i < LN_MAX_K / 32; ++i) {
+    if (lane + 32 * i >= K) continue;
+    if (32 * i < G) ss0 += (vals[i] - mean[0]) * (vals[i] - mean[0]);
+    else ss1 += (vals[i] - mean[1]) * (vals[i] - mean[1]);
+  }
+  rstd[0] = rsqrtf(warp_sum(ss0) / G + LN_EPS);
+  rstd[1] = rsqrtf(warp_sum(ss1) / G + LN_EPS);
+}
+
 template <Pro PRO, Epi EPI, bool BT>
 __global__ void __launch_bounds__(GEMM_THREADS) gemm_bf16(const GemmArgs a) {
   __shared__ __align__(32) bf16 As[BM][BK + 8];
   // B tile as [k][n] (row-major operand) or [n][k] (transposed operand)
   __shared__ __align__(32) bf16 Bs[BT ? BN : BK][BT ? BK + 8 : BN + 8];
   __shared__ __align__(32) float Cs[BM][BN + 4];
-  __shared__ float s_mean[BM], s_rstd[BM];
+  __shared__ float s_mean[BM][2], s_rstd[BM][2];  // [row][half]; kLayerNorm uses half 0
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
   const int M = a.M, N = a.N, K = a.K;
 
-  if constexpr (PRO == Pro::kLayerNorm) {  // row statistics of this CTA's rows
+  if constexpr (PRO == Pro::kLayerNorm || PRO == Pro::kGroupLN) {  // this CTA's row statistics
     for (int r = warp; r < BM; r += GEMM_THREADS / 32) {
       const int gm = m0 + r;
-      float mean = 0.f, rstd = 0.f;
+      float mean[2] = {0.f, 0.f}, rstd[2] = {0.f, 0.f};
       if (gm < M) {
-        float vals[LN_MAX_K / 32];
-        row_stats(a.A + (size_t)gm * a.lda, K, lane, vals, mean, rstd);
+        const bf16* row = a.A + (size_t)gm * a.lda;
+        if constexpr (PRO == Pro::kGroupLN) {
+          row_stats2(row, K, lane, mean, rstd);
+        } else {
+          float vals[LN_MAX_K / 32];
+          row_stats(row, K, lane, vals, mean[0], rstd[0]);
+        }
       }
       if (lane == 0) {
-        s_mean[r] = mean;
-        s_rstd[r] = rstd;
+        s_mean[r][0] = mean[0], s_mean[r][1] = mean[1];
+        s_rstd[r][0] = rstd[0], s_rstd[r][1] = rstd[1];
       }
     }
     __syncthreads();
@@ -167,10 +207,16 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_bf16(const GemmArgs a) {
         if constexpr (PRO == Pro::kLayerNorm) {
           uint4 gv = load8(a.ln_g + gk), bv = load8(a.ln_b + gk);
           bf16 *ge = lanes8(gv), *be = lanes8(bv);
-          const float mu = s_mean[r], rs = s_rstd[r];
+          const float mu = s_mean[r][0], rs = s_rstd[r][0];
 #pragma unroll
           for (int i = 0; i < 8; ++i)
             e[i] = f2bf((bf2f(e[i]) - mu) * rs * bf2f(ge[i]) + bf2f(be[i]));
+        } else if constexpr (PRO == Pro::kGroupLN) {
+          const int h = gk >= K / 2;  // an 8-wide chunk lies in one half
+          const float mu = s_mean[r][h], rs = s_rstd[r][h];
+#pragma unroll
+          for (int i = 0; i < 8; ++i)
+            e[i] = f2bf((bf2f(e[i]) - mu) * rs * a.lnf_g[gk + i] + a.lnf_b[gk + i]);
         } else if constexpr (PRO == Pro::kRowScale) {
           const float sc = a.rowscale[gm / a.mrows];
 #pragma unroll
@@ -633,6 +679,31 @@ __global__ void sr_patches_kernel(const bf16* __restrict__ x, bf16* __restrict__
   }
 }
 
+// ------------------------------------------------------ lane pack/unpack ----
+// The image-pair packing of fused_mit_block_packed2 (mit_block.py:826-829,
+// 950-951): packed[p, n, s*C + c] = x[2p + s, n, c], for s in {0, 1}. PACK
+// copies x [2P, n, C] into packed [P, n, 2C]; otherwise the inverse.
+template <bool PACK>
+__global__ void lane_pack2_kernel(const bf16* __restrict__ in, bf16* __restrict__ out, int P,
+                                  int n, int C) {
+  const int C8 = C / 8;
+  const size_t total = (size_t)P * n * 2 * C8;
+  for (size_t t = blockIdx.x * (size_t)blockDim.x + threadIdx.x; t < total;
+       t += (size_t)gridDim.x * blockDim.x) {
+    const int c = (int)(t % C8) * 8;
+    size_t r = t / C8;
+    const int s = (int)(r % 2);
+    r /= 2;
+    const size_t row = r % n, p = r / n;
+    const size_t packed = ((p * n + row) * 2 + s) * C + c;
+    const size_t plain = ((2 * p + s) * n + row) * C + c;
+    if (PACK)
+      store8(out + packed, load8(in + plain));
+    else
+      store8(out + plain, load8(in + packed));
+  }
+}
+
 // ------------------------------------------------------------- launchers ----
 template <Pro PRO, Epi EPI, bool BT = false>
 void launch_gemm(cudaStream_t s, const GemmArgs& a) {
@@ -714,6 +785,62 @@ int mit_block_forward(const void* x, const void* k, const void* v, const void* l
   attention(s, (P)q, (P)k, (P)v, C, (bf16*)ctx, B, H * W, Nkv, C, heads);
   attn_out_and_mlp(s, (P)x, (P)ctx, (P)wo, (P)bo, (P)ln2_g, (P)ln2_b, (P)w1, (P)b1, (P)wdw,
                    (P)bdw, (P)w2, (P)b2, (bf16*)hid, (bf16*)act, (bf16*)y, B, H, W, C, hidden);
+  return (int)cudaGetLastError();
+}
+
+// fused_mit_block_packed2 (mit_block.py:801): the 1-head, C = 64 block over
+// image pairs, each token row the 128-wide [x[2p, n], x[2p+1, n]]. The
+// packed weights are used as given, as full 128-wide products (wq, wo
+// [128, 128], w1 [128, hidden], w2 [hidden, 128], wdw [9, hidden]), so any
+// packed dict gives the TPU kernel's function, not only block-diagonal ones.
+// On the packed rows:
+//   LN1 per 64-lane half (ln1 [2, 128] fp32: scale, bias) in the q GEMM's
+//   prologue; attention at heads = 2, head_dim 64 over k, v packed the same
+//   way, which is the per-image segment softmax of the TPU body (each
+//   segment takes its own max: the TPU body's row-global max is the same in
+//   real arithmetic); out projection + residual; LN2 per half (ln2 [2, 128]
+//   fp32) in fc1's prologue; dwconv 3x3 + GELU; fc2 + residual.
+// The TPU kernel's row bands (row_chunks) bound its VMEM; here every kernel
+// sees the whole grid, and the zero-edge dwconv is that same function. Like
+// the stage-1 block it is bound by bytes: the full 128-wide products double
+// the block GEMMs' FLOPs but leave them far under the ridge.
+// Pack and unpack are copies around the chain. Scratch: xp [P*N, 128]
+// (x, then the residual stream in place), kp, vp [P*Nkv, 128], q, ctx
+// [P*N, 128], hid, act [P*N, hidden]. y [B, N, 64] must not alias x.
+int mit_block_packed2_forward(const void* x, const void* k, const void* v, const void* ln1,
+                              const void* wq, const void* bq, const void* wo, const void* bo,
+                              const void* ln2, const void* w1, const void* b1, const void* wdw,
+                              const void* bdw, const void* w2, const void* b2, void* xp, void* kp,
+                              void* vp, void* q, void* ctx, void* hid, void* act, void* y, int B,
+                              int H, int W, int Nkv, int hidden, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  typedef const bf16* P;
+  constexpr int C = HD, C2 = 2 * HD;  // 64 channels per image, two images per row
+  const int pairs = B / 2, N = H * W, M = pairs * N;
+  const int pack_threads = 256;
+  lane_pack2_kernel<true><<<grid_for((size_t)M * C2 / 8, pack_threads), pack_threads, 0, s>>>(
+      (P)x, (bf16*)xp, pairs, N, C);
+  lane_pack2_kernel<true><<<grid_for((size_t)pairs * Nkv * C2 / 8, pack_threads), pack_threads,
+                            0, s>>>((P)k, (bf16*)kp, pairs, Nkv, C);
+  lane_pack2_kernel<true><<<grid_for((size_t)pairs * Nkv * C2 / 8, pack_threads), pack_threads,
+                            0, s>>>((P)v, (bf16*)vp, pairs, Nkv, C);
+  GemmArgs a = dense_args((P)xp, (P)wq, q, M, C2, C2, false);  // q = LN1(xp) wq + bq
+  a.bias = (P)bq, a.lnf_g = (const float*)ln1, a.lnf_b = (const float*)ln1 + C2;
+  launch_gemm<Pro::kGroupLN, Epi::kBias>(s, a);
+  attention(s, (P)q, (P)kp, (P)vp, C2, (bf16*)ctx, pairs, N, Nkv, C2, 2);
+  a = dense_args((P)ctx, (P)wo, xp, M, C2, C2, false);  // xp += ctx wo + bo
+  a.bias = (P)bo, a.res = (P)xp, a.ldr = C2;
+  launch_gemm<Pro::kPlain, Epi::kBiasRes>(s, a);
+  a = dense_args((P)xp, (P)w1, hid, M, hidden, C2, false);  // hid = LN2(xp) w1 + b1
+  a.bias = (P)b1, a.lnf_g = (const float*)ln2, a.lnf_b = (const float*)ln2 + C2;
+  launch_gemm<Pro::kGroupLN, Epi::kBias>(s, a);
+  dwconv3x3_kernel<true><<<grid_for((size_t)M * hidden / 8, 256), 256, 0, s>>>(
+      (P)hid, (P)wdw, (P)bdw, (bf16*)act, pairs, H, W, hidden);
+  a = dense_args((P)act, (P)w2, xp, M, C2, hidden, false);  // xp += fc2(act) + b2
+  a.bias = (P)b2, a.res = (P)xp, a.ldr = C2;
+  launch_gemm<Pro::kPlain, Epi::kBiasRes>(s, a);
+  lane_pack2_kernel<false><<<grid_for((size_t)M * C2 / 8, pack_threads), pack_threads, 0, s>>>(
+      (P)xp, (bf16*)y, pairs, N, C);
   return (int)cudaGetLastError();
 }
 

@@ -1,14 +1,19 @@
-"""Fused MiT transformer block and whole-stage forward, and the frozen-trunk
-training block: Hopper CUDA kernels (``csrc/mit_block.cu``) and their plain
-PyTorch versions.
+"""Fused MiT transformer block, its lane-packed stage-1 form and whole-stage
+forward, and the frozen-trunk training block: Hopper CUDA kernels
+(``csrc/mit_block.cu``) and their plain PyTorch versions.
 
-Port of ``surgical_tpu/kernels/mit_block.py``. One block kernel serves both
-``fused_mit_block`` and ``fused_mit_block_hb`` of the JAX package (they
-compute the same function; the latter differs only in its TPU attention
-schedule), and one stage kernel serves ``fused_mit_stage``.
-``fused_mit_block_train`` is a ``torch.autograd.Function`` over three
-kernels, as the JAX custom VJP is over three Pallas calls: the forward,
-the MLP backward and the attention backward.
+Port of ``surgical_tpu/kernels/mit_block.py``, whose six Pallas kernels map
+onto these wrappers:
+- ``fused_mit_block`` serves both ``fused_mit_block`` and
+  ``fused_mit_block_hb`` of the JAX package (they compute the same function;
+  the latter differs only in its TPU attention schedule);
+- ``fused_mit_block_packed2`` serves ``fused_mit_block_packed2``, the
+  1-head C = 64 block on image pairs packed into 128-wide rows, with its
+  weights from ``pack_weights2``;
+- ``fused_mit_stage`` serves ``fused_mit_stage``;
+- ``fused_mit_block_train`` is a ``torch.autograd.Function`` over three
+  kernels, as the JAX custom VJP is over three Pallas calls: the forward,
+  the MLP backward and the attention backward.
 
 A wrapper runs its kernel's plain version only for a tensor that lies on the
 CPU. For a CUDA tensor it launches the kernel or raises. Each wrapper counts
@@ -35,14 +40,17 @@ LN_MAX_C = 512  # widest row the LayerNorm stages hold in registers
 
 # -- plain PyTorch versions -------------------------------------------------
 
-def layer_norm(x, scale, bias, eps=1e-6):
+def layer_norm(x, scale, bias, eps=1e-6, groups=1):
     """LayerNorm with eps 1e-6 and the biased variance, computed in fp32 and
     rounded to x.dtype: every LayerNorm of the fused graph
-    (surgical_tpu mit_block.py::_layernorm, mit_fused.py::_ln)."""
-    x32 = x.float()
+    (surgical_tpu mit_block.py::_layernorm, mit_fused.py::_ln). With
+    ``groups`` > 1 each of that many equal slices of the last axis is
+    normalized on its own (the lane-packed rows, mit_block.py::_ln_packed2)."""
+    x32 = x.float().unflatten(-1, (groups, -1))
     m = x32.mean(-1, keepdim=True)
     v = ((x32 - m) ** 2).mean(-1, keepdim=True)
-    return ((x32 - m) * torch.rsqrt(v + eps) * scale.float() + bias.float()).to(x.dtype)
+    xn = ((x32 - m) * torch.rsqrt(v + eps)).flatten(-2)
+    return (xn * scale.float() + bias.float()).to(x.dtype)
 
 
 def _linear(x, w, b):
@@ -93,11 +101,12 @@ def _attn_residual(x, xln, k, v, wq, bq, wo, bo, heads, m=None):
     return _residual(x, _linear(ctx, wo, bo), m)
 
 
-def _mlp_residual(x, ln2_scale, ln2_bias, w1, b1, wdw, bdw, w2, b2, H, W, m=None):
+def _mlp_residual(x, ln2_scale, ln2_bias, w1, b1, wdw, bdw, w2, b2, H, W, m=None, groups=1):
     """x + [m *] fc2(gelu_tanh(dwconv(fc1(LN2(x))))), with the Pallas body's
-    roundings (fc1, dwconv and GELU outputs in x.dtype)."""
+    roundings (fc1, dwconv and GELU outputs in x.dtype); LN2 over ``groups``
+    slices of the channels."""
     dt = x.dtype
-    h = _linear(layer_norm(x, ln2_scale, ln2_bias), w1, b1).to(dt)
+    h = _linear(layer_norm(x, ln2_scale, ln2_bias, groups=groups), w1, b1).to(dt)
     h = _dwconv3x3(h, wdw, bdw, H, W)
     h = F.gelu(h.float(), approximate="tanh").to(dt)
     return _residual(x, _linear(h, w2, b2), m)
@@ -111,6 +120,59 @@ def fused_mit_block_plain(x, k, v, weights, *, heads, H, W):
     x1 = _attn_residual(x, xln, k, v, w["wq"], w["bq"], w["wo"], w["bo"], heads)
     return _mlp_residual(x1, w["ln2_scale"], w["ln2_bias"], w["w1"], w["b1"],
                          w["wdw"], w["bdw"], w["w2"], w["b2"], H, W)
+
+
+def _pack2(a):
+    """[B, n, C] -> [B/2, n, 2C]: row n of pair p is [a[2p, n], a[2p+1, n]]
+    (mit_block.py:826-829)."""
+    B, n, C = a.shape
+    return a.reshape(B // 2, 2, n, C).transpose(1, 2).reshape(B // 2, n, 2 * C)
+
+
+def _unpack2(a):
+    """The inverse of ``_pack2``: [P, n, 2C] -> [2P, n, C]."""
+    P, n, C2 = a.shape
+    return a.reshape(P, n, 2, C2 // 2).transpose(1, 2).reshape(2 * P, n, C2 // 2)
+
+
+def _packed2_dims(x, k, packed, H, row_chunks):
+    """(B, N, Nkv, hidden) of a packed2 call, raising ValueError where the
+    JAX package asserts (mit_block.py:822, 860, 864)."""
+    B, N, C = x.shape
+    hidden2 = packed["w1"].shape[1]
+    if B % 2 or C != HEAD_DIM:
+        raise ValueError(f"packed2 takes an even batch of C = {HEAD_DIM} tokens: B={B}, C={C}")
+    if hidden2 % 128:
+        raise ValueError(f"packed2 takes a packed hidden width that is a multiple of 128, "
+                         f"got {hidden2}")
+    if row_chunks < 1 or H % row_chunks:
+        raise ValueError(f"row_chunks={row_chunks} does not divide H={H}")
+    return B, N, k.shape[1], hidden2
+
+
+def fused_mit_block_packed2_plain(x, k, v, packed, *, H, W, row_chunks=1):
+    """Plain version of the packed2 kernel (fused_mit_block_packed2): x [B,
+    N, 64], k/v [B, Nkv, 64] (B even), ``packed`` from ``pack_weights2`` or
+    any dict of the same shapes -> [B, N, 64]. Each pair of images runs as
+    one 128-wide row per token with the bodies' rounding points: LN per
+    64-lane half, full 128-wide products, the softmax per image segment (as
+    heads = 2 of head_dim 64). ``row_chunks`` > 1 computes the output band by
+    band, each band with its one-row dwconv halo above and below
+    (_block_kernel_packed2s); every op but the dwconv is row-local, so the
+    bands give the whole-grid function."""
+    _packed2_dims(x, k, packed, H, row_chunks)
+    w = packed
+    xp, kp, vp = _pack2(x), _pack2(k), _pack2(v)
+    rpc, bands = H // row_chunks, []
+    for j in range(row_chunks):
+        lo, hi = max(j * rpc - 1, 0), min((j + 1) * rpc + 1, H)  # band rows with halo
+        xb = xp[:, lo * W:hi * W]
+        xln = layer_norm(xb, w["ln1"][0], w["ln1"][1], groups=2)
+        x1 = _attn_residual(xb, xln, kp, vp, w["wq"], w["bq"], w["wo"], w["bo"], heads=2)
+        yb = _mlp_residual(x1, w["ln2_scale"], w["ln2_bias"], w["w1"], w["b1"], w["wdw"],
+                           w["bdw"], w["w2"], w["b2"], hi - lo, W, groups=2)
+        bands.append(yb[:, (j * rpc - lo) * W:(j * rpc - lo + rpc) * W])
+    return _unpack2(torch.cat(bands, dim=1))
 
 
 def _sr_patches(x, H, W, sr):
@@ -263,6 +325,29 @@ def block_weights_from_params(block, dtype=torch.bfloat16) -> dict:
     }
 
 
+def _block_diag2(w):
+    """[a, b] -> [2a, 2b] with ``w`` on both diagonal blocks."""
+    z = torch.zeros_like(w)
+    return torch.cat([torch.cat([w, z], 1), torch.cat([z, w], 1)], 0)
+
+
+def pack_weights2(weights: dict) -> dict:
+    """Per-image block weights -> the packed2 kernel's, with the keys,
+    shapes and dtypes of the JAX package's ``pack_weights2``
+    (mit_block.py:779-797): ``ln1`` [2, 2C] fp32 (scale, bias), block-diagonal
+    wq, wo [2C, 2C], w1 [2C, 2h], w2 [2h, 2C], and every vector doubled."""
+    cat = lambda t: torch.cat([t, t], -1)
+    return {
+        "ln1": torch.stack([cat(weights["ln1_scale"]), cat(weights["ln1_bias"])]).float(),
+        "wq": _block_diag2(weights["wq"]), "bq": cat(weights["bq"]),
+        "wo": _block_diag2(weights["wo"]), "bo": cat(weights["bo"]),
+        "ln2_scale": cat(weights["ln2_scale"]), "ln2_bias": cat(weights["ln2_bias"]),
+        "w1": _block_diag2(weights["w1"]), "b1": cat(weights["b1"]),
+        "wdw": cat(weights["wdw"]), "bdw": cat(weights["bdw"]),
+        "w2": _block_diag2(weights["w2"]), "b2": cat(weights["b2"]),
+    }
+
+
 def stage_weights_from_params(model, stage: int, dtype=torch.bfloat16) -> dict:
     """One stage's per-block weights (+ the per-depth prompt MLPs) of a port
     ``MiTEVP``, stacked on a leading depth axis in the JAX package's
@@ -355,6 +440,47 @@ def fused_mit_block(x, k, v, weights, *, heads: int, H: int, W: int):
 
 
 fused_mit_block.launches = 0
+
+
+def fused_mit_block_packed2(x, k, v, packed, *, H: int, W: int, row_chunks: int = 1):
+    """The stage-1 block on lane-packed image pairs: x [B, N, 64], k/v [B,
+    Nkv, 64] with B even, ``packed`` as ``pack_weights2`` gives it -> [B, N,
+    64]. ``row_chunks`` must divide H, as in the JAX package; the kernel
+    computes the whole grid at once, which is the same function.
+
+    The kernel reads ``ln1`` in fp32 as given; LN2's scale and bias (in the
+    weights' dtype) are converted here to fp32, which is exact."""
+    B, N, Nkv, hidden2 = _packed2_dims(x, k, packed, H, row_chunks)
+    if x.device.type == "cpu":
+        return fused_mit_block_packed2_plain(x, k, v, packed, H=H, W=W, row_chunks=row_chunks)
+    if not x.is_cuda:
+        raise ValueError(f"fused_mit_block_packed2: no kernel for device {x.device}")
+    _check_dims(HEAD_DIM, 1, Nkv, hidden2, H, W, x)
+    w, C, C2 = packed, HEAD_DIM, 2 * HEAD_DIM
+    ln2 = torch.stack([w["ln2_scale"], w["ln2_bias"]]).float()
+    y = torch.empty_like(x)
+    new = lambda rows, width: torch.empty(rows, width, dtype=x.dtype, device=x.device)
+    M, Mkv = B // 2 * N, B // 2 * Nkv
+    xp, q, ctx = new(M, C2), new(M, C2), new(M, C2)
+    kp, vp, hid, act = new(Mkv, C2), new(Mkv, C2), new(M, hidden2), new(M, hidden2)
+    err = _build.load().mit_block_packed2_forward(
+        _ptr(x, (B, N, C), "x"), _ptr(k, (B, Nkv, C), "k"), _ptr(v, (B, Nkv, C), "v"),
+        _ptr(w["ln1"], (2, C2), "ln1", torch.float32),
+        _ptr(w["wq"], (C2, C2), "wq"), _ptr(w["bq"], (C2,), "bq"),
+        _ptr(w["wo"], (C2, C2), "wo"), _ptr(w["bo"], (C2,), "bo"),
+        _ptr(ln2, (2, C2), "ln2", torch.float32),
+        _ptr(w["w1"], (C2, hidden2), "w1"), _ptr(w["b1"], (hidden2,), "b1"),
+        _ptr(w["wdw"], (9, hidden2), "wdw"), _ptr(w["bdw"], (hidden2,), "bdw"),
+        _ptr(w["w2"], (hidden2, C2), "w2"), _ptr(w["b2"], (C2,), "b2"),
+        xp.data_ptr(), kp.data_ptr(), vp.data_ptr(), q.data_ptr(), ctx.data_ptr(),
+        hid.data_ptr(), act.data_ptr(), y.data_ptr(), B, H, W, Nkv, hidden2,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, "mit_block_packed2_forward")
+    fused_mit_block_packed2.launches += 1
+    return y
+
+
+fused_mit_block_packed2.launches = 0
 
 
 def fused_mit_stage(x, base, sw, *, heads: int, H: int, W: int, sr: int):
@@ -546,6 +672,7 @@ def fused_mit_block_train(x, xln, k, v, weights, m1, m2, *, heads: int, H: int, 
 def reset_launches() -> None:
     """Set every wrapper's launch count to 0."""
     fused_mit_block.launches = 0
+    fused_mit_block_packed2.launches = 0
     fused_mit_stage.launches = 0
     block_train_forward.launches = 0
     block_train_mlp_backward.launches = 0

@@ -31,8 +31,17 @@ def dense(x, lin: nn.Linear):
 
 
 def conv(x, c: nn.Conv2d, stride: int, padding: int):
-    """NHWC conv in x.dtype (result rounded once), then + fp32 bias."""
-    y = F.conv2d(x.permute(0, 3, 1, 2), c.weight.to(x.dtype), None, stride, padding)
+    """NHWC conv of x.dtype operands with the weight rounded to x.dtype,
+    accumulated in fp32 and rounded once to x.dtype, then + fp32 bias. On
+    the CPU it runs in fp32 and rounds after: PyTorch's bf16 convolution
+    there returns wrong sums at some shapes (an 8x8 stride-8 kernel over a
+    24x24 grid, the SR conv of a 96-px input), where CUDA's accumulates in
+    fp32 already."""
+    xin, w = x.permute(0, 3, 1, 2), c.weight.to(x.dtype)
+    if x.device.type == "cpu":
+        y = F.conv2d(xin.float(), w.float(), None, stride, padding).to(x.dtype)
+    else:
+        y = F.conv2d(xin, w, None, stride, padding)
     y = y.permute(0, 2, 3, 1)
     if c.bias is not None:
         y = (y.float() + c.bias).to(x.dtype)

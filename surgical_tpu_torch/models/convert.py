@@ -7,6 +7,8 @@ package): ``export_mstcn_state_dict``, ``export_refiner_state_dict`` and
 ``export_mamba_state_dict``. The MiT-EVP backbone has only an importer
 there; ``export_evp_state_dict`` here is its inverse. The ``load_*_params``
 functions load JAX weights into a port module with ``strict=True``.
+``infer_mstcn_dims`` and ``infer_refiner_dims`` are copies of the JAX
+module's, which read a reference checkpoint's model dims off its state dict.
 """
 
 from __future__ import annotations
@@ -242,3 +244,34 @@ def load_mamba_params(model, params: Mapping) -> None:
     """Load JAX ``CausalMambaModel`` params into the port's."""
     sd = export_mamba_state_dict(params, model.cfg.layers)
     model.load_state_dict(to_torch(sd), strict=True)
+
+
+def infer_mstcn_dims(sd: Mapping[str, np.ndarray]) -> dict:
+    """Model dims of a reference ``MultiStageModel_S`` checkpoint, read off
+    the state dict itself so ``reference-parity`` needs no dim flags
+    (trans_SV_output.py:196-201 hardcodes stages=2 layers=8 f_maps=32
+    f_dim=2048; training used f_maps=64, tecno.py:105)."""
+    layers = sum(1 for k in sd if k.startswith("stage1_phase.layers.")
+                 and k.endswith(".conv_dilated.weight"))
+    stages = 1 + len({k.split(".")[1] for k in sd if k.startswith("stages.")})
+    f_maps, f_dim, _ = np.asarray(sd["stage1_phase.conv_1x1.weight"]).shape
+    out_features = np.asarray(sd["stage1_phase.conv_out_classes.weight"]).shape[0]
+    return {"stages": stages, "layers": layers, "f_maps": int(f_maps),
+            "f_dim": int(f_dim), "out_features": int(out_features)}
+
+
+def infer_refiner_dims(sd: Mapping[str, np.ndarray]) -> dict:
+    """Model dims of a reference refiner checkpoint (``Transformer`` wrapper,
+    trans_SV_output.py:205-211). Uses the reference invariant
+    ``d_k = min(64, d_ff)`` (adapter_transformer.py:315) to split the fused
+    W_Q width into n_heads."""
+    n_layers = len({k.split(".")[3] for k in sd
+                    if k.startswith("transformer.encoder.layers.")})
+    d_ff, d_model = np.asarray(
+        sd["transformer.encoder.layers.0.pos_ffn.fc.0.weight"]).shape
+    out_features, f_dim = np.asarray(sd["fc.weight"]).shape
+    d_k = min(64, int(d_ff))
+    wq = np.asarray(sd["transformer.encoder.layers.0.enc_self_attn.W_Q.weight"])
+    assert wq.shape[0] % d_k == 0, (wq.shape, d_k)
+    return {"n_layers": int(n_layers), "f_maps": int(d_ff), "f_dim": int(f_dim),
+            "out_features": int(out_features), "n_heads": int(wq.shape[0] // d_k)}

@@ -8,10 +8,15 @@ prompt adds of stages 1-3 (exact-erf GELU), LN1 and the spatial-reduction /
 kv path of stages 1-3, the flow encoder, the two cross-attentions and the
 pooled head are plain PyTorch, as the JAX package leaves them to XLA.
 
-The JAX module's TPU routing tables (stage fusion, batch tiles, VMEM
-sizing, prompt folding, lane packing) encode TPU measurements and have no
-counterpart here. The kernels' weight dicts are built once per model and
-parameter state (``kernel_weights``), not per batch.
+The lane-packed route is mirrored with the JAX module's names and defaults
+(``_ROUTE_PACKED2``, off; ``_PACKED2_ROW_CHUNKS``,
+``_PACKED2_MIN_N_FOR_CHUNKING``), read at call time: when set, a block with
+C = 64 and one head (stage 1 of MiT-b3) on an even batch runs the packed2
+kernel instead of the block kernel. The JAX module's other TPU routing
+tables (stage fusion, batch tiles, VMEM sizing, prompt folding) encode TPU
+measurements and have no counterpart here. The kernels' weight dicts are
+built once per model and parameter state (``kernel_weights``), not per
+batch.
 """
 
 from __future__ import annotations
@@ -22,16 +27,25 @@ import torch.nn.functional as F
 from surgical_tpu_torch.kernels.mit_block import (
     block_weights_from_params,
     fused_mit_block,
+    fused_mit_block_packed2,
     fused_mit_stage,
+    pack_weights2,
     stage_weights_from_params,
 )
 from surgical_tpu_torch.models import _ops
 
+# surgical_tpu/models/mit_fused.py:81-83
+_ROUTE_PACKED2 = False
+_PACKED2_ROW_CHUNKS = 2
+_PACKED2_MIN_N_FOR_CHUNKING = 2048
+
 
 def kernel_weights(model, dtype=torch.bfloat16) -> dict:
-    """{stage: [block weight dict per block]} for stages 1-3 and {4: stage
-    weight dict}, in the kernels' layout. Cached on ``model``; rebuilt when a
-    parameter is replaced, moved or written in place (load_state_dict)."""
+    """{stage: [block weight dict per block]} for stages 1-3, {4: stage
+    weight dict} and {"packed2": {stage: [pack_weights2 dict per block]}} for
+    the stages of C = 64 and one head, in the kernels' layout. Cached on
+    ``model``; rebuilt when a parameter is replaced, moved or written in
+    place (load_state_dict)."""
     key = (dtype, tuple((p.data_ptr(), p._version) for p in model.parameters()))
     cached = model.__dict__.get("_kernel_weights")
     if cached is None or cached[0] != key:
@@ -39,6 +53,9 @@ def kernel_weights(model, dtype=torch.bfloat16) -> dict:
             weights = {s: [block_weights_from_params(b, dtype)
                            for b in getattr(model, f"block{s}")] for s in (1, 2, 3)}
             weights[4] = stage_weights_from_params(model, 4, dtype)
+            cfg = model.cfg
+            weights["packed2"] = {s: [pack_weights2(w) for w in weights[s]] for s in (1, 2, 3)
+                                  if cfg.embed_dims[s - 1] == 64 and cfg.num_heads[s - 1] == 1}
         cached = model.__dict__["_kernel_weights"] = (key, weights)
     return cached[1]
 
@@ -80,10 +97,17 @@ def fused_forward(model, images, segmaps, flow, return_features: bool = True):
                     red = _ops.conv(xln.reshape(B, H, W, C), blk.attn.sr, sr, 0)
                     kv_in = _ops.layernorm(red.reshape(B, -1, C), blk.attn.norm)
                 kv = _ops.dense(kv_in, blk.attn.kv)
-                x = fused_mit_block(x.contiguous(), kv[..., :C].contiguous(),
-                                    kv[..., C:].contiguous(),
-                                    kw[stage][d],
-                                    heads=heads, H=H, W=W)
+                k, v = kv[..., :C].contiguous(), kv[..., C:].contiguous()
+                if _ROUTE_PACKED2 and C == 64 and heads == 1 and B % 2 == 0:
+                    # the JAX module's condition and row-chunk rule (:283-289)
+                    N = H * W
+                    rc = (_PACKED2_ROW_CHUNKS if N >= _PACKED2_MIN_N_FOR_CHUNKING
+                          and H % _PACKED2_ROW_CHUNKS == 0 else 1)
+                    x = fused_mit_block_packed2(x.contiguous(), k, v, kw["packed2"][stage][d],
+                                                H=H, W=W, row_chunks=rc)
+                else:
+                    x = fused_mit_block(x.contiguous(), k, v, kw[stage][d],
+                                        heads=heads, H=H, W=W)
         x = _ops.layernorm(x, getattr(model, f"norm{stage}"))
         grids.append(x.reshape(B, H, W, C))
         x = grids[-1]

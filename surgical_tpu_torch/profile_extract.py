@@ -9,7 +9,9 @@ wire-format frames, it measures:
   device-resident (the same batches already on the card), each the median
   of 5 runs of 6 batches, in one process;
 - a ``torch.profiler`` trace of 3 host-fed batches: device time by kernel
-  kind, and the device's idle share of the traced wall time;
+  kind, and the device's idle share of the traced wall time; then the same
+  trace with ``models.mit_fused._ROUTE_PACKED2`` set (stage 1 on the
+  lane-packed kernel);
 - MS-TCN + refiner and Mamba + refiner latency per video at T = 200 / 2000 /
   6000 (median of 7), and for one T = 2000 and one T = 6000 run of each the
   device kernel count, busy time, idle share and the selective-scan kernel's
@@ -45,6 +47,7 @@ KINDS = (
     ("dwconv kernels (+ GELU; transposed)", ("dwconv3x3",)),
     ("dk/dv fp32 -> bf16 kernel", ("f32_to_bf16",)),
     ("stage LN / SR regroup kernels", ("layernorm_kernel", "sr_patches")),
+    ("packed2 lane pack/unpack kernels", ("lane_pack2",)),
     ("H2D copy", ("Memcpy HtoD",)),
     ("D2H copy", ("Memcpy DtoH",)),
     ("D2D copy", ("Memcpy DtoD",)),
@@ -166,6 +169,7 @@ def main() -> int:
         raise SystemExit("profile_extract: needs a CUDA GPU")
     from surgical_tpu_torch.core.config import (BackboneConfig, HeadConfig, MambaConfig,
                                                 MSTCNConfig, RefinerConfig)
+    from surgical_tpu_torch.models import mit_fused
     from surgical_tpu_torch.models.mamba import CausalMambaModel
     from surgical_tpu_torch.models.mit_evp import MiTEVP
     from surgical_tpu_torch.models.mstcn import MultiStageTCN
@@ -205,18 +209,24 @@ def main() -> int:
               f"{RUN_BATCHES} batches: " + ", ".join(f"{r:.1f}" for r in rates))
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        rate(host, len(host))
-        wall_us = (time.perf_counter() - t0) * 1e6
-    evs = _device_events(prof)
-    if not evs:
-        raise AssertionError("the profiler saw no device kernels")
-    res["trace"] = {"frames": n, **_trace_by_kind(evs, wall_us)}
-    t = res["trace"]
-    print(f"trace: {n} frames, wall {t['wall_ms']:.2f} ms, device busy {t['busy_ms']:.2f} ms, "
-          f"idle share {t['idle_share']:.4f}")
-    _print_kinds("trace", t)
+    for key, route in (("trace", False), ("trace_packed2", True)):
+        mit_fused._ROUTE_PACKED2 = route
+        try:
+            fn(*host[0])  # warm-up of the route's shapes
+            with torch.profiler.profile(activities=acts) as prof:
+                t0 = time.perf_counter()
+                rate(host, len(host))
+                wall_us = (time.perf_counter() - t0) * 1e6
+        finally:
+            mit_fused._ROUTE_PACKED2 = False
+        evs = _device_events(prof)
+        if not evs:
+            raise AssertionError("the profiler saw no device kernels")
+        res[key] = t = {"frames": n, **_trace_by_kind(evs, wall_us)}
+        print(f"{key}: packed2 route {'on' if route else 'off'}, {n} frames, wall "
+              f"{t['wall_ms']:.2f} ms, device busy {t['busy_ms']:.2f} ms, idle share "
+              f"{t['idle_share']:.4f}")
+        _print_kinds(key, t)
 
     refiner = RefinementTransformer(RefinerConfig(), seed=SEED + 2, device=dev)
     for name, temporal in (("mstcn", MultiStageTCN(MSTCNConfig(), seed=SEED + 1, device=dev)),
