@@ -9,11 +9,14 @@ nonzero without printing a result:
 2. build: the Hopper kernels from ``surgical_tpu_torch/csrc`` (nvcc, sm_90a);
 3. kernel checks: each kernel against its plain PyTorch version on the card
    at the main paths' shapes, with timings and the card's bound for the same
-   work: the MiT serving kernels in bf16 (MiT-b3, 224x224, B=8; packed2 at
-   stage 1 with row_chunks 1 and 2, beside the block kernel's time), the
-   selective scan in fp32 (d_inner 128, d_state 64; 2000 and 6000 frames,
-   and 3 ragged videos of 777), and the three kernels of the training block
-   in bf16 at the four b3 stages (B=8, DropPath factors with zeros);
+   work: the MiT serving kernels in bf16 (MiT-b3, 224x224, at B=8 and at
+   the extraction batch B=200, the plain version timed at B=8 only; packed2
+   at stage 1, B=8, with row_chunks 1 and 2, beside the block kernel's
+   time), then the count of HGMMA (wgmma) instructions in the built
+   library's SASS, which must not be 0; the selective scan in fp32 (d_inner
+   128, d_state 64; 2000 and 6000 frames, and 3 ragged videos of 777), and
+   the three kernels of the training block in bf16 at the four b3 stages
+   (B=8, DropPath factors with zeros);
 4. extraction slice: seeded random-init MiT-b3 EVP + MS-TCN + refiner; three
    synthetic 200-frame videos in the wire format -> make_raw_feature_fn ->
    extract_to_store -> predict_and_write -> relaxed evaluation, with the
@@ -44,7 +47,8 @@ nonzero without printing a result:
    (each store against ``extract_features`` on the same frames, the pickles
    read back), ``reference-parity --online`` on those stores (finite
    metrics, online/offline agreement), and the seconds of each verb;
-8. result: a JSON line of per-kernel numbers, the card line, and the last line
+8. result: a JSON line of per-kernel numbers (the serving kernels' B=200
+   times and bounds beside the B=8 ones), the card line, and the last line
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -285,31 +289,41 @@ def _compare(name, got, want, stage):
 
 
 def phase_kernel_checks() -> dict:
+    """The serving kernels at B = CHECK_B (checked, timed, the plain version
+    timed too) and at the main path's B = BATCH (checked and timed): the
+    block at stages 1-3, packed2 at stage 1 (CHECK_B only), the stage
+    kernel at stage 4."""
     from surgical_tpu_torch.kernels import mit_block as mb
 
     rng = np.random.default_rng(SEED)
     B, res = CHECK_B, {}
-    block_rows = []
+    block_rows, block_rows_main = [], []
     # (stage, C, heads, grid, sr): b3 at 224x224; Nkv = 49 at every stage
     for stage, C, heads, side, sr in ((1, 64, 1, 56, 8), (2, 128, 2, 28, 4), (3, 320, 5, 14, 2)):
         N, Nkv, hidden = side * side, (side // sr) ** 2, 4 * C
-        x, k, v = _rand(rng, (B, N, C)), _rand(rng, (B, Nkv, C)), _rand(rng, (B, Nkv, C))
         w = _block_weights(rng, C, hidden)
         kw = dict(heads=heads, H=side, W=side)
-        got = mb.fused_mit_block(x, k, v, w, **kw)
-        want = mb.fused_mit_block_plain(x, k, v, w, **kw)
-        torch.cuda.synchronize()
-        shape = f"stage{stage} [B={B}, N={N}, C={C}, heads={heads}]"
-        rel, mx = _compare(f"block {shape}", got, want, stage)
-        ms = time_ms(lambda: mb.fused_mit_block(x, k, v, w, **kw))
-        plain_ms = time_ms(lambda: mb.fused_mit_block_plain(x, k, v, w, **kw))
-        nbytes, flops = block_work(B, N, C, Nkv, hidden)
-        bms, by = bound_ms(nbytes, flops / BF16_FLOPS)
-        print(f"time block stage{stage}: kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
-              f"bound {bms:.4f} ms ({by}: {nbytes / 1e6:.2f} MB, {flops / 1e9:.2f} GFLOP)")
-        block_rows.append({"shape": shape, "rel_l2": rel, "max_abs_err": mx, "ms": ms,
-                           "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by})
-    res["block"] = block_rows
+        for b, rows in ((B, block_rows), (BATCH, block_rows_main)):
+            x, k, v = _rand(rng, (b, N, C)), _rand(rng, (b, Nkv, C)), _rand(rng, (b, Nkv, C))
+            got = mb.fused_mit_block(x, k, v, w, **kw)
+            want = mb.fused_mit_block_plain(x, k, v, w, **kw)
+            torch.cuda.synchronize()
+            shape = f"stage{stage} [B={b}, N={N}, C={C}, heads={heads}]"
+            rel, mx = _compare(f"block {shape}", got, want, stage)
+            del got, want
+            ms = time_ms(lambda: mb.fused_mit_block(x, k, v, w, **kw))
+            # the plain version repeats the kernel's arithmetic: timed at CHECK_B only
+            plain_ms = (time_ms(lambda: mb.fused_mit_block_plain(x, k, v, w, **kw))
+                        if b == B else None)
+            nbytes, flops = block_work(b, N, C, Nkv, hidden)
+            bms, by = bound_ms(nbytes, flops / BF16_FLOPS)
+            print(f"time block stage{stage} B={b}: kernel {ms:.4f} ms plain "
+                  f"{'-' if plain_ms is None else f'{plain_ms:.4f}'} ms bound {bms:.4f} ms "
+                  f"({by}: {nbytes / 1e6:.2f} MB, {flops / 1e9:.2f} GFLOP)")
+            rows.append({"shape": shape, "rel_l2": rel, "max_abs_err": mx, "ms": ms,
+                         "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by})
+            del x, k, v
+    res["block"], res["block_main"] = block_rows, block_rows_main
 
     # packed2 at b3 stage 1: image pairs in 128-wide rows, the packed
     # weights of pack_weights2, at row_chunks 1 and 2 (the route's rule for
@@ -356,22 +370,60 @@ def phase_kernel_checks() -> dict:
     sw["sharedw"] = _rand(rng, (C4, C), C4 ** -0.5)
     sw["sharedb"] = _rand(rng, (1, C), 0.1)
     sw = {k: t.contiguous() for k, t in sw.items()}
-    x, base = _rand(rng, (B, N, C)), _rand(rng, (B, N, Cb))
     kw = dict(heads=heads, H=side, W=side, sr=1)
-    got = mb.fused_mit_stage(x, base, sw, **kw)
-    want = mb.fused_mit_stage_plain(x, base, sw, **kw)
-    torch.cuda.synchronize()
-    rel, mx = _compare(f"stage4 [B={B}, N={N}, C={C}, heads={heads}, depth={depth}, base]",
-                       got, want, 4)
-    ms = time_ms(lambda: mb.fused_mit_stage(x, base, sw, **kw))
-    plain_ms = time_ms(lambda: mb.fused_mit_stage_plain(x, base, sw, **kw))
-    nbytes, flops = stage_work(B, N, C, 4 * C, depth, Cb, C4)
-    bms, by = bound_ms(nbytes, flops / BF16_FLOPS)
-    print(f"time stage4: kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
-          f"bound {bms:.4f} ms ({by}: {nbytes / 1e6:.2f} MB, {flops / 1e9:.2f} GFLOP)")
-    res["stage"] = {"rel_l2": rel, "max_abs_err": mx, "ms": ms, "plain_ms": plain_ms,
-                    "bound_ms": bms, "bound_by": by}
+    for b in (B, BATCH):
+        x, base = _rand(rng, (b, N, C)), _rand(rng, (b, N, Cb))
+        got = mb.fused_mit_stage(x, base, sw, **kw)
+        want = mb.fused_mit_stage_plain(x, base, sw, **kw)
+        torch.cuda.synchronize()
+        shape = f"stage4 [B={b}, N={N}, C={C}, heads={heads}, depth={depth}, base]"
+        rel, mx = _compare(shape, got, want, 4)
+        ms = time_ms(lambda: mb.fused_mit_stage(x, base, sw, **kw))
+        plain_ms = time_ms(lambda: mb.fused_mit_stage_plain(x, base, sw, **kw)) if b == B else None
+        nbytes, flops = stage_work(b, N, C, 4 * C, depth, Cb, C4)
+        bms, by = bound_ms(nbytes, flops / BF16_FLOPS)
+        print(f"time stage4 B={b}: kernel {ms:.4f} ms plain "
+              f"{'-' if plain_ms is None else f'{plain_ms:.4f}'} ms bound {bms:.4f} ms "
+              f"({by}: {nbytes / 1e6:.2f} MB, {flops / 1e9:.2f} GFLOP)")
+        res["stage" if b == B else "stage_main"] = {
+            "shape": shape, "rel_l2": rel, "max_abs_err": mx, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bms, "bound_by": by}
+        del x, base, got, want
     return res
+
+
+def _cuobjdump() -> str:
+    """cuobjdump of the CUDA toolkit, or the copy Triton's package carries."""
+    import shutil
+
+    from surgical_tpu_torch.kernels import _build
+
+    cands = [os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump"), shutil.which("cuobjdump")]
+    try:
+        import triton
+
+        cands.append(os.path.join(os.path.dirname(triton.__file__), "backends", "nvidia", "bin",
+                                  "cuobjdump"))
+    except ImportError:
+        pass
+    for c in cands:
+        if c and os.path.isfile(c):
+            return c
+    raise RuntimeError("cuobjdump not found (CUDA toolkit or Triton's package)")
+
+
+def phase_sass() -> int:
+    """The count of HGMMA (wgmma) instructions in the built library's SASS:
+    the serving products run on Hopper's warpgroup tensor-core path."""
+    from surgical_tpu_torch.kernels import _build
+
+    sass = subprocess.run([_cuobjdump(), "-sass", str(_build.build())], capture_output=True,
+                          text=True, check=True).stdout
+    n = sum("HGMMA" in line for line in sass.splitlines())
+    print(f"sass: {n} HGMMA instructions in {os.path.relpath(_build.build())}")
+    if n == 0:
+        raise AssertionError("the kernel library holds no HGMMA instruction")
+    return n
 
 
 def scan_inputs(rng, Bt, T, D=SCAN_D, N=SCAN_N):
@@ -1083,6 +1135,7 @@ def main() -> int:
     smi = phase_toolchain()
     phase_build()
     checks = phase_kernel_checks()
+    n_hgmma = phase_sass()
     scan = phase_scan_checks()
     train_checks = phase_train_kernel_checks()
     with tempfile.TemporaryDirectory() as workdir:
@@ -1091,6 +1144,7 @@ def main() -> int:
         tr = phase_train(workdir)
         phase_extract_cli(workdir)
     blk, stg, pk = checks["block"], checks["stage"], checks["packed2"]
+    blk_main, stg_main = checks["block_main"], checks["stage_main"]
     main_scan = [r for r in scan if r["shape"].startswith("[Bt=1,")]  # the test videos' shapes
     summed = lambda rows, key: sum(r[key] for r in rows)
     by = lambda rows: max(("bytes", "operations"),
@@ -1103,7 +1157,9 @@ def main() -> int:
          "max_abs_err": max(r["max_abs_err"] for r in blk),
          "ms": summed(blk, "ms"), "plain_ms": summed(blk, "plain_ms"),
          "bound_ms": summed(blk, "bound_ms"), "bound_by": by(blk), "library_ms": None,
-         "shapes": blk},
+         f"ms_b{BATCH}": summed(blk_main, "ms"), f"bound_ms_b{BATCH}": summed(blk_main, "bound_ms"),
+         f"max_abs_err_b{BATCH}": max(r["max_abs_err"] for r in blk_main), "hgmma": n_hgmma,
+         "shapes": blk + blk_main},
         {"name": "mit_block_packed2_forward", "route": "cuda", "source": SOURCE,
          "replaces": "surgical_tpu/kernels/mit_block.py:801",
          "launches": sl["route_launches"]["mit_block_packed2_forward"],
@@ -1114,7 +1170,10 @@ def main() -> int:
          "replaces": "surgical_tpu/kernels/mit_block.py:1202",
          "launches": sl["launches"]["mit_stage_forward"],
          "max_abs_err": stg["max_abs_err"], "ms": stg["ms"], "plain_ms": stg["plain_ms"],
-         "bound_ms": stg["bound_ms"], "bound_by": stg["bound_by"], "library_ms": None},
+         "bound_ms": stg["bound_ms"], "bound_by": stg["bound_by"], "library_ms": None,
+         f"ms_b{BATCH}": stg_main["ms"], f"bound_ms_b{BATCH}": stg_main["bound_ms"],
+         f"max_abs_err_b{BATCH}": stg_main["max_abs_err"], "hgmma": n_hgmma,
+         "shapes": [stg, stg_main]},
         {"name": "selective_scan_forward", "route": "cuda", "source": SCAN_SOURCE,
          "replaces": "surgical_tpu/kernels/selective_scan.py:130",
          "launches": tp["launches"],

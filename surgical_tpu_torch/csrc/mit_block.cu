@@ -27,19 +27,31 @@
 // device memory for a few hundred FLOPs per byte at most, so they are bound
 // by bytes, not by the tensor cores; stage 3-4 GEMMs are closer to the
 // ridge. The attention over the 49 spatially-reduced keys is small work
-// that the TPU spread over MXU dots; here the forward runs on the CUDA cores
+// that the TPU spread over MXU dots; here the serving forward runs on the
+// tensor cores (mma.sync), the train and packed2 forward on the CUDA cores,
 // and the training backward's five products on the tensor cores (wmma).
 //
-// This first design is simple and right, not fast: each entry point is a
-// short chain of hand-written kernels on the caller's stream --
-//   LN-prologue GEMM (q) -> attention -> residual GEMM (out proj)
-//   -> LN-prologue GEMM (fc1) -> 3x3 depthwise conv + GELU -> residual GEMM
-// -- with intermediates in scratch that the Python wrapper allocates. The
-// design answers the byte bound only where it is cheap to: LayerNorm is
-// fused into the A-operand load of the GEMM that consumes it and bias /
-// GELU / residual into its epilogue, so neither LN output nor a pre-bias
-// product ever goes to memory. Fusing the chain into one pass per block,
-// TMA and wgmma are later work.
+// Each entry point is a short chain of hand-written kernels on the caller's
+// stream --
+//   LN-prologue product (q) -> attention -> residual product (out proj)
+//   -> LN-prologue product (fc1) -> 3x3 depthwise conv + GELU -> residual
+//   product (fc2)
+// -- with intermediates in scratch that the Python wrapper allocates.
+// LayerNorm is fused into the A operand of the product that consumes it and
+// bias / GELU / residual into its epilogue, so neither LN output nor a
+// pre-bias product goes to memory.
+//
+// The serving entry points (mit_block_forward, mit_stage_forward) run that
+// chain on Hopper's own paths (see "serving kernels" below): wgmma_linear,
+// wgmma products fed by a TMA ring with the LN'd A panel resident in shared
+// memory, and attention_tc_kernel, the attention on the tensor cores with
+// K and V staged once per CTA; their launch plans come from the Python
+// wrapper. The train and packed2 entry points keep the first design's
+// gemm_bf16 (wmma, one stage of synchronous loads) and attention_kernel
+// (CUDA cores). The MLP tail fused on chip (the Pallas body's mlp_chunk
+// form, hid and act kept out of device memory) was built and measured
+// slower than this chain at every b3 stage (PERF.md, Findings), so it is not
+// here.
 //
 // Rounding mirrors the Pallas bodies so that the bf16 results agree: every
 // product accumulates in fp32; q, kv, the attention probabilities, ctx, the
@@ -53,6 +65,7 @@
 #include <type_traits>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 using namespace nvcuda;
 
@@ -747,45 +760,544 @@ void attention(cudaStream_t s, const bf16* q, const bf16* k, const bf16* v, int 
                                                 1.0f / sqrtf((float)HD));
 }
 
-// x1 = x + (ctx @ wo + bo) -> y ; y = y + fc2(gelu(dwconv(fc1(LN2(y)))))
-void attn_out_and_mlp(cudaStream_t s, const bf16* x, const bf16* ctx, const bf16* wo,
-                      const bf16* bo, const bf16* ln2_g, const bf16* ln2_b, const bf16* w1,
-                      const bf16* b1, const bf16* wdw, const bf16* bdw, const bf16* w2,
-                      const bf16* b2, bf16* hid, bf16* act, bf16* y, int B, int H, int W,
-                      int C, int hidden) {
+// ===================================================== serving kernels ====
+// The products and the attention of mit_block_forward and mit_stage_forward
+// (the serving path), redesigned for Hopper; the train and packed2 entry
+// points above keep gemm_bf16, attention_kernel and dwconv3x3_kernel.
+
+// ---------------------------------------------------- wgmma_linear ----
+// out[M, N] = epilogue(A'[M, K] @ Bw[K, N]), A' = A or bf16(LayerNorm(A)),
+// on the tensor cores with wgmma. A CTA owns 128 rows and walks
+// `tiles_per_cta` output tiles of 64 NSLAB columns. One producer warp feeds
+// a ring of WG_STAGES weight tiles [64 K x 64 NSLAB N] by TMA (128-byte
+// swizzle, zero fill past the edges); two consumer warpgroups each run
+// m64n64k16 wgmma on 64 of the rows.
+//   RESIDENT (K <= WG_PANEL_MAX_K): the CTA's A panel [128 x K] is loaded
+//   once and serves every N tile. With LN each row's statistics are taken
+//   once from the panel and bf16(LN(A)) written back in place, the rounding
+//   of the Pallas body's xln.
+//   Otherwise A tiles [128 x 64] stream through the ring beside B.
+// The epilogue runs on the accumulators in registers: a shuffle within each
+// quad of lanes gives every lane 8 consecutive columns of one row, so bias,
+// residual and output move 16 bytes per thread. `res` may alias `out`.
+constexpr int WG_BM = 128, WG_BK = 64, WG_STAGES = 4, WG_PANEL_MAX_K = 512;
+constexpr int WG_CONSUMERS = 256, WG_THREADS = WG_CONSUMERS + 32;
+constexpr int WG_A_TILE = WG_BM * WG_BK * 2;  // bytes of a [128 x 64] A tile
+constexpr int WG_B_SLAB = WG_BK * 64 * 2;     // bytes of a [64 K x 64 N] B slab
+constexpr int WG_SLACK = 1024 + 256;          // 1024-byte atom alignment + barriers
+constexpr int SMEM_LIMIT = 232448;            // dynamic shared memory per CTA (sm_90)
+
+constexpr int wg_smem_bytes(int K, int bn, bool resident) {
+  return (resident ? (K + WG_BK - 1) / WG_BK : WG_STAGES) * WG_A_TILE +
+         WG_STAGES * (bn / 64) * WG_B_SLAB + WG_SLACK;
+}
+
+struct WgArgs {
+  const bf16* ln_g;
+  const bf16* ln_b;
+  const bf16* bias;
+  const bf16* res;
+  bf16* out;
+  int M, N, K, ldr, ldo, tiles_per_cta;
+};
+
+// Byte offset of 16-byte chunk `ch` (columns 8 ch .. 8 ch + 7) of row r of a
+// panel of [128 x 64] swizzled tiles.
+__device__ __forceinline__ int panel_chunk(int r, int ch) {
+  return (ch >> 3) * WG_A_TILE + r * 128 + (((ch & 7) ^ (r & 7)) << 4);
+}
+
+// bf16(LayerNorm(row r)) in place in the panel; one warp per row, lane l
+// holding chunks l and l + 32 (K > 128).
+__device__ __forceinline__ void ln_panel_row(unsigned char* panel, int r, int K, const bf16* g,
+                                             const bf16* b, int lane) {
+  constexpr int CH = WG_PANEL_MAX_K / 8 / 32;  // 16-byte chunks per lane
+  uint4 v[CH];
+  float s = 0.f;
+#pragma unroll
+  for (int i = 0; i < CH; ++i) {
+    const int ch = lane + 32 * i;
+    v[i] = make_uint4(0, 0, 0, 0);
+    if (ch * 8 < K) v[i] = *reinterpret_cast<const uint4*>(panel + panel_chunk(r, ch));
+    const bf16* e = lanes8(v[i]);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) s += bf2f(e[j]);
+  }
+  const float mean = warp_sum(s) / K;
+  float ss = 0.f;
+#pragma unroll
+  for (int i = 0; i < CH; ++i) {
+    if ((lane + 32 * i) * 8 >= K) continue;
+    const bf16* e = lanes8(v[i]);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) ss += (bf2f(e[j]) - mean) * (bf2f(e[j]) - mean);
+  }
+  const float rstd = rsqrtf(warp_sum(ss) / K + LN_EPS);
+#pragma unroll
+  for (int i = 0; i < CH; ++i) {
+    const int ch = lane + 32 * i;
+    if (ch * 8 >= K) continue;
+    uint4 gv = load8(g + ch * 8), bv = load8(b + ch * 8);
+    bf16 *e = lanes8(v[i]), *ge = lanes8(gv), *be = lanes8(bv);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) e[j] = f2bf((bf2f(e[j]) - mean) * rstd * bf2f(ge[j]) + bf2f(be[j]));
+    *reinterpret_cast<uint4*>(panel + panel_chunk(r, ch)) = v[i];
+  }
+}
+
+// The same for K <= 128 with every lane busy: a row is held by a group of
+// L lanes (one 16-byte chunk each), so a warp takes 32 / L rows at a time.
+template <int L>
+__device__ __forceinline__ void ln_panel_rows_grouped(unsigned char* panel, int row0, int K,
+                                                      const bf16* g, const bf16* b, int lane) {
+  constexpr int PER = 32 / L;
+  const int ch = lane % L;
+  const bool in = ch * 8 < K;
+#pragma unroll
+  for (int it = 0; it < 16 / PER; ++it) {
+    const int r = row0 + it * PER + lane / L;
+    uint4 v = make_uint4(0, 0, 0, 0);
+    if (in) v = *reinterpret_cast<const uint4*>(panel + panel_chunk(r, ch));
+    bf16* e = lanes8(v);
+    float s = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) s += bf2f(e[j]);
+#pragma unroll
+    for (int o = L / 2; o > 0; o >>= 1) s += __shfl_xor_sync(FULL_MASK, s, o);
+    const float mean = s / K;
+    float ss = 0.f;
+    if (in) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) ss += (bf2f(e[j]) - mean) * (bf2f(e[j]) - mean);
+    }
+#pragma unroll
+    for (int o = L / 2; o > 0; o >>= 1) ss += __shfl_xor_sync(FULL_MASK, ss, o);
+    const float rstd = rsqrtf(ss / K + LN_EPS);
+    if (in) {
+      uint4 gv = load8(g + ch * 8), bv = load8(b + ch * 8);
+      bf16 *ge = lanes8(gv), *be = lanes8(bv);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        e[j] = f2bf((bf2f(e[j]) - mean) * rstd * bf2f(ge[j]) + bf2f(be[j]));
+      *reinterpret_cast<uint4*>(panel + panel_chunk(r, ch)) = v;
+    }
+  }
+}
+
+// bf16(LayerNorm) in place for panel rows row0 .. row0 + 15, by one warp.
+// The two forms give the same bits; on an H100 the grouped one is the faster
+// at K <= 128 and the one-row form at K = 320 and 512 (PERF.md, Findings).
+__device__ __forceinline__ void ln_panel_rows(unsigned char* panel, int row0, int K,
+                                              const bf16* g, const bf16* b, int lane) {
+  const int nch = K / 8;
+  if (nch > 16) {
+    for (int i = 0; i < 16; ++i) ln_panel_row(panel, row0 + i, K, g, b, lane);
+  } else if (nch > 8) {
+    ln_panel_rows_grouped<16>(panel, row0, K, g, b, lane);
+  } else if (nch > 4) {
+    ln_panel_rows_grouped<8>(panel, row0, K, g, b, lane);
+  } else if (nch > 2) {
+    ln_panel_rows_grouped<4>(panel, row0, K, g, b, lane);
+  } else {
+    ln_panel_rows_grouped<2>(panel, row0, K, g, b, lane);
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ T pick4(const T (&a)[4], int i) {
+  return i == 0 ? a[0] : i == 1 ? a[1] : i == 2 ? a[2] : a[3];
+}
+
+// The epilogue of one 64-column slab of a consumer warpgroup's accumulators:
+// rows row_lo and row_lo + 8 of this lane (those below row_end), columns
+// n_base + 8 jb + 2 t (those below n_end): out = bf16([res +] [gelu](v +
+// bias)).
+template <Epi EPI>
+__device__ __forceinline__ void store_slab(const float (&d)[32], const bf16* bias, const bf16* res,
+                                           int ldr, bf16* out, int ldo, int row_lo, int row_end,
+                                           int n_base, int n_end, int t) {
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = row_lo + 8 * half;
+#pragma unroll
+    for (int G = 0; G < 2; ++G) {
+      float2 it[4], recv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        it[i] = make_float2(d[(4 * G + i) * 4 + 2 * half], d[(4 * G + i) * 4 + 2 * half + 1]);
+      recv[0] = pick4(it, t);
+#pragma unroll
+      for (int r = 1; r < 4; ++r) {  // lane t ^ r wants its column block 4 G + (t ^ r)
+        const float2 snd = pick4(it, t ^ r);
+        recv[r].x = __shfl_xor_sync(FULL_MASK, snd.x, r);
+        recv[r].y = __shfl_xor_sync(FULL_MASK, snd.y, r);
+      }
+      const int col = n_base + 8 * (4 * G + t);
+      if (row >= row_end || col >= n_end) continue;
+      float v[8];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {  // columns 2k, 2k+1 came from lane k
+        const float2 p = pick4(recv, k ^ t);
+        v[2 * k] = p.x, v[2 * k + 1] = p.y;
+      }
+      uint4 bv = load8(bias + col), rv = make_uint4(0, 0, 0, 0), ov;
+      if constexpr (EPI == Epi::kBiasRes) rv = load8(res + (size_t)row * ldr + col);
+      bf16 *be = lanes8(bv), *re = lanes8(rv), *oe = lanes8(ov);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        float x = v[i] + bf2f(be[i]);
+        if constexpr (EPI == Epi::kBiasGelu) x = gelu_tanh(x);
+        if constexpr (EPI == Epi::kBiasRes) x = bf2f(re[i]) + x;
+        oe[i] = f2bf(x);
+      }
+      store8(out + (size_t)row * ldo + col, ov);
+    }
+  }
+}
+
+template <bool LN, Epi EPI, int NSLAB, bool RESIDENT>
+__global__ void __launch_bounds__(WG_THREADS, 2)
+    wgmma_linear(const __grid_constant__ CUtensorMap tma, const __grid_constant__ CUtensorMap tmb,
+                 const WgArgs a) {
+  static_assert(!LN || RESIDENT, "the LayerNorm prologue works on a resident panel");
+  extern __shared__ unsigned char wg_smem_raw[];
+  const uint32_t raw = smem_addr(wg_smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* panel = wg_smem_raw + (base - raw);
+  constexpr uint32_t B_STAGE = NSLAB * WG_B_SLAB;
+  const int ktiles = (a.K + WG_BK - 1) / WG_BK;
+  const uint32_t sA = base;
+  constexpr int S = WG_STAGES;
+  const uint32_t sB = sA + (RESIDENT ? ktiles : S) * WG_A_TILE;
+  const uint32_t bars = sB + S * B_STAGE;  // full[S], empty[S], panel
+  const uint32_t a_full = bars + 16 * S;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int m0 = blockIdx.x * WG_BM;
+  const int ntiles = (a.N + 64 * NSLAB - 1) / (64 * NSLAB);
+  const int nt0 = blockIdx.y * a.tiles_per_cta;
+  const int nt1 = min(nt0 + a.tiles_per_cta, ntiles);
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(bars + 8 * s, 1);
+      mbar_init(bars + 8 * (S + s), WG_CONSUMERS / 32);
+    }
+    mbar_init(a_full, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp == WG_CONSUMERS / 32) {  // producer warp: one thread issues every load
+    if (lane == 0) {
+      if constexpr (RESIDENT) {
+        mbar_expect_tx(a_full, ktiles * WG_A_TILE);
+        for (int kt = 0; kt < ktiles; ++kt)
+          tma_load_2d(sA + kt * WG_A_TILE, &tma, kt * WG_BK, m0, a_full);
+      }
+      int s = 0;
+      uint32_t ph = 0;
+      for (int nt = nt0; nt < nt1; ++nt) {
+        for (int kt = 0; kt < ktiles; ++kt) {
+          const uint32_t full = bars + 8 * s;
+          mbar_wait(bars + 8 * (S + s), ph ^ 1);
+          mbar_expect_tx(full, B_STAGE + (RESIDENT ? 0 : WG_A_TILE));
+          if constexpr (!RESIDENT) tma_load_2d(sA + s * WG_A_TILE, &tma, kt * WG_BK, m0, full);
+#pragma unroll
+          for (int j = 0; j < NSLAB; ++j)
+            tma_load_2d(sB + s * B_STAGE + j * WG_B_SLAB, &tmb, (nt * NSLAB + j) * 64,
+                        kt * WG_BK, full);
+          if (++s == S) s = 0, ph ^= 1;
+        }
+      }
+    }
+    return;
+  }
+
+  const int wg = warp >> 2;  // consumer warpgroup: rows 64 wg .. 64 wg + 63
+  if constexpr (RESIDENT) {
+    mbar_wait(a_full, 0);
+    if constexpr (LN) {
+      ln_panel_rows(panel, 64 * wg + 16 * (warp & 3), a.K, a.ln_g, a.ln_b, lane);
+      fence_proxy_async();
+      named_barrier(1 + wg, 128);
+    }
+  }
+  const int row_lo = m0 + 64 * wg + 16 * (warp & 3) + (lane >> 2);
+  int s = 0, prev = 0;
+  uint32_t ph = 0;
+  for (int nt = nt0; nt < nt1; ++nt) {
+    float acc[NSLAB][32];
+#pragma unroll
+    for (int j = 0; j < NSLAB; ++j)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[j][i] = 0.f;
+    // one k-step's wgmma group stays in flight while the next is issued;
+    // a ring stage is released once the group that read it has completed
+    for (int kt = 0; kt < ktiles; ++kt) {
+      mbar_wait(bars + 8 * s, ph);
+      const uint32_t a_rows =
+          (RESIDENT ? sA + kt * WG_A_TILE : sA + s * WG_A_TILE) + wg * (64 * 128);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < WG_BK / 16; ++kk) {
+        const uint64_t da = smem_desc_sw128(a_rows + kk * 32);
+#pragma unroll
+        for (int j = 0; j < NSLAB; ++j)
+          wgmma_m64n64k16(acc[j], da,
+                          smem_desc_sw128(sB + s * B_STAGE + j * WG_B_SLAB + kk * 16 * 128));
+      }
+      wgmma_commit();
+      wgmma_wait1();
+      if (kt > 0 && lane == 0) mbar_arrive(bars + 8 * (S + prev));
+      prev = s;
+      if (++s == S) s = 0, ph ^= 1;
+    }
+    wgmma_wait0();
+    if (lane == 0) mbar_arrive(bars + 8 * (S + prev));
+#pragma unroll
+    for (int j = 0; j < NSLAB; ++j)
+      store_slab<EPI>(acc[j], a.bias, a.res, a.ldr, a.out, a.ldo, row_lo, a.M,
+                      (nt * NSLAB + j) * 64, a.N, lane & 3);
+  }
+}
+
+template <bool LN, Epi EPI, int NSLAB, bool RESIDENT>
+int wg_launch(cudaStream_t s, dim3 grid, int smem, const CUtensorMap& ta, const CUtensorMap& tb,
+              const WgArgs& a) {
+  auto kern = wgmma_linear<LN, EPI, NSLAB, RESIDENT>;
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_LIMIT);
+  if (attr != cudaSuccess) return (int)attr;
+  kern<<<grid, WG_THREADS, smem, s>>>(ta, tb, a);
+  return (int)cudaGetLastError();
+}
+
+// One serving product with its launch plan from the Python wrapper
+// (kernels/mit_block.py::gemm_plan): plan = [bn, resident, tiles_per_cta,
+// grid_x, grid_y, smem_bytes]. A plan that does not fit the shapes is
+// refused with cudaErrorInvalidValue; so is a tensor map that cannot be
+// made.
+template <bool LN, Epi EPI>
+int wg_linear(cudaStream_t s, const int* plan, const bf16* A, const bf16* Bw, const bf16* bias,
+              const bf16* ln_g, const bf16* ln_b, const bf16* res, int ldr, bf16* out, int ldo,
+              int M, int N, int K) {
+  const int bn = plan[0], tpc = plan[2], smem = plan[5];
+  const bool resident = plan[1] != 0;
+  const int ntiles = bn > 0 ? (N + bn - 1) / bn : 0;
+  const int bad = (int)cudaErrorInvalidValue;
+  if ((bn != 64 && bn != 128) || tpc < 1 || (resident && K > WG_PANEL_MAX_K) || (LN && !resident) ||
+      plan[3] != (M + WG_BM - 1) / WG_BM || plan[4] != (ntiles + tpc - 1) / tpc ||
+      smem != wg_smem_bytes(K, bn, resident) || smem > SMEM_LIMIT || K % 8 || N % 8)
+    return bad;
+  CUtensorMap ta, tb;
+  if (!make_tensor_map(&ta, A, M, K, WG_BM, WG_BK) || !make_tensor_map(&tb, Bw, K, N, WG_BK, 64))
+    return bad;
+  WgArgs a{ln_g, ln_b, bias, res, out, M, N, K, ldr, ldo, tpc};
+  const dim3 grid(plan[3], plan[4]);
+  if constexpr (LN) {
+    return bn == 64 ? wg_launch<true, EPI, 1, true>(s, grid, smem, ta, tb, a)
+                    : wg_launch<true, EPI, 2, true>(s, grid, smem, ta, tb, a);
+  } else {
+    if (resident)
+      return bn == 64 ? wg_launch<false, EPI, 1, true>(s, grid, smem, ta, tb, a)
+                      : wg_launch<false, EPI, 2, true>(s, grid, smem, ta, tb, a);
+    return bn == 64 ? wg_launch<false, EPI, 1, false>(s, grid, smem, ta, tb, a)
+                    : wg_launch<false, EPI, 2, false>(s, grid, smem, ta, tb, a);
+  }
+}
+
+// ---------------------------------------------- attention_tc_kernel ----
+// Softmax attention of one (image, head) per blockIdx.y over its Nkv <= 64
+// keys, on the tensor cores (mma.sync m16n8k16, bf16 in, fp32 accumulate).
+// K_h and V_h are staged once per CTA in shared memory as bf16, zero-padded
+// to MAX_KV keys; the CTA then walks `tiles_per_cta` query tiles of 64 rows,
+// 16 rows per warp: S = q_h K_h^T in registers, the fp32 softmax with keys
+// past Nkv masked, P rounded to bf16 (mit_block.py:163) and fed from the
+// same registers as the A operand of ctx = P V_h, ctx rounded to bf16.
+constexpr int TC_THREADS = 128, TC_ROWS = 64, TC_LD = HD + 8;  // padded rows: no bank conflicts
+
+__global__ void __launch_bounds__(TC_THREADS)
+    attention_tc_kernel(const bf16* __restrict__ q, int ldq, const bf16* __restrict__ k,
+                        const bf16* __restrict__ v, int ldkv, bf16* __restrict__ ctx, int ldc,
+                        int N, int Nkv, int heads, int tiles_per_cta, float scale) {
+  __shared__ __align__(16) bf16 Ks[MAX_KV][TC_LD];
+  __shared__ __align__(16) bf16 Vs[MAX_KV][TC_LD];
+  __shared__ __align__(16) bf16 Qs[TC_THREADS / 32][16][TC_LD];  // q rows, then ctx rows
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int b = blockIdx.y / heads, h = blockIdx.y % heads;
+  const uint4 zero8 = make_uint4(0, 0, 0, 0);
+  for (int idx = tid; idx < MAX_KV * HD / 8; idx += TC_THREADS) {
+    const int j = idx / (HD / 8), d = (idx % (HD / 8)) * 8;
+    const size_t off = ((size_t)b * Nkv + j) * ldkv + h * HD + d;
+    store8(&Ks[j][d], j < Nkv ? load8(k + off) : zero8);
+    store8(&Vs[j][d], j < Nkv ? load8(v + off) : zero8);
+  }
+  __syncthreads();
+
+  const int qtiles = (N + TC_ROWS - 1) / TC_ROWS;
+  const int t0 = blockIdx.x * tiles_per_cta, t1 = min(t0 + tiles_per_cta, qtiles);
+  bf16(*Qw)[TC_LD] = Qs[warp];
+  for (int tile = t0; tile < t1; ++tile) {
+    const int r0 = tile * TC_ROWS + warp * 16;
+    for (int c = lane; c < 16 * HD / 8; c += 32) {
+      const int rr = c / (HD / 8), d = (c % (HD / 8)) * 8, row = r0 + rr;
+      store8(&Qw[rr][d], row < N ? load8(q + ((size_t)b * N + row) * ldq + h * HD + d) : zero8);
+    }
+    __syncwarp();
+    uint32_t qa[HD / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      ldmatrix_x4(qa[kk], smem_addr(&Qw[lane & 15][16 * kk + (lane >> 4) * 8]));
+
+    float sc[MAX_KV / 8][4];
+#pragma unroll
+    for (int nb = 0; nb < MAX_KV / 8; ++nb) sc[nb][0] = sc[nb][1] = sc[nb][2] = sc[nb][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+#pragma unroll
+      for (int nb2 = 0; nb2 < MAX_KV / 16; ++nb2) {
+        uint32_t kb[4];
+        ldmatrix_x4(kb, smem_addr(&Ks[16 * nb2 + (lane & 7) + ((lane >> 4) << 3)]
+                                    [16 * kk + ((lane >> 3) & 1) * 8]));
+        mma_m16n8k16(sc[2 * nb2], qa[kk], kb[0], kb[1]);
+        mma_m16n8k16(sc[2 * nb2 + 1], qa[kk], kb[2], kb[3]);
+      }
+
+    // softmax of rows g (elements 0, 1) and g + 8 (elements 2, 3); the four
+    // lanes of a quad hold one row between them
+    float mx[2] = {-CUDART_INF_F, -CUDART_INF_F}, sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int nb = 0; nb < MAX_KV / 8; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = nb * 8 + 2 * t + (e & 1);
+        sc[nb][e] = key < Nkv ? sc[nb][e] * scale : -CUDART_INF_F;
+        mx[e >> 1] = fmaxf(mx[e >> 1], sc[nb][e]);
+      }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(FULL_MASK, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(FULL_MASK, mx[i], 2));
+    }
+#pragma unroll
+    for (int nb = 0; nb < MAX_KV / 8; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = nb * 8 + 2 * t + (e & 1);
+        sc[nb][e] = key < Nkv ? expf(sc[nb][e] - mx[e >> 1]) : 0.f;
+        sum[e >> 1] += sc[nb][e];
+      }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      sum[i] += __shfl_xor_sync(FULL_MASK, sum[i], 1);
+      sum[i] += __shfl_xor_sync(FULL_MASK, sum[i], 2);
+    }
+    uint32_t pa[MAX_KV / 16][4];  // bf16(P) as the A operand of P V, key block kk
+#pragma unroll
+    for (int kk = 0; kk < MAX_KV / 16; ++kk) {
+      pa[kk][0] = pack_bf16x2(sc[2 * kk][0] / sum[0], sc[2 * kk][1] / sum[0]);
+      pa[kk][1] = pack_bf16x2(sc[2 * kk][2] / sum[1], sc[2 * kk][3] / sum[1]);
+      pa[kk][2] = pack_bf16x2(sc[2 * kk + 1][0] / sum[0], sc[2 * kk + 1][1] / sum[0]);
+      pa[kk][3] = pack_bf16x2(sc[2 * kk + 1][2] / sum[1], sc[2 * kk + 1][3] / sum[1]);
+    }
+
+    float o[HD / 8][4];
+#pragma unroll
+    for (int nb = 0; nb < HD / 8; ++nb) o[nb][0] = o[nb][1] = o[nb][2] = o[nb][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < MAX_KV / 16; ++kk)
+#pragma unroll
+      for (int nb2 = 0; nb2 < HD / 16; ++nb2) {
+        uint32_t vb[4];
+        ldmatrix_x4_trans(vb, smem_addr(&Vs[16 * kk + (lane & 7) + (((lane >> 3) & 1) << 3)]
+                                          [16 * nb2 + ((lane >> 4) << 3)]));
+        mma_m16n8k16(o[2 * nb2], pa[kk], vb[0], vb[1]);
+        mma_m16n8k16(o[2 * nb2 + 1], pa[kk], vb[2], vb[3]);
+      }
+
+    __syncwarp();  // every lane's q fragments are loaded: the buffer takes ctx
+#pragma unroll
+    for (int nb = 0; nb < HD / 8; ++nb) {
+      *reinterpret_cast<uint32_t*>(&Qw[g][nb * 8 + 2 * t]) = pack_bf16x2(o[nb][0], o[nb][1]);
+      *reinterpret_cast<uint32_t*>(&Qw[g + 8][nb * 8 + 2 * t]) = pack_bf16x2(o[nb][2], o[nb][3]);
+    }
+    __syncwarp();
+    for (int c = lane; c < 16 * HD / 8; c += 32) {
+      const int rr = c / (HD / 8), d = (c % (HD / 8)) * 8, row = r0 + rr;
+      if (row < N) store8(ctx + ((size_t)b * N + row) * ldc + h * HD + d, load8(&Qw[rr][d]));
+    }
+    __syncwarp();
+  }
+}
+
+// plan = [tiles_per_cta, grid_x, grid_y] (kernels/mit_block.py::attention_plan)
+int attention_tc(cudaStream_t s, const int* plan, const bf16* q, const bf16* k, const bf16* v,
+                 int ldkv, bf16* ctx, int B, int N, int Nkv, int C, int heads) {
+  const int tpc = plan[0], qtiles = (N + TC_ROWS - 1) / TC_ROWS;
+  if (tpc < 1 || Nkv > MAX_KV || plan[1] != (qtiles + tpc - 1) / tpc || plan[2] != B * heads)
+    return (int)cudaErrorInvalidValue;
+  attention_tc_kernel<<<dim3(plan[1], plan[2]), TC_THREADS, 0, s>>>(
+      q, C, k, v, ldkv, ctx, C, N, Nkv, heads, tpc, 1.0f / sqrtf((float)HD));
+  return (int)cudaGetLastError();
+}
+
+#define TRY(call)                  \
+  do {                             \
+    const int err_ = (call);       \
+    if (err_ != 0) return err_;    \
+  } while (0)
+
+constexpr int GEMM_PLAN = 6, ATTN_PLAN = 3;
+
+// x1 = x + (ctx @ wo + bo) into x1buf; y = x1 + fc2(gelu(dwconv(fc1(LN2(x1)))))
+// through hid and act. plan: the out, fc1 and fc2 product plans. y may alias
+// x (the stage's in-place residual stream), not x1buf.
+int serve_out_and_mlp(cudaStream_t s, const int* plan, const bf16* x, const bf16* ctx,
+                      const bf16* wo, const bf16* bo, const bf16* ln2_g, const bf16* ln2_b,
+                      const bf16* w1, const bf16* b1, const bf16* wdw, const bf16* bdw,
+                      const bf16* w2, const bf16* b2, bf16* x1buf, bf16* hid, bf16* act, bf16* y,
+                      int B, int H, int W, int C, int hidden) {
   const int M = B * H * W;
-  gemm<false, false, true>(s, ctx, C, wo, C, bo, nullptr, nullptr, x, C, y, C, M, C, C);
-  gemm<true, false, false>(s, y, C, w1, hidden, b1, ln2_g, ln2_b, nullptr, 0, hid, hidden, M,
-                           hidden, C);
+  TRY((wg_linear<false, Epi::kBiasRes>(s, plan, ctx, wo, bo, nullptr, nullptr, x, C, x1buf, C, M,
+                                       C, C)));
+  TRY((wg_linear<true, Epi::kBias>(s, plan + GEMM_PLAN, x1buf, w1, b1, ln2_g, ln2_b, nullptr, 0,
+                                   hid, hidden, M, hidden, C)));
   dwconv3x3_kernel<true><<<grid_for((size_t)M * hidden / 8, 256), 256, 0, s>>>(
       hid, wdw, bdw, act, B, H, W, hidden);
-  gemm<false, false, true>(s, act, hidden, w2, C, b2, nullptr, nullptr, y, C, y, C, M, C,
-                           hidden);
+  TRY((wg_linear<false, Epi::kBiasRes>(s, plan + 2 * GEMM_PLAN, act, w2, b2, nullptr, nullptr,
+                                       x1buf, C, y, C, M, C, hidden)));
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// One MiT block, LN1 in the q GEMM's prologue; k, v: [B, Nkv, C] precomputed
-// from the spatial-reduction path. Weights in the JAX layout ([in, out]),
-// all bf16; wdw [9, hidden] in dy-major tap order. Scratch: q, ctx [B*N, C],
-// hid, act [B*N, hidden]. y must not alias x.
+// One MiT block, LN1 in the q product's prologue; k, v: [B, Nkv, C]
+// precomputed from the spatial-reduction path. Weights in the JAX layout
+// ([in, out]), all bf16; wdw [9, hidden] in dy-major tap order. `plan` (host
+// memory, from kernels/mit_block.py::block_plan) holds the launch plans of
+// the q product, the attention, the out product, fc1 and fc2. Scratch: q
+// [B*N, C] (q, then x1), ctx [B*N, C], hid, act [B*N, hidden]. y must not
+// alias x.
 int mit_block_forward(const void* x, const void* k, const void* v, const void* ln1_g,
                       const void* ln1_b, const void* wq, const void* bq, const void* wo,
                       const void* bo, const void* ln2_g, const void* ln2_b, const void* w1,
                       const void* b1, const void* wdw, const void* bdw, const void* w2,
-                      const void* b2, void* q, void* ctx, void* hid, void* act, void* y, int B,
-                      int H, int W, int C, int heads, int Nkv, int hidden, void* stream) {
+                      const void* b2, const void* plan, void* q, void* ctx, void* hid, void* act,
+                      void* y, int B, int H, int W, int C, int heads, int Nkv, int hidden,
+                      void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const int M = B * H * W;
+  const int* pl = (const int*)plan;
   typedef const bf16* P;
-  gemm<true, false, false>(s, (P)x, C, (P)wq, C, (P)bq, (P)ln1_g, (P)ln1_b, nullptr, 0,
-                           (bf16*)q, C, M, C, C);
-  attention(s, (P)q, (P)k, (P)v, C, (bf16*)ctx, B, H * W, Nkv, C, heads);
-  attn_out_and_mlp(s, (P)x, (P)ctx, (P)wo, (P)bo, (P)ln2_g, (P)ln2_b, (P)w1, (P)b1, (P)wdw,
-                   (P)bdw, (P)w2, (P)b2, (bf16*)hid, (bf16*)act, (bf16*)y, B, H, W, C, hidden);
-  return (int)cudaGetLastError();
+  TRY((wg_linear<true, Epi::kBias>(s, pl, (P)x, (P)wq, (P)bq, (P)ln1_g, (P)ln1_b, nullptr, 0,
+                                   (bf16*)q, C, M, C, C)));
+  TRY(attention_tc(s, pl + GEMM_PLAN, (P)q, (P)k, (P)v, C, (bf16*)ctx, B, H * W, Nkv, C, heads));
+  return serve_out_and_mlp(s, pl + GEMM_PLAN + ATTN_PLAN, (P)x, (P)ctx, (P)wo, (P)bo, (P)ln2_g,
+                           (P)ln2_b, (P)w1, (P)b1, (P)wdw, (P)bdw, (P)w2, (P)b2, (bf16*)q,
+                           (bf16*)hid, (bf16*)act, (bf16*)y, B, H, W, C, hidden);
 }
 
 // fused_mit_block_packed2 (mit_block.py:801): the 1-head, C = 64 block over
@@ -850,31 +1362,37 @@ int mit_block_packed2_forward(const void* x, const void* k, const void* v, const
 // attention, out projection, MLP. Per-depth weights are stacked on a leading
 // axis in the layout of stage_weights_from_params; `base` is null for a stage
 // without prompts, srw/srb/lnkv are null when sr == 1. y [B, N, C] receives
-// the stage output. Scratch: xln, q, ctx [B*N, C]; feat [B*N, C4];
-// patches [B*Nkv, sr*sr*C]; red, kvin [B*Nkv, C]; kv [B*Nkv, 2C];
-// hid, act [B*N, hidden].
+// the stage output. `plan` (host memory, kernels/mit_block.py::stage_plan)
+// holds the launch plans of the prompt products (lww, sharedw), the SR
+// product, kv, q, the attention, out, fc1 and fc2. Scratch: xln, q (q,
+// then x1), ctx [B*N, C]; feat [B*N, C4]; patches [B*Nkv, sr*sr*C]; red,
+// kvin [B*Nkv, C]; kv [B*Nkv, 2C]; hid, act [B*N, hidden].
 int mit_stage_forward(const void* x, const void* base, const void* sharedw, const void* sharedb,
                       const void* lww, const void* lwb, const void* srw, const void* srb,
                       const void* lnkv, const void* ln1, const void* wkv, const void* bkv,
                       const void* wq, const void* bq, const void* wo, const void* bo,
                       const void* ln2, const void* w1, const void* b1, const void* wdw,
-                      const void* bdw, const void* w2, const void* b2, void* y, void* xln,
-                      void* feat, void* patches, void* red, void* kvin, void* kv, void* q,
-                      void* ctx, void* hid, void* act, int B, int H, int W, int C, int heads,
-                      int sr, int depth, int Cb, int C4, int hidden, void* stream) {
+                      const void* bdw, const void* w2, const void* b2, const void* plan, void* y,
+                      void* xln, void* feat, void* patches, void* red, void* kvin, void* kv,
+                      void* q, void* ctx, void* hid, void* act, int B, int H, int W, int C,
+                      int heads, int sr, int depth, int Cb, int C4, int hidden, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   typedef const bf16* P;
   const int N = H * W, M = B * N;
   const int Nkv = (H / sr) * (W / sr), Mkv = B * Nkv;
+  const int* pl = (const int*)plan;
+  const int *p_lw = pl, *p_shared = pl + GEMM_PLAN, *p_sr = pl + 2 * GEMM_PLAN;
+  const int *p_kv = pl + 3 * GEMM_PLAN, *p_q = pl + 4 * GEMM_PLAN, *p_attn = pl + 5 * GEMM_PLAN;
+  const int* p_mlp = p_attn + ATTN_PLAN;
   bf16* Y = (bf16*)y;
-  cudaMemcpyAsync(y, x, (size_t)M * C * sizeof(bf16), cudaMemcpyDeviceToDevice, s);
+  TRY((int)cudaMemcpyAsync(y, x, (size_t)M * C * sizeof(bf16), cudaMemcpyDeviceToDevice, s));
   for (int d = 0; d < depth; ++d) {
     if (base != nullptr) {
-      gemm<false, true, false>(s, (P)base, Cb, (P)lww + (size_t)d * Cb * C4, C4,
-                               (P)lwb + (size_t)d * C4, nullptr, nullptr, nullptr, 0,
-                               (bf16*)feat, C4, M, C4, Cb);
-      gemm<false, false, true>(s, (P)feat, C4, (P)sharedw, C, (P)sharedb, nullptr, nullptr, Y,
-                               C, Y, C, M, C, C4);
+      TRY((wg_linear<false, Epi::kBiasGelu>(s, p_lw, (P)base, (P)lww + (size_t)d * Cb * C4,
+                                            (P)lwb + (size_t)d * C4, nullptr, nullptr, nullptr, 0,
+                                            (bf16*)feat, C4, M, C4, Cb)));
+      TRY((wg_linear<false, Epi::kBiasRes>(s, p_shared, (P)feat, (P)sharedw, (P)sharedb, nullptr,
+                                           nullptr, Y, C, Y, C, M, C, C4)));
     }
     const bf16* l1 = (P)ln1 + (size_t)d * 2 * C;
     layernorm_kernel<<<(M + 3) / 4, 128, 0, s>>>(Y, l1, l1 + C, (bf16*)xln, M, C);
@@ -882,25 +1400,26 @@ int mit_stage_forward(const void* x, const void* base, const void* sharedw, cons
     if (sr > 1) {
       sr_patches_kernel<<<grid_for((size_t)Mkv * sr * sr * C / 8, 256), 256, 0, s>>>(
           (P)xln, (bf16*)patches, B, H, W, C, sr);
-      gemm<false, false, false>(s, (P)patches, sr * sr * C, (P)srw + (size_t)d * sr * sr * C * C,
-                                C, (P)srb + (size_t)d * C, nullptr, nullptr, nullptr, 0,
-                                (bf16*)red, C, Mkv, C, sr * sr * C);
+      TRY((wg_linear<false, Epi::kBias>(s, p_sr, (P)patches, (P)srw + (size_t)d * sr * sr * C * C,
+                                        (P)srb + (size_t)d * C, nullptr, nullptr, nullptr, 0,
+                                        (bf16*)red, C, Mkv, C, sr * sr * C)));
       const bf16* lk = (P)lnkv + (size_t)d * 2 * C;
       layernorm_kernel<<<(Mkv + 3) / 4, 128, 0, s>>>((P)red, lk, lk + C, (bf16*)kvin, Mkv, C);
       kv_in = (P)kvin;
     }
-    gemm<false, false, false>(s, kv_in, C, (P)wkv + (size_t)d * C * 2 * C, 2 * C,
-                              (P)bkv + (size_t)d * 2 * C, nullptr, nullptr, nullptr, 0,
-                              (bf16*)kv, 2 * C, Mkv, 2 * C, C);
-    gemm<false, false, false>(s, (P)xln, C, (P)wq + (size_t)d * C * C, C, (P)bq + (size_t)d * C,
-                              nullptr, nullptr, nullptr, 0, (bf16*)q, C, M, C, C);
-    attention(s, (P)q, (P)kv, (P)kv + C, 2 * C, (bf16*)ctx, B, N, Nkv, C, heads);
+    TRY((wg_linear<false, Epi::kBias>(s, p_kv, kv_in, (P)wkv + (size_t)d * C * 2 * C,
+                                      (P)bkv + (size_t)d * 2 * C, nullptr, nullptr, nullptr, 0,
+                                      (bf16*)kv, 2 * C, Mkv, 2 * C, C)));
+    TRY((wg_linear<false, Epi::kBias>(s, p_q, (P)xln, (P)wq + (size_t)d * C * C,
+                                      (P)bq + (size_t)d * C, nullptr, nullptr, nullptr, 0,
+                                      (bf16*)q, C, M, C, C)));
+    TRY(attention_tc(s, p_attn, (P)q, (P)kv, (P)kv + C, 2 * C, (bf16*)ctx, B, N, Nkv, C, heads));
     const bf16* l2 = (P)ln2 + (size_t)d * 2 * C;
-    attn_out_and_mlp(s, Y, (P)ctx, (P)wo + (size_t)d * C * C, (P)bo + (size_t)d * C, l2, l2 + C,
-                     (P)w1 + (size_t)d * C * hidden, (P)b1 + (size_t)d * hidden,
-                     (P)wdw + (size_t)d * 9 * hidden, (P)bdw + (size_t)d * hidden,
-                     (P)w2 + (size_t)d * hidden * C, (P)b2 + (size_t)d * C, (bf16*)hid,
-                     (bf16*)act, Y, B, H, W, C, hidden);
+    TRY(serve_out_and_mlp(s, p_mlp, Y, (P)ctx, (P)wo + (size_t)d * C * C, (P)bo + (size_t)d * C,
+                          l2, l2 + C, (P)w1 + (size_t)d * C * hidden, (P)b1 + (size_t)d * hidden,
+                          (P)wdw + (size_t)d * 9 * hidden, (P)bdw + (size_t)d * hidden,
+                          (P)w2 + (size_t)d * hidden * C, (P)b2 + (size_t)d * C, (bf16*)q,
+                          (bf16*)hid, (bf16*)act, Y, B, H, W, C, hidden));
   }
   return (int)cudaGetLastError();
 }

@@ -28,9 +28,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # C entry points: name -> (number of pointer arguments, number of int
 # arguments); every entry ends with the stream and returns cudaGetLastError()
 _ENTRY_POINTS = {
-    "mit_block_forward": (22, 7),
+    "mit_block_forward": (23, 7),
     "mit_block_packed2_forward": (23, 5),
-    "mit_stage_forward": (34, 10),
+    "mit_stage_forward": (35, 10),
     "mit_block_train_forward": (24, 7),
     "mit_block_train_mlp_backward": (10, 5),
     "mit_block_train_attn_backward": (16, 5),

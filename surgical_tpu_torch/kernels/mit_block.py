@@ -26,6 +26,7 @@ same keys and shapes), so the kernels read them as they are.
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
@@ -396,6 +397,105 @@ def _ptr(t: torch.Tensor, shape, name: str, dtype=torch.bfloat16) -> int:
     return t.data_ptr()
 
 
+# -- launch plans of the serving kernels ------------------------------------
+# mit_block_forward and mit_stage_forward take their grids, tile counts and
+# shared-memory sizes from these plans; the entry points check each plan
+# against the shapes and refuse one that does not fit.
+
+NUM_SMS = 132          # streaming multiprocessors of an H100 SXM
+SMEM_LIMIT = 232_448   # dynamic shared memory one CTA can have (sm_90)
+GEMM_BM, GEMM_BK, GEMM_STAGES = 128, 64, 4  # rows per CTA, K per tile, ring depth
+PANEL_MAX_K = 512      # widest A panel kept resident (and LayerNorm'd) in shared memory
+ATTN_ROWS = 64         # query rows per attention tile
+_SMEM_SLACK = 1024 + 256  # alignment of the 1024-byte swizzle atoms + barriers
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def gemm_smem_bytes(K: int, bn: int, resident: bool) -> int:
+    """Dynamic shared memory of one ``wgmma_linear`` CTA: the resident A
+    panel [128 x K] (or a ring of A tiles), the ring of [64 x bn] weight
+    tiles, and the slack for alignment and barriers."""
+    a_tiles = _cdiv(K, GEMM_BK) if resident else GEMM_STAGES
+    return (a_tiles * GEMM_BM * GEMM_BK * 2 + GEMM_STAGES * GEMM_BK * bn * 2
+            + _SMEM_SLACK)
+
+
+def gemm_plan(M: int, N: int, K: int, *, ln: bool = False) -> tuple:
+    """(bn, resident, tiles_per_cta, grid_x, grid_y, smem_bytes) of one
+    product out[M, N] = A[M, K] @ W[K, N]. A CTA owns 128 rows and walks
+    ``tiles_per_cta`` tiles of ``bn`` columns; with K <= PANEL_MAX_K its A
+    panel stays resident, and the LayerNorm prologue (``ln``) needs that.
+    Column tiles are split over more CTAs when the row blocks alone would
+    not give every SM two CTAs."""
+    if M < 1 or N < 1 or K < 1 or N % 8 or K % 8:
+        raise ValueError(f"product takes positive M, N, K with N, K multiples of 8: "
+                         f"M={M}, N={N}, K={K}")
+    resident = K <= PANEL_MAX_K
+    if ln and not resident:
+        raise ValueError(f"the LayerNorm prologue takes K <= {PANEL_MAX_K}, got {K}")
+    bn = 64 if N <= 64 else 128
+    ntiles, grid_x = _cdiv(N, bn), _cdiv(M, GEMM_BM)
+    split = min(ntiles, max(1, _cdiv(2 * NUM_SMS, grid_x)))
+    tpc = _cdiv(ntiles, split)
+    smem = gemm_smem_bytes(K, bn, resident)
+    if smem > SMEM_LIMIT or _cdiv(ntiles, tpc) > 65535:
+        raise ValueError(f"product [{M}, {K}] x [{K}, {N}] does not fit one launch")
+    return (bn, int(resident), tpc, grid_x, _cdiv(ntiles, tpc), smem)
+
+
+def attention_plan(B: int, N: int, heads: int, Nkv: int) -> tuple:
+    """(tiles_per_cta, grid_x, grid_y) of the attention kernel: one CTA row
+    per (image, head) with its keys staged once, each CTA walking
+    ``tiles_per_cta`` query tiles of 64 rows; enough CTAs per (image, head)
+    that the grid holds about four per SM."""
+    if Nkv < 1 or Nkv > MAX_KV:
+        raise ValueError(f"attention takes 1 to {MAX_KV} keys per head, got {Nkv}")
+    pairs, qtiles = B * heads, _cdiv(N, ATTN_ROWS)
+    if pairs > 65535:
+        raise ValueError(f"attention takes at most 65535 (image, head) pairs, got {pairs}")
+    split = min(qtiles, max(1, _cdiv(4 * NUM_SMS, pairs)))
+    tpc = _cdiv(qtiles, split)
+    return (tpc, _cdiv(qtiles, tpc), pairs)
+
+
+_NO_PLAN = (0,) * 6
+
+
+def _mlp_plans(M: int, C: int, hidden: int) -> tuple:
+    """The out product's plan, then fc1's (LN2 prologue) and fc2's."""
+    return (*gemm_plan(M, C, C), *gemm_plan(M, hidden, C, ln=True), *gemm_plan(M, C, hidden))
+
+
+def block_plan(B: int, H: int, W: int, C: int, heads: int, Nkv: int, hidden: int) -> tuple:
+    """The plans of mit_block_forward's launches, flat: the q product (LN1
+    prologue), the attention, the out product, fc1 (LN2 prologue), fc2."""
+    N = H * W
+    return (*gemm_plan(B * N, C, C, ln=True), *attention_plan(B, N, heads, Nkv),
+            *_mlp_plans(B * N, C, hidden))
+
+
+def stage_plan(B: int, H: int, W: int, C: int, heads: int, sr: int, hidden: int,
+               Cb: int = 0, C4: int = 0) -> tuple:
+    """The plans of mit_stage_forward's launches, flat: the prompt products
+    (base @ lww, feat @ sharedw; zeros without a prompt base, Cb = 0), the SR
+    product (zeros at sr = 1), kv, q, the attention, then out, fc1, fc2."""
+    N, Nkv = H * W, (H // sr) * (W // sr)
+    M, Mkv = B * N, B * Nkv
+    prompt = ((*gemm_plan(M, C4, Cb), *gemm_plan(M, C, C4)) if Cb else _NO_PLAN * 2)
+    srp = gemm_plan(Mkv, C, sr * sr * C) if sr > 1 else _NO_PLAN
+    return (*prompt, *srp, *gemm_plan(Mkv, 2 * C, C), *gemm_plan(M, C, C),
+            *attention_plan(B, N, heads, Nkv), *_mlp_plans(M, C, hidden))
+
+
+def _plan_arg(plan):
+    """A plan as the C int array the entry points read (kept alive by the
+    caller for the call)."""
+    return (ctypes.c_int * len(plan))(*plan)
+
+
 def _check_dims(C, heads, Nkv, hidden, H, W, x):
     if C != heads * HEAD_DIM:
         raise ValueError(f"kernel takes head_dim {HEAD_DIM}: C={C}, heads={heads}")
@@ -420,6 +520,7 @@ def fused_mit_block(x, k, v, weights, *, heads: int, H: int, W: int):
     hidden = weights["w1"].shape[1]
     _check_dims(C, heads, Nkv, hidden, H, W, x)
     w = weights
+    plan = _plan_arg(block_plan(B, H, W, C, heads, Nkv, hidden))
     y = torch.empty_like(x)
     new = lambda width: torch.empty(B * N, width, dtype=x.dtype, device=x.device)
     q, ctx, hid, act = new(C), new(C), new(hidden), new(hidden)
@@ -431,7 +532,7 @@ def fused_mit_block(x, k, v, weights, *, heads: int, H: int, W: int):
         _ptr(w["ln2_scale"], (C,), "ln2_scale"), _ptr(w["ln2_bias"], (C,), "ln2_bias"),
         _ptr(w["w1"], (C, hidden), "w1"), _ptr(w["b1"], (hidden,), "b1"),
         _ptr(w["wdw"], (9, hidden), "wdw"), _ptr(w["bdw"], (hidden,), "bdw"),
-        _ptr(w["w2"], (hidden, C), "w2"), _ptr(w["b2"], (C,), "b2"),
+        _ptr(w["w2"], (hidden, C), "w2"), _ptr(w["b2"], (C,), "b2"), ctypes.addressof(plan),
         q.data_ptr(), ctx.data_ptr(), hid.data_ptr(), act.data_ptr(), y.data_ptr(),
         B, H, W, C, heads, Nkv, hidden, torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "mit_block_forward")
@@ -511,6 +612,7 @@ def fused_mit_stage(x, base, sw, *, heads: int, H: int, W: int, sr: int):
     if sr > 1:
         sr_args = [_ptr(sw["srw"], (D, sr * sr * C, C), "srw"),
                    _ptr(sw["srb"], (D, 1, C), "srb"), _ptr(sw["lnkv"], (D, 2, C), "lnkv")]
+    plan = _plan_arg(stage_plan(B, H, W, C, heads, sr, hidden, Cb, C4))
     y = torch.empty_like(x)
     new = lambda rows, width: torch.empty(rows, max(width, 1), dtype=x.dtype,
                                           device=x.device)
@@ -528,9 +630,9 @@ def fused_mit_stage(x, base, sw, *, heads: int, H: int, W: int, sr: int):
         _ptr(sw["w1"], (D, C, hidden), "w1"), _ptr(sw["b1"], (D, 1, hidden), "b1"),
         _ptr(sw["wdw"], (D, 9, hidden), "wdw"), _ptr(sw["bdw"], (D, 1, hidden), "bdw"),
         _ptr(sw["w2"], (D, hidden, C), "w2"), _ptr(sw["b2"], (D, 1, C), "b2"),
-        y.data_ptr(), xln.data_ptr(), feat.data_ptr(), patches.data_ptr(), red.data_ptr(),
-        kvin.data_ptr(), kv.data_ptr(), q.data_ptr(), ctx.data_ptr(), hid.data_ptr(),
-        act.data_ptr(), B, H, W, C, heads, sr, D, Cb, C4, hidden,
+        ctypes.addressof(plan), y.data_ptr(), xln.data_ptr(), feat.data_ptr(),
+        patches.data_ptr(), red.data_ptr(), kvin.data_ptr(), kv.data_ptr(), q.data_ptr(),
+        ctx.data_ptr(), hid.data_ptr(), act.data_ptr(), B, H, W, C, heads, sr, D, Cb, C4, hidden,
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "mit_stage_forward")
     fused_mit_stage.launches += 1

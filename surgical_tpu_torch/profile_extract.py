@@ -41,8 +41,10 @@ TRAIN_B, TRAIN_STEPS, TRAIN_TRACED = 88, 7, 3  # step time over 5 steps after 2 
 # (kind, substrings of the device kernel name), first match wins
 KINDS = (
     ("selective scan kernel", ("selective_scan_kernel",)),
-    ("block/stage GEMMs (gemm_bf16)", ("gemm_bf16",)),
-    ("attention kernel", ("attention_kernel",)),
+    ("serving block/stage products (wgmma_linear)", ("wgmma_linear",)),
+    ("serving attention kernel (attention_tc_kernel)", ("attention_tc_kernel",)),
+    ("train/packed2 GEMMs (gemm_bf16)", ("gemm_bf16",)),
+    ("train/packed2 attention kernel", ("attention_kernel",)),
     ("attention backward kernel", ("attention_bwd_kernel",)),
     ("dwconv kernels (+ GELU; transposed)", ("dwconv3x3",)),
     ("dk/dv fp32 -> bf16 kernel", ("f32_to_bf16",)),
