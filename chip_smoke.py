@@ -15,10 +15,14 @@ nonzero without printing a result:
    time), then the count of HGMMA (wgmma) instructions in the built
    library's SASS, which must exceed the serving products' own; the
    selective scan in fp32 (d_inner 128, d_state 64; 2000 and 6000 frames,
-   and 3 ragged videos of 777), and the three kernels of the training block
-   in bf16 at the four b3 stages (B=8 and the training batch B=88,
-   DropPath factors with zeros; the plain versions timed at B=8); then each
-   kernel wrapper refusing an input that requires grad under grad mode;
+   3 ragged videos of 777, and the chunk edges: 1, 63 and 65 frames at its
+   64-step chunks, and 200), with the device operations one call issues
+   (at most 2), and the three kernels of the training block in bf16 at the
+   four b3 stages (B=8 and the training batch B=88, DropPath factors with
+   zeros; the plain versions timed at B=8), the attention backward run
+   twice for dk and dv equal bit for bit and its device operations per call
+   counted (at most 5, no memset); then each kernel wrapper refusing an
+   input that requires grad under grad mode;
 4. extraction slice: seeded random-init MiT-b3 EVP + MS-TCN + refiner; three
    synthetic 200-frame videos in the wire format -> make_raw_feature_fn ->
    extract_to_store -> predict_and_write -> relaxed evaluation, with the
@@ -85,11 +89,12 @@ COSINE_BOUND = 0.9999  # per-frame cosine, kernel path vs plain path (read: min 
 TRAIN_STAGES = ((1, 64, 1, 56, 8), (2, 128, 2, 28, 4), (3, 320, 5, 14, 2), (4, 512, 8, 7, 1))
 # Train kernels vs plain, both bf16 with the same rounding points (the
 # backward's dS, dctx, dh and dx1 roundings included): they differ by fp32
-# summation order and the dk/dv atomics' order, which flips occasional bf16
-# roundings. {output: (rel L2 bound, max abs bound as a fraction of the plain
-# output's max |.|)}: a few times the H100 readings at the four stages (rel
-# L2 at most 8.5e-4 y, 1.7e-4 x1, 3.3e-4 dx, 2.7e-3 dxln, 2.3e-3 dk, 1.6e-3
-# dv; max abs at most 1.1e-2 of max |plain|).
+# summation order (dk and dv summed over query rows in CTA and split order),
+# which flips occasional bf16 roundings. {output: (rel L2 bound, max abs
+# bound as a fraction of the plain output's max |.|)}: a few times the H100
+# readings at the four stages (rel L2 at most 8.5e-4 y, 1.7e-4 x1, 3.3e-4
+# dx, 2.7e-3 dxln, 2.3e-3 dk, 1.6e-3 dv; max abs at most 1.1e-2 of max
+# |plain|).
 TRAIN_BOUNDS = {"y": (5e-3, 5e-2), "x1": (1e-3, 5e-2), "dx": (2e-3, 5e-2),
                 "dxln": (1e-2, 5e-2), "dk": (1e-2, 5e-2), "dv": (1e-2, 5e-2)}
 
@@ -114,9 +119,13 @@ SOURCE = "surgical_tpu_torch/csrc/mit_block.cu"
 SERVING_HGMMA = 84
 SCAN_SOURCE = "surgical_tpu_torch/csrc/selective_scan.cu"
 
-# Selective scan at MambaConfig() widths: (videos, frames) per check.
+# Selective scan at MambaConfig() widths: (videos, frames) per check. The
+# kernel cuts time into chunks (64 steps up to T = 2048, 192 at 6000):
+# T = 1, 63 and 65 are one chunk, just under it and one step past it; 200 is
+# the slice videos' length.
 SCAN_D, SCAN_N = 128, 64
-SCAN_SHAPES = ((1, 2000), (1, 6000), (3, 777))
+SCAN_SHAPES = ((1, 1), (1, 63), (1, 65), (1, 200), (1, 2000), (1, 6000), (3, 777))
+SCAN_MAX_OPS, ATTN_BWD_MAX_OPS = 2, 5  # device operations per call, at most
 # Kernel vs plain, both fp32 with expf: they differ by the summation order
 # over N. A few times the H100 readings (rel L2 1.1e-7, max abs 7.6e-6 on
 # outputs up to |y| ~ 46).
@@ -238,6 +247,31 @@ def scan_work(Bt, T, D, N):
     nbytes = 4 * (3 * Bt * T * D + 2 * Bt * T * N + D * N + D)
     elems = Bt * T * D * N
     return nbytes, max(5 * elems / FP32_FLOPS, elems / SFU_OPS)
+
+
+def device_ops(fn, tries: int = 3) -> list:
+    """Names of the device operations (kernels, memsets, copies) one call of
+    ``fn`` issues, from torch.profiler. Every kernel call issues at least
+    one, so a trace with none was lost (seen once on an H100): the call is
+    traced again, and a third empty trace raises."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if names:
+            return names
+    raise AssertionError(f"torch.profiler saw no device operation in {tries} traced calls")
+
+
+def _op_name(name: str) -> str:
+    """A device operation's name without namespace, template arguments and
+    parameters: wgmma_linear, attention_bwd_tc_kernel."""
+    name = name.replace("(anonymous namespace)::", "").removeprefix("void ")
+    return name.split("<")[0].split("(")[0]
 
 
 def median_ms(fn, runs: int = 5) -> float:
@@ -464,16 +498,20 @@ def phase_scan_checks() -> list:
               f"max|plain| {want.abs().max().item():.3e} {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError("selective_scan: kernel disagrees with its plain version")
+        ops = device_ops(lambda: ss.selective_scan(*args))
         ms = time_ms(lambda: ss.selective_scan(*args))
         plain_ms = time_ms(lambda: ss.selective_scan_plain(*args), reps=3)
         nbytes, op_s = scan_work(Bt, T, SCAN_D, SCAN_N)
         bms, by = bound_ms(nbytes, op_s)
         print(f"time scan [Bt={Bt}, T={T}]: kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
               f"bound {bms:.4f} ms ({by}: {nbytes / 1e6:.2f} MB, "
-              f"{Bt * T * SCAN_D * SCAN_N / 1e6:.1f} M exp)")
-        rows.append({"shape": f"[Bt={Bt}, T={T}, D={SCAN_D}, N={SCAN_N}]", "rel_l2": rel,
+              f"{Bt * T * SCAN_D * SCAN_N / 1e6:.1f} M exp); chunk {ss.scan_chunk(T)}, "
+              f"{len(ops)} device ops per call (at most {SCAN_MAX_OPS})")
+        if len(ops) > SCAN_MAX_OPS:
+            raise AssertionError(f"selective_scan: {len(ops)} device ops per call: {ops}")
+        rows.append({"shape": f"[Bt={Bt}, T={T}, D={SCAN_D}, N={SCAN_N}]", "T": T, "rel_l2": rel,
                      "max_abs_err": mx, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
-                     "bound_by": by})
+                     "bound_by": by, "device_ops": len(ops)})
     return rows
 
 
@@ -543,6 +581,22 @@ def phase_train_kernel_checks() -> dict:
                                   lambda: mb._attn_bwd_plain(xln, k, v, dx1, m1, w, heads=heads),
                                   ("dxln", "dk", "dv")),
             }
+            # the attention backward sums dk and dv in a fixed order, and
+            # issues at most ATTN_BWD_MAX_OPS device operations, no memset
+            runs = [mb.block_train_attn_backward(xln, k, v, dx1, m1, w, heads=heads)
+                    for _ in range(2)]
+            bits = lambda t: t.view(torch.int16)
+            same = all(torch.equal(bits(a), bits(b)) for a, b in zip(runs[0][1:], runs[1][1:]))
+            ops = device_ops(timed["attn_backward"][0])
+            memsets = [n for n in ops if "memset" in n.lower()]
+            print(f"check train attn_backward {shape}: dk, dv equal bit for bit over two runs: "
+                  f"{same}; {len(ops)} device ops per call (at most {ATTN_BWD_MAX_OPS}, "
+                  f"memsets {len(memsets)}): {', '.join(map(_op_name, ops))}")
+            if not same:
+                failed.append(f"attn_backward determinism {shape}")
+            if len(ops) > ATTN_BWD_MAX_OPS or memsets:
+                failed.append(f"attn_backward device ops {shape}: {ops}")
+            del runs
             work = block_train_work(B, N, C, Nkv, hidden)
             for kname, (kern, plain, outs) in timed.items():
                 ms = time_ms(kern)
@@ -557,6 +611,7 @@ def phase_train_kernel_checks() -> dict:
                     "shape": shape, "max_abs_err": max(errs[o][1] for o in outs),
                     "rel_l2": max(errs[o][0] for o in outs), "ms": ms, "plain_ms": plain_ms,
                     "bound_ms": bms, "bound_by": by})
+            rows[B]["attn_backward"][-1]["device_ops"] = len(ops)
             del x, xln, k, v, dy, y, x1, grads, h2ln, dmlp, dx1, timed
     print(f"train kernel checks: launches block_train_forward {mb.block_train_forward.launches}, "
           f"block_train_mlp_backward {mb.block_train_mlp_backward.launches}, "
@@ -1216,7 +1271,7 @@ def main() -> int:
         phase_extract_cli(workdir)
     blk, stg, pk = checks["block"], checks["stage"], checks["packed2"]
     blk_main, stg_main = checks["block_main"], checks["stage_main"]
-    main_scan = [r for r in scan if r["shape"].startswith("[Bt=1,")]  # the test videos' shapes
+    main_scan = [r for r in scan if r["shape"].startswith("[Bt=1,") and r["T"] in TEST_LENGTHS]
     summed = lambda rows, key: sum(r[key] for r in rows)
     by = lambda rows: max(("bytes", "operations"),
                           key=lambda b: sum(r["bound_ms"] for r in rows if r["bound_by"] == b))
@@ -1251,7 +1306,8 @@ def main() -> int:
          "max_abs_err": max(r["max_abs_err"] for r in scan),
          "ms": summed(main_scan, "ms"), "plain_ms": summed(main_scan, "plain_ms"),
          "bound_ms": summed(main_scan, "bound_ms"), "bound_by": by(main_scan),
-         "library_ms": None, "shapes": scan},
+         "library_ms": None, "device_ops_per_call": max(r["device_ops"] for r in scan),
+         "shapes": scan},
     ]
     for name, line, key in (("mit_block_train_forward", 1645, "forward"),
                             ("mit_block_train_mlp_backward", 1695, "mlp_backward"),
@@ -1268,6 +1324,8 @@ def main() -> int:
             f"bound_ms_b{TRAIN_B}": summed(rows_main, "bound_ms"),
             f"max_abs_err_b{TRAIN_B}": max(r["max_abs_err"] for r in rows_main),
             "shapes": rows + rows_main})
+        if key == "attn_backward":
+            kernels[-1]["device_ops_per_call"] = max(r["device_ops"] for r in rows + rows_main)
     banned = ("jax", "flax", "optax", "orbax", "surgical_tpu")
     if any(m.split(".")[0] in banned for m in sys.modules):
         raise AssertionError("the port's run imported JAX or the JAX package")

@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks for the MiT kernels: mbarriers,
 // TMA tile loads with 128-byte swizzle, wgmma (m64n64k16, bf16 in, fp32
-// accumulate) with shared-memory descriptors, and mma.sync / ldmatrix for
-// the attention tiles. Host side: 2-D tensor maps through the driver entry
+// accumulate) with shared-memory descriptors, and mma.sync / ldmatrix /
+// cp.async for the attention tiles. Host side: 2-D tensor maps through the driver entry
 // point cuTensorMapEncodeTiled, fetched with cudaGetDriverEntryPoint so the
 // library needs no -lcuda.
 #pragma once
@@ -126,6 +126,22 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t add
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(addr));
+}
+
+// 16 bytes from global to shared memory without a register round trip,
+// zero-filled when !valid; completion by commit groups.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(dst), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+// Wait until at most N of this thread's commit groups are still in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
 }
 
 // c[16 x 8] += a[16 x 16] b[16 x 8], bf16 in, fp32 accumulate.

@@ -28,9 +28,8 @@
 // by bytes, not by the tensor cores; stage 3-4 GEMMs are closer to the
 // ridge. The attention over the 49 spatially-reduced keys is small work
 // that the TPU spread over MXU dots; here the serving and training forward
-// run it on the tensor cores (mma.sync), the packed2 forward on the CUDA
-// cores, and the training attention backward's five products on the tensor
-// cores (wmma).
+// and the training attention backward run it on the tensor cores
+// (mma.sync), the packed2 forward on the CUDA cores.
 //
 // Each entry point is a short chain of hand-written kernels on the caller's
 // stream --
@@ -42,15 +41,15 @@
 // bias / GELU / residual into its epilogue, so neither LN output nor a
 // pre-bias product goes to memory.
 //
-// mit_block_forward, mit_stage_forward, mit_block_train_forward and
-// mit_block_train_mlp_backward run on Hopper's own paths (see "wgmma
+// Every entry point but packed2 runs on Hopper's own paths (see "wgmma
 // kernels" below): wgmma_linear, wgmma products fed by a TMA ring with the
-// LN'd A panel resident in shared memory (and, for the backward, weights
-// read K-major as their transposes), and attention_tc_kernel, the attention
-// on the tensor cores with K and V staged once per CTA; their launch plans
-// come from the Python wrapper. The packed2 entry point and the training
-// attention backward keep the first design's gemm_bf16 (wmma, one stage of
-// synchronous loads); packed2 also keeps attention_kernel (CUDA cores).
+// A panel resident in shared memory (LayerNorm'd or row-scaled in place
+// there, and for the backward the weights read K-major as their
+// transposes); attention_tc_kernel, the attention on the tensor cores with
+// K and V staged once per CTA; and attention_bwd_tc_kernel, the training
+// attention backward on the same mma.sync fragments. Their launch plans come
+// from the Python wrapper. The first design's gemm_bf16 (wmma, one stage of
+// synchronous loads) and attention_kernel (CUDA cores) serve packed2 only.
 // The MLP tail fused on chip (the Pallas body's mlp_chunk
 // form, hid and act kept out of device memory) was built and measured
 // slower than this chain at every b3 stage (PERF.md, Findings), so it is not
@@ -65,7 +64,6 @@
 #include <mma.h>
 
 #include <cmath>
-#include <type_traits>
 
 #include "common.cuh"
 #include "hopper.cuh"
@@ -75,19 +73,15 @@ using namespace nvcuda;
 namespace {
 
 // ---------------------------------------------------------------- GEMM ----
-// The first design's product, kept for packed2 and the training attention
-// backward: out[M, N] = epilogue( A'[M, K] @ B[K, N] ): B is Bw[K, N], or
-// with BT the transpose of Bw[N, K] (a forward weight read transposed for an
-// input gradient). A' by prologue:
+// The first design's product, kept for packed2: out[M, N] = epilogue(
+// A'[M, K] @ Bw[K, N] ). A' by prologue:
 //   kPlain      A
 //   kGroupLN    bf16(LayerNorm of each K/2-wide half of A) with fp32 scale
 //               and bias (lnf_g, lnf_b): the lane-packed rows of packed2
-//   kRowScale   bf16(A * rowscale[row / mrows]) (a per-image DropPath factor)
 // and with v the fp32 product, the epilogue (Epi, shared with wgmma_linear,
 // which takes the rest) writes:
 //   kBias          bf16(v + bias)
 //   kBiasRes       bf16(res + (v + bias))
-//   kPlain         bf16(v)
 // bf16 wmma 16x16x16 with fp32 accumulate; 64x64 output tile per CTA, four
 // warps of 32x32. Ragged M/N/K edges are zero-filled on load and masked on
 // store. K, N and every leading dimension are multiples of 8 (checked by the
@@ -95,7 +89,10 @@ namespace {
 constexpr int BM = 64, BN = 64, BK = 32, GEMM_THREADS = 128;
 constexpr int LN_MAX_K = 512;  // a LayerNorm row is held in registers
 
-enum class Pro { kPlain, kGroupLN, kRowScale };
+// A prologue on the A operand: none, LayerNorm (wgmma_linear's resident
+// panel), the row scale bf16(A * rowscale[row / mrows]) (the same panel), or
+// LayerNorm per K/2-wide half (gemm_bf16, packed2).
+enum class Pro { kPlain, kLN, kRowScale, kGroupLN };
 enum class Epi { kBias, kBiasGelu, kBiasRes, kBiasResScale, kGeluGrad, kPlain, kF32 };
 
 struct GemmArgs {
@@ -106,8 +103,6 @@ struct GemmArgs {
   const bf16* bias;
   const float* lnf_g;  // kGroupLN: fp32 scale and bias [K]
   const float* lnf_b;
-  const float* rowscale;  // kRowScale: one factor per mrows rows
-  int mrows;
   const bf16* res;  // kBiasRes: may alias out (same thread reads, then writes)
   int ldr;
   bf16* out;
@@ -165,13 +160,14 @@ __device__ __forceinline__ void row_stats2(const bf16* row, int K, int lane, flo
   rstd[1] = rsqrtf(warp_sum(ss1) / G + LN_EPS);
 }
 
-template <Pro PRO, Epi EPI, bool BT>
+template <Pro PRO, Epi EPI>
 __global__ void __launch_bounds__(GEMM_THREADS) gemm_bf16(const GemmArgs a) {
-  static_assert(EPI == Epi::kBias || EPI == Epi::kBiasRes || EPI == Epi::kPlain,
-                "gemm_bf16 takes the bias, residual and plain epilogues");
+  static_assert(PRO == Pro::kPlain || PRO == Pro::kGroupLN,
+                "gemm_bf16 takes no prologue or the per-half LayerNorm");
+  static_assert(EPI == Epi::kBias || EPI == Epi::kBiasRes,
+                "gemm_bf16 takes the bias and residual epilogues");
   __shared__ __align__(32) bf16 As[BM][BK + 8];
-  // B tile as [k][n] (row-major operand) or [n][k] (transposed operand)
-  __shared__ __align__(32) bf16 Bs[BT ? BN : BK][BT ? BK + 8 : BN + 8];
+  __shared__ __align__(32) bf16 Bs[BK][BN + 8];
   __shared__ __align__(32) float Cs[BM][BN + 4];
   __shared__ float s_mean[BM][2], s_rstd[BM][2];  // kGroupLN: [row][half]
 
@@ -213,46 +209,26 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_bf16(const GemmArgs a) {
 #pragma unroll
           for (int i = 0; i < 8; ++i)
             e[i] = f2bf((bf2f(e[i]) - mu) * rs * a.lnf_g[gk + i] + a.lnf_b[gk + i]);
-        } else if constexpr (PRO == Pro::kRowScale) {
-          const float sc = a.rowscale[gm / a.mrows];
-#pragma unroll
-          for (int i = 0; i < 8; ++i) e[i] = f2bf(bf2f(e[i]) * sc);
         }
       }
       store8(&As[r][kc], val);
     }
-    if constexpr (BT) {
-      for (int c = tid; c < BN * BK / 8; c += GEMM_THREADS) {
-        const int r = c / (BK / 8), kc = (c % (BK / 8)) * 8;
-        const int gn = n0 + r, gk = k0 + kc;
-        uint4 val = make_uint4(0, 0, 0, 0);
-        if (gn < N && gk < K) val = load8(a.Bw + (size_t)gn * a.ldb + gk);
-        store8(&Bs[r][kc], val);
-      }
-    } else {
-      for (int c = tid; c < BK * BN / 8; c += GEMM_THREADS) {
-        const int r = c / (BN / 8), nc = (c % (BN / 8)) * 8;
-        const int gk = k0 + r, gn = n0 + nc;
-        uint4 val = make_uint4(0, 0, 0, 0);
-        if (gk < K && gn < N) val = load8(a.Bw + (size_t)gk * a.ldb + gn);
-        store8(&Bs[r][nc], val);
-      }
+    for (int c = tid; c < BK * BN / 8; c += GEMM_THREADS) {
+      const int r = c / (BN / 8), nc = (c % (BN / 8)) * 8;
+      const int gk = k0 + r, gn = n0 + nc;
+      uint4 val = make_uint4(0, 0, 0, 0);
+      if (gk < K && gn < N) val = load8(a.Bw + (size_t)gk * a.ldb + gn);
+      store8(&Bs[r][nc], val);
     }
     __syncthreads();
 #pragma unroll
     for (int kk = 0; kk < BK; kk += 16) {
       wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> af[2];
-      using BLayout = typename std::conditional<BT, wmma::col_major, wmma::row_major>::type;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, BLayout> bfr[2];
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bfr[2];
 #pragma unroll
       for (int i = 0; i < 2; ++i) wmma::load_matrix_sync(af[i], &As[wm + 16 * i][kk], BK + 8);
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        if constexpr (BT)
-          wmma::load_matrix_sync(bfr[j], &Bs[wn + 16 * j][kk], BK + 8);
-        else
-          wmma::load_matrix_sync(bfr[j], &Bs[kk][wn + 16 * j], BN + 8);
-      }
+      for (int j = 0; j < 2; ++j) wmma::load_matrix_sync(bfr[j], &Bs[kk][wn + 16 * j], BN + 8);
 #pragma unroll
       for (int i = 0; i < 2; ++i)
 #pragma unroll
@@ -275,14 +251,12 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_bf16(const GemmArgs a) {
     const int r = c / (BN / 8), nc = (c % (BN / 8)) * 8;
     const int gm = m0 + r, gn = n0 + nc;
     if (gm >= M || gn >= N) continue;
-    uint4 bv = make_uint4(0, 0, 0, 0), rv = bv, ov;
-    if constexpr (EPI != Epi::kPlain) bv = load8(a.bias + gn);
+    uint4 bv = load8(a.bias + gn), rv = make_uint4(0, 0, 0, 0), ov;
     if constexpr (EPI == Epi::kBiasRes) rv = load8(a.res + (size_t)gm * a.ldr + gn);
     bf16 *be = lanes8(bv), *re = lanes8(rv), *oe = lanes8(ov);
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
-      float v = Cs[r][nc + i];
-      if constexpr (EPI != Epi::kPlain) v = v + bf2f(be[i]);
+      float v = Cs[r][nc + i] + bf2f(be[i]);
       if constexpr (EPI == Epi::kBiasRes) v = bf2f(re[i]) + v;
       oe[i] = f2bf(v);
     }
@@ -444,180 +418,6 @@ __global__ void dwconv3x3_t_kernel(const bf16* __restrict__ g, const bf16* __res
   }
 }
 
-// ------------------------------------------------- attention backward ----
-// The softmax/context backward of mit_block.py::_attn_bwd_kernel for one
-// (image, head, ABW_TILES tiles of ABW_R query rows) per CTA, on the tensor
-// cores (bf16 wmma 16x16x16, fp32 accumulate). K and V of the head (keys
-// zero-padded to 64) stay in shared memory; per tile of rows:
-//   S = q k^T and dP = dctx v^T (wmma, fp32 to shared);
-//   a warp per row: P = softmax(S * scale) in fp32, rowsum(dP * P),
-//     dS = bf16(P * (dP - rowsum) * scale), bf16(P) (rows past N: zeros);
-//   dq = dS k (wmma) rounded to bf16; dv += bf16(P)^T dctx and
-//   dk += dS^T q in wmma accumulators that live across the CTA's tiles.
-// dk and dv sum over every query row of the image, which spans CTAs: each
-// CTA adds its fp32 partial sums into an fp32 workspace with atomics, rounded
-// to bf16 once by f32_to_bf16_kernel afterwards. The operands are rounded
-// where the plain version rounds them, so only summation order differs.
-constexpr int ABW_R = 64, ABW_TILES = 2, ABW_THREADS = 256;
-constexpr int ABW_LD = HD + 8, ABW_LDF = HD + 4;  // padded row strides (elements)
-static_assert(MAX_KV == HD, "the key and head-dim tiles share one layout");
-
-struct AbwSmem {
-  bf16 K[MAX_KV][ABW_LD], V[MAX_KV][ABW_LD];  // [key][d]
-  bf16 Q[ABW_R][ABW_LD], D[ABW_R][ABW_LD];    // [row][d]: q and dctx
-  bf16 P[ABW_R][ABW_LD], S[ABW_R][ABW_LD];    // [row][key]: bf16(P), dS
-  float F0[ABW_R][ABW_LDF], F1[ABW_R][ABW_LDF];  // S then dq; dP
-};
-
-__global__ void __launch_bounds__(ABW_THREADS)
-attention_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, const bf16* __restrict__ dctx,
-                     bf16* __restrict__ dq, float* __restrict__ dk_ws,
-                     float* __restrict__ dv_ws, int N, int Nkv, int C, int heads, float scale) {
-  extern __shared__ __align__(128) unsigned char abw_smem[];
-  AbwSmem& sm = *reinterpret_cast<AbwSmem*>(abw_smem);
-  typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> FragA;
-  typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> FragAT;
-  typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> FragB;
-  typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> FragBT;
-  typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> FragC;
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int b = blockIdx.y / heads, h = blockIdx.y % heads;
-  const size_t kv_row0 = (size_t)b * Nkv;
-  const uint4 zero8 = make_uint4(0, 0, 0, 0);
-  for (int idx = tid; idx < MAX_KV * HD / 8; idx += ABW_THREADS) {
-    const int j = idx / (HD / 8), d = (idx % (HD / 8)) * 8;
-    const size_t off = (kv_row0 + j) * C + h * HD + d;
-    store8(&sm.K[j][d], j < Nkv ? load8(k + off) : zero8);
-    store8(&sm.V[j][d], j < Nkv ? load8(v + off) : zero8);
-  }
-
-  // warp -> 16-row block wr and the two 16-column blocks 2 wc, 2 wc + 1 of
-  // every 64x64 product; dk/dv rows are keys
-  const int wr = warp >> 1, wc = warp & 1;
-  FragC acc_dk[2], acc_dv[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    wmma::fill_fragment(acc_dk[i], 0.f);
-    wmma::fill_fragment(acc_dv[i], 0.f);
-  }
-
-  for (int tile = 0; tile < ABW_TILES; ++tile) {
-    const int row0 = (blockIdx.x * ABW_TILES + tile) * ABW_R;
-    if (row0 >= N) break;  // the same for every thread of the CTA
-    __syncthreads();  // the previous tile's readers of Q, D, P, S, F0 are done
-    for (int idx = tid; idx < ABW_R * HD / 8; idx += ABW_THREADS) {
-      const int r = idx / (HD / 8), d = (idx % (HD / 8)) * 8, row = row0 + r;
-      const size_t off = ((size_t)b * N + row) * C + h * HD + d;
-      store8(&sm.Q[r][d], row < N ? load8(q + off) : zero8);
-      store8(&sm.D[r][d], row < N ? load8(dctx + off) : zero8);
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {  // S = q k^T, dP = dctx v^T
-      const int cb = 16 * (2 * wc + i);
-      FragC cs, cp;
-      wmma::fill_fragment(cs, 0.f);
-      wmma::fill_fragment(cp, 0.f);
-#pragma unroll
-      for (int kk = 0; kk < HD; kk += 16) {
-        FragA a;
-        FragBT bt;
-        wmma::load_matrix_sync(a, &sm.Q[16 * wr][kk], ABW_LD);
-        wmma::load_matrix_sync(bt, &sm.K[cb][kk], ABW_LD);
-        wmma::mma_sync(cs, a, bt, cs);
-        wmma::load_matrix_sync(a, &sm.D[16 * wr][kk], ABW_LD);
-        wmma::load_matrix_sync(bt, &sm.V[cb][kk], ABW_LD);
-        wmma::mma_sync(cp, a, bt, cp);
-      }
-      wmma::store_matrix_sync(&sm.F0[16 * wr][cb], cs, ABW_LDF, wmma::mem_row_major);
-      wmma::store_matrix_sync(&sm.F1[16 * wr][cb], cp, ABW_LDF, wmma::mem_row_major);
-    }
-    __syncthreads();
-
-    for (int r = warp; r < ABW_R; r += ABW_THREADS / 32) {  // softmax backward
-      const bool valid = row0 + r < N;
-      float s[2], e[2], p[2], dp[2];
-#pragma unroll
-      for (int jj = 0; jj < 2; ++jj) {
-        const int j = lane + 32 * jj;
-        s[jj] = j < Nkv ? sm.F0[r][j] * scale : -CUDART_INF_F;
-        dp[jj] = sm.F1[r][j];
-      }
-      const float m = warp_max(fmaxf(s[0], s[1]));
-#pragma unroll
-      for (int jj = 0; jj < 2; ++jj) e[jj] = (lane + 32 * jj < Nkv) ? expf(s[jj] - m) : 0.f;
-      const float denom = warp_sum(e[0] + e[1]);
-#pragma unroll
-      for (int jj = 0; jj < 2; ++jj) p[jj] = e[jj] / denom;
-      const float rs = warp_sum(dp[0] * p[0] + dp[1] * p[1]);
-#pragma unroll
-      for (int jj = 0; jj < 2; ++jj) {
-        const int j = lane + 32 * jj;
-        sm.P[r][j] = f2bf(valid ? p[jj] : 0.f);
-        sm.S[r][j] = f2bf(valid ? p[jj] * (dp[jj] - rs) * scale : 0.f);
-      }
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int cb = 16 * (2 * wc + i);
-      FragC cq;
-      wmma::fill_fragment(cq, 0.f);
-#pragma unroll
-      for (int kk = 0; kk < MAX_KV; kk += 16) {
-        FragA a;
-        FragB bm;
-        FragAT at;
-        wmma::load_matrix_sync(a, &sm.S[16 * wr][kk], ABW_LD);  // dq = dS k
-        wmma::load_matrix_sync(bm, &sm.K[kk][cb], ABW_LD);
-        wmma::mma_sync(cq, a, bm, cq);
-        wmma::load_matrix_sync(at, &sm.P[kk][16 * wr], ABW_LD);  // dv += P^T dctx
-        wmma::load_matrix_sync(bm, &sm.D[kk][cb], ABW_LD);
-        wmma::mma_sync(acc_dv[i], at, bm, acc_dv[i]);
-        wmma::load_matrix_sync(at, &sm.S[kk][16 * wr], ABW_LD);  // dk += dS^T q
-        wmma::load_matrix_sync(bm, &sm.Q[kk][cb], ABW_LD);
-        wmma::mma_sync(acc_dk[i], at, bm, acc_dk[i]);
-      }
-      wmma::store_matrix_sync(&sm.F0[16 * wr][cb], cq, ABW_LDF, wmma::mem_row_major);
-    }
-    __syncthreads();
-    for (int idx = tid; idx < ABW_R * HD / 8; idx += ABW_THREADS) {
-      const int r = idx / (HD / 8), d = (idx % (HD / 8)) * 8, row = row0 + r;
-      if (row >= N) continue;
-      uint4 ov;
-      bf16* oe = lanes8(ov);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) oe[i] = f2bf(sm.F0[r][d + i]);
-      store8(dq + ((size_t)b * N + row) * C + h * HD + d, ov);
-    }
-  }
-  __syncthreads();
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int cb = 16 * (2 * wc + i);
-    wmma::store_matrix_sync(&sm.F0[16 * wr][cb], acc_dk[i], ABW_LDF, wmma::mem_row_major);
-    wmma::store_matrix_sync(&sm.F1[16 * wr][cb], acc_dv[i], ABW_LDF, wmma::mem_row_major);
-  }
-  __syncthreads();
-  for (int idx = tid; idx < Nkv * HD; idx += ABW_THREADS) {
-    const int j = idx / HD, d = idx % HD;
-    const size_t off = (kv_row0 + j) * C + h * HD + d;
-    atomicAdd(dk_ws + off, sm.F0[j][d]);
-    atomicAdd(dv_ws + off, sm.F1[j][d]);
-  }
-}
-
-__global__ void f32_to_bf16_kernel(const float* __restrict__ in, bf16* __restrict__ out,
-                                   size_t n) {
-  for (size_t t = blockIdx.x * (size_t)blockDim.x + threadIdx.x; t < n;
-       t += (size_t)gridDim.x * blockDim.x)
-    out[t] = f2bf(in[t]);
-}
-
 // ------------------------------------------------------------ LayerNorm ----
 // One warp per row of C <= LN_MAX_K; out = bf16(LN(x)). On the stage path
 // only: its LN1 output feeds both the q and kv products (and the SR regroup).
@@ -686,18 +486,17 @@ __global__ void lane_pack2_kernel(const bf16* __restrict__ in, bf16* __restrict_
 }
 
 // ------------------------------------------------------------- launchers ----
-template <Pro PRO, Epi EPI, bool BT = false>
+template <Pro PRO, Epi EPI>
 void launch_gemm(cudaStream_t s, const GemmArgs& a) {
   dim3 grid((a.M + BM - 1) / BM, (a.N + BN - 1) / BN);
-  gemm_bf16<PRO, EPI, BT><<<grid, GEMM_THREADS, 0, s>>>(a);
+  gemm_bf16<PRO, EPI><<<grid, GEMM_THREADS, 0, s>>>(a);
 }
 
-// A GemmArgs for out[M, N] = A[M, K] @ B with every leading dimension the
-// matrices' own widths (B: Bw [K, N], or Bw [N, K] when transposed).
-GemmArgs dense_args(const bf16* A, const bf16* Bw, void* out, int M, int N, int K,
-                    bool transposed) {
+// A GemmArgs for out[M, N] = A[M, K] @ Bw[K, N] with every leading dimension
+// the matrices' own widths.
+GemmArgs dense_args(const bf16* A, const bf16* Bw, void* out, int M, int N, int K) {
   GemmArgs a{};
-  a.A = A, a.lda = K, a.Bw = Bw, a.ldb = transposed ? K : N, a.out = static_cast<bf16*>(out);
+  a.A = A, a.lda = K, a.Bw = Bw, a.ldb = N, a.out = static_cast<bf16*>(out);
   a.ldo = N;
   a.M = M, a.N = N, a.K = K;
   return a;
@@ -717,14 +516,14 @@ void attention(cudaStream_t s, const bf16* q, const bf16* k, const bf16* v, int 
 
 // ======================================================= wgmma kernels ====
 // The products and the attention of mit_block_forward, mit_stage_forward
-// (the serving path), mit_block_train_forward and the products of
-// mit_block_train_mlp_backward, redesigned for Hopper; packed2 and the
-// training attention backward keep the first design's pieces above. All
-// keep dwconv3x3_kernel.
+// (the serving path) and the three training entry points, redesigned for
+// Hopper; packed2 keeps the first design's pieces above. All keep
+// dwconv3x3_kernel.
 
 // ---------------------------------------------------- wgmma_linear ----
-// out[M, N] = epilogue(A'[M, K] @ B[K, N]), A' = A or bf16(LayerNorm(A)),
-// B = Bw [K, N] or, with BT, Bw^T for Bw stored [N, K], on the tensor cores
+// out[M, N] = epilogue(A'[M, K] @ B[K, N]), A' = A, bf16(LayerNorm(A)) or
+// bf16(A * rowscale[row / mrows]) (Pro), B = Bw [K, N] or, with BT, Bw^T for
+// Bw stored [N, K], on the tensor cores
 // with wgmma. A CTA owns 128 rows and walks `tiles_per_cta` output tiles of
 // 64 NSLAB columns. One producer warp feeds a ring of WG_STAGES weight
 // tiles of 64 K x 64 NSLAB N by TMA (128-byte swizzle, zero fill past the
@@ -733,9 +532,10 @@ void attention(cudaStream_t s, const bf16* q, const bf16* k, const bf16* v, int 
 // descriptor form; two consumer warpgroups each run m64n64k16 wgmma on 64
 // of the rows.
 //   RESIDENT (K <= WG_PANEL_MAX_K): the CTA's A panel [128 x K] is loaded
-//   once and serves every N tile. With LN each row's statistics are taken
+//   once and serves every N tile. With kLN each row's statistics are taken
 //   once from the panel and bf16(LN(A)) written back in place, the rounding
-//   of the Pallas body's xln.
+//   of the Pallas body's xln; with kRowScale each row is scaled and rounded
+//   in place, the rounding of the attention backward's dattn = bf16(dx1 m1).
 //   Otherwise A tiles [128 x 64] stream through the ring beside B.
 // The epilogue runs on the accumulators in registers: a shuffle within each
 // quad of lanes gives every lane 8 consecutive columns of one row, so bias,
@@ -759,7 +559,7 @@ struct WgArgs {
   const bf16* res;
   void* out;  // bf16, or fp32 for Epi::kF32
   int M, N, K, ldr, ldo, tiles_per_cta;
-  const float* rowscale;  // Epi::kBiasResScale: one factor per mrows rows
+  const float* rowscale;  // Epi::kBiasResScale, Pro::kRowScale: one factor per mrows rows
   int mrows;
   const bf16* aux;  // Epi::kGeluGrad: the GELU input [M, N], leading dimension ldx
   int ldx;
@@ -867,6 +667,24 @@ __device__ __forceinline__ void ln_panel_rows(unsigned char* panel, int row0, in
   }
 }
 
+// bf16(A * rowscale[row / mrows]) in place for panel rows row0 .. row0 +
+// 15 (global rows m0 + r), by one warp; rows past M are TMA's zeros and stay.
+__device__ __forceinline__ void scale_panel_rows(unsigned char* panel, int row0, int m0,
+                                                 const WgArgs& a, int lane) {
+  const int nch = a.K / 8;
+  for (int i = lane; i < 16 * nch; i += 32) {
+    const int r = row0 + i / nch, ch = i % nch;
+    if (m0 + r >= a.M) continue;
+    const float sc = a.rowscale[(m0 + r) / a.mrows];
+    uint4* p = reinterpret_cast<uint4*>(panel + panel_chunk(r, ch));
+    uint4 v = *p;
+    bf16* e = lanes8(v);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) e[j] = f2bf(bf2f(e[j]) * sc);
+    *p = v;
+  }
+}
+
 template <typename T>
 __device__ __forceinline__ T pick4(const T (&a)[4], int i) {
   return i == 0 ? a[0] : i == 1 ? a[1] : i == 2 ? a[2] : a[3];
@@ -875,6 +693,7 @@ __device__ __forceinline__ T pick4(const T (&a)[4], int i) {
 // The epilogue of one 64-column slab of a consumer warpgroup's accumulators:
 // rows row_lo and row_lo + 8 of this lane (those below a.M), columns n_base +
 // 8 jb + 2 t (those below a.N), with v the fp32 product:
+//   kPlain                      bf16(v)
 //   kBias, kBiasGelu, kBiasRes  bf16([res +] [gelu](v + bias))
 //   kBiasResScale               bf16(res + rowscale[row / mrows] * (v + bias)),
 //                               the scale on the fp32 branch before the
@@ -884,7 +703,6 @@ __device__ __forceinline__ T pick4(const T (&a)[4], int i) {
 template <Epi EPI>
 __device__ __forceinline__ void store_slab(const float (&d)[32], const WgArgs& a, int row_lo,
                                            int n_base, int t) {
-  static_assert(EPI != Epi::kPlain, "no wgmma product rounds without an epilogue");
   constexpr bool BIAS = EPI == Epi::kBias || EPI == Epi::kBiasGelu || EPI == Epi::kBiasRes ||
                         EPI == Epi::kBiasResScale;
   constexpr bool RES = EPI == Epi::kBiasRes || EPI == Epi::kBiasResScale;
@@ -941,11 +759,12 @@ __device__ __forceinline__ void store_slab(const float (&d)[32], const WgArgs& a
   }
 }
 
-template <bool LN, Epi EPI, int NSLAB, bool RESIDENT, bool BT>
+template <Pro PRO, Epi EPI, int NSLAB, bool RESIDENT, bool BT>
 __global__ void __launch_bounds__(WG_THREADS, 2)
     wgmma_linear(const __grid_constant__ CUtensorMap tma, const __grid_constant__ CUtensorMap tmb,
                  const WgArgs a) {
-  static_assert(!LN || RESIDENT, "the LayerNorm prologue works on a resident panel");
+  static_assert(PRO != Pro::kGroupLN, "the per-half LayerNorm is gemm_bf16's");
+  static_assert(PRO == Pro::kPlain || RESIDENT, "a prologue works on a resident panel");
   extern __shared__ unsigned char wg_smem_raw[];
   const uint32_t raw = smem_addr(wg_smem_raw);
   const uint32_t base = (raw + 1023) & ~1023u;
@@ -1003,8 +822,11 @@ __global__ void __launch_bounds__(WG_THREADS, 2)
   const int wg = warp >> 2;  // consumer warpgroup: rows 64 wg .. 64 wg + 63
   if constexpr (RESIDENT) {
     mbar_wait(a_full, 0);
-    if constexpr (LN) {
-      ln_panel_rows(panel, 64 * wg + 16 * (warp & 3), a.K, a.ln_g, a.ln_b, lane);
+    if constexpr (PRO != Pro::kPlain) {
+      if constexpr (PRO == Pro::kLN)
+        ln_panel_rows(panel, 64 * wg + 16 * (warp & 3), a.K, a.ln_g, a.ln_b, lane);
+      else
+        scale_panel_rows(panel, 64 * wg + 16 * (warp & 3), m0, a, lane);
       fence_proxy_async();
       named_barrier(1 + wg, 128);
     }
@@ -1049,10 +871,10 @@ __global__ void __launch_bounds__(WG_THREADS, 2)
   }
 }
 
-template <bool LN, Epi EPI, int NSLAB, bool RESIDENT, bool BT>
+template <Pro PRO, Epi EPI, int NSLAB, bool RESIDENT, bool BT>
 int wg_launch(cudaStream_t s, dim3 grid, int smem, const CUtensorMap& ta, const CUtensorMap& tb,
               const WgArgs& a) {
-  auto kern = wgmma_linear<LN, EPI, NSLAB, RESIDENT, BT>;
+  auto kern = wgmma_linear<PRO, EPI, NSLAB, RESIDENT, BT>;
   static const cudaError_t attr =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_LIMIT);
   if (attr != cudaSuccess) return (int)attr;
@@ -1065,20 +887,22 @@ int wg_launch(cudaStream_t s, dim3 grid, int smem, const CUtensorMap& ta, const 
 // resident, tiles_per_cta, grid_x, grid_y, smem_bytes]. B is Bw stored [K,
 // N] (read MN-major), or with BT the transpose of Bw stored [N, K] (read
 // K-major: a forward weight [in, out] read transposed for an input
-// gradient). The trailing arguments serve the scaled-residual and GELU-
-// gradient epilogues. A plan that does not fit the shapes is refused with
-// cudaErrorInvalidValue; so is a tensor map that cannot be made.
-template <bool LN, Epi EPI, bool BT = false>
+// gradient). The trailing arguments serve the row-scale prologue and the
+// scaled-residual and GELU-gradient epilogues. A plan that does not fit the
+// shapes is refused with cudaErrorInvalidValue; so is a tensor map that
+// cannot be made.
+template <Pro PRO, Epi EPI, bool BT = false>
 int wg_linear(cudaStream_t s, const int* plan, const bf16* A, const bf16* Bw, const bf16* bias,
               const bf16* ln_g, const bf16* ln_b, const bf16* res, int ldr, void* out, int ldo,
               int M, int N, int K, const float* rowscale = nullptr, int mrows = 1,
               const bf16* aux = nullptr, int ldx = 0) {
-  static_assert(!(LN && BT), "no LayerNorm'd product reads its weight transposed");
+  static_assert(!(PRO == Pro::kLN && BT), "no LayerNorm'd product reads its weight transposed");
   const int bn = plan[0], tpc = plan[2], smem = plan[5];
   const bool resident = plan[1] != 0;
   const int ntiles = bn > 0 ? (N + bn - 1) / bn : 0;
   const int bad = (int)cudaErrorInvalidValue;
-  if ((bn != 64 && bn != 128) || tpc < 1 || (resident && K > WG_PANEL_MAX_K) || (LN && !resident) ||
+  if ((bn != 64 && bn != 128) || tpc < 1 || (resident && K > WG_PANEL_MAX_K) ||
+      (PRO != Pro::kPlain && !resident) || (PRO == Pro::kRowScale && rowscale == nullptr) ||
       plan[3] != (M + WG_BM - 1) / WG_BM || plan[4] != (ntiles + tpc - 1) / tpc ||
       smem != wg_smem_bytes(K, bn, resident) || smem > SMEM_LIMIT || K % 8 || N % 8 || mrows < 1)
     return bad;
@@ -1088,15 +912,15 @@ int wg_linear(cudaStream_t s, const int* plan, const bf16* A, const bf16* Bw, co
     return bad;
   WgArgs a{ln_g, ln_b, bias, res, out, M, N, K, ldr, ldo, tpc, rowscale, mrows, aux, ldx};
   const dim3 grid(plan[3], plan[4]);
-  if constexpr (LN) {
-    return bn == 64 ? wg_launch<true, EPI, 1, true, false>(s, grid, smem, ta, tb, a)
-                    : wg_launch<true, EPI, 2, true, false>(s, grid, smem, ta, tb, a);
+  if constexpr (PRO != Pro::kPlain) {
+    return bn == 64 ? wg_launch<PRO, EPI, 1, true, BT>(s, grid, smem, ta, tb, a)
+                    : wg_launch<PRO, EPI, 2, true, BT>(s, grid, smem, ta, tb, a);
   } else {
     if (resident)
-      return bn == 64 ? wg_launch<false, EPI, 1, true, BT>(s, grid, smem, ta, tb, a)
-                      : wg_launch<false, EPI, 2, true, BT>(s, grid, smem, ta, tb, a);
-    return bn == 64 ? wg_launch<false, EPI, 1, false, BT>(s, grid, smem, ta, tb, a)
-                    : wg_launch<false, EPI, 2, false, BT>(s, grid, smem, ta, tb, a);
+      return bn == 64 ? wg_launch<PRO, EPI, 1, true, BT>(s, grid, smem, ta, tb, a)
+                      : wg_launch<PRO, EPI, 2, true, BT>(s, grid, smem, ta, tb, a);
+    return bn == 64 ? wg_launch<PRO, EPI, 1, false, BT>(s, grid, smem, ta, tb, a)
+                    : wg_launch<PRO, EPI, 2, false, BT>(s, grid, smem, ta, tb, a);
   }
 }
 
@@ -1236,6 +1060,288 @@ int attention_tc(cudaStream_t s, const int* plan, const bf16* q, const bf16* k, 
   return (int)cudaGetLastError();
 }
 
+// ------------------------------------------ attention_bwd_tc_kernel ----
+// The softmax and context backward of mit_block.py::_attn_bwd_kernel for one
+// (image, head) per blockIdx.y and `tiles_per_cta` tiles of 64 query rows
+// per blockIdx.x, on the tensor cores (mma.sync m16n8k16, bf16 in, fp32
+// accumulate). K and V of the head are staged once per CTA (keys zero-padded
+// to MAX_KV). The q and dctx rows of each tile come to shared memory by
+// cp.async, double-buffered: the next tile's load runs under this one's
+// products. Each warp takes 16 rows of a tile:
+//   S = q K^T and dP = dctx V^T in accumulator fragments; the fp32 softmax
+//   P = softmax(S * scale) and rowsum(dP * P) there, with quad shuffles for
+//   the row max, sum and rowsum; dS = bf16(P * (dP - rowsum) * scale);
+//   dq = dS K from dS in the same registers as the A operand, rounded to
+//   bf16 and stored;
+//   bf16(P) and dS to shared memory.
+// Then each warp owns 16 keys of the tile's dv += bf16(P)^T dctx and
+// dk += dS^T q, reading P, dS, dctx and q transposed with ldmatrix.trans; the
+// sums over the CTA's rows stay in registers across its tiles. At the end
+// a CTA that holds all N rows of its (image, head) (gridDim.x == 1) rounds dk
+// and dv to bf16 and writes them; otherwise it writes fp32 partial sums to
+// part [gridDim.x][2][B*Nkv*C], which dkv_reduce_kernel sums in split order
+// and rounds. No atomics: dk and dv are the same from run to run. Operands
+// round where the Pallas body rounds them, so only summation order differs.
+constexpr int ABW_THREADS = 128, ABW_ROWS = 64, ABW_LD = HD + 8;  // padded rows
+constexpr int ABW_MIN_CTAS = 3;  // CTAs per SM the register budget keeps resident
+
+struct AbwSmem {
+  bf16 K[MAX_KV][ABW_LD], V[MAX_KV][ABW_LD];              // [key][d]
+  bf16 Q[2][ABW_ROWS][ABW_LD], D[2][ABW_ROWS][ABW_LD];    // [buffer][row][d]: q and dctx
+  bf16 P[ABW_ROWS][ABW_LD], S[ABW_ROWS][ABW_LD];          // [row][key]: bf16(P) and dS
+};
+
+__global__ void __launch_bounds__(ABW_THREADS, ABW_MIN_CTAS)
+    attention_bwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                            const bf16* __restrict__ v, const bf16* __restrict__ dctx,
+                            bf16* __restrict__ dq, bf16* __restrict__ dk, bf16* __restrict__ dv,
+                            float* __restrict__ part, int N, int Nkv, int C, int heads,
+                            int tiles_per_cta, float scale) {
+  extern __shared__ __align__(16) unsigned char abw_smem[];
+  AbwSmem& sm = *reinterpret_cast<AbwSmem*>(abw_smem);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int b = blockIdx.y / heads, h = blockIdx.y % heads;
+  const uint4 zero8 = make_uint4(0, 0, 0, 0);
+  for (int idx = tid; idx < MAX_KV * HD / 8; idx += ABW_THREADS) {
+    const int j = idx / (HD / 8), d = (idx % (HD / 8)) * 8;
+    const size_t off = ((size_t)b * Nkv + j) * C + h * HD + d;
+    store8(&sm.K[j][d], j < Nkv ? load8(k + off) : zero8);
+    store8(&sm.V[j][d], j < Nkv ? load8(v + off) : zero8);
+  }
+
+  // dk and dv of keys 16 warp + g (+ 8), head dims 8 nb + 2 t (+ 1)
+  float adk[HD / 8][4], adv[HD / 8][4];
+#pragma unroll
+  for (int nb = 0; nb < HD / 8; ++nb)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) adk[nb][e] = adv[nb][e] = 0.f;
+
+  const int qtiles = (N + ABW_ROWS - 1) / ABW_ROWS;
+  const int t0 = blockIdx.x * tiles_per_cta, t1 = min(t0 + tiles_per_cta, qtiles);
+  const int wr = 16 * warp;  // this warp's rows of the tile, then its keys
+  // one commit group per tile: its q and dctx rows into buffer `buf`, zeros
+  // past N
+  auto load_tile = [&](int tile, int buf) {
+    for (int idx = tid; idx < ABW_ROWS * HD / 8; idx += ABW_THREADS) {
+      const int r = idx / (HD / 8), d = (idx % (HD / 8)) * 8, row = tile * ABW_ROWS + r;
+      const size_t off = row < N ? ((size_t)b * N + row) * C + h * HD + d : 0;
+      cp_async16(smem_addr(&sm.Q[buf][r][d]), q + off, row < N);
+      cp_async16(smem_addr(&sm.D[buf][r][d]), dctx + off, row < N);
+    }
+    cp_async_commit();
+  };
+  if (t0 < t1) load_tile(t0, 0);
+  for (int tile = t0; tile < t1; ++tile) {
+    const int row0 = tile * ABW_ROWS, buf = (tile - t0) & 1;
+    __syncthreads();  // K and V staged; the previous tile's Q, D, P, S are read
+    if (tile + 1 < t1) {
+      load_tile(tile + 1, buf ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // this tile's q and dctx rows are in shared memory
+    bf16(*Qs)[ABW_LD] = sm.Q[buf];
+    bf16(*Ds)[ABW_LD] = sm.D[buf];
+
+    float sc[MAX_KV / 8][4], dp[MAX_KV / 8][4];
+#pragma unroll
+    for (int nb = 0; nb < MAX_KV / 8; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[nb][e] = dp[nb][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      uint32_t qa[4], da[4];
+      ldmatrix_x4(qa, smem_addr(&Qs[wr + (lane & 15)][16 * kk + (lane >> 4) * 8]));
+      ldmatrix_x4(da, smem_addr(&Ds[wr + (lane & 15)][16 * kk + (lane >> 4) * 8]));
+#pragma unroll
+      for (int nb2 = 0; nb2 < MAX_KV / 16; ++nb2) {
+        const int key = 16 * nb2 + (lane & 7) + ((lane >> 4) << 3);
+        const int col = 16 * kk + ((lane >> 3) & 1) * 8;
+        uint32_t kb[4], vb[4];
+        ldmatrix_x4(kb, smem_addr(&sm.K[key][col]));
+        ldmatrix_x4(vb, smem_addr(&sm.V[key][col]));
+        mma_m16n8k16(sc[2 * nb2], qa, kb[0], kb[1]);
+        mma_m16n8k16(sc[2 * nb2 + 1], qa, kb[2], kb[3]);
+        mma_m16n8k16(dp[2 * nb2], da, vb[0], vb[1]);
+        mma_m16n8k16(dp[2 * nb2 + 1], da, vb[2], vb[3]);
+      }
+    }
+
+    // rows g (elements 0, 1) and g + 8 (elements 2, 3); a quad holds a row
+    float mx[2] = {-CUDART_INF_F, -CUDART_INF_F}, sum[2] = {0.f, 0.f}, rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int nb = 0; nb < MAX_KV / 8; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = nb * 8 + 2 * t + (e & 1);
+        sc[nb][e] = key < Nkv ? sc[nb][e] * scale : -CUDART_INF_F;
+        mx[e >> 1] = fmaxf(mx[e >> 1], sc[nb][e]);
+      }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(FULL_MASK, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(FULL_MASK, mx[i], 2));
+    }
+#pragma unroll
+    for (int nb = 0; nb < MAX_KV / 8; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = nb * 8 + 2 * t + (e & 1);
+        sc[nb][e] = key < Nkv ? expf(sc[nb][e] - mx[e >> 1]) : 0.f;
+        sum[e >> 1] += sc[nb][e];
+      }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      sum[i] += __shfl_xor_sync(FULL_MASK, sum[i], 1);
+      sum[i] += __shfl_xor_sync(FULL_MASK, sum[i], 2);
+    }
+    // P in fp32 (by the reciprocal of the row sum; zero on rows past N)
+    const float inv[2] = {row0 + wr + g < N ? 1.f / sum[0] : 0.f,
+                          row0 + wr + g + 8 < N ? 1.f / sum[1] : 0.f};
+#pragma unroll
+    for (int nb = 0; nb < MAX_KV / 8; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        sc[nb][e] *= inv[e >> 1];
+        rs[e >> 1] += dp[nb][e] * sc[nb][e];
+      }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      rs[i] += __shfl_xor_sync(FULL_MASK, rs[i], 1);
+      rs[i] += __shfl_xor_sync(FULL_MASK, rs[i], 2);
+    }
+    // bf16(P) and dS to shared memory; dS also as the A operand of dq = dS K
+    uint32_t dsa[MAX_KV / 16][4];
+#pragma unroll
+    for (int nb = 0; nb < MAX_KV / 8; ++nb) {
+      float ds[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) ds[e] = sc[nb][e] * (dp[nb][e] - rs[e >> 1]) * scale;
+      const uint32_t lo = pack_bf16x2(ds[0], ds[1]), hi = pack_bf16x2(ds[2], ds[3]);
+      dsa[nb >> 1][(nb & 1) * 2] = lo;
+      dsa[nb >> 1][(nb & 1) * 2 + 1] = hi;
+      const int key = nb * 8 + 2 * t;
+      *reinterpret_cast<uint32_t*>(&sm.S[wr + g][key]) = lo;
+      *reinterpret_cast<uint32_t*>(&sm.S[wr + g + 8][key]) = hi;
+      *reinterpret_cast<uint32_t*>(&sm.P[wr + g][key]) = pack_bf16x2(sc[nb][0], sc[nb][1]);
+      *reinterpret_cast<uint32_t*>(&sm.P[wr + g + 8][key]) = pack_bf16x2(sc[nb][2], sc[nb][3]);
+    }
+
+    float o[HD / 8][4];
+#pragma unroll
+    for (int nb = 0; nb < HD / 8; ++nb) o[nb][0] = o[nb][1] = o[nb][2] = o[nb][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < MAX_KV / 16; ++kk)
+#pragma unroll
+      for (int nb2 = 0; nb2 < HD / 16; ++nb2) {
+        uint32_t kb[4];
+        ldmatrix_x4_trans(kb, smem_addr(&sm.K[16 * kk + (lane & 7) + (((lane >> 3) & 1) << 3)]
+                                            [16 * nb2 + ((lane >> 4) << 3)]));
+        mma_m16n8k16(o[2 * nb2], dsa[kk], kb[0], kb[1]);
+        mma_m16n8k16(o[2 * nb2 + 1], dsa[kk], kb[2], kb[3]);
+      }
+    const size_t dq0 = ((size_t)b * N + row0 + wr + g) * C + h * HD + 2 * t;
+#pragma unroll
+    for (int nb = 0; nb < HD / 8; ++nb) {
+      if (row0 + wr + g < N)
+        *reinterpret_cast<uint32_t*>(dq + dq0 + nb * 8) = pack_bf16x2(o[nb][0], o[nb][1]);
+      if (row0 + wr + g + 8 < N)
+        *reinterpret_cast<uint32_t*>(dq + dq0 + (size_t)8 * C + nb * 8) =
+            pack_bf16x2(o[nb][2], o[nb][3]);
+    }
+    __syncthreads();  // every warp's P and dS rows are in shared memory
+
+    // keys wr .. wr + 15 of dv += P^T dctx and dk += dS^T q over the tile's rows
+#pragma unroll
+    for (int kk = 0; kk < ABW_ROWS / 16; ++kk) {
+      const int prow = 16 * kk + (lane & 7) + ((lane >> 4) << 3);
+      const int pcol = wr + (((lane >> 3) & 1) << 3);
+      uint32_t pa[4], sa[4];
+      ldmatrix_x4_trans(pa, smem_addr(&sm.P[prow][pcol]));
+      ldmatrix_x4_trans(sa, smem_addr(&sm.S[prow][pcol]));
+#pragma unroll
+      for (int nb2 = 0; nb2 < HD / 16; ++nb2) {
+        const int brow = 16 * kk + (lane & 7) + (((lane >> 3) & 1) << 3);
+        const int bcol = 16 * nb2 + ((lane >> 4) << 3);
+        uint32_t db[4], qb[4];
+        ldmatrix_x4_trans(db, smem_addr(&Ds[brow][bcol]));
+        ldmatrix_x4_trans(qb, smem_addr(&Qs[brow][bcol]));
+        mma_m16n8k16(adv[2 * nb2], pa, db[0], db[1]);
+        mma_m16n8k16(adv[2 * nb2 + 1], pa, db[2], db[3]);
+        mma_m16n8k16(adk[2 * nb2], sa, qb[0], qb[1]);
+        mma_m16n8k16(adk[2 * nb2 + 1], sa, qb[2], qb[3]);
+      }
+    }
+  }
+
+  const size_t nkv = (size_t)gridDim.y / heads * Nkv * C;  // B * Nkv * C
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int key = wr + g + 8 * half;
+    if (key >= Nkv) continue;
+    const size_t row = ((size_t)b * Nkv + key) * C + h * HD + 2 * t;
+#pragma unroll
+    for (int nb = 0; nb < HD / 8; ++nb) {
+      const float k0 = adk[nb][2 * half], k1 = adk[nb][2 * half + 1];
+      const float v0 = adv[nb][2 * half], v1 = adv[nb][2 * half + 1];
+      if (part == nullptr) {
+        *reinterpret_cast<uint32_t*>(dk + row + nb * 8) = pack_bf16x2(k0, k1);
+        *reinterpret_cast<uint32_t*>(dv + row + nb * 8) = pack_bf16x2(v0, v1);
+      } else {
+        float* pk = part + (size_t)blockIdx.x * 2 * nkv + row + nb * 8;
+        *reinterpret_cast<float2*>(pk) = make_float2(k0, k1);
+        *reinterpret_cast<float2*>(pk + nkv) = make_float2(v0, v1);
+      }
+    }
+  }
+}
+
+// dk, dv [nkv] = bf16(sum over the splits of part [splits][2][nkv]), in split
+// order; 4 values per thread (nkv is a multiple of 4).
+__global__ void dkv_reduce_kernel(const float* __restrict__ part, bf16* __restrict__ dk,
+                                  bf16* __restrict__ dv, size_t nkv, int splits) {
+  const size_t n4 = nkv / 4;
+  for (size_t t = blockIdx.x * (size_t)blockDim.x + threadIdx.x; t < 2 * n4;
+       t += (size_t)gridDim.x * blockDim.x) {
+    const int which = t >= n4;
+    const size_t i = 4 * (t - which * n4);
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int sp = 0; sp < splits; ++sp) {
+      const float4 p = *reinterpret_cast<const float4*>(part + ((size_t)sp * 2 + which) * nkv + i);
+      acc.x += p.x, acc.y += p.y, acc.z += p.z, acc.w += p.w;
+    }
+    uint2 out;
+    out.x = pack_bf16x2(acc.x, acc.y);
+    out.y = pack_bf16x2(acc.z, acc.w);
+    *reinterpret_cast<uint2*>((which ? dv : dk) + i) = out;
+  }
+}
+
+// plan = [tiles_per_cta, grid_x, grid_y] (kernels/mit_block.py::
+// attn_backward_plan): grid_x CTAs split the query tiles of each (image,
+// head); above 1, their partial sums go to part and one reduce launch
+// follows.
+int attention_bwd_tc(cudaStream_t s, const int* plan, const bf16* q, const bf16* k,
+                     const bf16* v, const bf16* dctx, bf16* dq, bf16* dk, bf16* dv, float* part,
+                     int B, int N, int Nkv, int C, int heads) {
+  const int tpc = plan[0], splits = plan[1], qtiles = (N + ABW_ROWS - 1) / ABW_ROWS;
+  if (tpc < 1 || Nkv < 1 || Nkv > MAX_KV || C != heads * HD || splits != (qtiles + tpc - 1) / tpc ||
+      plan[2] != B * heads || (splits > 1 && part == nullptr))
+    return (int)cudaErrorInvalidValue;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      attention_bwd_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, sizeof(AbwSmem));
+  if (attr != cudaSuccess) return (int)attr;
+  attention_bwd_tc_kernel<<<dim3(splits, plan[2]), ABW_THREADS, sizeof(AbwSmem), s>>>(
+      q, k, v, dctx, dq, dk, dv, splits > 1 ? part : nullptr, N, Nkv, C, heads, tpc,
+      1.0f / sqrtf((float)HD));
+  if (splits > 1) {
+    const size_t nkv = (size_t)B * Nkv * C;
+    dkv_reduce_kernel<<<grid_for(nkv / 2, 256), 256, 0, s>>>(part, dk, dv, nkv, splits);
+  }
+  return (int)cudaGetLastError();
+}
+
 #define TRY(call)                  \
   do {                             \
     const int err_ = (call);       \
@@ -1257,14 +1363,14 @@ int out_and_mlp(cudaStream_t s, const int* plan, const bf16* x, const bf16* ctx,
                 int B, int H, int W, int C, int hidden) {
   constexpr Epi RES = SCALE ? Epi::kBiasResScale : Epi::kBiasRes;
   const int N = H * W, M = B * N;
-  TRY((wg_linear<false, RES>(s, plan, ctx, wo, bo, nullptr, nullptr, x, C, x1buf, C, M, C, C, m1,
-                             N)));
-  TRY((wg_linear<true, Epi::kBias>(s, plan + GEMM_PLAN, x1buf, w1, b1, ln2_g, ln2_b, nullptr, 0,
-                                   hid, hidden, M, hidden, C)));
+  TRY((wg_linear<Pro::kPlain, RES>(s, plan, ctx, wo, bo, nullptr, nullptr, x, C, x1buf, C, M, C, C,
+                                   m1, N)));
+  TRY((wg_linear<Pro::kLN, Epi::kBias>(s, plan + GEMM_PLAN, x1buf, w1, b1, ln2_g, ln2_b, nullptr, 0,
+                                       hid, hidden, M, hidden, C)));
   dwconv3x3_kernel<true><<<grid_for((size_t)M * hidden / 8, 256), 256, 0, s>>>(
       hid, wdw, bdw, act, B, H, W, hidden);
-  TRY((wg_linear<false, RES>(s, plan + 2 * GEMM_PLAN, act, w2, b2, nullptr, nullptr, x1buf, C, y,
-                             C, M, C, hidden, m2, N)));
+  TRY((wg_linear<Pro::kPlain, RES>(s, plan + 2 * GEMM_PLAN, act, w2, b2, nullptr, nullptr, x1buf, C,
+                                   y, C, M, C, hidden, m2, N)));
   return (int)cudaGetLastError();
 }
 
@@ -1290,8 +1396,8 @@ int mit_block_forward(const void* x, const void* k, const void* v, const void* l
   const int M = B * H * W;
   const int* pl = (const int*)plan;
   typedef const bf16* P;
-  TRY((wg_linear<true, Epi::kBias>(s, pl, (P)x, (P)wq, (P)bq, (P)ln1_g, (P)ln1_b, nullptr, 0,
-                                   (bf16*)q, C, M, C, C)));
+  TRY((wg_linear<Pro::kLN, Epi::kBias>(s, pl, (P)x, (P)wq, (P)bq, (P)ln1_g, (P)ln1_b, nullptr, 0,
+                                       (bf16*)q, C, M, C, C)));
   TRY(attention_tc(s, pl + GEMM_PLAN, (P)q, (P)k, (P)v, C, (bf16*)ctx, B, H * W, Nkv, C, heads));
   return out_and_mlp<false>(s, pl + GEMM_PLAN + ATTN_PLAN, (P)x, (P)ctx, (P)wo, (P)bo, (P)ln2_g,
                             (P)ln2_b, (P)w1, (P)b1, (P)wdw, (P)bdw, (P)w2, (P)b2, nullptr, nullptr,
@@ -1334,19 +1440,19 @@ int mit_block_packed2_forward(const void* x, const void* k, const void* v, const
                             0, s>>>((P)k, (bf16*)kp, pairs, Nkv, C);
   lane_pack2_kernel<true><<<grid_for((size_t)pairs * Nkv * C2 / 8, pack_threads), pack_threads,
                             0, s>>>((P)v, (bf16*)vp, pairs, Nkv, C);
-  GemmArgs a = dense_args((P)xp, (P)wq, q, M, C2, C2, false);  // q = LN1(xp) wq + bq
+  GemmArgs a = dense_args((P)xp, (P)wq, q, M, C2, C2);  // q = LN1(xp) wq + bq
   a.bias = (P)bq, a.lnf_g = (const float*)ln1, a.lnf_b = (const float*)ln1 + C2;
   launch_gemm<Pro::kGroupLN, Epi::kBias>(s, a);
   attention(s, (P)q, (P)kp, (P)vp, C2, (bf16*)ctx, pairs, N, Nkv, C2, 2);
-  a = dense_args((P)ctx, (P)wo, xp, M, C2, C2, false);  // xp += ctx wo + bo
+  a = dense_args((P)ctx, (P)wo, xp, M, C2, C2);  // xp += ctx wo + bo
   a.bias = (P)bo, a.res = (P)xp, a.ldr = C2;
   launch_gemm<Pro::kPlain, Epi::kBiasRes>(s, a);
-  a = dense_args((P)xp, (P)w1, hid, M, hidden, C2, false);  // hid = LN2(xp) w1 + b1
+  a = dense_args((P)xp, (P)w1, hid, M, hidden, C2);  // hid = LN2(xp) w1 + b1
   a.bias = (P)b1, a.lnf_g = (const float*)ln2, a.lnf_b = (const float*)ln2 + C2;
   launch_gemm<Pro::kGroupLN, Epi::kBias>(s, a);
   dwconv3x3_kernel<true><<<grid_for((size_t)M * hidden / 8, 256), 256, 0, s>>>(
       (P)hid, (P)wdw, (P)bdw, (bf16*)act, pairs, H, W, hidden);
-  a = dense_args((P)act, (P)w2, xp, M, C2, hidden, false);  // xp += fc2(act) + b2
+  a = dense_args((P)act, (P)w2, xp, M, C2, hidden);  // xp += fc2(act) + b2
   a.bias = (P)b2, a.res = (P)xp, a.ldr = C2;
   launch_gemm<Pro::kPlain, Epi::kBiasRes>(s, a);
   lane_pack2_kernel<false><<<grid_for((size_t)M * C2 / 8, pack_threads), pack_threads, 0, s>>>(
@@ -1386,11 +1492,11 @@ int mit_stage_forward(const void* x, const void* base, const void* sharedw, cons
   TRY((int)cudaMemcpyAsync(y, x, (size_t)M * C * sizeof(bf16), cudaMemcpyDeviceToDevice, s));
   for (int d = 0; d < depth; ++d) {
     if (base != nullptr) {
-      TRY((wg_linear<false, Epi::kBiasGelu>(s, p_lw, (P)base, (P)lww + (size_t)d * Cb * C4,
-                                            (P)lwb + (size_t)d * C4, nullptr, nullptr, nullptr, 0,
-                                            (bf16*)feat, C4, M, C4, Cb)));
-      TRY((wg_linear<false, Epi::kBiasRes>(s, p_shared, (P)feat, (P)sharedw, (P)sharedb, nullptr,
-                                           nullptr, Y, C, Y, C, M, C, C4)));
+      TRY((wg_linear<Pro::kPlain, Epi::kBiasGelu>(s, p_lw, (P)base, (P)lww + (size_t)d * Cb * C4,
+                                                  (P)lwb + (size_t)d * C4, nullptr, nullptr,
+                                                  nullptr, 0, (bf16*)feat, C4, M, C4, Cb)));
+      TRY((wg_linear<Pro::kPlain, Epi::kBiasRes>(s, p_shared, (P)feat, (P)sharedw, (P)sharedb,
+                                                 nullptr, nullptr, Y, C, Y, C, M, C, C4)));
     }
     const bf16* l1 = (P)ln1 + (size_t)d * 2 * C;
     layernorm_kernel<<<(M + 3) / 4, 128, 0, s>>>(Y, l1, l1 + C, (bf16*)xln, M, C);
@@ -1398,19 +1504,20 @@ int mit_stage_forward(const void* x, const void* base, const void* sharedw, cons
     if (sr > 1) {
       sr_patches_kernel<<<grid_for((size_t)Mkv * sr * sr * C / 8, 256), 256, 0, s>>>(
           (P)xln, (bf16*)patches, B, H, W, C, sr);
-      TRY((wg_linear<false, Epi::kBias>(s, p_sr, (P)patches, (P)srw + (size_t)d * sr * sr * C * C,
-                                        (P)srb + (size_t)d * C, nullptr, nullptr, nullptr, 0,
-                                        (bf16*)red, C, Mkv, C, sr * sr * C)));
+      TRY((wg_linear<Pro::kPlain, Epi::kBias>(s, p_sr, (P)patches,
+                                              (P)srw + (size_t)d * sr * sr * C * C,
+                                              (P)srb + (size_t)d * C, nullptr, nullptr, nullptr, 0,
+                                              (bf16*)red, C, Mkv, C, sr * sr * C)));
       const bf16* lk = (P)lnkv + (size_t)d * 2 * C;
       layernorm_kernel<<<(Mkv + 3) / 4, 128, 0, s>>>((P)red, lk, lk + C, (bf16*)kvin, Mkv, C);
       kv_in = (P)kvin;
     }
-    TRY((wg_linear<false, Epi::kBias>(s, p_kv, kv_in, (P)wkv + (size_t)d * C * 2 * C,
-                                      (P)bkv + (size_t)d * 2 * C, nullptr, nullptr, nullptr, 0,
-                                      (bf16*)kv, 2 * C, Mkv, 2 * C, C)));
-    TRY((wg_linear<false, Epi::kBias>(s, p_q, (P)xln, (P)wq + (size_t)d * C * C,
-                                      (P)bq + (size_t)d * C, nullptr, nullptr, nullptr, 0,
-                                      (bf16*)q, C, M, C, C)));
+    TRY((wg_linear<Pro::kPlain, Epi::kBias>(s, p_kv, kv_in, (P)wkv + (size_t)d * C * 2 * C,
+                                            (P)bkv + (size_t)d * 2 * C, nullptr, nullptr, nullptr,
+                                            0, (bf16*)kv, 2 * C, Mkv, 2 * C, C)));
+    TRY((wg_linear<Pro::kPlain, Epi::kBias>(s, p_q, (P)xln, (P)wq + (size_t)d * C * C,
+                                            (P)bq + (size_t)d * C, nullptr, nullptr, nullptr, 0,
+                                            (bf16*)q, C, M, C, C)));
     TRY(attention_tc(s, p_attn, (P)q, (P)kv, (P)kv + C, 2 * C, (bf16*)ctx, B, N, Nkv, C, heads));
     const bf16* l2 = (P)ln2 + (size_t)d * 2 * C;
     TRY(out_and_mlp<false>(s, p_mlp, Y, (P)ctx, (P)wo + (size_t)d * C * C, (P)bo + (size_t)d * C,
@@ -1445,8 +1552,8 @@ int mit_block_train_forward(const void* x, const void* xln, const void* k, const
   typedef const bf16* P;
   const int N = H * W, M = B * N;
   const int* pl = (const int*)plan;
-  TRY((wg_linear<false, Epi::kBias>(s, pl, (P)xln, (P)wq, (P)bq, nullptr, nullptr, nullptr, 0, q,
-                                    C, M, C, C)));
+  TRY((wg_linear<Pro::kPlain, Epi::kBias>(s, pl, (P)xln, (P)wq, (P)bq, nullptr, nullptr, nullptr, 0,
+                                          q, C, M, C, C)));
   TRY(attention_tc(s, pl + GEMM_PLAN, (P)q, (P)k, (P)v, C, (bf16*)ctx, B, N, Nkv, C, heads));
   return out_and_mlp<true>(s, pl + GEMM_PLAN + ATTN_PLAN, (P)x, (P)ctx, (P)wo, (P)bo, (P)ln2_g,
                            (P)ln2_b, (P)w1, (P)b1, (P)wdw, (P)bdw, (P)w2, (P)b2,
@@ -1475,51 +1582,53 @@ int mit_block_train_mlp_backward(const void* h2ln, const void* dmlp, const void*
   const int M = B * H * W;
   const int* pl = (const int*)plan;
   const int conv_grid = grid_for((size_t)M * hidden / 8, 256);
-  TRY((wg_linear<false, Epi::kBias>(s, pl, (P)h2ln, (P)w1, (P)b1, nullptr, nullptr, nullptr, 0,
-                                    bufA, hidden, M, hidden, C)));
+  TRY((wg_linear<Pro::kPlain, Epi::kBias>(s, pl, (P)h2ln, (P)w1, (P)b1, nullptr, nullptr, nullptr,
+                                          0, bufA, hidden, M, hidden, C)));
   dwconv3x3_kernel<false><<<conv_grid, 256, 0, s>>>((P)bufA, (P)wdw, (P)bdw, (bf16*)bufB, B, H,
                                                     W, hidden);
-  TRY((wg_linear<false, Epi::kGeluGrad, true>(s, pl + GEMM_PLAN, (P)dmlp, (P)w2, nullptr, nullptr,
-                                              nullptr, nullptr, 0, bufA, hidden, M, hidden, C,
-                                              nullptr, 1, (P)bufB, hidden)));
+  TRY((wg_linear<Pro::kPlain, Epi::kGeluGrad, true>(s, pl + GEMM_PLAN, (P)dmlp, (P)w2, nullptr,
+                                                    nullptr, nullptr, nullptr, 0, bufA, hidden, M,
+                                                    hidden, C, nullptr, 1, (P)bufB, hidden)));
   dwconv3x3_t_kernel<<<conv_grid, 256, 0, s>>>((P)bufA, (P)wdw, (bf16*)bufB, B, H, W, hidden);
-  TRY((wg_linear<false, Epi::kF32, true>(s, pl + 2 * GEMM_PLAN, (P)bufB, (P)w1, nullptr, nullptr,
-                                         nullptr, nullptr, 0, dh2ln, C, M, C, hidden)));
+  TRY((wg_linear<Pro::kPlain, Epi::kF32, true>(s, pl + 2 * GEMM_PLAN, (P)bufB, (P)w1, nullptr,
+                                               nullptr, nullptr, nullptr, 0, dh2ln, C, M, C,
+                                               hidden)));
   return (int)cudaGetLastError();
 }
 
-// Attention backward (_attn_bwd_kernel, mit_block.py:1472): recompute
-// q = bf16(xln wq + bq); dctx = bf16(bf16(dx1 * m1) wo^T); the softmax and
-// context backward (attention_bwd_kernel) into dq and the fp32 dk/dv
-// workspaces dk_ws, dv_ws [B*Nkv, C], which the caller zeroes; then
-// dxln = bf16(dq wq^T), dk = bf16(dk_ws), dv = bf16(dv_ws). Scratch: q,
-// dctx, dq [B*N, C].
+// Attention backward (_attn_bwd_kernel, mit_block.py:1472) in four or five
+// launches, with no memset and no atomics:
+//   q = bf16(xln wq + bq)                        (wgmma, resident panel)
+//   dctx = bf16(bf16(dx1 * m1[row / N]) wo^T)    (wgmma: the row scale in
+//                                                 place on the resident panel,
+//                                                 wo read K-major)
+//   dq, and dk, dv or their partial sums         (attention_bwd_tc_kernel;
+//                                                 then dkv_reduce_kernel when
+//                                                 the rows of an image split)
+//   dxln = bf16(dq wq^T)                         (wgmma, wq read K-major)
+// `plan` (host memory, kernels/mit_block.py::attn_backward_plan) holds the
+// plans of the q, dctx and dxln products and of the attention. Scratch: q,
+// dctx, dq [B*N, C]; part [splits][2][B*Nkv*C] fp32 when the plan splits
+// (null otherwise).
 int mit_block_train_attn_backward(const void* xln, const void* k, const void* v,
                                   const void* dx1, const void* m1, const void* wq,
-                                  const void* bq, const void* wo, void* q, void* dctx, void* dq,
-                                  void* dk_ws, void* dv_ws, void* dxln, void* dk, void* dv, int B,
-                                  int N, int C, int heads, int Nkv, void* stream) {
+                                  const void* bq, const void* wo, const void* plan, void* q,
+                                  void* dctx, void* dq, void* part, void* dxln, void* dk,
+                                  void* dv, int B, int N, int C, int heads, int Nkv,
+                                  void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   typedef const bf16* P;
   const int M = B * N;
-  GemmArgs a = dense_args((P)xln, (P)wq, q, M, C, C, false);
-  a.bias = (P)bq;
-  launch_gemm<Pro::kPlain, Epi::kBias>(s, a);
-  a = dense_args((P)dx1, (P)wo, dctx, M, C, C, true);
-  a.rowscale = (const float*)m1, a.mrows = N;
-  launch_gemm<Pro::kRowScale, Epi::kPlain, true>(s, a);
-  const int rows_per_cta = ABW_R * ABW_TILES;
-  dim3 grid((N + rows_per_cta - 1) / rows_per_cta, B * heads);
-  static const cudaError_t smem_ok = cudaFuncSetAttribute(
-      attention_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, sizeof(AbwSmem));
-  if (smem_ok != cudaSuccess) return (int)smem_ok;
-  attention_bwd_kernel<<<grid, ABW_THREADS, sizeof(AbwSmem), s>>>(
-      (P)q, (P)k, (P)v, (P)dctx, (bf16*)dq, (float*)dk_ws, (float*)dv_ws, N, Nkv, C, heads,
-      1.0f / sqrtf((float)HD));
-  launch_gemm<Pro::kPlain, Epi::kPlain, true>(s, dense_args((P)dq, (P)wq, dxln, M, C, C, true));
-  const size_t nkv = (size_t)B * Nkv * C;
-  f32_to_bf16_kernel<<<grid_for(nkv, 256), 256, 0, s>>>((const float*)dk_ws, (bf16*)dk, nkv);
-  f32_to_bf16_kernel<<<grid_for(nkv, 256), 256, 0, s>>>((const float*)dv_ws, (bf16*)dv, nkv);
+  const int* pl = (const int*)plan;
+  TRY((wg_linear<Pro::kPlain, Epi::kBias>(s, pl, (P)xln, (P)wq, (P)bq, nullptr, nullptr, nullptr, 0,
+                                          q, C, M, C, C)));
+  TRY((wg_linear<Pro::kRowScale, Epi::kPlain, true>(s, pl + GEMM_PLAN, (P)dx1, (P)wo, nullptr,
+                                                    nullptr, nullptr, nullptr, 0, dctx, C, M, C, C,
+                                                    (const float*)m1, N)));
+  TRY(attention_bwd_tc(s, pl + 3 * GEMM_PLAN, (P)q, (P)k, (P)v, (P)dctx, (bf16*)dq, (bf16*)dk,
+                       (bf16*)dv, (float*)part, B, N, Nkv, C, heads));
+  TRY((wg_linear<Pro::kPlain, Epi::kPlain, true>(s, pl + 2 * GEMM_PLAN, (P)dq, (P)wq, nullptr,
+                                                 nullptr, nullptr, nullptr, 0, dxln, C, M, C, C)));
   return (int)cudaGetLastError();
 }
 

@@ -38,7 +38,7 @@ _ENTRY_POINTS = {
     "mit_block_train_forward": (25, 7),
     "mit_block_train_mlp_backward": (11, 5),
     "mit_block_train_attn_backward": (16, 5),
-    "selective_scan_forward": (7, 4),
+    "selective_scan_forward": (8, 5),
 }
 
 _lib: ctypes.CDLL | None = None

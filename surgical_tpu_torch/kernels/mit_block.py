@@ -401,10 +401,10 @@ def _ptr(t: torch.Tensor, shape, name: str, dtype=torch.bfloat16) -> int:
 
 
 # -- launch plans of the wgmma kernels --------------------------------------
-# mit_block_forward, mit_stage_forward, mit_block_train_forward and
-# mit_block_train_mlp_backward take their grids, tile counts and
-# shared-memory sizes from these plans; the entry points check each plan
-# against the shapes and refuse one that does not fit.
+# mit_block_forward, mit_stage_forward and the three training entry points
+# take their grids, tile counts and shared-memory sizes from these plans;
+# the entry points check each plan against the shapes and refuse one that
+# does not fit.
 
 NUM_SMS = 132          # streaming multiprocessors of an H100 SXM
 SMEM_LIMIT = 232_448   # dynamic shared memory one CTA can have (sm_90)
@@ -412,6 +412,13 @@ GEMM_BM, GEMM_BK, GEMM_STAGES = 128, 64, 4  # rows per CTA, K per tile, ring dep
 PANEL_MAX_K = 512      # widest A panel kept resident (and LayerNorm'd) in shared memory
 ATTN_ROWS = 64         # query rows per attention tile
 _SMEM_SLACK = 1024 + 256  # alignment of the 1024-byte swizzle atoms + barriers
+ABW_CTAS_PER_SM = 3    # attention-backward CTAs one SM keeps resident (its launch bounds)
+ABW_MAX_SPLITS = 16    # most CTAs that share the query tiles of one (image, head)
+ABW_STREAM_MIN_K = 320  # from this K the q and dxln products stream A, 64 columns per CTA
+# Weighing a split of the attention backward's query tiles: the estimated
+# time of one 64-row tile in a CTA (us) against the fp32 partial sums that a
+# split writes and the reduce reads back, at the card's memory rate.
+_ABW_TILE_US, _HBM_BYTES_PER_US = 1.0, 3.35e6
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -432,8 +439,9 @@ def gemm_plan(M: int, N: int, K: int, *, ln: bool = False) -> tuple:
     product out[M, N] = A[M, K] @ B[K, N], B a weight stored [K, N] or, read
     K-major, the transpose of one stored [N, K] (the same tiles and bytes).
     A CTA owns 128 rows and walks ``tiles_per_cta`` tiles of ``bn`` columns;
-    with K <= PANEL_MAX_K its A panel stays resident, and the LayerNorm
-    prologue (``ln``) needs that; a wider K streams A through the ring.
+    with K <= PANEL_MAX_K its A panel stays resident, and a prologue on the
+    panel (``ln``: the LayerNorm, or the attention backward's row scale)
+    needs that; a wider K streams A through the ring.
     Column tiles are split over more CTAs when the row blocks alone would
     not give every SM two CTAs."""
     if M < 1 or N < 1 or K < 1 or N % 8 or K % 8:
@@ -450,6 +458,19 @@ def gemm_plan(M: int, N: int, K: int, *, ln: bool = False) -> tuple:
     if smem > SMEM_LIMIT or _cdiv(ntiles, tpc) > 65535:
         raise ValueError(f"product [{M}, {K}] x [{K}, {N}] does not fit one launch")
     return (bn, int(resident), tpc, grid_x, _cdiv(ntiles, tpc), smem)
+
+
+def _streamed_plan(M: int, N: int, K: int) -> tuple:
+    """A ``gemm_plan`` record for a product whose A tiles stream through the
+    ring beside B's (no resident panel, no prologue), one 64-column tile per
+    CTA: less shared memory per CTA than a resident panel of K >= 320."""
+    if M < 1 or N < 1 or K < 1 or N % 8 or K % 8:
+        raise ValueError(f"product takes positive M, N, K with N, K multiples of 8: "
+                         f"M={M}, N={N}, K={K}")
+    grid_y = _cdiv(N, 64)
+    if grid_y > 65535:
+        raise ValueError(f"product [{M}, {K}] x [{K}, {N}] does not fit one launch")
+    return (64, 0, 1, _cdiv(M, GEMM_BM), grid_y, gemm_smem_bytes(K, 64, False))
 
 
 def attention_plan(B: int, N: int, heads: int, Nkv: int) -> tuple:
@@ -500,6 +521,41 @@ def mlp_backward_plan(B: int, H: int, W: int, C: int, hidden: int) -> tuple:
     M = B * H * W
     fc1 = gemm_plan(M, hidden, C)  # dh has fc1's shape
     return (*fc1, *fc1, *gemm_plan(M, C, hidden))
+
+
+def attn_backward_plan(B: int, N: int, C: int, heads: int, Nkv: int) -> tuple:
+    """The plans of mit_block_train_attn_backward's launches, flat: the q
+    product (K = C), dctx (the row-scale prologue on the resident panel, wo
+    read K-major), dxln (wq read K-major), then the attention (tiles_per_cta,
+    grid_x, grid_y). From C = ABW_STREAM_MIN_K the q and dxln products stream
+    A through the ring with 64 columns per CTA (two CTAs per SM, where the
+    148-198 KB resident panel holds one; faster on an H100 at b3's stages 3
+    and 4, slower at stage 1). grid_y is B * heads; grid_x CTAs split the
+    64-row query tiles of each (image, head). With grid_x 1 a CTA holds every row of its
+    image and writes dk and dv itself (4 launches); above 1 each writes fp32
+    partial sums that one reduce launch adds in order (5 launches). The split
+    minimizes the estimated time: waves of ABW_CTAS_PER_SM CTAs per SM times
+    the tiles per CTA, plus the partial sums' traffic."""
+    if Nkv < 1 or Nkv > MAX_KV:
+        raise ValueError(f"attention takes 1 to {MAX_KV} keys per head, got {Nkv}")
+    if C != heads * HEAD_DIM:
+        raise ValueError(f"kernel takes head_dim {HEAD_DIM}: C={C}, heads={heads}")
+    pairs, qtiles = B * heads, _cdiv(N, ATTN_ROWS)
+    if pairs < 1 or pairs > 65535:
+        raise ValueError(f"attention takes 1 to 65535 (image, head) pairs, got {pairs}")
+    M, slots = B * N, ABW_CTAS_PER_SM * NUM_SMS
+    split_us = 2 * 2 * B * Nkv * C * 4 / _HBM_BYTES_PER_US  # dk, dv partials out and back
+    best = None
+    for split in range(1, min(qtiles, ABW_MAX_SPLITS) + 1):
+        tpc = _cdiv(qtiles, split)
+        grid_x = _cdiv(qtiles, tpc)
+        cost = (_cdiv(grid_x * pairs, slots) * tpc * _ABW_TILE_US
+                + (grid_x * split_us if grid_x > 1 else 0.0))
+        if best is None or cost < best[0]:
+            best = (cost, tpc, grid_x)
+    dctx = gemm_plan(M, C, C, ln=True)  # resident: the row scale's panel
+    product = (_streamed_plan(M, C, C) if C >= ABW_STREAM_MIN_K else gemm_plan(M, C, C))
+    return (*product, *dctx, *product, best[1], best[2], pairs)
 
 
 def stage_plan(B: int, H: int, W: int, C: int, heads: int, sr: int, hidden: int,
@@ -744,7 +800,8 @@ block_train_mlp_backward.launches = 0
 
 def block_train_attn_backward(xln, k, v, dx1, m1, weights, *, heads: int):
     """The attention-backward kernel: (dxln, dk, dv) from xln, k, v, the
-    residual gradient dx1 [B, N, C] and m1 [B]."""
+    residual gradient dx1 [B, N, C] and m1 [B]. dk and dv are summed in a
+    fixed order: equal bit for bit from run to run."""
     if xln.device.type == "cpu":
         return _attn_bwd_plain(xln, k, v, dx1, m1, weights, heads=heads)
     if not xln.is_cuda:
@@ -756,17 +813,20 @@ def block_train_attn_backward(xln, k, v, dx1, m1, weights, *, heads: int):
         raise ValueError(f"kernel takes head_dim {HEAD_DIM}, at most {MAX_KV} keys and "
                          f"C % 8 == 0: C={C}, heads={heads}, Nkv={Nkv}")
     w = weights
+    plan = attn_backward_plan(B, N, C, heads, Nkv)
+    splits = plan[-2]
     q, dctx, dq, dxln = (torch.empty_like(xln) for _ in range(4))
-    dk_ws, dv_ws = (torch.zeros(B, Nkv, C, dtype=torch.float32, device=xln.device)
-                    for _ in range(2))
     dk, dv = torch.empty_like(k), torch.empty_like(v)
+    part = (torch.empty(splits, 2, B * Nkv * C, dtype=torch.float32, device=xln.device)
+            if splits > 1 else None)
+    plan = _plan_arg(plan)
     err = _build.load().mit_block_train_attn_backward(
         _ptr(xln, (B, N, C), "xln"), _ptr(k, (B, Nkv, C), "k"), _ptr(v, (B, Nkv, C), "v"),
         _ptr(dx1, (B, N, C), "dx1"), _ptr(m1, (B,), "m1", torch.float32),
         _ptr(w["wq"], (C, C), "wq"), _ptr(w["bq"], (C,), "bq"), _ptr(w["wo"], (C, C), "wo"),
-        q.data_ptr(), dctx.data_ptr(), dq.data_ptr(), dk_ws.data_ptr(), dv_ws.data_ptr(),
-        dxln.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, N, C, heads, Nkv,
-        torch.cuda.current_stream(xln.device).cuda_stream)
+        ctypes.addressof(plan), q.data_ptr(), dctx.data_ptr(), dq.data_ptr(),
+        None if part is None else part.data_ptr(), dxln.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), B, N, C, heads, Nkv, torch.cuda.current_stream(xln.device).cuda_stream)
     _build.check(err, "mit_block_train_attn_backward")
     block_train_attn_backward.launches += 1
     return dxln, dk, dv

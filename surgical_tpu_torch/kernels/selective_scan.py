@@ -9,7 +9,11 @@ batched over videos where the JAX package vmaps:
 
 x, dt [Bt, T, D]; A [D, N]; B, C [Bt, T, N]; D [D] -> y [Bt, T, D], all fp32
 with an fp32 state that starts at zero. Each video runs at its true length:
-the JAX kernel's padding to chunks of 128 exists for TPU block shapes.
+the JAX kernel's padding to chunks of 128 exists for TPU block shapes. The
+kernel splits time into ``scan_chunk(T)`` steps per chunk: one launch scans
+every chunk but the last from zero into its (decay, end state) pair, a
+second folds the pairs before each chunk into its carry-in and reruns the
+chunk from there (a video of one chunk takes the second launch alone).
 
 The wrapper runs the plain version only for tensors that lie on the CPU. For
 CUDA tensors it launches the kernel or raises; it raises too when grad mode
@@ -25,6 +29,15 @@ import torch
 from surgical_tpu_torch.kernels import _build
 
 STATE = 64  # the one d_state the kernel takes: MambaConfig()'s
+SUB_CHUNK = 32   # steps the kernel stages and reduces at once; a chunk is a multiple
+MAX_CHUNKS = 32  # chunks per video at most: the carry fold reads at most 31 pairs
+
+
+def scan_chunk(T: int) -> int:
+    """Steps per chunk of the kernel at T steps: the smallest multiple of
+    SUB_CHUNK, and at least two of them, that cuts T into at most MAX_CHUNKS
+    chunks (64 up to T = 2048, 192 at T = 6000)."""
+    return SUB_CHUNK * max(2, -(-T // (SUB_CHUNK * MAX_CHUNKS)))
 
 
 def selective_scan_plain(x, dt, A, B, C, D):
@@ -62,10 +75,15 @@ def selective_scan(x, dt, A, B, C, D):
     if N != STATE:
         raise ValueError(f"kernel takes d_state == {STATE}, got {N}")
     y = torch.empty_like(x)
+    chunk = scan_chunk(T)
+    chunks = -(-T // chunk)
+    pairs = (torch.empty(2, Bt, chunks - 1, Dch, N, dtype=torch.float32, device=x.device)
+             if chunks > 1 else None)
     err = _build.load().selective_scan_forward(
         _ptr(x, (Bt, T, Dch), "x"), _ptr(dt, (Bt, T, Dch), "dt"), _ptr(A, (Dch, N), "A"),
         _ptr(B, (Bt, T, N), "B"), _ptr(C, (Bt, T, N), "C"), _ptr(D, (Dch,), "D"),
-        y.data_ptr(), Bt, T, Dch, N, torch.cuda.current_stream(x.device).cuda_stream)
+        y.data_ptr(), None if pairs is None else pairs.data_ptr(), Bt, T, Dch, N, chunk,
+        torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "selective_scan_forward")
     selective_scan.launches += 1
     return y

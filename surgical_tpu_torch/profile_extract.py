@@ -41,15 +41,14 @@ TRAIN_B, TRAIN_STEPS, TRAIN_TRACED = 88, 7, 3  # step time over 5 steps after 2 
 
 # (kind, substrings of the device kernel name), first match wins
 KINDS = (
-    ("selective scan kernel", ("selective_scan_kernel",)),
+    ("selective scan kernels", ("selective_scan",)),
     ("wgmma products (wgmma_linear)", ("wgmma_linear",)),
     ("tensor-core attention (attention_tc_kernel)", ("attention_tc_kernel",)),
     # "gemm_bf16<": cuBLAS's own kernel names hold "gemm_bf16" too
-    ("first-design GEMMs (gemm_bf16: attention backward, packed2)", ("gemm_bf16<",)),
+    ("first-design GEMMs (gemm_bf16: packed2)", ("gemm_bf16<",)),
     ("packed2 attention kernel (attention_kernel)", ("attention_kernel",)),
-    ("attention backward kernel", ("attention_bwd_kernel",)),
+    ("attention backward kernels (+ dk/dv reduce)", ("attention_bwd", "dkv_reduce")),
     ("dwconv kernels (+ GELU; transposed)", ("dwconv3x3",)),
-    ("dk/dv fp32 -> bf16 kernel", ("f32_to_bf16",)),
     ("stage LN / SR regroup kernels", ("layernorm_kernel", "sr_patches")),
     ("packed2 lane pack/unpack kernels", ("lane_pack2",)),
     ("H2D copy", ("Memcpy HtoD",)),
@@ -136,12 +135,10 @@ def profile_train(dev, acts) -> dict:
         wall_us = (time.perf_counter() - t0) * 1e6
     evs = _device_events(prof)
     trace = _trace_by_kind(evs, wall_us)
-    # the three train kernels: their products (wgmma_linear in the forward
-    # and the MLP backward, gemm_bf16 in the attention backward), attention
-    # and its backward, dwconvs and rounding run under the wrappers'
+    # the three train kernels: their products (wgmma_linear), attention and
+    # its backward with the dk/dv reduce, and dwconvs run under the wrappers'
     # launches (no serving launch runs in a train step without validation)
-    mine = ("wgmma_linear", "gemm_bf16<", "attention_tc_kernel", "attention_bwd_kernel",
-            "dwconv3x3", "f32_to_bf16")
+    mine = ("wgmma_linear", "attention_tc_kernel", "attention_bwd", "dkv_reduce", "dwconv3x3")
     by_name = {}
     for e in evs:
         if any(k in e.name for k in mine):
@@ -265,7 +262,7 @@ def main() -> int:
                 wall_us = (time.perf_counter() - t0) * 1e6
             evs = _device_events(prof)
             scan_us = sum(e.time_range.end - e.time_range.start for e in evs
-                          if _kind(e.name) == "selective scan kernel")
+                          if _kind(e.name) == "selective scan kernels")
             busy = _busy_us(evs)
             res[f"{name}_trace"][T] = {"kernels": len(evs), "wall_ms": wall_us / 1e3,
                                        "busy_ms": busy / 1e3, "idle_share": 1 - busy / wall_us,

@@ -1,5 +1,6 @@
 """Other checkouts against this one on one card: the serving MiT kernels and
-extraction, the training block's kernels and the training step.
+extraction, the training block's kernels and the training step, the
+selective scan and the Mamba + refiner latency.
 
     python3 -m surgical_tpu_torch.serving_ab --tree parent=DIR [--tree LABEL=DIR ...]
                                              [--out FILE]
@@ -20,7 +21,12 @@ batches; the three kernels of ``fused_mit_block_train``
 ``block_train_attn_backward``) at the four b3 stages at B = 8 and the
 training batch 88, the same way; and the untraced training step of
 ``BackboneTrainer(use_fused=True)`` (b3, batch 88, 250-px wire frames
-cropped to 224, SGD): 5 steps after 2 warm-ups. It prints one line per
+cropped to 224, SGD): 5 steps after 2 warm-ups; then ``selective_scan`` on
+one video of T = 200, 2000 and 6000 frames at ``MambaConfig()``'s widths
+(D = 128, N = 64, fp32), the same way, and the latency per video of
+``predict_video`` with a seeded ``CausalMambaModel(MambaConfig())`` and
+``RefinementTransformer(RefinerConfig())`` at the same T (host clock
+around synchronized calls, median of 5 after a warm-up). It prints one line per
 measurement and a summary with the card's name and power limit, and writes
 the JSON to FILE (default ``chiprun_out/serving_ab.json``).
 """
@@ -41,6 +47,7 @@ TRAIN_BATCHES = (8, 88)
 STAGE4_DEPTH, PROMPT = 3, 128
 EXTRACT_BATCH, EXTRACT_BATCHES, EXTRACT_RUNS = 200, 12, 3
 TRAIN_B, TRAIN_STEPS, TRAIN_WARMUP = 88, 7, 2
+SCAN_T, SCAN_D, SCAN_N, LATENCY_RUNS = (200, 2000, 6000), 128, 64, 5
 SEED = 0
 
 
@@ -120,6 +127,7 @@ def _measure(root: str) -> dict:
             del x
 
     _measure_train(res, rand, weights, time_ms)
+    _measure_temporal(res, time_ms)
     model = MiTEVP(BackboneConfig(), HeadConfig(), seed=SEED, device=dev)
     feature_fn = make_raw_feature_fn(model)
     rng = np.random.default_rng(SEED)
@@ -211,6 +219,46 @@ def _measure_train(res: dict, rand, weights, time_ms) -> None:
           + f" (median {float(np.median(steps)):.3f})", flush=True)
 
 
+def _measure_temporal(res: dict, time_ms) -> None:
+    """The scan per T on seeded inputs with Mamba's ranges (dt through
+    softplus, A = -exp(.)), then Mamba + refiner latency per video."""
+    import numpy as np
+    import torch
+
+    from surgical_tpu_torch.core.config import MambaConfig, RefinerConfig
+    from surgical_tpu_torch.kernels import selective_scan as ss
+    from surgical_tpu_torch.models.mamba import CausalMambaModel
+    from surgical_tpu_torch.models.transsv import RefinementTransformer
+    from surgical_tpu_torch.train.refiner import predict_video
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED + 20)
+    f = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(dev)
+    A, Dv = -torch.exp(0.5 * f(SCAN_D, SCAN_N) + 1.0), f(SCAN_D)
+    for T in SCAN_T:
+        x, B, C = f(1, T, SCAN_D), f(1, T, SCAN_N), f(1, T, SCAN_N)
+        dt = torch.nn.functional.softplus(f(1, T, SCAN_D) - 3.0)
+        ms = time_ms(lambda: ss.selective_scan(x, dt, A, B, C, Dv))
+        res["kernels"][f"selective_scan_forward T={T}"] = ms
+        print(f"  {res['root']}: selective_scan_forward T={T}: {ms:.4f} ms", flush=True)
+    mamba = CausalMambaModel(MambaConfig(), seed=SEED + 3, device=dev)
+    refiner = RefinementTransformer(RefinerConfig(), seed=SEED + 4, device=dev)
+    res["mamba_refiner_ms"] = {}
+    for T in SCAN_T:
+        lfb = f(T, RefinerConfig().f_dim)
+        predict_video(mamba, refiner, lfb)
+        times = []
+        for _ in range(LATENCY_RUNS):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            predict_video(mamba, refiner, lfb)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+        res["mamba_refiner_ms"][str(T)] = times
+        print(f"  {res['root']}: Mamba + refiner T={T} ms " + ", ".join(f"{v:.3f}" for v in times)
+              + f" (median {float(np.median(times)):.3f})", flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", action="append", default=[], metavar="LABEL=DIR",
@@ -250,6 +298,9 @@ def main(argv=None) -> int:
         f"{r['tree']} {med(r['extract_fps']):.1f}" for r in runs))
     print("  training step ms (median of 5 steps each): " + " / ".join(
         f"{r['tree']} {med(r['train_step_ms']):.3f}" for r in runs))
+    for T in SCAN_T:
+        print(f"  Mamba + refiner T={T} ms (median of {LATENCY_RUNS}): " + " / ".join(
+            f"{r['tree']} {med(r['mamba_refiner_ms'][str(T)]):.3f}" for r in runs))
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:
         json.dump({"device": smi, "runs": runs}, f, indent=1)

@@ -1,9 +1,10 @@
 """The port's selective scan and causal Mamba against the JAX package's, and
 the port's copies of the JAX package's numpy exporters.
 
-Stated bounds: the plain scan within 1e-5 of ``selective_scan_ref`` and of
-``selective_scan_pallas`` in interpret mode (fp32, same recurrence, other
-summation order over N); the port's ``CausalMambaModel`` within 1e-4 of the
+Stated bounds: the plain scan, and the plain mirror of the kernel's chunked
+form, within 1e-5 of ``selective_scan_ref`` and of ``selective_scan_pallas``
+in interpret mode (fp32, same recurrence, other summation order over N and
+other rounding of the chunk compositions); the port's ``CausalMambaModel`` within 1e-4 of the
 JAX model under the same weights (fp32; JAX runs ``selective_scan_xla``, an
 associative scan, the port a sequential loop).
 """
@@ -21,7 +22,8 @@ from surgical_tpu.models.mamba import CausalMambaModel as JaxMamba
 from surgical_tpu.models.mstcn import MultiStageTCN as JaxMSTCN
 from surgical_tpu.models.transsv import RefinementTransformer as JaxRefiner
 from surgical_tpu_torch.core import config as port_config
-from surgical_tpu_torch.kernels.selective_scan import selective_scan, selective_scan_plain
+from surgical_tpu_torch.kernels.selective_scan import (MAX_CHUNKS, SUB_CHUNK, scan_chunk,
+                                                       selective_scan, selective_scan_plain)
 from surgical_tpu_torch.models import convert
 from surgical_tpu_torch.models.mamba import CausalMambaModel
 
@@ -48,6 +50,65 @@ def test_selective_scan_plain_matches_jax(T, oracle):
     t = lambda a: torch.from_numpy(a)
     got = selective_scan_plain(t(x)[None], t(dt)[None], t(A), t(B)[None], t(C)[None], t(D))
     np.testing.assert_allclose(got[0].numpy(), want, rtol=0, atol=ATOL_SCAN)
+
+
+def selective_scan_chunked_plain(x, dt, A, B, C, D, chunk):
+    """The CUDA kernel's three steps in plain PyTorch, fp32, for the tests:
+    per chunk of ``chunk`` steps, (i) the scan from zero to its end state S_c
+    with its decay Lambda_c = prod_t exp(dt_t A) (every chunk but the last);
+    (ii) the carry-in h_in(c + 1) = Lambda_c h_in(c) + S_c, folded in chunk
+    order from h_in(0) = 0; (iii) the chunk rerun from h_in(c), giving y."""
+    T = x.shape[1]
+    a = torch.exp(dt[..., None] * A)  # [Bt, T, D, N]
+    b = (dt * x)[..., None] * B[:, :, None, :]
+    starts = list(range(0, T, chunk))
+    pairs = []
+    for t0 in starts[:-1]:  # (i)
+        h, lam = torch.zeros_like(a[:, 0]), torch.ones_like(a[:, 0])
+        for t in range(t0, t0 + chunk):
+            h, lam = a[:, t] * h + b[:, t], lam * a[:, t]
+        pairs.append((lam, h))
+    ys = []
+    for c, t0 in enumerate(starts):
+        h = torch.zeros_like(a[:, 0])
+        for lam, end in pairs[:c]:  # (ii)
+            h = lam * h + end
+        for t in range(t0, min(T, t0 + chunk)):  # (iii)
+            h = a[:, t] * h + b[:, t]
+            ys.append(torch.einsum("bdn,bn->bd", h, C[:, t]))
+    return torch.stack(ys, 1) + D * x
+
+
+def test_scan_chunk_cuts_time_into_few_chunks():
+    """The kernel's chunk length: a multiple of the sub-chunk, at least two
+    of them, at most MAX_CHUNKS chunks per video, the shortest such."""
+    assert (scan_chunk(1), scan_chunk(200), scan_chunk(2000), scan_chunk(6000)) == (64, 64, 64, 192)
+    for T in (1, 63, 64, 65, 777, 2048, 2049, 6000, 100_000):
+        L = scan_chunk(T)
+        assert L % SUB_CHUNK == 0 and L >= 2 * SUB_CHUNK and -(-T // L) <= MAX_CHUNKS
+        assert L == 2 * SUB_CHUNK or -(-T // (L - SUB_CHUNK)) > MAX_CHUNKS
+
+
+@pytest.mark.parametrize("oracle", ["ref", "pallas_interpret"])
+@pytest.mark.parametrize("Bt", [1, 3])
+@pytest.mark.parametrize("T", [1, 63, 64, 65, 197])  # 1, L - 1, L, L + 1, 3L + 5 at L = 64
+def test_selective_scan_chunked_plain_matches_jax(T, Bt, oracle):
+    """The kernel's chunked form (chunk scan_chunk(T) = 64: one chunk, one
+    chunk and one step, four chunks with a ragged last) against JAX's
+    oracles, video by video."""
+    ins = [_scan_inputs(T, seed=s) for s in range(Bt)]
+    A, D = ins[0][2], ins[0][5]
+    want = []
+    for x, dt, _, B, C, _ in ins:
+        if oracle == "ref":
+            want.append(np.asarray(selective_scan_ref(x, dt, A, B, C, D)))
+        else:
+            want.append(np.asarray(selective_scan_pallas(x, dt, A, B, C, D, chunk=64,
+                                                         interpret=True)))
+    stack = lambda i: torch.from_numpy(np.stack([v[i] for v in ins]))
+    got = selective_scan_chunked_plain(stack(0), stack(1), torch.from_numpy(A), stack(3), stack(4),
+                                       torch.from_numpy(D), scan_chunk(T))
+    np.testing.assert_allclose(got.numpy(), np.stack(want), rtol=0, atol=ATOL_SCAN)
 
 
 def test_selective_scan_wrapper_on_cpu_is_plain_and_batched():
