@@ -17,12 +17,17 @@ nonzero without printing a result:
    selective scan in fp32 (d_inner 128, d_state 64; 2000 and 6000 frames,
    3 ragged videos of 777, and the chunk edges: 1, 63 and 65 frames at its
    64-step chunks, and 200), with the device operations one call issues
-   (at most 2), and the three kernels of the training block in bf16 at the
+   (at most 2); its backward kernel at the same shapes and T = 129 (six
+   gradients against the plain backward, and up to T = 2000 against
+   autograd through the plain forward; two runs equal bit for bit; timed
+   at T = 2000 and 6000, at most 3 device operations per call); and the
+   three kernels of the training block in bf16 at the
    four b3 stages (B=8 and the training batch B=88, DropPath factors with
    zeros; the plain versions timed at B=8), the attention backward run
    twice for dk and dv equal bit for bit and its device operations per call
-   counted (at most 5, no memset); then each kernel wrapper refusing an
-   input that requires grad under grad mode;
+   counted (at most 5, no memset); then each MiT kernel wrapper refusing
+   an input that requires grad under grad mode, and the scan under grad
+   returning a grad_fn whose backward launches the backward kernel;
 4. extraction slice: seeded random-init MiT-b3 EVP + MS-TCN + refiner; three
    synthetic 200-frame videos in the wire format -> make_raw_feature_fn ->
    extract_to_store -> predict_and_write -> relaxed evaluation, with the
@@ -38,14 +43,22 @@ nonzero without printing a result:
    ``cli predict --model mamba`` on test (8 scan launches per video),
    ``cli predict --model mamba --online`` on val, online vs offline logits,
    ``cli evaluate``, and Mamba + refiner latency per video;
-6. backbone training: ``BackboneTrainer(use_fused=True)`` at b3, batch 88,
+6. temporal training at full width through ``cli.main``: separable
+   synthetic 2048-d features (train videos of 2000, 4000 and 6000 frames),
+   ``train-temporal`` for ``MambaConfig()`` and for ``MSTCNConfig()``, cut
+   one epoch short and ``--resume``d, against the uninterrupted run
+   (weights and optimizer state), 8 backward-kernel launches per Mamba
+   step; ``train-refiner``; ``predict`` with the learned gate (frame
+   accuracy >= 0.75 on the test txts) and ``evaluate``; the median train
+   step at T = 2000 and 6000; ``selfcheck`` on the card;
+7. backbone training: ``BackboneTrainer(use_fused=True)`` at b3, batch 88,
    224 crop, SGD, over a seeded ``FrameCache`` (3 train batches, one val and
    one test batch) for 2 epochs of ``train_epoch`` with mid-epoch
    validation, then ``evaluate``: 28 launches of each train kernel per step,
    step time, peak memory, a frozen trunk, moved trainable tensors and
    BatchNorm statistics, a checkpoint round trip with the optimizer state,
    and one step's loss and gradients against the plain train kernels;
-7. extraction CLI at b3 widths through ``cli.main`` on 250-px frames: a
+8. extraction CLI at b3 widths through ``cli.main`` on 250-px frames: a
    synthetic Cholec80-layout corpus of 4 videos, ``prepare-data --scheme
    smoke``, a seeded ``FrameCache`` per split (``cache-frames`` too where
    Pillow is importable), seeded models saved as reference ``.pth`` files,
@@ -53,9 +66,10 @@ nonzero without printing a result:
    (each store against ``extract_features`` on the same frames, the pickles
    read back), ``reference-parity --online`` on those stores (finite
    metrics, online/offline agreement), and the seconds of each verb;
-8. result: a JSON line of per-kernel numbers (the serving kernels' B=200
-   and the train kernels' B=88 times and bounds beside the B=8 ones), the
-   card line, and the last line ``{"ok": true, "device": {...}}``.
+9. result: a JSON line of per-kernel numbers (the serving kernels' B=200
+   and the train kernels' B=88 times and bounds beside the B=8 ones; the
+   scan's backward at T = 2000 and 6000), the card line, and the last line
+   ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -130,6 +144,16 @@ SCAN_MAX_OPS, ATTN_BWD_MAX_OPS = 2, 5  # device operations per call, at most
 # over N. A few times the H100 readings (rel L2 1.1e-7, max abs 7.6e-6 on
 # outputs up to |y| ~ 46).
 SCAN_BOUNDS = (1e-6, 5e-5)
+# The backward: every SCAN_SHAPES entry and T = 129, held to the plain
+# backward (and to autograd through the plain forward up to
+# SCAN_AUTOGRAD_T), fp32 with TF32 off; timed at the Mamba videos' lengths.
+# (rel L2 bound per gradient, max abs bound as a fraction of the oracle's
+# max |.|): fp32 sums in other orders (over N in the warp, over channels per
+# block and then over blocks, over chunks).
+SCAN_BWD_SHAPES = SCAN_SHAPES[:3] + ((1, 129),) + SCAN_SHAPES[3:]
+SCAN_AUTOGRAD_T, SCAN_BWD_TIMED, SCAN_BWD_MAX_OPS = 2000, (2000, 6000), 3
+SCAN_BWD_BOUNDS = (1e-4, 1e-4)
+SCAN_GRADS = ("x", "dt", "A", "B", "C", "D")
 TEST_LENGTHS = (2000, 6000)        # the temporal slice's test videos (Cholec80 lengths)
 # The extraction CLI phase's videos in 1-fps frames: the smoke split makes
 # videos 1-2 train, 3 val and 4 test; ragged last batches at batch 200.
@@ -137,6 +161,28 @@ CLI_LENGTHS = (150, 120, 200, 230)
 # Max abs logits, streaming vs offline Mamba + refiner on the val videos, both
 # fp32: a few times the H100 reading (7.2e-7).
 ONLINE_BOUND = 5e-6
+
+# Temporal training at full width (phase_temporal_train): videos of
+# Cholec80 lengths, features that separate the phases (after the JAX
+# selfcheck's label + 0.1 x noise, see TT_SCALE), one video per step. Per
+# model: (temporal epochs, temporal lr, refiner epochs, refiner lr); the
+# refiner's are the JAX selfcheck --full's (15 at 5e-3), the temporal ones
+# reach val accuracy above 0.9 on an H100 (PERF.md, PR 8). The learned gate
+# is the JAX selfcheck --full's: frame accuracy of the predicted phase txts.
+TT_TRAIN, TT_VAL, TT_TEST = (2000, 4000, 6000), (3000,), (2500, 5000)
+# The label's scale in the features. At the selfcheck's scale (label + 0.1 x
+# noise: up to 6 on every one of 2048 dims) the Mamba stack, which has no
+# norm inside its residual blocks (as the reference's), grows each block's
+# output faster than its input, and train-mode dropout's 1 / 0.9 tips it
+# into overflow: its loss is NaN within 3 steps at lr 1e-4 to 3e-3, on the
+# CPU's plain path as on the card (PERF.md, PR 8).
+TT_SCALE = 0.1
+TT_RECIPES = {"mamba": (12, 1e-3, 15, 5e-3), "mstcn": (30, 3e-3, 15, 5e-3)}
+GATE = 0.75
+# Resumed vs uninterrupted: weights and optimizer state after the last epoch,
+# max abs difference (equal bits expected where every kernel of the step is
+# deterministic; cuDNN's convolution backward in MS-TCN need not be).
+RESUME_TOL = 1e-5
 
 # Peak rates of one H100 SXM (NVIDIA's data sheet, dense, at 700 W): HBM
 # bytes/s, bf16 tensor-core FLOP/s, fp32 CUDA-core FLOP/s; SFU results/s
@@ -247,6 +293,17 @@ def scan_work(Bt, T, D, N):
     nbytes = 4 * (3 * Bt * T * D + 2 * Bt * T * N + D * N + D)
     elems = Bt * T * D * N
     return nbytes, max(5 * elems / FP32_FLOPS, elems / SFU_OPS)
+
+
+def scan_bwd_work(Bt, T, D, N):
+    """(bytes, seconds of operations) of the scan's gradient: x, dt, dy read
+    and dx, ddt written ([Bt, T, D] fp32), B, C read and dB, dC written
+    ([Bt, T, N]), A, D read and dA, dD written; per (t, d, n) one exp (a_t)
+    on the SFUs and 16 fp32 flops (the state, the adjoint, the products
+    with B, C, A and the sums of dA, dB, dC)."""
+    nbytes = 4 * (5 * Bt * T * D + 4 * Bt * T * N + 2 * (D * N + D))
+    elems = Bt * T * D * N
+    return nbytes, max(16 * elems / FP32_FLOPS, elems / SFU_OPS)
 
 
 def device_ops(fn, tries: int = 3) -> list:
@@ -479,11 +536,17 @@ def scan_inputs(rng, Bt, T, D=SCAN_D, N=SCAN_N):
     return f(Bt, T, D), dt, A, f(Bt, T, N), f(Bt, T, N), f(D)
 
 
-def phase_scan_checks() -> list:
+def phase_scan_checks() -> tuple[list, list]:
+    """The scan's forward kernel, then its backward kernel, against their
+    plain versions at SCAN_SHAPES and SCAN_BWD_SHAPES: the forward's output,
+    the backward's six gradients (held to ``selective_scan_plain_backward``
+    on the card, and where T <= SCAN_AUTOGRAD_T to torch autograd through
+    ``selective_scan_plain`` too), two backward runs equal bit for bit, times,
+    bounds and device operations per call."""
     from surgical_tpu_torch.kernels import selective_scan as ss
 
     rng = np.random.default_rng(SEED + 5)
-    rows = []
+    rows, bwd_rows = [], []
     for Bt, T in SCAN_SHAPES:
         args = scan_inputs(rng, Bt, T)
         got, want = ss.selective_scan(*args), ss.selective_scan_plain(*args)
@@ -512,7 +575,59 @@ def phase_scan_checks() -> list:
         rows.append({"shape": f"[Bt={Bt}, T={T}, D={SCAN_D}, N={SCAN_N}]", "T": T, "rel_l2": rel,
                      "max_abs_err": mx, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
                      "bound_by": by, "device_ops": len(ops)})
-    return rows
+        del got, want
+    failed = []
+    for Bt, T in SCAN_BWD_SHAPES:
+        args = scan_inputs(rng, Bt, T)
+        dy = torch.from_numpy(rng.standard_normal((Bt, T, SCAN_D)).astype(np.float32)).cuda()
+        _, pairs = ss.selective_scan_forward(*args)
+        got = ss.selective_scan_backward(*args, dy, pairs)
+        again = ss.selective_scan_backward(*args, dy, pairs)
+        oracles = {"plain": ss.selective_scan_plain_backward(*args, dy)}
+        if T <= SCAN_AUTOGRAD_T:
+            ins = [a.clone().requires_grad_() for a in args]
+            oracles["autograd"] = torch.autograd.grad(ss.selective_scan_plain(*ins), ins, dy)
+        torch.cuda.synchronize()
+        shape = f"[Bt={Bt}, T={T}, D={SCAN_D}, N={SCAN_N}]"
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        worst_rel, worst_abs = 0.0, 0.0
+        for oracle, want in oracles.items():
+            for name, g, w in zip(SCAN_GRADS, got, want):
+                if not w.any():  # dA at T = 1: h_0 = 0, so the gradient is exactly zero
+                    rel, mx, scale = float(g.any()), g.abs().max().item(), 0.0
+                else:
+                    rel, mx, scale = _errors(f"scan d{name} {shape}", g, w)
+                ok = rel <= SCAN_BWD_BOUNDS[0] and mx <= SCAN_BWD_BOUNDS[1] * scale
+                worst_rel, worst_abs = max(worst_rel, rel), max(worst_abs, mx)
+                print(f"check scan backward d{name} {shape} vs {oracle}: rel_l2 {rel:.3e} "
+                      f"(bound {SCAN_BWD_BOUNDS[0]}) max_abs {mx:.3e} (bound "
+                      f"{SCAN_BWD_BOUNDS[1]} x max|{oracle}| {scale:.3e}) {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    failed.append(f"d{name} {shape} vs {oracle}")
+        print(f"check scan backward {shape}: two runs equal bit for bit: {same}")
+        if not same:
+            failed.append(f"determinism {shape}")
+        del oracles, again
+        row = {"shape": shape, "T": T, "rel_l2": worst_rel, "max_abs_err": worst_abs}
+        if T in SCAN_BWD_TIMED:
+            call = lambda: ss.selective_scan_backward(*args, dy, pairs)
+            ops = device_ops(call)
+            ms = time_ms(call)
+            plain_ms = time_ms(lambda: ss.selective_scan_plain_backward(*args, dy), reps=3)
+            nbytes, op_s = scan_bwd_work(Bt, T, SCAN_D, SCAN_N)
+            bms, by = bound_ms(nbytes, op_s)
+            print(f"time scan backward {shape}: kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
+                  f"bound {bms:.4f} ms ({by}: {nbytes / 1e6:.2f} MB, "
+                  f"{Bt * T * SCAN_D * SCAN_N / 1e6:.1f} M exp); {len(ops)} device ops per call "
+                  f"(at most {SCAN_BWD_MAX_OPS}): {', '.join(map(_op_name, ops))}")
+            if len(ops) > SCAN_BWD_MAX_OPS:
+                failed.append(f"device ops {shape}: {ops}")
+            row.update(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, device_ops=len(ops))
+        bwd_rows.append(row)
+        del got, args, dy, pairs
+    if failed:
+        raise AssertionError(f"selective_scan_backward disagrees or varies: {failed}")
+    return rows, bwd_rows
 
 
 def phase_train_kernel_checks() -> dict:
@@ -623,9 +738,11 @@ def phase_train_kernel_checks() -> dict:
 
 
 def phase_grad_guard() -> None:
-    """Each kernel wrapper, given a CUDA input that requires grad while grad
-    mode is on, raises before it launches (its output would carry no
-    gradient); the same call under no_grad runs."""
+    """Each MiT kernel wrapper, given a CUDA input that requires grad while
+    grad mode is on, raises before it launches (its output would carry no
+    gradient); the same call under no_grad runs. The selective scan instead
+    returns an output with a grad_fn under grad, and its backward launches
+    the backward kernel."""
     from surgical_tpu_torch.kernels import mit_block as mb
     from surgical_tpu_torch.kernels import selective_scan as ss
 
@@ -647,7 +764,6 @@ def phase_grad_guard() -> None:
         "fused_mit_block_packed2": lambda: mb.fused_mit_block_packed2(
             x, k, v, mb.pack_weights2(w), H=side, W=side),
         "fused_mit_stage": lambda: mb.fused_mit_stage(x, None, sw, **kw, sr=1),
-        "selective_scan": lambda: ss.selective_scan(scan[0].requires_grad_(), *scan[1:]),
         "block_train_forward": lambda: mb.block_train_forward(x, x, k, v, w, m, m, **kw),
         "block_train_mlp_backward": lambda: mb.block_train_mlp_backward(x, x, w, H=side,
                                                                         W=side),
@@ -667,6 +783,17 @@ def phase_grad_guard() -> None:
     torch.cuda.synchronize()
     print(f"guard: {len(calls)} kernel wrappers refuse an input that requires grad under grad "
           f"mode and run under no_grad: {', '.join(calls)}")
+    ss.reset_launches()
+    x = scan[0].requires_grad_()
+    y = ss.selective_scan(x, *scan[1:])
+    if y.grad_fn is None or ss.selective_scan.launches != 1:
+        raise AssertionError("selective_scan under grad: no grad_fn or no forward launch")
+    y.sum().backward()
+    torch.cuda.synchronize()
+    if ss.selective_scan_backward.launches != 1 or not torch.isfinite(x.grad).all():
+        raise AssertionError("selective_scan: .backward() did not launch the backward kernel")
+    print(f"guard: selective_scan under grad returns {type(y.grad_fn).__name__}, "
+          f"1 forward launch, and .backward() launches selective_scan_backward once")
 
 
 def _wire_videos(rng):
@@ -1061,9 +1188,11 @@ def phase_temporal(workdir: str, slice_res: dict) -> dict:
     launches = ss.selective_scan.launches
     want = mamba.cfg.layers * len(TEST_LENGTHS)
     print(f"temporal: cli predict --model mamba on {len(TEST_LENGTHS)} test videos in "
-          f"{predict_s:.3f} s; selective_scan launches {launches} (expected {want})")
-    if launches != want:
-        raise AssertionError("the Mamba path did not launch the scan kernel 8 times per video")
+          f"{predict_s:.3f} s; selective_scan launches {launches} (expected {want}), "
+          f"selective_scan_backward launches {ss.selective_scan_backward.launches} (expected 0)")
+    if launches != want or ss.selective_scan_backward.launches:
+        raise AssertionError("the Mamba serving path did not launch the scan kernel 8 times per "
+                             "video, or launched its backward")
     test = FeatureStore.open(os.path.join(work, "lfb", "test"))
     for i, vid in enumerate(test_ids):
         lfb = torch.tensor(np.asarray(test.video(i)), device="cuda")
@@ -1117,6 +1246,190 @@ def phase_temporal(workdir: str, slice_res: dict) -> dict:
           + ", ".join(f"T={L} {lat[L]:.3f} (plain scan {lat_plain[L]:.3f})" for L in lat))
     return {"launches": launches, "online_max_abs": worst, "latency_ms": lat,
             "latency_plain_ms": lat_plain}
+
+
+def _separable_split(work, split, lengths, ids, rng):
+    """A split of whole videos whose 2048-d features separate the phases, as
+    the JAX selfcheck makes them (label + 0.1 x noise) but with the label
+    centred and scaled, (label - 3) x TT_SCALE: the 7 phases in order, each
+    over a random share of the video."""
+    from surgical_tpu_torch.data.feature_store import FeatureStore
+
+    labels = []
+    for L in lengths:
+        cuts = np.sort(rng.choice(np.arange(1, L), 6, replace=False))
+        labels.append(np.repeat(np.arange(7), np.diff(np.concatenate([[0], cuts, [L]]))))
+    labels = np.concatenate(labels)
+    feats = ((labels[:, None] - 3) * TT_SCALE
+             + 0.1 * rng.standard_normal((len(labels), 2048))).astype(np.float32)
+    FeatureStore.create(os.path.join(work, "lfb", split), feats, lengths, meta={"split": split})
+    _index_split(work, split, labels, lengths, ids, rng)
+    return labels
+
+
+def _store_diff(a: str, b: str, step: int) -> tuple[float, bool]:
+    """(max abs difference, equal bit for bit) of two stores' weights and
+    optimizer state at ``step``."""
+    from surgical_tpu_torch.core.checkpoint import CheckpointStore
+
+    sa, sb = CheckpointStore(a), CheckpointStore(b)
+    load = lambda st: torch.load(st._path(step, ".pt"), weights_only=True)
+    flat = lambda st: [v for s in st.restore_aux(step)["optimizer"]["state"].values()
+                       for v in s.values() if isinstance(v, torch.Tensor)]
+    pairs = list(zip(load(sa).values(), load(sb).values())) + list(zip(flat(sa), flat(sb)))
+    worst = max((x.float() - y.float()).abs().max().item() for x, y in pairs)
+    return worst, all(torch.equal(x, y) for x, y in pairs)
+
+
+def _train_and_resume(run, root, data, gt_dir, ids, labels, steps, device) -> dict:
+    """phase_temporal_train's per-model part: train-temporal cut one epoch
+    short and resumed against the uninterrupted run, train-refiner, predict
+    with the learned gate, evaluate."""
+    from surgical_tpu_torch import cli
+    from surgical_tpu_torch.eval.predictions import read_phase_txt, video_txt_name
+    from surgical_tpu_torch.kernels import selective_scan as ss
+
+    out = {}
+    for kind, (epochs, lr, r_epochs, r_lr) in TT_RECIPES.items():
+        works = {}
+        for name in ("resumed", "straight"):
+            works[name] = os.path.join(root, f"{kind}_{name}")
+            os.makedirs(works[name])
+            for sub in ("index", "lfb"):
+                os.symlink(os.path.join(data, sub), os.path.join(works[name], sub))
+        flags = ["--model", kind, "--lr", str(lr)]
+        ss.reset_launches()
+        run("train-temporal", works["resumed"], *flags, "--epochs", str(epochs - 1))
+        first = ss.selective_scan_backward.launches
+        ss.reset_launches()
+        run("train-temporal", works["resumed"], *flags, "--epochs", str(epochs), "--resume")
+        resumed = ss.selective_scan_backward.launches
+        # the main path: every count at 0 just before, read just after
+        ss.reset_launches()
+        run("train-temporal", works["straight"], *flags, "--epochs", str(epochs))
+        launches = {"selective_scan_forward": ss.selective_scan.launches,
+                    "selective_scan_backward": ss.selective_scan_backward.launches}
+        layers = 8 if kind == "mamba" and device == "cuda" else 0
+        want = [layers * steps * (epochs - 1), layers * steps, layers * steps * epochs]
+        print(f"temporal train {kind}: train-temporal {epochs - 1} epochs, --resume to {epochs}, "
+              f"and {epochs} uninterrupted at lr {lr}: selective_scan_backward launches "
+              f"{first} / {resumed} / {launches['selective_scan_backward']} (expected "
+              f"{' / '.join(map(str, want))}: {layers} per step), selective_scan forward "
+              f"launches in the uninterrupted run {launches['selective_scan_forward']}")
+        if [first, resumed, launches["selective_scan_backward"]] != want:
+            raise AssertionError(f"{kind}: the backward kernel did not run {layers} times a step")
+        tdirs = [os.path.join(works[n], "ckpt", "temporal") for n in ("resumed", "straight")]
+        diff, same = _store_diff(*tdirs, epochs - 1)
+        print(f"temporal train {kind}: resumed vs uninterrupted at epoch {epochs - 1}: weights "
+              f"and optimizer state max abs diff {diff:.3e} (bound {RESUME_TOL}), bit for bit: "
+              f"{same}")
+        if not diff <= RESUME_TOL:
+            raise AssertionError(f"{kind}: the resumed run does not continue the schedule")
+        work = works["straight"]
+        run("train-refiner", work, "--model", kind, "--lr", str(r_lr), "--epochs", str(r_epochs))
+        ss.reset_launches()
+        run("predict", work, "--model", kind, "--split", "test")
+        fwd, bwd = ss.selective_scan.launches, ss.selective_scan_backward.launches
+        if (fwd, bwd) != (layers * len(TT_TEST), 0):
+            raise AssertionError(f"{kind} predict: scan launches {fwd} forward, {bwd} backward")
+        pred = np.concatenate([read_phase_txt(os.path.join(work, "output", "Test",
+                                                           video_txt_name(v)))
+                               for v in ids["test"]])
+        acc = float(np.mean(pred == labels["test"]))
+        print(f"temporal train {kind}: predict on {len(TT_TEST)} test videos after "
+              f"{r_epochs} refiner epochs at lr {r_lr}: frame accuracy of the phase txts "
+              f"{acc:.4f} (gate {GATE}); scan launches {fwd} forward, {bwd} backward")
+        if not acc >= GATE:
+            raise AssertionError(f"{kind}: the trained pipeline did not learn separable phases")
+        if cli.main(["evaluate", "--gt", gt_dir, "--pred", os.path.join(work, "output", "Test"),
+                     "--first", str(ids["test"][0]), "--last", str(ids["test"][-1])]) != 0:
+            raise AssertionError("cli evaluate failed")
+        out[kind] = {"launches": launches, "resume_max_abs": diff, "resume_bitwise": same,
+                     "acc": acc}
+    return out
+
+
+def phase_temporal_train(workdir: str, device: str = "cuda") -> dict:
+    """Temporal and refiner training at full width through ``cli.main``:
+    ``MambaConfig()`` (the scan's forward and backward kernels) and
+    ``MSTCNConfig()``, each ``RefinerConfig(f_dim=2048)``, on separable
+    synthetic features (TT_TRAIN train videos, TT_VAL val, TT_TEST test).
+    Per model: ``train-temporal`` for its epochs less one, ``--resume`` to
+    its epochs, against the uninterrupted run (weights and optimizer state);
+    ``train-refiner``; ``predict`` on test (the learned gate on the phase
+    txts: frame accuracy >= GATE) and ``evaluate``. Then the median train
+    step at T = 2000 and 6000 (Mamba) and 6000 (MS-TCN), and ``selfcheck``
+    on the card. The uninterrupted Mamba run is the main path of the scan's
+    backward kernel: its launches are read just after it. ``device`` and the
+    TT_* lengths size the phase down for a rehearsal on the CPU."""
+    from surgical_tpu_torch import cli
+    from surgical_tpu_torch.core.config import TrainConfig
+    from surgical_tpu_torch.eval.predictions import video_txt_name, write_phase_txt
+    from surgical_tpu_torch.kernels import selective_scan as ss
+    from surgical_tpu_torch.train.temporal import TemporalTrainer, dropout_masks
+
+    rng = np.random.default_rng(SEED + 15)
+    root = os.path.join(workdir, "temporal_train")
+    data, gt_dir = os.path.join(root, "data"), os.path.join(root, "gt")
+    ids = {"train": [1, 2, 3], "val": [4], "test": [5, 6]}
+    lengths = {"train": TT_TRAIN, "val": TT_VAL, "test": TT_TEST}
+    labels = {split: _separable_split(data, split, lengths[split], ids[split], rng)
+              for split in ("train", "val", "test")}
+    starts = np.cumsum((0,) + TT_TEST[:-1])
+    for vid, s0, L in zip(ids["test"], starts, TT_TEST):
+        write_phase_txt(os.path.join(gt_dir, video_txt_name(vid)), labels["test"][s0:s0 + L])
+    seconds = {}
+
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+
+    def run(verb, work, *args):
+        t = time.perf_counter()
+        if cli.main([verb, "--work", work, *args, "--device", device]) != 0:
+            raise AssertionError(f"cli {verb} {' '.join(args)} failed")
+        sync()
+        seconds[f"{verb} {args[1]}"] = seconds.get(f"{verb} {args[1]}", 0.0) + (
+            time.perf_counter() - t)
+
+    steps = len(TT_TRAIN)  # one video per step
+    # cuDNN's default convolution backward (MS-TCN's) sums with atomics: two
+    # uninterrupted 30-epoch runs then differ (a max abs of 3e-2 in weights
+    # on an H100). Its deterministic algorithms make the resume check exact.
+    cudnn_deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        out = _train_and_resume(run, root, data, gt_dir, ids, labels, steps, device)
+    finally:
+        torch.backends.cudnn.deterministic = cudnn_deterministic
+
+    # the train step alone, at full width
+    step_ms = {}
+    for kind, T in (("mamba", TT_TRAIN[0]), ("mamba", TT_TRAIN[-1]), ("mstcn", TT_TRAIN[-1])):
+        model = cli._temporal_model(kind, device, 2048, seed=SEED)
+        trainer = TemporalTrainer(model, TrainConfig())
+        opt = trainer.init()
+        lab = torch.from_numpy(np.sort(rng.integers(0, 7, (1, T)))).to(device)
+        feats = lab[..., None].float() + 0.1 * torch.randn(1, T, 2048, device=device)
+        ant = torch.rand(1, T, 7, device=device)
+        mask = torch.ones(1, T, dtype=torch.bool, device=device)
+        step = lambda: trainer.train_step(opt, feats, lab, ant, mask,
+                                          dropout_masks(SEED, 0, 0, device))
+        ss.reset_launches()
+        step()
+        per_step = ss.selective_scan_backward.launches
+        if per_step != (8 if kind == "mamba" and device == "cuda" else 0):
+            raise AssertionError(f"{kind} train step: {per_step} backward-kernel launches")
+        step_ms[f"{kind} T={T}"] = median_ms(step) if device == "cuda" else None
+        print(f"temporal train: {kind} train step at T = {T} (full width, one video): median "
+              f"{step_ms[f'{kind} T={T}']} ms of 5; selective_scan_backward launches per step "
+              f"{per_step}")
+        del model, trainer, opt, feats
+    t = time.perf_counter()
+    if cli.main(["selfcheck", "--device", device]) != 0:
+        raise AssertionError("cli selfcheck failed on the card")
+    seconds["selfcheck"] = time.perf_counter() - t
+    print("temporal train: seconds per verb: "
+          + ", ".join(f"{v} {x:.3f}" for v, x in seconds.items()))
+    return {**out, "step_ms": step_ms, "seconds": seconds}
 
 
 def _write_phase_annotations(root: str, lengths, rng) -> None:
@@ -1261,12 +1574,13 @@ def main() -> int:
     phase_build()
     checks = phase_kernel_checks()
     n_hgmma = phase_sass()
-    scan = phase_scan_checks()
+    scan, scan_bwd = phase_scan_checks()
     train_checks = phase_train_kernel_checks()
     phase_grad_guard()
     with tempfile.TemporaryDirectory() as workdir:
         sl = phase_slice(workdir)
         tp = phase_temporal(workdir, sl)
+        tt = phase_temporal_train(workdir)
         tr = phase_train(workdir)
         phase_extract_cli(workdir)
     blk, stg, pk = checks["block"], checks["stage"], checks["packed2"]
@@ -1309,6 +1623,17 @@ def main() -> int:
          "library_ms": None, "device_ops_per_call": max(r["device_ops"] for r in scan),
          "shapes": scan},
     ]
+    bwd_main = [r for r in scan_bwd if "ms" in r]
+    kernels.append({
+        "name": "selective_scan_backward", "route": "cuda", "source": SCAN_SOURCE,
+        "replaces": "surgical_tpu/kernels/selective_scan.py:62 (jax.grad of the XLA scan; "
+                    "no TPU kernel)",
+        "launches": tt["mamba"]["launches"]["selective_scan_backward"],
+        "max_abs_err": max(r["max_abs_err"] for r in scan_bwd),
+        "ms": summed(bwd_main, "ms"), "plain_ms": summed(bwd_main, "plain_ms"),
+        "bound_ms": summed(bwd_main, "bound_ms"), "bound_by": by(bwd_main), "library_ms": None,
+        "device_ops_per_call": max(r["device_ops"] for r in bwd_main),
+        "step_ms": tt["step_ms"], "shapes": scan_bwd})
     for name, line, key in (("mit_block_train_forward", 1645, "forward"),
                             ("mit_block_train_mlp_backward", 1695, "mlp_backward"),
                             ("mit_block_train_attn_backward", 1729, "attn_backward")):

@@ -1,16 +1,19 @@
-"""Command-line interface of the port: the data, extraction, backbone-
-training and serving verbs of ``surgical_tpu/cli.py`` over the same
+"""Command-line interface of the port: the data, extraction, training,
+serving and self-check verbs of ``surgical_tpu/cli.py`` over the same
 work-dir layout.
 
     python -m surgical_tpu_torch.cli prepare-data --root data/cholec80 --out work/
     python -m surgical_tpu_torch.cli cache-frames --work work/
     python -m surgical_tpu_torch.cli extract-features --work work/ --frame-cache work/frame_cache
     python -m surgical_tpu_torch.cli train-backbone --work work/ --fused
+    python -m surgical_tpu_torch.cli train-temporal --work work/ --model mamba
+    python -m surgical_tpu_torch.cli train-refiner --work work/ --model mamba
     python -m surgical_tpu_torch.cli predict --work work/ --split test --model mamba
     python -m surgical_tpu_torch.cli predict --work work/ --split test --online
     python -m surgical_tpu_torch.cli evaluate --gt data/cholec80/gt-phase --pred work/output/Test
     python -m surgical_tpu_torch.cli reference-parity --root data/cholec80 --work work/ \
         --evp evp.pth --temporal tecno.pth --refiner trans.pth --online
+    python -m surgical_tpu_torch.cli selfcheck
 
 A work dir holds ``index/<split>_{labels,num_each,video_ids}.npy`` and
 ``index/<split>_paths.json`` (``prepare-data``), ``frame_cache/<split>/``
@@ -21,14 +24,19 @@ package's orbax stores are not read). ``train-backbone`` trains the
 frozen-trunk backbone on the fused train kernels (``--fused``; the flax
 training graph is not ported) and saves one step per epoch with its
 val/test metrics, the model's parameters and BatchNorm statistics, and the
-optimizer state. ``extract-features`` runs the serving graph
+optimizer state. ``train-temporal`` and ``train-refiner`` train the temporal
+model (MS-TCN or Mamba, the Mamba's scan on its forward and backward
+kernels) and then the refiner on the frozen temporal model, one step per
+epoch with the JAX manifest's metrics and the optimizer state (and the
+plateau controller's) for ``--resume``. ``extract-features`` runs the serving graph
 (``models/mit_fused.py``) over every split with the backbone of a
 reference ``.pth`` or of ``ckpt/backbone``. ``predict`` restores each
 store's best step by ``val_acc`` and writes
 ``output/<Split>/video<NN>-phase.txt``. Every video runs at its true
 length. ``reference-parity`` goes from a data root and the reference's
-three ``.pth`` files to the quality table. The verbs run on the card unless
-``--device`` names another device.
+three ``.pth`` files to the quality table. ``selfcheck`` trains and scores
+both temporal stages on synthetic separable features. The verbs run on the
+card unless ``--device`` names another device.
 """
 
 from __future__ import annotations
@@ -83,15 +91,15 @@ def _split_video_ids(work: str, split: str, num_videos: int) -> list[int]:
     return list(range(41, 41 + num_videos))
 
 
-def _temporal_model(kind: str, device, f_dim: int = 2048):
+def _temporal_model(kind: str, device, f_dim: int = 2048, seed: int = 0):
     """The temporal model at the JAX CLI's default configuration."""
     from surgical_tpu_torch.core.config import MambaConfig, MSTCNConfig
     from surgical_tpu_torch.models.mamba import CausalMambaModel
     from surgical_tpu_torch.models.mstcn import MultiStageTCN
 
     if kind == "mamba":
-        return CausalMambaModel(MambaConfig(f_dim=f_dim), device=device)
-    return MultiStageTCN(MSTCNConfig(f_dim=f_dim), device=device)
+        return CausalMambaModel(MambaConfig(f_dim=f_dim), seed=seed, device=device)
+    return MultiStageTCN(MSTCNConfig(f_dim=f_dim), seed=seed, device=device)
 
 
 def _restore_best(directory: str, model, device):
@@ -349,6 +357,101 @@ def cmd_train_backbone(args) -> int:
     return 0
 
 
+def cmd_train_temporal(args) -> int:
+    """tecno.py: train the temporal model on the train split's LFB, evaluate
+    val and test after every epoch, step the plateau controller on val
+    accuracy, save one step per epoch (metrics, the optimizer state as aux,
+    the plateau state in the manifest's extra). ``--resume`` continues from
+    the latest step: parameters, optimizer moments, lr and plateau state."""
+    import dataclasses
+
+    from surgical_tpu_torch.core.checkpoint import CheckpointStore
+    from surgical_tpu_torch.core.config import OptimConfig, TrainConfig
+    from surgical_tpu_torch.core.device import resolve_device
+    from surgical_tpu_torch.train.temporal import TemporalTrainer
+
+    device = resolve_device(args.device)
+    optim = OptimConfig() if args.lr is None else dataclasses.replace(OptimConfig(), lr=args.lr)
+    cfg = TrainConfig(max_epochs=args.epochs, optim=optim)
+    train_ds, val_ds, test_ds = (_load_split(args.work, s) for s in ("train", "val", "test"))
+    model = _temporal_model(args.model, device, train_ds.features.dim, seed=cfg.seed)
+    trainer = TemporalTrainer(model, cfg)
+    opt = trainer.init()
+    store = CheckpointStore(_work_paths(args.work)["ckpt_temporal"])
+    start_epoch = 0
+    if args.resume and store.latest_step() is not None:
+        step = store.latest_step()
+        store.restore(step, model, device)
+        opt.load_state_dict(store.restore_aux(step)["optimizer"])
+        plateau = store.manifest(step).get("extra", {}).get("plateau") or {}
+        trainer.plateau.best = plateau.get("best")
+        trainer.plateau.bad_epochs = plateau.get("bad_epochs", 0)
+        start_epoch = step + 1
+        print(f"resumed from epoch {step}")
+    seed = cfg.seed + 1
+    for epoch in range(start_epoch, args.epochs):
+        tm = trainer.train_epoch(opt, train_ds, seed, epoch)
+        vm, _ = trainer.evaluate(val_ds)
+        sm, _ = trainer.evaluate(test_ds)
+        lr = trainer.plateau_step(opt, vm["acc_frame"])
+        store.save(epoch, model.state_dict(), metrics={
+            "val_acc": vm["acc_frame"], "test_acc": sm["acc_frame"], "val_inMAE": vm["inMAE"],
+            "lr": lr, **{f"train_{k}": v for k, v in tm.items()},
+        }, config={"model": args.model}, aux={"optimizer": opt.state_dict()}, extra={
+            "plateau": {"best": trainer.plateau.best, "bad_epochs": trainer.plateau.bad_epochs},
+        })
+        print(f"epoch {epoch}: train_loss={tm['train_loss']:.4f} "
+              f"val_acc={vm['acc_frame']:.4f} test_acc={sm['acc_frame']:.4f} "
+              f"val MAE {vm['inMAE']:.3f}/{vm['pMAE']:.3f}/{vm['eMAE']:.3f}")
+    print("best epoch:", store.best_step("val_acc"))
+    return 0
+
+
+def cmd_train_refiner(args) -> int:
+    """tecno_trans.py: train the refiner on the frozen temporal model of
+    ``--temporal-epoch`` (default: its best step by val accuracy), Adam at
+    5e-4 without weight decay, one video per step; save one step per epoch
+    with val accuracy and the optimizer state. ``--resume`` continues from
+    the latest refiner step."""
+    from surgical_tpu_torch.core.checkpoint import CheckpointStore
+    from surgical_tpu_torch.core.config import OptimConfig, RefinerConfig, TrainConfig
+    from surgical_tpu_torch.core.device import resolve_device
+    from surgical_tpu_torch.models.transsv import RefinementTransformer
+    from surgical_tpu_torch.train.refiner import RefinerTrainer
+
+    device = resolve_device(args.device)
+    train_ds, val_ds = _load_split(args.work, "train"), _load_split(args.work, "val")
+    f_dim = train_ds.features.dim
+    tstore = CheckpointStore(_work_paths(args.work)["ckpt_temporal"])
+    step = args.temporal_epoch if args.temporal_epoch >= 0 else tstore.best_step("val_acc")
+    if step is None:
+        raise FileNotFoundError(
+            f"no temporal checkpoint with a val_acc metric in {tstore.directory}")
+    temporal = tstore.restore(step, _temporal_model(args.model, device, f_dim), device)
+    print(f"temporal model: epoch {step}")
+    lr = args.lr if args.lr is not None else 5e-4
+    cfg = TrainConfig(optim=OptimConfig(name="adam", lr=lr, weight_decay=0.0))
+    refiner = RefinementTransformer(RefinerConfig(f_dim=f_dim), seed=1, device=device)
+    trainer = RefinerTrainer(temporal, refiner, cfg)
+    opt = trainer.init()
+    store = CheckpointStore(_work_paths(args.work)["ckpt_refiner"])
+    start_epoch = 0
+    if args.resume and store.latest_step() is not None:
+        step = store.latest_step()
+        store.restore(step, refiner, device)
+        opt.load_state_dict(store.restore_aux(step)["optimizer"])
+        start_epoch = step + 1
+        print(f"resumed refiner train state from epoch {step}")
+    for epoch in range(start_epoch, args.epochs):
+        tm = trainer.train_epoch(opt, train_ds, epoch)
+        vm, _, _ = trainer.evaluate(val_ds)
+        store.save(epoch, refiner.state_dict(),
+                   metrics={"val_acc": vm["acc_frame"], **{f"train_{k}": v for k, v in tm.items()}},
+                   config={"model": args.model}, aux={"optimizer": opt.state_dict()})
+        print(f"epoch {epoch}: train_loss={tm['train_loss']:.4f} val_acc={vm['acc_frame']:.4f}")
+    return 0
+
+
 def cmd_predict(args) -> int:
     from surgical_tpu_torch.core.config import RefinerConfig
     from surgical_tpu_torch.core.device import resolve_device
@@ -528,6 +631,72 @@ def cmd_reference_parity(args) -> int:
     return 0
 
 
+def cmd_selfcheck(args) -> int:
+    """Synthetic end-to-end check of the temporal stages, as the JAX CLI's
+    ``selfcheck``: separable features (label + 0.1 noise) of 3 videos,
+    MS-TCN (2 stages x 4 layers, f_maps 16, dropout 0.1) trained 20 epochs
+    at lr 1e-2, the refiner (f_maps 16) 10 epochs at Adam 5e-3, relaxed
+    evaluation; passes when the refined frame accuracy exceeds 0.5.
+    ``--full`` (the whole pipeline from images) needs the flax-graph
+    backbone, which the port does not have yet: it exits nonzero."""
+    import tempfile
+
+    from surgical_tpu_torch.core.config import MSTCNConfig, OptimConfig, RefinerConfig, TrainConfig
+    from surgical_tpu_torch.core.device import resolve_device
+    from surgical_tpu_torch.data.feature_store import FeatureStore
+    from surgical_tpu_torch.eval.relaxed import evaluate_videos
+    from surgical_tpu_torch.models.mstcn import MultiStageTCN
+    from surgical_tpu_torch.models.transsv import RefinementTransformer
+    from surgical_tpu_torch.train.refiner import RefinerTrainer
+    from surgical_tpu_torch.train.temporal import TemporalTrainer, VideoDataset
+
+    if args.full:
+        print("selfcheck --full trains the backbone on the flax graph (train-backbone without "
+              "--fused), which the port does not have yet (ROADMAP Queue 1 item 4); nothing "
+              "was run", file=sys.stderr)
+        return 2
+    device = resolve_device(args.device)
+    rng = np.random.default_rng(0)
+    lengths = [60, 80, 70]
+    n, f_dim = sum(lengths), 32
+    labels = np.concatenate([np.repeat(np.arange(7), -(-L // 7))[:L] for L in lengths]
+                            ).astype(np.int32)
+    feats = rng.standard_normal((n, f_dim)).astype(np.float32) * 0.1 + labels[:, None]
+    ant = rng.uniform(0, 1, (n, 7)).astype(np.float32)
+    with tempfile.TemporaryDirectory() as td:
+        store = FeatureStore.create(os.path.join(td, "lfb"), feats, lengths)
+        starts = np.concatenate([[0], np.cumsum(lengths)[:-1]])
+        ds = VideoDataset(store, labels, ant, np.asarray(lengths), starts)
+
+        cfg = TrainConfig(bucket_sizes=(128,), optim=OptimConfig(lr=1e-2))
+        model = MultiStageTCN(MSTCNConfig(stages=2, layers=4, f_maps=16, f_dim=f_dim,
+                                          dropout=0.1), device=device)
+        trainer = TemporalTrainer(model, cfg)
+        opt = trainer.init()
+        for epoch in range(20):
+            m = trainer.train_epoch(opt, ds, 1, epoch)
+        ev, _ = trainer.evaluate(ds)
+        print(f"temporal: loss={m['train_loss']:.3f} acc={ev['acc_frame']:.3f}")
+
+        rtrainer = RefinerTrainer(
+            model, RefinementTransformer(RefinerConfig(f_maps=16, f_dim=f_dim), seed=2,
+                                         device=device),
+            TrainConfig(bucket_sizes=(128,),
+                        optim=OptimConfig(name="adam", lr=5e-3, weight_decay=0.0)))
+        ropt = rtrainer.init()
+        for epoch in range(10):
+            rm = rtrainer.train_epoch(ropt, ds, epoch)
+        rev, preds, _ = rtrainer.evaluate(ds)
+        print(f"refiner: loss={rm['train_loss']:.3f} acc={rev['acc_frame']:.3f}")
+
+        gts = [labels[s:s + L] for s, L in zip(starts, lengths)]
+        res = evaluate_videos(gts, preds)
+        print(f"relaxed acc={res.mean_acc:.2f} jacc={res.mean_jacc:.2f}")
+        ok = rev["acc_frame"] > 0.5
+        print("SELFCHECK", "OK" if ok else "WEAK")
+        return 0 if ok else 1
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="surgical_tpu_torch", description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -634,6 +803,33 @@ def main(argv=None) -> int:
                     help="torch device to run on (default: the card)")
     sp.set_defaults(fn=cmd_train_backbone)
 
+    sp = sub.add_parser("train-temporal")
+    sp.add_argument("--work", required=True)
+    sp.add_argument("--model", choices=["mstcn", "mamba"], default="mstcn")
+    sp.add_argument("--epochs", type=int, default=25)
+    sp.add_argument("--lr", type=float, default=None,
+                    help="override the optimizer lr (default: OptimConfig)")
+    sp.add_argument("--resume", action="store_true",
+                    help="continue from the latest checkpoint in the work dir")
+    sp.add_argument("--device", default="cuda",
+                    help="torch device to run on (default: the card)")
+    sp.set_defaults(fn=cmd_train_temporal)
+
+    sp = sub.add_parser("train-refiner")
+    sp.add_argument("--work", required=True)
+    sp.add_argument("--model", choices=["mstcn", "mamba"], default="mstcn")
+    sp.add_argument("--epochs", type=int, default=10)
+    sp.add_argument("--lr", type=float, default=None,
+                    help="override the optimizer lr (default 5e-4, tecno_trans.py:198-205)")
+    sp.add_argument("--temporal-epoch", type=int, default=-1,
+                    help="temporal checkpoint step (-1 = best by val_acc)")
+    sp.add_argument("--resume", action="store_true",
+                    help="continue from the latest refiner checkpoint (parameters and "
+                         "optimizer state)")
+    sp.add_argument("--device", default="cuda",
+                    help="torch device to run on (default: the card)")
+    sp.set_defaults(fn=cmd_train_refiner)
+
     sp = sub.add_parser("predict")
     sp.add_argument("--work", required=True)
     sp.add_argument("--split", choices=["val", "test"], default="test")
@@ -651,6 +847,14 @@ def main(argv=None) -> int:
     sp.add_argument("--first", type=int, default=41)
     sp.add_argument("--last", type=int, default=80)
     sp.set_defaults(fn=cmd_evaluate)
+
+    sp = sub.add_parser("selfcheck", help="synthetic end-to-end check of the temporal stages")
+    sp.add_argument("--full", action="store_true",
+                    help="the whole pipeline from synthetic images (needs the flax-graph "
+                         "backbone: not ported yet, exits nonzero)")
+    sp.add_argument("--device", default="cuda",
+                    help="torch device to run on (default: the card)")
+    sp.set_defaults(fn=cmd_selfcheck)
 
     args = p.parse_args(argv)
     return args.fn(args)

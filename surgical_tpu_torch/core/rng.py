@@ -34,3 +34,11 @@ def generator(seed: int, *coords: int, purpose: str | None = None,
     g = torch.Generator(device=device)
     g.manual_seed(derive_seed(seed, *coords, purpose=purpose))
     return g
+
+
+def host_rng(seed: int, *coords: int) -> np.random.Generator:
+    """A numpy Generator for host-side shuffles (epoch orders), derived from
+    (seed, *coords) exactly as the JAX package's ``host_rng(jax.random.key(seed),
+    *coords)`` derives it: the key's two 32-bit words, then the coordinates."""
+    words = [(int(seed) >> 32) & 0xFFFFFFFF, int(seed) & 0xFFFFFFFF]
+    return np.random.default_rng(words + [int(c) & 0xFFFFFFFF for c in coords])

@@ -8,9 +8,11 @@ library lands in ``build/kernels/`` at the repository root (listed in
 an edited source rebuilds and an unchanged one loads from disk.
 
 There is no fallback: a missing ``nvcc`` or a failed build raises with the
-compiler's output. The wrappers also refuse, through ``refuse_grad``, a call
-that autograd would need to differentiate: the kernels write their outputs
-through ctypes, so those outputs have no ``grad_fn``.
+compiler's output. The MiT kernel wrappers also refuse, through
+``refuse_grad``, a call that autograd would need to differentiate: the
+kernels write their outputs through ctypes, so those outputs have no
+``grad_fn``. (The selective scan is differentiable: its autograd function
+launches a backward kernel.)
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ _ENTRY_POINTS = {
     "mit_block_train_mlp_backward": (11, 5),
     "mit_block_train_attn_backward": (16, 5),
     "selective_scan_forward": (8, 5),
+    "selective_scan_backward": (15, 6),
 }
 
 _lib: ctypes.CDLL | None = None

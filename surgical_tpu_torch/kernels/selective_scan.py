@@ -1,5 +1,5 @@
-"""Mamba S6 selective scan: the Hopper CUDA kernel (``csrc/selective_scan.cu``)
-and its plain PyTorch version.
+"""Mamba S6 selective scan: the Hopper CUDA kernels (``csrc/selective_scan.cu``)
+and their plain PyTorch versions, forward and backward.
 
 Port of ``surgical_tpu/kernels/selective_scan.py`` (``selective_scan_pallas``),
 batched over videos where the JAX package vmaps:
@@ -15,11 +15,25 @@ every chunk but the last from zero into its (decay, end state) pair, a
 second folds the pairs before each chunk into its carry-in and reruns the
 chunk from there (a video of one chunk takes the second launch alone).
 
-The wrapper runs the plain version only for tensors that lie on the CPU. For
-CUDA tensors it launches the kernel or raises; it raises too when grad mode
-is on and an input requires grad, since the kernel has no backward (the CPU
-version is differentiable). It counts its launches in
-``selective_scan.launches``.
+The gradient (the JAX package differentiates its XLA scan; the Pallas
+kernel has none) runs the adjoint backwards in time, with a_t = exp(dt_t A):
+
+    λ_t = dy_t ⊗ C_t + a_{t+1} ⊙ λ_{t+1},  λ_{T+1} = 0
+    dx_t = dt_t ⊙ Σ_n λ_t B_t + D ⊙ dy_t
+    ddt_t = Σ_n λ_t ⊙ (A ⊙ a_t ⊙ h_{t-1} + B_t ⊗ x_t)
+    dA = Σ_t λ_t ⊙ a_t ⊙ h_{t-1} ⊙ dt_t,   dD = Σ_t dy_t ⊙ x_t
+    dB_t = Σ_d λ_t ⊙ (dt_t ⊙ x_t),         dC_t = Σ_d dy_t ⊗ h_t
+
+(dA and dD also sum over the videos). ``selective_scan_backward`` computes
+it, on the card from the forward's chunk pairs, which the autograd function
+keeps.
+
+Each wrapper runs its plain version only for tensors that lie on the CPU;
+for CUDA tensors it launches its kernel or raises. ``selective_scan`` is
+differentiable on both: under grad it goes through ``SelectiveScan``, an
+autograd function whose CUDA forward launches the forward kernel and whose
+backward launches the backward kernel. The wrappers count their launches in
+``selective_scan.launches`` and ``selective_scan_backward.launches``.
 """
 
 from __future__ import annotations
@@ -31,6 +45,7 @@ from surgical_tpu_torch.kernels import _build
 STATE = 64  # the one d_state the kernel takes: MambaConfig()'s
 SUB_CHUNK = 32   # steps the kernel stages and reduces at once; a chunk is a multiple
 MAX_CHUNKS = 32  # chunks per video at most: the carry fold reads at most 31 pairs
+BWD_WARPS = 8    # channels per block of the backward kernel
 
 
 def scan_chunk(T: int) -> int:
@@ -63,20 +78,70 @@ def _ptr(t: torch.Tensor, shape, name: str) -> int:
     return t.data_ptr()
 
 
-def selective_scan(x, dt, A, B, C, D):
-    """y [Bt, T, D] of the selective scan (see the module docstring)."""
-    if x.device.type == "cpu":
-        return selective_scan_plain(x, dt, A, B, C, D)
-    if not x.is_cuda:
-        raise ValueError(f"selective_scan: no kernel for device {x.device}")
-    _build.refuse_grad("selective_scan", x, dt, A, B, C, D)
-    Bt, T, Dch = x.shape
-    N = A.shape[1]
+def selective_scan_plain_backward(x, dt, A, B, C, D, dy):
+    """The scan's gradient in plain PyTorch (the counterpart of
+    ``selective_scan_backward``): the states h_t step by step forwards, the
+    adjoint λ_t step by step backwards, then every input's gradient from
+    them (formulas in the module docstring). Returns (dx, ddt, dA, dB, dC,
+    dD) in the inputs' shapes."""
+    a = torch.exp(dt[..., None] * A)                 # [Bt, T, D, N]
+    b = (dt * x)[..., None] * B[:, :, None, :]
+    T = x.shape[1]
+    hs = torch.empty_like(a)
+    h = torch.zeros_like(a[:, 0])
+    for t in range(T):
+        h = torch.addcmul(b[:, t], a[:, t], h)
+        hs[:, t] = h
+    dyC = dy[..., None] * C[:, :, None, :]
+    lam = torch.empty_like(a)
+    carry = torch.zeros_like(a[:, 0])                # a_{t+1} λ_{t+1}
+    for t in range(T - 1, -1, -1):
+        lam[:, t] = dyC[:, t] + carry
+        carry = a[:, t] * lam[:, t]
+    h_prev = torch.cat([torch.zeros_like(hs[:, :1]), hs[:, :-1]], 1)
+    lam_B = torch.einsum("btdn,btn->btd", lam, B)
+    decay = lam * a * h_prev                         # λ_t a_t h_{t-1}
+    dx = dt * lam_B + D * dy
+    ddt = torch.einsum("btdn,dn->btd", decay, A) + x * lam_B
+    dA = torch.einsum("btdn,btd->dn", decay, dt)
+    dB = torch.einsum("btdn,btd->btn", lam, dt * x)
+    dC = torch.einsum("btd,btdn->btn", dy, hs)
+    dD = (dy * x).sum((0, 1))
+    return dx, ddt, dA, dB, dC, dD
+
+
+def _chunks(T: int) -> tuple[int, int]:
+    chunk = scan_chunk(T)
+    return chunk, -(-T // chunk)
+
+
+def backward_scratch_floats(Bt: int, T: int, D: int, N: int) -> int:
+    """fp32 scratch of the backward kernel, in the order ``csrc/selective_scan.cu``
+    lays it out: the adjoint's chunk pairs [2, Bt, chunks - 1, D, N], each
+    sub-chunk's start state [Bt, ceil(T / SUB_CHUNK), D, N], the per-block
+    partials of dB and of dC [ceil(D / BWD_WARPS), Bt, T, N] each, and those of
+    dA [Bt, chunks, D, N] and of dD [Bt, chunks, D]."""
+    _, chunks = _chunks(T)
+    blocks = -(-D // BWD_WARPS)
+    return (2 * Bt * (chunks - 1) * D * N + Bt * -(-T // SUB_CHUNK) * D * N
+            + 2 * blocks * Bt * T * N + Bt * chunks * D * N + Bt * chunks * D)
+
+
+def _check_state(N: int) -> None:
     if N != STATE:
         raise ValueError(f"kernel takes d_state == {STATE}, got {N}")
+
+
+def selective_scan_forward(x, dt, A, B, C, D):
+    """The forward kernel on CUDA tensors: (y, pairs), where ``pairs`` is its
+    chunk workspace [2, Bt, chunks - 1, D, N] (decay, then end state from
+    zero, per chunk but the last), None for a video of one chunk. The
+    backward kernel folds the pairs into each chunk's carry-in."""
+    Bt, T, Dch = x.shape
+    N = A.shape[1]
+    _check_state(N)
     y = torch.empty_like(x)
-    chunk = scan_chunk(T)
-    chunks = -(-T // chunk)
+    chunk, chunks = _chunks(T)
     pairs = (torch.empty(2, Bt, chunks - 1, Dch, N, dtype=torch.float32, device=x.device)
              if chunks > 1 else None)
     err = _build.load().selective_scan_forward(
@@ -86,11 +151,86 @@ def selective_scan(x, dt, A, B, C, D):
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "selective_scan_forward")
     selective_scan.launches += 1
-    return y
+    return y, pairs
+
+
+def selective_scan_backward(x, dt, A, B, C, D, dy, pairs=None):
+    """(dx, ddt, dA, dB, dC, dD) of the scan at the output gradient ``dy``.
+    CPU tensors take ``selective_scan_plain_backward``; CUDA tensors the
+    backward kernel, which needs the forward's ``pairs`` (from
+    ``selective_scan_forward``) when the video spans more than one chunk."""
+    if x.device.type == "cpu":
+        return selective_scan_plain_backward(x, dt, A, B, C, D, dy)
+    if not x.is_cuda:
+        raise ValueError(f"selective_scan_backward: no kernel for device {x.device}")
+    Bt, T, Dch = x.shape
+    N = A.shape[1]
+    _check_state(N)
+    chunk, chunks = _chunks(T)
+    if chunks > 1:
+        if pairs is None:
+            raise ValueError("selective_scan_backward: a video of more than one chunk needs "
+                             "the forward's pairs (selective_scan_forward)")
+        _ptr(pairs, (2, Bt, chunks - 1, Dch, N), "pairs")
+    f32 = dict(dtype=torch.float32, device=x.device)
+    dx, ddt = torch.empty_like(x), torch.empty_like(x)
+    dA, dB, dC, dD = (torch.empty(Dch, N, **f32), torch.empty(Bt, T, N, **f32),
+                      torch.empty(Bt, T, N, **f32), torch.empty(Dch, **f32))
+    # scratch: the adjoint's chunk pairs, each sub-chunk's start state, and
+    # the partial sums that the last launch reduces in a fixed order
+    n_scratch = backward_scratch_floats(Bt, T, Dch, N)
+    if n_scratch >= 2 ** 31:
+        raise ValueError(f"selective_scan_backward: {n_scratch} floats of scratch at "
+                         f"[Bt={Bt}, T={T}, D={Dch}]: split the batch")
+    scratch = torch.empty(n_scratch, **f32)
+    err = _build.load().selective_scan_backward(
+        _ptr(x, (Bt, T, Dch), "x"), _ptr(dt, (Bt, T, Dch), "dt"), _ptr(A, (Dch, N), "A"),
+        _ptr(B, (Bt, T, N), "B"), _ptr(C, (Bt, T, N), "C"), _ptr(D, (Dch,), "D"),
+        _ptr(dy, (Bt, T, Dch), "dy"), None if pairs is None else pairs.data_ptr(),
+        dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(), dC.data_ptr(),
+        dD.data_ptr(), scratch.data_ptr(), Bt, T, Dch, N, chunk, n_scratch,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, "selective_scan_backward")
+    selective_scan_backward.launches += 1
+    return dx, ddt, dA, dB, dC, dD
+
+
+class SelectiveScan(torch.autograd.Function):
+    """The differentiable scan: on the CPU the plain forward and the plain
+    backward, on the card the forward kernel (its chunk pairs kept) and the
+    backward kernel."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C, D):
+        if x.is_cuda:
+            y, pairs = selective_scan_forward(x, dt, A, B, C, D)
+        else:
+            y, pairs = selective_scan_plain(x, dt, A, B, C, D), None
+        ctx.save_for_backward(x, dt, A, B, C, D, pairs)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, dt, A, B, C, D, pairs = ctx.saved_tensors
+        return selective_scan_backward(x, dt, A, B, C, D, dy.contiguous(), pairs)
+
+
+def selective_scan(x, dt, A, B, C, D):
+    """y [Bt, T, D] of the selective scan (see the module docstring),
+    differentiable in every input."""
+    if x.device.type != "cpu" and not x.is_cuda:
+        raise ValueError(f"selective_scan: no kernel for device {x.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, dt, A, B, C, D)):
+        return SelectiveScan.apply(x, dt, A, B, C, D)
+    if x.device.type == "cpu":
+        return selective_scan_plain(x, dt, A, B, C, D)
+    return selective_scan_forward(x, dt, A, B, C, D)[0]
 
 
 selective_scan.launches = 0
+selective_scan_backward.launches = 0
 
 
 def reset_launches() -> None:
     selective_scan.launches = 0
+    selective_scan_backward.launches = 0

@@ -4,16 +4,17 @@ Port of ``surgical_tpu/models/mamba.py`` (``MambaBlock``,
 ``CausalMambaModel``) in the key names of the reference's
 ``CausalMambaModel`` (``in_proj``, ``blocks.{i}.{in_proj, conv1d, x_proj,
 dt_proj, A_log, D, out_proj}``, ``norm``, ``head``), so that
-``export_mamba_state_dict`` loads with ``strict=True``. Inference only:
-dropout is off, as at ``deterministic=True``.
+``export_mamba_state_dict`` loads with ``strict=True``. Dropout follows
+each residual block, as in the JAX model (``models/mstcn.py::dropout``: train
+mode only, masks from the ``DropoutMasks`` given to ``forward``).
 
 The block: in_proj -> [x, z]; depthwise causal conv over time (d_conv - 1
 frames of left zero padding) + SiLU on x; x_proj -> dt, B, C;
 dt = softplus(dt_proj(dt)); the selective scan in fp32 with A = -exp(A_log)
-(``kernels/selective_scan.py``, the Hopper kernel on CUDA), cast back to the
-input dtype; gate by SiLU(z); out_proj. The final LayerNorm uses eps 1e-6
-(flax's default), not torch's 1e-5. Every step is causal, so a video runs at
-its true length.
+(``kernels/selective_scan.py``, the Hopper kernels on CUDA, forward and,
+under grad, backward), cast back to the input dtype; gate by SiLU(z);
+out_proj. The final LayerNorm uses eps 1e-6 (flax's default), not torch's
+1e-5. Every step is causal, so a video runs at its true length.
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ from torch import nn
 from surgical_tpu_torch.core.config import MambaConfig
 from surgical_tpu_torch.core.device import DEFAULT_DEVICE, resolve_device
 from surgical_tpu_torch.kernels import selective_scan as scan_kernel
-from surgical_tpu_torch.models.mstcn import torch_like_uniform_
+from surgical_tpu_torch.models.mstcn import DropoutMasks, dropout, torch_like_uniform_
 
 LN_EPS = 1e-6
 
@@ -95,7 +96,8 @@ def _dt_bias_(bias: torch.Tensor, g: torch.Generator, dt_min=1e-3, dt_max=0.1) -
 
 class CausalMambaModel(nn.Module):
     """[B, T, f_dim] -> [1, B, T, out_features] (singleton stage axis, as the
-    reference's mstcn.py:328-343, so callers keep ``outputs[-1]``)."""
+    reference's mstcn.py:328-343, so callers keep ``outputs[-1]``).
+    ``masks`` supplies the dropout masks in train mode."""
 
     def __init__(self, cfg: MambaConfig = MambaConfig(), *, seed: int = 0,
                  device=DEFAULT_DEVICE):
@@ -114,8 +116,8 @@ class CausalMambaModel(nn.Module):
         self.eval()
         self.to(device)
 
-    def forward(self, x):
+    def forward(self, x, masks: DropoutMasks | None = None):
         h = self.in_proj(x)
         for block in self.blocks:
-            h = h + block(h)
+            h = dropout(h + block(h), self.cfg.dropout, self.training, masks)
         return self.head(self.norm(h))[None]

@@ -20,7 +20,11 @@ wire-format frames, it measures:
   b3, batch 88, 224 crop, SGD): step ms (median of 5 after 2 warm-up steps)
   and peak memory, and a trace of 3 steps: device time by kernel kind, the
   three train kernels' share and their device time per step by kernel, and
-  the idle share.
+  the idle share;
+- temporal training (``TemporalTrainer``, ``MambaConfig()``, one video of
+  T = 6000 per step, AdamW): step ms (median of 5 after 2 warm-up steps) and
+  a trace of one step: busy and idle share, the scan's forward and backward
+  kernels as shares of busy time, and the unclassified kernels by name.
 
 It prints one line per measurement and writes them all to ``--out`` as JSON.
 """
@@ -38,9 +42,11 @@ import torch
 
 SEED, BATCH, RUN_BATCHES, RUNS = 0, 200, 6, 5
 TRAIN_B, TRAIN_STEPS, TRAIN_TRACED = 88, 7, 3  # step time over 5 steps after 2 warm-ups
+TEMPORAL_T = 6000  # the Mamba train step's video: a long Cholec80 video at 1 fps
 
 # (kind, substrings of the device kernel name), first match wins
 KINDS = (
+    ("selective scan backward kernels", ("selective_scan_bwd",)),
     ("selective scan kernels", ("selective_scan",)),
     ("wgmma products (wgmma_linear)", ("wgmma_linear",)),
     ("tensor-core attention (attention_tc_kernel)", ("attention_tc_kernel",)),
@@ -78,8 +84,12 @@ def _short_name(name: str) -> str:
 
 
 def _device_events(prof):
+    """The trace's device operations. User annotations that the profiler
+    also places on the device's timeline (``Optimizer.step#AdamW.step``)
+    span other kernels and the idle time between them: they are left out."""
     return [e for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
 
 
 def _busy_us(events) -> float:
@@ -161,6 +171,73 @@ def profile_train(dev, acts) -> dict:
     _print_kinds("train trace", trace)
     for k, v in trace["train_kernels_ms_per_step_by_name"].items():
         print(f"train trace, train kernels per step: {v:9.3f} ms  {k}")
+    return res
+
+
+def profile_temporal_train(dev, acts) -> dict:
+    """One Mamba train step at full width (``MambaConfig()``, f_dim 2048) on one
+    video of TEMPORAL_T frames: step time, then a trace of one step by kernel
+    kind with the scan's forward and backward shares of busy time."""
+    from surgical_tpu_torch.core.config import MambaConfig, TrainConfig
+    from surgical_tpu_torch.kernels import selective_scan as ss
+    from surgical_tpu_torch.models.mamba import CausalMambaModel
+    from surgical_tpu_torch.train.temporal import TemporalTrainer, dropout_masks
+
+    trainer = TemporalTrainer(CausalMambaModel(MambaConfig(), seed=SEED, device=dev),
+                              TrainConfig())
+    opt = trainer.init()
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    labels = torch.sort(torch.randint(0, 7, (1, TEMPORAL_T), generator=g, device=dev))[0]
+    # chip_smoke.py's separable features, (label - 3) x 0.1 + 0.1 x noise
+    feats = (labels[..., None].float() - 3) * 0.1 + 0.1 * torch.randn(
+        1, TEMPORAL_T, 2048, generator=g, device=dev)
+    ant = torch.rand(1, TEMPORAL_T, 7, generator=g, device=dev)
+    mask = torch.ones(1, TEMPORAL_T, dtype=torch.bool, device=dev)
+
+    def step(i):
+        trainer.train_step(opt, feats, labels, ant, mask, dropout_masks(SEED, 0, i, dev))
+        torch.cuda.synchronize()
+
+    runs = []
+    for i in range(7):
+        t = time.perf_counter()
+        step(i)
+        runs.append((time.perf_counter() - t) * 1e3)
+    runs = runs[2:]
+    res = {"T": TEMPORAL_T, "step_ms": float(np.median(runs)), "step_ms_runs": runs}
+    print(f"temporal train mamba T = {TEMPORAL_T}: step {res['step_ms']:.3f} ms (median of "
+          f"{len(runs)} after 2 warm-up: " + ", ".join(f"{v:.2f}" for v in runs) + ")")
+    ss.reset_launches()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        step(7)
+        wall_us = (time.perf_counter() - t0) * 1e6
+    evs = _device_events(prof)
+    if not evs:
+        raise AssertionError("the profiler saw no device kernels in the temporal train step")
+    trace = _trace_by_kind(evs, wall_us)
+    fwd = trace["ms_by_kind"].get("selective scan kernels", 0.0)
+    bwd = trace["ms_by_kind"].get("selective scan backward kernels", 0.0)
+    other = {}
+    for e in evs:
+        if _kind(e.name) == "other":
+            name = _short_name(e.name)[:90]
+            other[name] = other.get(name, 0.0) + (e.time_range.end - e.time_range.start) / 1e3
+    trace.update(kernels=len(evs), scan_forward_ms=fwd, scan_backward_ms=bwd,
+                 other_ms_by_name=dict(sorted(other.items(), key=lambda kv: -kv[1])[:12]),
+                 scan_forward_share=fwd / trace["busy_ms"],
+                 scan_backward_share=bwd / trace["busy_ms"],
+                 launches={"forward": ss.selective_scan.launches,
+                           "backward": ss.selective_scan_backward.launches})
+    res["trace"] = trace
+    print(f"temporal train trace: 1 step, {len(evs)} device kernels, wall "
+          f"{trace['wall_ms']:.3f} ms, busy {trace['busy_ms']:.3f} ms, idle share "
+          f"{trace['idle_share']:.4f}; scan forward {fwd:.3f} ms "
+          f"({100 * trace['scan_forward_share']:.1f}% of busy), backward {bwd:.3f} ms "
+          f"({100 * trace['scan_backward_share']:.1f}%); launches {trace['launches']}")
+    _print_kinds("temporal train trace", trace)
+    for k, v in trace["other_ms_by_name"].items():
+        print(f"temporal train trace, other kernels: {v:9.3f} ms  {k}")
     return res
 
 
@@ -272,6 +349,7 @@ def main() -> int:
                   f"{1 - busy / wall_us:.4f}, selective scan {scan_us / 1e3:.3f} ms")
 
     res["train"] = profile_train(dev, acts)
+    res["temporal_train"] = profile_temporal_train(dev, acts)
 
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:

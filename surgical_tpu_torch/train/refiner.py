@@ -1,24 +1,34 @@
-"""End-to-end phase prediction: per video LFB -> temporal model's final stage
--> refinement transformer -> argmax phases + anticipation, plus the
-``video<NN>-phase.txt`` artifacts.
+"""Refinement-transformer training and end-to-end phase prediction.
 
-Port of the prediction half of ``surgical_tpu/train/refiner.py`` (the
-trainer is a later port). Both models are causal, so each video runs at its
-true length: the JAX package's bucket padding exists for XLA compiles.
+Port of ``surgical_tpu/train/refiner.py``:
+
+- ``RefinerTrainer`` (tecno_trans.py): the temporal model (MS-TCN or Mamba)
+  is frozen and runs under ``no_grad`` in eval mode (on the card the Mamba
+  forward takes the scan kernel's no-grad path); its final stage feeds the
+  refiner, trained one video per step on 0.5 * weighted CE + SmoothL1
+  (Adam 5e-4 without weight decay in the CLI, tecno_trans.py:190-205).
+- ``predict_video`` / ``evaluate`` / ``predict_and_write``
+  (trans_SV_output.py): per video LFB -> temporal final stage -> refiner ->
+  argmax phases + anticipation, plus the ``video<NN>-phase.txt`` artifacts.
+
+Both models are causal, so each video runs at its true length: the JAX
+package's bucket padding exists for XLA compiles.
 """
 
 from __future__ import annotations
 
 import os
+import time
 from typing import Callable
 
 import numpy as np
 import torch
 
 from surgical_tpu_torch.core.config import TrainConfig
-from surgical_tpu_torch.eval.metrics import MAETriad, frame_accuracy, precision_recall_jaccard
 from surgical_tpu_torch.eval.predictions import video_txt_name, write_phase_txt
-from surgical_tpu_torch.train.temporal import VideoDataset
+from surgical_tpu_torch.train.losses import refiner_loss
+from surgical_tpu_torch.train.optim import build_optimizer
+from surgical_tpu_torch.train.temporal import VideoDataset, epoch_metrics
 
 
 @torch.no_grad()
@@ -39,28 +49,69 @@ def evaluate(temporal, refiner, ds: VideoDataset, horizon: float = TrainConfig.h
     device = next(refiner.parameters()).device
     if predict_fn is None:
         predict_fn = lambda lfb: predict_video(temporal, refiner, lfb)
-    triad = MAETriad(horizon=horizon)
-    per_video_acc, all_p, all_l, preds, ants = [], [], [], [], []
+    preds, ants = [], []
     for i in range(ds.num_videos):
-        f, l, a = ds.video_arrays(i)
+        f, _, _ = ds.video_arrays(i)
         out = predict_fn(torch.tensor(f, device=device)).cpu().numpy()
-        pred = np.argmax(out[:, :num_phases], axis=-1)
-        ant_pred = out[:, num_phases:]
-        triad.update(ant_pred, a)
-        per_video_acc.append(frame_accuracy(l, pred))
-        all_p.append(pred)
-        all_l.append(l)
-        preds.append(pred)
-        ants.append(ant_pred)
-    flat_p, flat_l = np.concatenate(all_p), np.concatenate(all_l)
-    metrics = {
-        "acc_frame": frame_accuracy(flat_l, flat_p),
-        "acc_video": float(np.mean(per_video_acc)),
-        **triad.result(),
-        **{k: v for k, v in precision_recall_jaccard(flat_l, flat_p, num_phases).items()
-           if np.isscalar(v)},
-    }
-    return metrics, preds, ants
+        preds.append(np.argmax(out[:, :num_phases], axis=-1))
+        ants.append(out[:, num_phases:])
+    return epoch_metrics(ds, preds, num_phases, horizon, ants), preds, ants
+
+
+class RefinerTrainer:
+    """Trains ``refiner`` in place on the frozen ``temporal`` model's final
+    stage, one video per step, on the device of the refiner's parameters."""
+
+    def __init__(self, temporal, refiner, cfg: TrainConfig, num_phases: int = 7):
+        self.temporal, self.refiner = temporal, refiner
+        self.cfg = cfg
+        self.num_phases = num_phases
+        self.device = next(refiner.parameters()).device
+        self.class_weights = torch.tensor(cfg.class_weights, dtype=torch.float32,
+                                          device=self.device)
+
+    def init(self) -> torch.optim.Optimizer:
+        """The optimizer over the refiner's parameters only."""
+        return build_optimizer(self.cfg.optim, self.refiner.parameters())
+
+    def train_step(self, opt, lfb, labels, ant):
+        """One step on one video's tensors (lfb [T, D], labels [T], ant [T,
+        P]): (loss, clc, ant, correct) as 0-d tensors."""
+        self.temporal.eval()
+        with torch.no_grad():
+            g = self.temporal(lfb[None])[-1, 0]
+        self.refiner.train()
+        out = self.refiner(g, lfb)
+        total, clc, antl = refiner_loss(out, labels, ant, self.class_weights,
+                                        num_phases=self.num_phases)
+        opt.zero_grad(set_to_none=True)
+        total.backward()
+        opt.step()
+        with torch.no_grad():
+            correct = (out[:, :self.num_phases].argmax(-1) == labels).sum()
+        return total.detach(), clc.detach(), antl.detach(), correct
+
+    def train_epoch(self, opt, ds: VideoDataset, epoch: int) -> dict:
+        """One pass over ``ds`` in video order: summed loss, frame accuracy and
+        seconds, under JAX's keys."""
+        t0 = time.time()
+        total, correct = 0.0, 0
+        for i in range(ds.num_videos):
+            f, l, a = (torch.tensor(v, device=self.device) for v in ds.video_arrays(i))
+            loss, _, _, corr = self.train_step(opt, f, l.long(), a)
+            total += float(loss)
+            correct += int(corr)
+        return {"train_loss": total, "train_acc": correct / int(ds.lengths.sum()),
+                "train_time_s": time.time() - t0}
+
+    def evaluate(self, ds: VideoDataset, horizon: float | None = None,
+                 predict_fn: Callable | None = None):
+        """(metrics, per-video phase predictions, per-video anticipation) of
+        the temporal model + refiner over ``ds``."""
+        self.refiner.eval()
+        return evaluate(self.temporal, self.refiner, ds,
+                        horizon if horizon is not None else self.cfg.horizon,
+                        self.num_phases, predict_fn)
 
 
 def predict_and_write(temporal, refiner, ds: VideoDataset, out_dir: str, video_ids,

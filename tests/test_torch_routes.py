@@ -1,10 +1,14 @@
 """Two routing rules of the port, held to the JAX package, and the guard that
 keeps its kernels out of autograd.
 
-- ``_build.refuse_grad``: a kernel wrapper raises when grad mode is on and
-  an argument requires grad (its output would carry no gradient). On the
-  CPU the wrappers run their differentiable plain versions and are not
+- ``_build.refuse_grad``: a MiT kernel wrapper raises when grad mode is on
+  and an argument requires grad (its output would carry no gradient). On
+  the CPU the wrappers run their differentiable plain versions and are not
   guarded; one case per guarded wrapper runs on a card (marker ``cuda``).
+  The selective scan is not guarded: it has a backward kernel behind an
+  autograd function, so under grad it returns an output with a
+  ``grad_fn`` on either device, and on a card its backward launches the
+  kernel (marker ``cuda``).
 - Stage 4's route: JAX runs the whole-stage kernel only at a batch that is
   a multiple of 8 (surgical_tpu/models/mit_fused.py:198) and the per-block
   path, whose prompt GELU is exact erf, otherwise. The port's
@@ -55,7 +59,7 @@ def test_refuse_grad(requires_grad, grad_mode, raises):
 
 
 GUARDED = ("block_train_attn_backward", "block_train_forward", "block_train_mlp_backward",
-           "fused_mit_block", "fused_mit_block_packed2", "fused_mit_stage", "selective_scan")
+           "fused_mit_block", "fused_mit_block_packed2", "fused_mit_stage")
 
 
 def _guarded_calls(dev):
@@ -64,7 +68,6 @@ def _guarded_calls(dev):
     rng = np.random.default_rng(0)
     bf = lambda *s: torch.from_numpy(0.1 * rng.standard_normal(s).astype(np.float32)).to(
         dev, torch.bfloat16)
-    f32 = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(dev)
     B, side, C, heads, hidden, Nkv = 2, 8, 64, 1, 256, 4
     w = {"wq": bf(C, C), "bq": bf(C), "wo": bf(C, C), "bo": bf(C), "ln1_scale": bf(C),
          "ln1_bias": bf(C), "ln2_scale": bf(C), "ln2_bias": bf(C), "w1": bf(C, hidden),
@@ -84,9 +87,6 @@ def _guarded_calls(dev):
         "fused_mit_block_packed2": lambda: mb.fused_mit_block_packed2(
             x, k, v, mb.pack_weights2(w), H=side, W=side),
         "fused_mit_stage": lambda: mb.fused_mit_stage(x, None, sw, **kw, sr=1),
-        "selective_scan": lambda: ss.selective_scan(
-            f32(1, 16, 8).requires_grad_(), f32(1, 16, 8), f32(8, 64), f32(1, 16, 64),
-            f32(1, 16, 64), f32(8)),
         "block_train_forward": lambda: mb.block_train_forward(x, x, k, v, w, m, m, **kw),
         "block_train_mlp_backward": lambda: mb.block_train_mlp_backward(
             x, x, w, H=side, W=side),
@@ -95,13 +95,23 @@ def _guarded_calls(dev):
     }
 
 
+def _scan_call(dev):
+    """The selective scan on small valid inputs, x requiring grad."""
+    rng = np.random.default_rng(0)
+    f32 = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(dev)
+    x = f32(1, 16, 8).requires_grad_()
+    return x, ss.selective_scan(x, f32(1, 16, 8).abs(), -f32(8, 64).abs(), f32(1, 16, 64),
+                                f32(1, 16, 64), f32(8))
+
+
 def test_guarded_calls_cover_the_wrappers():
     """The CUDA cases below cover every guarded wrapper, and on the CPU each
-    runs its plain version with grad (nothing to refuse there)."""
+    runs its plain version with grad (nothing to refuse there); the scan,
+    not guarded, returns an output that requires grad."""
     calls = _guarded_calls("cpu")
     assert sorted(calls) == list(GUARDED)
-    out = calls["selective_scan"]()
-    assert out.requires_grad
+    _, out = _scan_call("cpu")
+    assert out.requires_grad and out.grad_fn is not None
 
 
 @pytest.mark.cuda
@@ -117,6 +127,20 @@ def test_wrappers_refuse_grad_on_the_card(name):
     with torch.no_grad():
         call()
     torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_scan_backward_launches_its_kernel_on_the_card():
+    """Under grad on the card the scan returns an output with a grad_fn, and
+    its backward launches the backward kernel once."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the scan's backward kernel runs only there")
+    ss.reset_launches()
+    x, y = _scan_call("cuda")
+    assert y.grad_fn is not None and ss.selective_scan.launches == 1
+    y.sum().backward()
+    torch.cuda.synchronize()
+    assert ss.selective_scan_backward.launches == 1 and torch.isfinite(x.grad).all()
 
 
 # -- stage 4's route ------------------------------------------------------------------
