@@ -132,6 +132,9 @@ SOURCE = "surgical_tpu_torch/csrc/mit_block.cu"
 # wgmma (cuobjdump -sass, CUDA 12.9, on the H100 machine)
 SERVING_HGMMA = 84
 SCAN_SOURCE = "surgical_tpu_torch/csrc/selective_scan.cu"
+# Kernels of the first design that the redesigns retired: none may be left in
+# the library's SASS (gemm_bf16 and attention_kernel served packed2 alone).
+FIRST_DESIGN = ("gemm_bf16", "attention_kernel")
 
 # Selective scan at MambaConfig() widths: (videos, frames) per check. The
 # kernel cuts time into chunks (64 steps up to T = 2048, 192 at 6000):
@@ -387,8 +390,8 @@ def _compare(name, got, want, stage):
 def phase_kernel_checks() -> dict:
     """The serving kernels at B = CHECK_B (checked, timed, the plain version
     timed too) and at the main path's B = BATCH (checked and timed): the
-    block at stages 1-3, packed2 at stage 1 (CHECK_B only), the stage
-    kernel at stage 4."""
+    block at stages 1-3, packed2 at stage 1 (beside the block kernel on the
+    same inputs), the stage kernel at stage 4."""
     from surgical_tpu_torch.kernels import mit_block as mb
 
     rng = np.random.default_rng(SEED)
@@ -423,34 +426,42 @@ def phase_kernel_checks() -> dict:
 
     # packed2 at b3 stage 1: image pairs in 128-wide rows, the packed
     # weights of pack_weights2, at row_chunks 1 and 2 (the route's rule for
-    # the 56x56 grid); the bound is the function's work, block_work's
+    # the 56x56 grid) at CHECK_B, and at row_chunks 2 at the main path's
+    # BATCH; the bound is the function's work, block_work's; the block
+    # kernel (row 1) is timed on the same unpacked inputs
     C, side, Nkv, hidden = 64, 56, 49, 256
     N = side * side
-    x, k, v = _rand(rng, (B, N, C)), _rand(rng, (B, Nkv, C)), _rand(rng, (B, Nkv, C))
     w = _block_weights(rng, C, hidden)
     packed = mb.pack_weights2(w)
-    nbytes, flops = block_work(B, N, C, Nkv, hidden)
-    bms, by = bound_ms(nbytes, flops / BF16_FLOPS)
-    block_ms = time_ms(lambda: mb.fused_mit_block(x, k, v, w, heads=1, H=side, W=side))
-    unpacked = mb.fused_mit_block(x, k, v, w, heads=1, H=side, W=side)
     packed_rows = []
-    for rc in (1, 2):
-        kw = dict(H=side, W=side, row_chunks=rc)
-        got = mb.fused_mit_block_packed2(x, k, v, packed, **kw)
-        want = mb.fused_mit_block_packed2_plain(x, k, v, packed, **kw)
-        torch.cuda.synchronize()
-        shape = f"stage1 [B={B}, N={N}, C={C}, Nkv={Nkv}, hidden={hidden}, row_chunks={rc}]"
-        rel, mx = _compare(f"packed2 {shape}", got, want, 1)
-        vs_block = _errors("packed2", got, unpacked)
-        ms = time_ms(lambda: mb.fused_mit_block_packed2(x, k, v, packed, **kw))
-        plain_ms = time_ms(lambda: mb.fused_mit_block_packed2_plain(x, k, v, packed, **kw))
-        print(f"time packed2 rc={rc}: kernel {ms:.4f} ms plain {plain_ms:.4f} ms bound "
-              f"{bms:.4f} ms ({by}: {nbytes / 1e6:.2f} MB, {flops / 1e9:.2f} GFLOP) | "
-              f"mit_block_forward on the same unpacked inputs {block_ms:.4f} ms (outputs "
-              f"rel L2 {vs_block[0]:.3e}, max abs {vs_block[1]:.3e} apart)")
-        packed_rows.append({"shape": shape, "rel_l2": rel, "max_abs_err": mx, "ms": ms,
-                            "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-                            "block_ms": block_ms})
+    for b, rcs in ((B, (1, 2)), (BATCH, (2,))):
+        x, k, v = _rand(rng, (b, N, C)), _rand(rng, (b, Nkv, C)), _rand(rng, (b, Nkv, C))
+        nbytes, flops = block_work(b, N, C, Nkv, hidden)
+        bms, by = bound_ms(nbytes, flops / BF16_FLOPS)
+        block_ms = time_ms(lambda: mb.fused_mit_block(x, k, v, w, heads=1, H=side, W=side))
+        unpacked = mb.fused_mit_block(x, k, v, w, heads=1, H=side, W=side)
+        for rc in rcs:
+            kw = dict(H=side, W=side, row_chunks=rc)
+            got = mb.fused_mit_block_packed2(x, k, v, packed, **kw)
+            want = mb.fused_mit_block_packed2_plain(x, k, v, packed, **kw)
+            torch.cuda.synchronize()
+            shape = f"stage1 [B={b}, N={N}, C={C}, Nkv={Nkv}, hidden={hidden}, row_chunks={rc}]"
+            rel, mx = _compare(f"packed2 {shape}", got, want, 1)
+            vs_block = _errors("packed2", got, unpacked)
+            del got, want
+            ms = time_ms(lambda: mb.fused_mit_block_packed2(x, k, v, packed, **kw))
+            # the plain version repeats the kernel's arithmetic: timed at CHECK_B only
+            plain_ms = (time_ms(lambda: mb.fused_mit_block_packed2_plain(x, k, v, packed, **kw))
+                        if b == B else None)
+            print(f"time packed2 B={b} rc={rc}: kernel {ms:.4f} ms plain "
+                  f"{'-' if plain_ms is None else f'{plain_ms:.4f}'} ms bound {bms:.4f} ms "
+                  f"({by}: {nbytes / 1e6:.2f} MB, {flops / 1e9:.2f} GFLOP) | mit_block_forward "
+                  f"on the same unpacked inputs {block_ms:.4f} ms (outputs rel L2 "
+                  f"{vs_block[0]:.3e}, max abs {vs_block[1]:.3e} apart)")
+            packed_rows.append({"shape": shape, "B": b, "rel_l2": rel, "max_abs_err": mx,
+                                "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+                                "block_ms": block_ms})
+        del x, k, v, unpacked
     res["packed2"] = packed_rows
 
     C, heads, side, depth, Cb, C4 = 512, 8, 7, 3, 128, 128
@@ -514,7 +525,9 @@ def phase_sass() -> int:
     on Hopper's warpgroup tensor-core path. The serving products alone
     compiled to SERVING_HGMMA of them; the training products' instances
     (the scaled-residual epilogue, the K-major GELU-gradient and fp32
-    products) must add more."""
+    products) must add more. No kernel of the first design (FIRST_DESIGN)
+    may be left; the scan kernels' registers and shared memory are printed
+    from ``cuobjdump -res-usage``."""
     from surgical_tpu_torch.kernels import _build
 
     sass = subprocess.run([_cuobjdump(), "-sass", str(_build.build())], capture_output=True,
@@ -524,6 +537,17 @@ def phase_sass() -> int:
           f"products alone: {SERVING_HGMMA})")
     if n <= SERVING_HGMMA:
         raise AssertionError("the training products added no HGMMA instruction to the library")
+    functions = [ln.split("Function :", 1)[1].strip() for ln in sass.splitlines()
+                 if "Function :" in ln]
+    retired = [f for f in functions if any(r in f for r in FIRST_DESIGN)]
+    print(f"sass: {len(functions)} kernels; first-design kernels left: {retired or 'none'}")
+    if retired:
+        raise AssertionError(f"the first design's kernels are still in the library: {retired}")
+    res = subprocess.run([_cuobjdump(), "-res-usage", str(_build.build())], capture_output=True,
+                         text=True, check=True).stdout.splitlines()
+    for i, line in enumerate(res):  # "Function <mangled>:" then "REG:.. STACK:.. SHARED:.."
+        if "selective_scan" in line and i + 1 < len(res):
+            print(f"sass: {line.strip()} {res[i + 1].strip()}")
     return n
 
 
@@ -577,12 +601,21 @@ def phase_scan_checks() -> tuple[list, list]:
                      "bound_by": by, "device_ops": len(ops)})
         del got, want
     failed = []
+    usage = ss.backward_resources(SCAN_D)
+    cl = -(-SCAN_D // ss.CLUSTER_WARPS)
+    print(f"resources scan backward (cluster launch, D = {SCAN_D}): {usage['registers']} "
+          f"registers, {usage['local_bytes']} spill bytes per thread, "
+          f"{usage['static_smem']} + {usage['dynamic_smem']} bytes of shared memory, "
+          f"{ss.CLUSTER_WARPS * 32} threads and {usage['ctas_per_sm']} CTA(s) per SM, "
+          f"clusters of {cl}: {usage['active_clusters']} active at once")
     for Bt, T in SCAN_BWD_SHAPES:
         args = scan_inputs(rng, Bt, T)
         dy = torch.from_numpy(rng.standard_normal((Bt, T, SCAN_D)).astype(np.float32)).cuda()
-        _, pairs = ss.selective_scan_forward(*args)
-        got = ss.selective_scan_backward(*args, dy, pairs)
-        again = ss.selective_scan_backward(*args, dy, pairs)
+        y_states, states = ss.selective_scan_forward(*args, states=True)
+        if not torch.equal(y_states, ss.selective_scan_forward(*args)[0]):
+            failed.append(f"forward with states differs from forward without {Bt}x{T}")
+        got = ss.selective_scan_backward(*args, dy, states)
+        again = ss.selective_scan_backward(*args, dy, states)
         oracles = {"plain": ss.selective_scan_plain_backward(*args, dy)}
         if T <= SCAN_AUTOGRAD_T:
             ins = [a.clone().requires_grad_() for a in args]
@@ -610,24 +643,38 @@ def phase_scan_checks() -> tuple[list, list]:
         del oracles, again
         row = {"shape": shape, "T": T, "rel_l2": worst_rel, "max_abs_err": worst_abs}
         if T in SCAN_BWD_TIMED:
-            call = lambda: ss.selective_scan_backward(*args, dy, pairs)
+            call = lambda: ss.selective_scan_backward(*args, dy, states)
             ops = device_ops(call)
+            fwd_ops = device_ops(lambda: ss.selective_scan_forward(*args, states=True))
+            k2 = ss.backward_chunk(Bt, T, usage["active_clusters"])
+            clusters = Bt * -(-T // (ss.SUB_CHUNK * k2))
+            ctas, waves = clusters * cl, clusters / usage["active_clusters"]
             ms = time_ms(call)
             plain_ms = time_ms(lambda: ss.selective_scan_plain_backward(*args, dy), reps=3)
             nbytes, op_s = scan_bwd_work(Bt, T, SCAN_D, SCAN_N)
             bms, by = bound_ms(nbytes, op_s)
+            scratch = 4 * ss.backward_scratch_floats(Bt, T, SCAN_D, SCAN_N, k2)
+            state_bytes = 4 * int(np.prod(ss.states_shape(Bt, T, SCAN_D, SCAN_N)))
             print(f"time scan backward {shape}: kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
                   f"bound {bms:.4f} ms ({by}: {nbytes / 1e6:.2f} MB, "
                   f"{Bt * T * SCAN_D * SCAN_N / 1e6:.1f} M exp); {len(ops)} device ops per call "
-                  f"(at most {SCAN_BWD_MAX_OPS}): {', '.join(map(_op_name, ops))}")
+                  f"(at most {SCAN_BWD_MAX_OPS}): {', '.join(map(_op_name, ops))}; cluster "
+                  f"launch: chunks of {k2} sub-chunks, {clusters} clusters, {ctas} CTAs, "
+                  f"{waves:.2f} waves; scratch {scratch / 1e6:.2f} MB, the "
+                  f"forward's states {state_bytes / 1e6:.2f} MB ({len(fwd_ops)} device ops "
+                  f"for the forward with states)")
             if len(ops) > SCAN_BWD_MAX_OPS:
                 failed.append(f"device ops {shape}: {ops}")
-            row.update(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, device_ops=len(ops))
+            if len(fwd_ops) > SCAN_MAX_OPS:
+                failed.append(f"forward device ops with states {shape}: {fwd_ops}")
+            row.update(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, device_ops=len(ops),
+                       sub_chunks=k2, ctas=ctas, waves=waves, scratch_bytes=scratch,
+                       state_bytes=state_bytes)
         bwd_rows.append(row)
-        del got, args, dy, pairs
+        del got, args, dy, states, y_states
     if failed:
         raise AssertionError(f"selective_scan_backward disagrees or varies: {failed}")
-    return rows, bwd_rows
+    return rows, {"shapes": bwd_rows, "resources": usage}
 
 
 def phase_train_kernel_checks() -> dict:
@@ -1605,7 +1652,9 @@ def main() -> int:
          "launches": sl["route_launches"]["mit_block_packed2_forward"],
          "max_abs_err": max(r["max_abs_err"] for r in pk),
          "ms": pk[1]["ms"], "plain_ms": pk[1]["plain_ms"], "bound_ms": pk[1]["bound_ms"],
-         "bound_by": pk[1]["bound_by"], "library_ms": None, "shapes": pk},
+         "bound_by": pk[1]["bound_by"], "library_ms": None,
+         f"ms_b{BATCH}": pk[-1]["ms"], f"bound_ms_b{BATCH}": pk[-1]["bound_ms"],
+         f"block_ms_b{BATCH}": pk[-1]["block_ms"], "block_ms": pk[1]["block_ms"], "shapes": pk},
         {"name": "mit_stage_forward", "route": "cuda", "source": SOURCE,
          "replaces": "surgical_tpu/kernels/mit_block.py:1202",
          "launches": sl["launches"]["mit_stage_forward"],
@@ -1623,17 +1672,18 @@ def main() -> int:
          "library_ms": None, "device_ops_per_call": max(r["device_ops"] for r in scan),
          "shapes": scan},
     ]
-    bwd_main = [r for r in scan_bwd if "ms" in r]
+    bwd_main = [r for r in scan_bwd["shapes"] if "ms" in r]
     kernels.append({
         "name": "selective_scan_backward", "route": "cuda", "source": SCAN_SOURCE,
         "replaces": "surgical_tpu/kernels/selective_scan.py:62 (jax.grad of the XLA scan; "
                     "no TPU kernel)",
         "launches": tt["mamba"]["launches"]["selective_scan_backward"],
-        "max_abs_err": max(r["max_abs_err"] for r in scan_bwd),
+        "max_abs_err": max(r["max_abs_err"] for r in scan_bwd["shapes"]),
         "ms": summed(bwd_main, "ms"), "plain_ms": summed(bwd_main, "plain_ms"),
         "bound_ms": summed(bwd_main, "bound_ms"), "bound_by": by(bwd_main), "library_ms": None,
         "device_ops_per_call": max(r["device_ops"] for r in bwd_main),
-        "step_ms": tt["step_ms"], "shapes": scan_bwd})
+        "step_ms": tt["step_ms"], "resources": scan_bwd["resources"],
+        "shapes": scan_bwd["shapes"]})
     for name, line, key in (("mit_block_train_forward", 1645, "forward"),
                             ("mit_block_train_mlp_backward", 1695, "mlp_backward"),
                             ("mit_block_train_attn_backward", 1729, "attn_backward")):

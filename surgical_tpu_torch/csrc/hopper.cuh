@@ -1,4 +1,5 @@
-// Hopper (sm_90a) building blocks for the MiT kernels: mbarriers,
+// Hopper (sm_90a) building blocks for the MiT kernels (and cp.async for the
+// scan's backward): mbarriers,
 // TMA tile loads with 128-byte swizzle, wgmma (m64n64k16, bf16 in, fp32
 // accumulate) with shared-memory descriptors, and mma.sync / ldmatrix /
 // cp.async for the attention tiles. Host side: 2-D tensor maps through the driver entry

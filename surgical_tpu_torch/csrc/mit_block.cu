@@ -27,9 +27,8 @@
 // device memory for a few hundred FLOPs per byte at most, so they are bound
 // by bytes, not by the tensor cores; stage 3-4 GEMMs are closer to the
 // ridge. The attention over the 49 spatially-reduced keys is small work
-// that the TPU spread over MXU dots; here the serving and training forward
-// and the training attention backward run it on the tensor cores
-// (mma.sync), the packed2 forward on the CUDA cores.
+// that the TPU spread over MXU dots; here every forward and the training
+// attention backward run it on the tensor cores (mma.sync).
 //
 // Each entry point is a short chain of hand-written kernels on the caller's
 // stream --
@@ -41,15 +40,14 @@
 // bias / GELU / residual into its epilogue, so neither LN output nor a
 // pre-bias product goes to memory.
 //
-// Every entry point but packed2 runs on Hopper's own paths (see "wgmma
-// kernels" below): wgmma_linear, wgmma products fed by a TMA ring with the
-// A panel resident in shared memory (LayerNorm'd or row-scaled in place
-// there, and for the backward the weights read K-major as their
-// transposes); attention_tc_kernel, the attention on the tensor cores with
-// K and V staged once per CTA; and attention_bwd_tc_kernel, the training
-// attention backward on the same mma.sync fragments. Their launch plans come
-// from the Python wrapper. The first design's gemm_bf16 (wmma, one stage of
-// synchronous loads) and attention_kernel (CUDA cores) serve packed2 only.
+// Every entry point runs on Hopper's own paths (see "wgmma kernels"
+// below): wgmma_linear, wgmma products fed by a TMA ring with the A panel
+// resident in shared memory (LayerNorm'd, per-half LayerNorm'd or
+// row-scaled in place there, and for the backward the weights read K-major
+// as their transposes); attention_tc_kernel, the attention on the tensor
+// cores with K and V staged once per CTA; and attention_bwd_tc_kernel, the
+// training attention backward on the same mma.sync fragments. Their launch
+// plans come from the Python wrapper.
 // The MLP tail fused on chip (the Pallas body's mlp_chunk
 // form, hid and act kept out of device memory) was built and measured
 // slower than this chain at every b3 stage (PERF.md, Findings), so it is not
@@ -61,54 +59,22 @@
 // output are rounded to bf16 where the Pallas body rounds them.
 
 #include <math_constants.h>
-#include <mma.h>
 
 #include <cmath>
 
 #include "common.cuh"
 #include "hopper.cuh"
 
-using namespace nvcuda;
-
 namespace {
 
-// ---------------------------------------------------------------- GEMM ----
-// The first design's product, kept for packed2: out[M, N] = epilogue(
-// A'[M, K] @ Bw[K, N] ). A' by prologue:
-//   kPlain      A
-//   kGroupLN    bf16(LayerNorm of each K/2-wide half of A) with fp32 scale
-//               and bias (lnf_g, lnf_b): the lane-packed rows of packed2
-// and with v the fp32 product, the epilogue (Epi, shared with wgmma_linear,
-// which takes the rest) writes:
-//   kBias          bf16(v + bias)
-//   kBiasRes       bf16(res + (v + bias))
-// bf16 wmma 16x16x16 with fp32 accumulate; 64x64 output tile per CTA, four
-// warps of 32x32. Ragged M/N/K edges are zero-filled on load and masked on
-// store. K, N and every leading dimension are multiples of 8 (checked by the
-// wrapper) so each 8-wide chunk is 16-byte aligned and wholly in or out.
-constexpr int BM = 64, BN = 64, BK = 32, GEMM_THREADS = 128;
 constexpr int LN_MAX_K = 512;  // a LayerNorm row is held in registers
+constexpr int HD = 64, MAX_KV = 64;  // head width; keys per head at most
 
-// A prologue on the A operand: none, LayerNorm (wgmma_linear's resident
-// panel), the row scale bf16(A * rowscale[row / mrows]) (the same panel), or
-// LayerNorm per K/2-wide half (gemm_bf16, packed2).
+// A prologue on the A operand of wgmma_linear's resident panel: none,
+// LayerNorm, the row scale bf16(A * rowscale[row / mrows]), or LayerNorm
+// per K/2-wide half (the lane-packed rows of packed2).
 enum class Pro { kPlain, kLN, kRowScale, kGroupLN };
 enum class Epi { kBias, kBiasGelu, kBiasRes, kBiasResScale, kGeluGrad, kPlain, kF32 };
-
-struct GemmArgs {
-  const bf16* A;
-  int lda;
-  const bf16* Bw;
-  int ldb;
-  const bf16* bias;
-  const float* lnf_g;  // kGroupLN: fp32 scale and bias [K]
-  const float* lnf_b;
-  const bf16* res;  // kBiasRes: may alias out (same thread reads, then writes)
-  int ldr;
-  bf16* out;
-  int ldo;
-  int M, N, K;
-};
 
 // LayerNorm statistics of one row of K <= LN_MAX_K values, one warp per row:
 // mean, then rstd from the biased variance and LN_EPS. vals[i] receives
@@ -131,209 +97,6 @@ __device__ __forceinline__ void row_stats(const bf16* row, int K, int lane,
     if (lane + 32 * i < K) ss += d * d;
   }
   rstd = rsqrtf(warp_sum(ss) / K + LN_EPS);
-}
-
-// The same statistics for each K/2-wide half of the row (the two images of
-// a lane-packed row; mit_block.py::_ln_packed2). K/2 is a multiple of 32, so
-// element lane + 32 i lies in half (32 i >= K/2) whatever the lane.
-__device__ __forceinline__ void row_stats2(const bf16* row, int K, int lane, float (&mean)[2],
-                                           float (&rstd)[2]) {
-  const int G = K / 2;
-  float vals[LN_MAX_K / 32], s0 = 0.f, s1 = 0.f;
-#pragma unroll
-  for (int i = 0; i < LN_MAX_K / 32; ++i) {
-    const int c = lane + 32 * i;
-    vals[i] = c < K ? bf2f(row[c]) : 0.f;
-    if (32 * i < G) s0 += vals[i];
-    else s1 += vals[i];  // 0 past K
-  }
-  mean[0] = warp_sum(s0) / G;
-  mean[1] = warp_sum(s1) / G;
-  float ss0 = 0.f, ss1 = 0.f;
-#pragma unroll
-  for (int i = 0; i < LN_MAX_K / 32; ++i) {
-    if (lane + 32 * i >= K) continue;
-    if (32 * i < G) ss0 += (vals[i] - mean[0]) * (vals[i] - mean[0]);
-    else ss1 += (vals[i] - mean[1]) * (vals[i] - mean[1]);
-  }
-  rstd[0] = rsqrtf(warp_sum(ss0) / G + LN_EPS);
-  rstd[1] = rsqrtf(warp_sum(ss1) / G + LN_EPS);
-}
-
-template <Pro PRO, Epi EPI>
-__global__ void __launch_bounds__(GEMM_THREADS) gemm_bf16(const GemmArgs a) {
-  static_assert(PRO == Pro::kPlain || PRO == Pro::kGroupLN,
-                "gemm_bf16 takes no prologue or the per-half LayerNorm");
-  static_assert(EPI == Epi::kBias || EPI == Epi::kBiasRes,
-                "gemm_bf16 takes the bias and residual epilogues");
-  __shared__ __align__(32) bf16 As[BM][BK + 8];
-  __shared__ __align__(32) bf16 Bs[BK][BN + 8];
-  __shared__ __align__(32) float Cs[BM][BN + 4];
-  __shared__ float s_mean[BM][2], s_rstd[BM][2];  // kGroupLN: [row][half]
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-  const int M = a.M, N = a.N, K = a.K;
-
-  if constexpr (PRO == Pro::kGroupLN) {  // this CTA's row statistics
-    for (int r = warp; r < BM; r += GEMM_THREADS / 32) {
-      const int gm = m0 + r;
-      float mean[2] = {0.f, 0.f}, rstd[2] = {0.f, 0.f};
-      if (gm < M) row_stats2(a.A + (size_t)gm * a.lda, K, lane, mean, rstd);
-      if (lane == 0) {
-        s_mean[r][0] = mean[0], s_mean[r][1] = mean[1];
-        s_rstd[r][0] = rstd[0], s_rstd[r][1] = rstd[1];
-      }
-    }
-    __syncthreads();
-  }
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
-
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    for (int c = tid; c < BM * BK / 8; c += GEMM_THREADS) {
-      const int r = c / (BK / 8), kc = (c % (BK / 8)) * 8;
-      const int gm = m0 + r, gk = k0 + kc;
-      uint4 val = make_uint4(0, 0, 0, 0);
-      if (gm < M && gk < K) {
-        val = load8(a.A + (size_t)gm * a.lda + gk);
-        bf16* e = lanes8(val);
-        if constexpr (PRO == Pro::kGroupLN) {
-          const int h = gk >= K / 2;  // an 8-wide chunk lies in one half
-          const float mu = s_mean[r][h], rs = s_rstd[r][h];
-#pragma unroll
-          for (int i = 0; i < 8; ++i)
-            e[i] = f2bf((bf2f(e[i]) - mu) * rs * a.lnf_g[gk + i] + a.lnf_b[gk + i]);
-        }
-      }
-      store8(&As[r][kc], val);
-    }
-    for (int c = tid; c < BK * BN / 8; c += GEMM_THREADS) {
-      const int r = c / (BN / 8), nc = (c % (BN / 8)) * 8;
-      const int gk = k0 + r, gn = n0 + nc;
-      uint4 val = make_uint4(0, 0, 0, 0);
-      if (gk < K && gn < N) val = load8(a.Bw + (size_t)gk * a.ldb + gn);
-      store8(&Bs[r][nc], val);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> af[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bfr[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) wmma::load_matrix_sync(af[i], &As[wm + 16 * i][kk], BK + 8);
-#pragma unroll
-      for (int j = 0; j < 2; ++j) wmma::load_matrix_sync(bfr[j], &Bs[kk][wn + 16 * j], BN + 8);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], af[i], bfr[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(&Cs[wm + 16 * i][wn + 16 * j], acc[i][j], BN + 4,
-                              wmma::mem_row_major);
-  __syncthreads();
-
-  // epilogue; `res` may alias `out`: each element is read and written by
-  // the same thread
-  for (int c = tid; c < BM * BN / 8; c += GEMM_THREADS) {
-    const int r = c / (BN / 8), nc = (c % (BN / 8)) * 8;
-    const int gm = m0 + r, gn = n0 + nc;
-    if (gm >= M || gn >= N) continue;
-    uint4 bv = load8(a.bias + gn), rv = make_uint4(0, 0, 0, 0), ov;
-    if constexpr (EPI == Epi::kBiasRes) rv = load8(a.res + (size_t)gm * a.ldr + gn);
-    bf16 *be = lanes8(bv), *re = lanes8(rv), *oe = lanes8(ov);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      float v = Cs[r][nc + i] + bf2f(be[i]);
-      if constexpr (EPI == Epi::kBiasRes) v = bf2f(re[i]) + v;
-      oe[i] = f2bf(v);
-    }
-    store8(a.out + (size_t)gm * a.ldo + gn, ov);
-  }
-}
-
-// ----------------------------------------------------------- attention ----
-// One CTA per (image, head, 64 query rows); K and V of that head live in
-// shared memory as fp32 (K rows padded to HD+1 so the per-lane key reads hit
-// distinct banks). Each warp walks 16 query rows: lane j scores keys j and
-// j+32 (Nkv <= 64), fp32 softmax with warp shuffles, probabilities rounded
-// to bf16 before P.V (mit_block.py:163), ctx rounded to bf16.
-constexpr int HD = 64, ATT_ROWS = 64, ATT_THREADS = 128, MAX_KV = 64;
-
-__global__ void __launch_bounds__(ATT_THREADS)
-attention_kernel(const bf16* __restrict__ q, int ldq, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, int ldkv, bf16* __restrict__ ctx, int ldc,
-                 int N, int Nkv, int heads, float scale) {
-  __shared__ float Ks[MAX_KV][HD + 1];
-  __shared__ float Vs[MAX_KV][HD];
-  __shared__ float Qs[ATT_THREADS / 32][HD];
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int b = blockIdx.y / heads, h = blockIdx.y % heads;
-  const size_t kv_row0 = (size_t)b * Nkv;
-  for (int idx = tid; idx < Nkv * HD; idx += ATT_THREADS) {
-    const int j = idx / HD, d = idx % HD;
-    const size_t off = (kv_row0 + j) * ldkv + h * HD + d;
-    Ks[j][d] = bf2f(k[off]);
-    Vs[j][d] = bf2f(v[off]);
-  }
-  __syncthreads();
-
-  const int rows_per_warp = ATT_ROWS / (ATT_THREADS / 32);
-  const int r0 = blockIdx.x * ATT_ROWS + warp * rows_per_warp;
-  for (int i = 0; i < rows_per_warp; ++i) {
-    const int row = r0 + i;
-    if (row >= N) break;
-    const size_t qoff = ((size_t)b * N + row) * ldq + h * HD;
-    Qs[warp][lane] = bf2f(q[qoff + lane]);
-    Qs[warp][lane + 32] = bf2f(q[qoff + lane + 32]);
-    __syncwarp();
-
-    float s[2];
-#pragma unroll
-    for (int jj = 0; jj < 2; ++jj) {
-      const int j = lane + 32 * jj;
-      if (j < Nkv) {
-        float dot = 0.f;
-#pragma unroll 16
-        for (int d = 0; d < HD; ++d) dot += Qs[warp][d] * Ks[j][d];
-        s[jj] = dot * scale;
-      } else {
-        s[jj] = -CUDART_INF_F;
-      }
-    }
-    const float m = warp_max(fmaxf(s[0], s[1]));
-    float e[2];
-#pragma unroll
-    for (int jj = 0; jj < 2; ++jj) e[jj] = (lane + 32 * jj < Nkv) ? expf(s[jj] - m) : 0.f;
-    const float denom = warp_sum(e[0] + e[1]);
-    float p[2];
-#pragma unroll
-    for (int jj = 0; jj < 2; ++jj) p[jj] = bf2f(f2bf(e[jj] / denom));
-
-    float a0 = 0.f, a1 = 0.f;
-    for (int j = 0; j < Nkv; ++j) {
-      const float pj = __shfl_sync(FULL_MASK, j < 32 ? p[0] : p[1], j & 31);
-      a0 += pj * Vs[j][lane];
-      a1 += pj * Vs[j][lane + 32];
-    }
-    const size_t coff = ((size_t)b * N + row) * ldc + h * HD;
-    ctx[coff + lane] = f2bf(a0);
-    ctx[coff + lane + 32] = f2bf(a1);
-    __syncwarp();
-  }
 }
 
 // ------------------------------------------------- depthwise conv + GELU ----
@@ -486,43 +249,19 @@ __global__ void lane_pack2_kernel(const bf16* __restrict__ in, bf16* __restrict_
 }
 
 // ------------------------------------------------------------- launchers ----
-template <Pro PRO, Epi EPI>
-void launch_gemm(cudaStream_t s, const GemmArgs& a) {
-  dim3 grid((a.M + BM - 1) / BM, (a.N + BN - 1) / BN);
-  gemm_bf16<PRO, EPI><<<grid, GEMM_THREADS, 0, s>>>(a);
-}
-
-// A GemmArgs for out[M, N] = A[M, K] @ Bw[K, N] with every leading dimension
-// the matrices' own widths.
-GemmArgs dense_args(const bf16* A, const bf16* Bw, void* out, int M, int N, int K) {
-  GemmArgs a{};
-  a.A = A, a.lda = K, a.Bw = Bw, a.ldb = N, a.out = static_cast<bf16*>(out);
-  a.ldo = N;
-  a.M = M, a.N = N, a.K = K;
-  return a;
-}
-
 int grid_for(size_t work, int threads) {
   const size_t blocks = (work + threads - 1) / threads;
   return (int)(blocks < 65535 * 16 ? blocks : 65535 * 16);
 }
 
-void attention(cudaStream_t s, const bf16* q, const bf16* k, const bf16* v, int ldkv, bf16* ctx,
-               int B, int N, int Nkv, int C, int heads) {
-  dim3 grid((N + ATT_ROWS - 1) / ATT_ROWS, B * heads);
-  attention_kernel<<<grid, ATT_THREADS, 0, s>>>(q, C, k, v, ldkv, ctx, C, N, Nkv, heads,
-                                                1.0f / sqrtf((float)HD));
-}
-
 // ======================================================= wgmma kernels ====
-// The products and the attention of mit_block_forward, mit_stage_forward
-// (the serving path) and the three training entry points, redesigned for
-// Hopper; packed2 keeps the first design's pieces above. All keep
-// dwconv3x3_kernel.
+// The products and the attention of mit_block_forward, packed2,
+// mit_stage_forward (the serving path) and the three training entry
+// points, redesigned for Hopper. All keep dwconv3x3_kernel.
 
 // ---------------------------------------------------- wgmma_linear ----
-// out[M, N] = epilogue(A'[M, K] @ B[K, N]), A' = A, bf16(LayerNorm(A)) or
-// bf16(A * rowscale[row / mrows]) (Pro), B = Bw [K, N] or, with BT, Bw^T for
+// out[M, N] = epilogue(A'[M, K] @ B[K, N]), A' = A, bf16(LayerNorm(A)), the
+// same per K/2-wide half or bf16(A * rowscale[row / mrows]) (Pro), B = Bw [K, N] or, with BT, Bw^T for
 // Bw stored [N, K], on the tensor cores
 // with wgmma. A CTA owns 128 rows and walks `tiles_per_cta` output tiles of
 // 64 NSLAB columns. One producer warp feeds a ring of WG_STAGES weight
@@ -534,7 +273,8 @@ void attention(cudaStream_t s, const bf16* q, const bf16* k, const bf16* v, int 
 //   RESIDENT (K <= WG_PANEL_MAX_K): the CTA's A panel [128 x K] is loaded
 //   once and serves every N tile. With kLN each row's statistics are taken
 //   once from the panel and bf16(LN(A)) written back in place, the rounding
-//   of the Pallas body's xln; with kRowScale each row is scaled and rounded
+//   of the Pallas body's xln (kGroupLN: per 64-lane half, packed2's rows,
+//   with fp32 scale and bias); with kRowScale each row is scaled and rounded
 //   in place, the rounding of the attention backward's dattn = bf16(dx1 m1).
 //   Otherwise A tiles [128 x 64] stream through the ring beside B.
 // The epilogue runs on the accumulators in registers: a shuffle within each
@@ -563,6 +303,7 @@ struct WgArgs {
   int mrows;
   const bf16* aux;  // Epi::kGeluGrad: the GELU input [M, N], leading dimension ldx
   int ldx;
+  const float* lnf;  // Pro::kGroupLN: fp32 scale [K], then bias [K]; else ln_g, ln_b
 };
 
 // Byte offset of 16-byte chunk `ch` (columns 8 ch .. 8 ch + 7) of row r of a
@@ -667,6 +408,45 @@ __device__ __forceinline__ void ln_panel_rows(unsigned char* panel, int row0, in
   }
 }
 
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(bf16 v) { return bf2f(v); }
+
+// bf16(LayerNorm of each K/2-wide half) in place for panel rows row0 ..
+// row0 + 15, by one warp, with scale g [K] and bias b [K] (fp32 for packed2's
+// LN1, bf16 for its LN2): the lane-packed rows of packed2
+// (mit_block.py::_ln_packed2), K = 2 HD = 128. A row is held by 16 lanes
+// (one 16-byte chunk each), each half by 8 of them; values round to bf16
+// where the Pallas body's xln does.
+template <typename T>
+__device__ __forceinline__ void gln_panel_rows(unsigned char* panel, int row0, const T* g,
+                                               const T* b, int lane) {
+  constexpr int K = 2 * HD, L = K / 8, G = L / 2, PER = 32 / L;
+  const int ch = lane % L;
+#pragma unroll
+  for (int it = 0; it < 16 / PER; ++it) {
+    const int r = row0 + it * PER + lane / L;
+    uint4* p = reinterpret_cast<uint4*>(panel + panel_chunk(r, ch));
+    uint4 v = *p;
+    bf16* e = lanes8(v);
+    float s = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) s += bf2f(e[j]);
+#pragma unroll
+    for (int o = G / 2; o > 0; o >>= 1) s += __shfl_xor_sync(FULL_MASK, s, o);
+    const float mean = s / (K / 2);
+    float ss = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) ss += (bf2f(e[j]) - mean) * (bf2f(e[j]) - mean);
+#pragma unroll
+    for (int o = G / 2; o > 0; o >>= 1) ss += __shfl_xor_sync(FULL_MASK, ss, o);
+    const float rstd = rsqrtf(ss / (K / 2) + LN_EPS);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      e[j] = f2bf((bf2f(e[j]) - mean) * rstd * to_f32(g[ch * 8 + j]) + to_f32(b[ch * 8 + j]));
+    *p = v;
+  }
+}
+
 // bf16(A * rowscale[row / mrows]) in place for panel rows row0 .. row0 +
 // 15 (global rows m0 + r), by one warp; rows past M are TMA's zeros and stay.
 __device__ __forceinline__ void scale_panel_rows(unsigned char* panel, int row0, int m0,
@@ -763,7 +543,6 @@ template <Pro PRO, Epi EPI, int NSLAB, bool RESIDENT, bool BT>
 __global__ void __launch_bounds__(WG_THREADS, 2)
     wgmma_linear(const __grid_constant__ CUtensorMap tma, const __grid_constant__ CUtensorMap tmb,
                  const WgArgs a) {
-  static_assert(PRO != Pro::kGroupLN, "the per-half LayerNorm is gemm_bf16's");
   static_assert(PRO == Pro::kPlain || RESIDENT, "a prologue works on a resident panel");
   extern __shared__ unsigned char wg_smem_raw[];
   const uint32_t raw = smem_addr(wg_smem_raw);
@@ -825,6 +604,12 @@ __global__ void __launch_bounds__(WG_THREADS, 2)
     if constexpr (PRO != Pro::kPlain) {
       if constexpr (PRO == Pro::kLN)
         ln_panel_rows(panel, 64 * wg + 16 * (warp & 3), a.K, a.ln_g, a.ln_b, lane);
+      else if constexpr (PRO == Pro::kGroupLN) {
+        if (a.lnf != nullptr)
+          gln_panel_rows(panel, 64 * wg + 16 * (warp & 3), a.lnf, a.lnf + a.K, lane);
+        else
+          gln_panel_rows(panel, 64 * wg + 16 * (warp & 3), a.ln_g, a.ln_b, lane);
+      }
       else
         scale_panel_rows(panel, 64 * wg + 16 * (warp & 3), m0, a, lane);
       fence_proxy_async();
@@ -887,16 +672,17 @@ int wg_launch(cudaStream_t s, dim3 grid, int smem, const CUtensorMap& ta, const 
 // resident, tiles_per_cta, grid_x, grid_y, smem_bytes]. B is Bw stored [K,
 // N] (read MN-major), or with BT the transpose of Bw stored [N, K] (read
 // K-major: a forward weight [in, out] read transposed for an input
-// gradient). The trailing arguments serve the row-scale prologue and the
-// scaled-residual and GELU-gradient epilogues. A plan that does not fit the
-// shapes is refused with cudaErrorInvalidValue; so is a tensor map that
-// cannot be made.
+// gradient). The trailing arguments serve the row-scale prologue, the
+// scaled-residual and GELU-gradient epilogues and the per-half LayerNorm
+// (at K = 128, its scale and bias fp32 in lnf or bf16 in ln_g, ln_b). A plan that does not fit the shapes is refused with
+// cudaErrorInvalidValue; so is a tensor map that cannot be made.
 template <Pro PRO, Epi EPI, bool BT = false>
 int wg_linear(cudaStream_t s, const int* plan, const bf16* A, const bf16* Bw, const bf16* bias,
               const bf16* ln_g, const bf16* ln_b, const bf16* res, int ldr, void* out, int ldo,
               int M, int N, int K, const float* rowscale = nullptr, int mrows = 1,
-              const bf16* aux = nullptr, int ldx = 0) {
-  static_assert(!(PRO == Pro::kLN && BT), "no LayerNorm'd product reads its weight transposed");
+              const bf16* aux = nullptr, int ldx = 0, const float* lnf = nullptr) {
+  static_assert(!((PRO == Pro::kLN || PRO == Pro::kGroupLN) && BT),
+                "no LayerNorm'd product reads its weight transposed");
   const int bn = plan[0], tpc = plan[2], smem = plan[5];
   const bool resident = plan[1] != 0;
   const int ntiles = bn > 0 ? (N + bn - 1) / bn : 0;
@@ -904,13 +690,15 @@ int wg_linear(cudaStream_t s, const int* plan, const bf16* A, const bf16* Bw, co
   if ((bn != 64 && bn != 128) || tpc < 1 || (resident && K > WG_PANEL_MAX_K) ||
       (PRO != Pro::kPlain && !resident) || (PRO == Pro::kRowScale && rowscale == nullptr) ||
       plan[3] != (M + WG_BM - 1) / WG_BM || plan[4] != (ntiles + tpc - 1) / tpc ||
-      smem != wg_smem_bytes(K, bn, resident) || smem > SMEM_LIMIT || K % 8 || N % 8 || mrows < 1)
+      smem != wg_smem_bytes(K, bn, resident) || smem > SMEM_LIMIT || K % 8 || N % 8 || mrows < 1 ||
+      (PRO == Pro::kGroupLN && (K != 2 * HD || (lnf == nullptr && (ln_g == nullptr ||
+                                                                     ln_b == nullptr)))))
     return bad;
   CUtensorMap ta, tb;
   if (!make_tensor_map(&ta, A, M, K, WG_BM, WG_BK) ||
       !(BT ? make_tensor_map(&tb, Bw, N, K, 64, WG_BK) : make_tensor_map(&tb, Bw, K, N, WG_BK, 64)))
     return bad;
-  WgArgs a{ln_g, ln_b, bias, res, out, M, N, K, ldr, ldo, tpc, rowscale, mrows, aux, ldx};
+  WgArgs a{ln_g, ln_b, bias, res, out, M, N, K, ldr, ldo, tpc, rowscale, mrows, aux, ldx, lnf};
   const dim3 grid(plan[3], plan[4]);
   if constexpr (PRO != Pro::kPlain) {
     return bn == 64 ? wg_launch<PRO, EPI, 1, true, BT>(s, grid, smem, ta, tb, a)
@@ -1353,9 +1141,10 @@ constexpr int GEMM_PLAN = 6, ATTN_PLAN = 3;
 // x1 = x + (ctx @ wo + bo) into x1buf; y = x1 + fc2(gelu(dwconv(fc1(LN2(x1)))))
 // through hid and act. With SCALE (the training block) each fp32 branch is
 // first scaled per image: by m1 [B] for the attention branch, m2 [B] for
-// the MLP branch. plan: the out, fc1 and fc2 product plans. y may alias x
-// (the stage's in-place residual stream), not x1buf.
-template <bool SCALE>
+// the MLP branch. LN2 kGroupLN (packed2) takes LN2 per 64-lane half.
+// plan: the out, fc1 and fc2 product plans. y may alias x (the stage's
+// in-place residual stream), not x1buf.
+template <bool SCALE, Pro LN2 = Pro::kLN>
 int out_and_mlp(cudaStream_t s, const int* plan, const bf16* x, const bf16* ctx, const bf16* wo,
                 const bf16* bo, const bf16* ln2_g, const bf16* ln2_b, const bf16* w1,
                 const bf16* b1, const bf16* wdw, const bf16* bdw, const bf16* w2, const bf16* b2,
@@ -1365,8 +1154,8 @@ int out_and_mlp(cudaStream_t s, const int* plan, const bf16* x, const bf16* ctx,
   const int N = H * W, M = B * N;
   TRY((wg_linear<Pro::kPlain, RES>(s, plan, ctx, wo, bo, nullptr, nullptr, x, C, x1buf, C, M, C, C,
                                    m1, N)));
-  TRY((wg_linear<Pro::kLN, Epi::kBias>(s, plan + GEMM_PLAN, x1buf, w1, b1, ln2_g, ln2_b, nullptr, 0,
-                                       hid, hidden, M, hidden, C)));
+  TRY((wg_linear<LN2, Epi::kBias>(s, plan + GEMM_PLAN, x1buf, w1, b1, ln2_g, ln2_b, nullptr, 0,
+                                  hid, hidden, M, hidden, C)));
   dwconv3x3_kernel<true><<<grid_for((size_t)M * hidden / 8, 256), 256, 0, s>>>(
       hid, wdw, bdw, act, B, H, W, hidden);
   TRY((wg_linear<Pro::kPlain, RES>(s, plan + 2 * GEMM_PLAN, act, w2, b2, nullptr, nullptr, x1buf, C,
@@ -1409,30 +1198,38 @@ int mit_block_forward(const void* x, const void* k, const void* v, const void* l
 // packed weights are used as given, as full 128-wide products (wq, wo
 // [128, 128], w1 [128, hidden], w2 [hidden, 128], wdw [9, hidden]), so any
 // packed dict gives the TPU kernel's function, not only block-diagonal ones.
-// On the packed rows:
-//   LN1 per 64-lane half (ln1 [2, 128] fp32: scale, bias) in the q GEMM's
-//   prologue; attention at heads = 2, head_dim 64 over k, v packed the same
-//   way, which is the per-image segment softmax of the TPU body (each
-//   segment takes its own max: the TPU body's row-global max is the same in
-//   real arithmetic); out projection + residual; LN2 per half (ln2 [2, 128]
-//   fp32) in fc1's prologue; dwconv 3x3 + GELU; fc2 + residual.
+// It is mit_block_forward's chain on the packed rows, with the per-half
+// LayerNorm in the resident-panel prologue:
+//   q = LN1(xp) wq + bq, LN1 per 64-lane half (ln1 [2, 128] fp32: scale,
+//   bias), on wgmma_linear (kGroupLN); attention_tc at heads = 2, head_dim
+//   64 and leading dimension 128 over k, v packed the same way, which is
+//   the per-image segment softmax of the TPU body (each segment takes its
+//   own max: the TPU body's row-global max is the same in real arithmetic);
+//   then out_and_mlp: xp + ctx wo + bo, hid = LN2(x1) w1 + b1 per half
+//   (ln2_g, ln2_b [128] bf16, K = 128 resident), dwconv 3x3 + GELU, xp =
+//   x1 + act w2 + b2 (K = hidden = 512, resident).
 // The TPU kernel's row bands (row_chunks) bound its VMEM; here every kernel
-// sees the whole grid, and the zero-edge dwconv is that same function. Like
-// the stage-1 block it is bound by bytes: the full 128-wide products double
-// the block GEMMs' FLOPs but leave them far under the ridge.
-// Pack and unpack are copies around the chain. Scratch: xp [P*N, 128]
-// (x, then the residual stream in place), kp, vp [P*Nkv, 128], q, ctx
-// [P*N, 128], hid, act [P*N, hidden]. y [B, N, 64] must not alias x.
+// sees the whole grid, and the zero-edge dwconv is that same function.
+// Pack and unpack stay copies around the chain (lane_pack2_kernel: 3 + 1 of
+// the call's 10 launches): the products' tensor maps read rows of 128 lanes,
+// and a packed row is two 128-byte runs of two images. `plan` (host memory,
+// kernels/mit_block.py::packed2_plan) is block_plan's record for the packed
+// rows. Scratch: xp [P*N, 128] (x, then the residual stream in place), kp,
+// vp [P*Nkv, 128], q [P*N, 128] (q, then x1), ctx [P*N, 128], hid, act
+// [P*N, hidden]. y [B, N, 64] must not alias x.
 int mit_block_packed2_forward(const void* x, const void* k, const void* v, const void* ln1,
                               const void* wq, const void* bq, const void* wo, const void* bo,
-                              const void* ln2, const void* w1, const void* b1, const void* wdw,
-                              const void* bdw, const void* w2, const void* b2, void* xp, void* kp,
-                              void* vp, void* q, void* ctx, void* hid, void* act, void* y, int B,
-                              int H, int W, int Nkv, int hidden, void* stream) {
+                              const void* ln2_g, const void* ln2_b, const void* w1,
+                              const void* b1, const void* wdw,
+                              const void* bdw, const void* w2, const void* b2, const void* plan,
+                              void* xp, void* kp, void* vp, void* q, void* ctx, void* hid,
+                              void* act, void* y, int B, int H, int W, int Nkv, int hidden,
+                              void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   typedef const bf16* P;
   constexpr int C = HD, C2 = 2 * HD;  // 64 channels per image, two images per row
   const int pairs = B / 2, N = H * W, M = pairs * N;
+  const int* pl = (const int*)plan;
   const int pack_threads = 256;
   lane_pack2_kernel<true><<<grid_for((size_t)M * C2 / 8, pack_threads), pack_threads, 0, s>>>(
       (P)x, (bf16*)xp, pairs, N, C);
@@ -1440,21 +1237,14 @@ int mit_block_packed2_forward(const void* x, const void* k, const void* v, const
                             0, s>>>((P)k, (bf16*)kp, pairs, Nkv, C);
   lane_pack2_kernel<true><<<grid_for((size_t)pairs * Nkv * C2 / 8, pack_threads), pack_threads,
                             0, s>>>((P)v, (bf16*)vp, pairs, Nkv, C);
-  GemmArgs a = dense_args((P)xp, (P)wq, q, M, C2, C2);  // q = LN1(xp) wq + bq
-  a.bias = (P)bq, a.lnf_g = (const float*)ln1, a.lnf_b = (const float*)ln1 + C2;
-  launch_gemm<Pro::kGroupLN, Epi::kBias>(s, a);
-  attention(s, (P)q, (P)kp, (P)vp, C2, (bf16*)ctx, pairs, N, Nkv, C2, 2);
-  a = dense_args((P)ctx, (P)wo, xp, M, C2, C2);  // xp += ctx wo + bo
-  a.bias = (P)bo, a.res = (P)xp, a.ldr = C2;
-  launch_gemm<Pro::kPlain, Epi::kBiasRes>(s, a);
-  a = dense_args((P)xp, (P)w1, hid, M, hidden, C2);  // hid = LN2(xp) w1 + b1
-  a.bias = (P)b1, a.lnf_g = (const float*)ln2, a.lnf_b = (const float*)ln2 + C2;
-  launch_gemm<Pro::kGroupLN, Epi::kBias>(s, a);
-  dwconv3x3_kernel<true><<<grid_for((size_t)M * hidden / 8, 256), 256, 0, s>>>(
-      (P)hid, (P)wdw, (P)bdw, (bf16*)act, pairs, H, W, hidden);
-  a = dense_args((P)act, (P)w2, xp, M, C2, hidden);  // xp += fc2(act) + b2
-  a.bias = (P)b2, a.res = (P)xp, a.ldr = C2;
-  launch_gemm<Pro::kPlain, Epi::kBiasRes>(s, a);
+  TRY((wg_linear<Pro::kGroupLN, Epi::kBias>(s, pl, (P)xp, (P)wq, (P)bq, nullptr, nullptr, nullptr,
+                                            0, (bf16*)q, C2, M, C2, C2, nullptr, 1, nullptr, 0,
+                                            (const float*)ln1)));
+  TRY(attention_tc(s, pl + GEMM_PLAN, (P)q, (P)kp, (P)vp, C2, (bf16*)ctx, pairs, N, Nkv, C2, 2));
+  TRY((out_and_mlp<false, Pro::kGroupLN>(
+      s, pl + GEMM_PLAN + ATTN_PLAN, (P)xp, (P)ctx, (P)wo, (P)bo, (P)ln2_g, (P)ln2_b, (P)w1,
+      (P)b1, (P)wdw, (P)bdw, (P)w2, (P)b2, nullptr, nullptr, (bf16*)q, (bf16*)hid, (bf16*)act,
+      (bf16*)xp, pairs, H, W, C2, hidden)));
   lane_pack2_kernel<false><<<grid_for((size_t)M * C2 / 8, pack_threads), pack_threads, 0, s>>>(
       (P)xp, (bf16*)y, pairs, N, C);
   return (int)cudaGetLastError();

@@ -24,9 +24,10 @@
 //      before its own, h_in(c + 1) = Lambda_c h_in(c) + S_c from h_in(0) = 0
 //      (in chunk order: no flags, the same bits every run), then reruns its
 //      chunk from h_in(c) and writes y.
-// A video of at most L steps is one chunk: launch 2 alone, from zero. The
-// pairs are kept for the backward (below), which folds them into each
-// chunk's carry-in instead of scanning the chunks before it again.
+// A video of at most L steps is one chunk: launch 2 alone, from zero. For
+// the backward (below), launch 2 can also write the state at the start of
+// every 32-step sub-chunk it reruns: the backward then reruns each
+// sub-chunk from there instead of scanning its chunk again.
 //
 // Within a chunk, one warp owns one (video, channel d): each lane holds
 // NS = N/32 = 2 states in registers and steps them in order. A block is
@@ -48,9 +49,12 @@
 // for parallelism over time: one warp per (video, channel) walking all T
 // steps left most SMs idle and nothing to hide each step's latency.
 
-#include <algorithm>
+#include <cooperative_groups.h>
 
 #include "common.cuh"
+#include "hopper.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -59,10 +63,12 @@ constexpr int TC = 32;      // time steps per sub-chunk: one per lane in the y r
 constexpr int N = 64;       // d_state
 constexpr int NS = N / 32;  // states per lane
 
-// One step of the butterfly reduce-scatter over part[TC] (see below), with
-// offset O: a constant trip count, so part stays in registers.
-template <int O>
-__device__ __forceinline__ void butterfly_step(float (&part)[TC], int lane) {
+// One step of the butterfly reduce-scatter over part[S] (see below), with
+// offset O: a constant trip count, so part stays in registers. After the
+// steps with offsets S/2 .. 1, part[0] holds the sum over the lanes that
+// share bits >= log2(S) of the lane index, for entry (lane & (S - 1)).
+template <int O, int S>
+__device__ __forceinline__ void butterfly_step(float (&part)[S], int lane) {
   const bool upper = lane & O;
 #pragma unroll
   for (int k = 0; k < O; ++k) {
@@ -74,14 +80,16 @@ __device__ __forceinline__ void butterfly_step(float (&part)[TC], int lane) {
 
 // One chunk of one block's WARPS channels. OUT false: scan from zero and
 // write (Lambda_c, S_c) to `pairs`. OUT true: fold the earlier chunks'
-// pairs into h_in, rerun the chunk from it and write y.
+// pairs into h_in, rerun the chunk from it and write y, and where `states`
+// is not null each 32-step sub-chunk's start state h (for the backward).
 template <bool OUT>
 __global__ void __launch_bounds__(WARPS * 32)
 selective_scan_chunk_kernel(const float* __restrict__ x, const float* __restrict__ dt,
                             const float* __restrict__ A, const float* __restrict__ Bm,
                             const float* __restrict__ Cm, const float* __restrict__ Dv,
-                            float* __restrict__ y, float* __restrict__ pairs, int T, int D,
-                            int L, int blocks_per_video) {
+                            float* __restrict__ y, float* __restrict__ pairs,
+                            float* __restrict__ states, int T, int D, int L,
+                            int blocks_per_video) {
   __shared__ float sB[TC * N];
   __shared__ float sC[OUT ? TC * N : 1];
   __shared__ float sx[TC * WARPS];
@@ -147,6 +155,11 @@ selective_scan_chunk_kernel(const float* __restrict__ x, const float* __restrict
   fetch(t_begin);
   for (int t0 = t_begin; t0 < t_end; t0 += TC) {
     const int tc = min(TC, t_end - t0);
+    if (OUT && states != nullptr && live) {  // states [Bt][ceil(T / TC)][D][N]
+      const size_t o = (((size_t)video * ((T + TC - 1) / TC) + t0 / TC) * D + d) * N + lane;
+#pragma unroll
+      for (int j = 0; j < NS; ++j) states[o + 32 * j] = h[j];
+    }
     __syncthreads();  // the previous sub-chunk is consumed
 #pragma unroll
     for (int r = 0; r < PER; ++r) {
@@ -224,99 +237,86 @@ selective_scan_chunk_kernel(const float* __restrict__ x, const float* __restrict
 //   dA    = sum_t lambda_t a_t h_{t-1} dt_t,  dD = sum_t dy_t x_t
 //   dB_t  = sum_d lambda_t dt_t x_t,         dC_t = sum_d dy_t h_t
 //
-// Design, over the forward's chunks. Let g_c = a_s' lambda_s' be what the
-// chunks after chunk c hand back into its last step (s' the first step of
-// chunk c + 1). Inside a chunk [s, e], lambda_e = dy_e C_e + g_c, and the map
-// g_c -> g_{c-1} = a_s lambda_s is affine with the decay prod_{t=s}^{e} a_t:
-// the forward's Lambda_c, because the carry already holds the first step of
-// the next chunk. Three launches:
-//   B1. selective_scan_bwd_chunk_kernel: every chunk but the first, from
-//       g = 0, backwards, into its (Lambda_c, Q_c = a_s lambda_s) pair;
-//   B2. selective_scan_bwd_kernel: each chunk folds the forward's pairs
-//       before it into h_in (as the forward's launch 2 does) and the
-//       adjoint pairs after it, last first, into g; scans its chunk forwards
-//       once, keeping each 32-step sub-chunk's start state in the scratch;
-//       then walks the sub-chunks backwards: reruns one forwards from its
-//       start state with every h_t in shared memory, then steps lambda
-//       back through it. dx and ddt reduce over n in the warp (a butterfly,
-//       as y in the forward); dA and dD sum over the chunk in registers;
-//       dB and dC sum over the block's channels in shared memory, in
-//       channel order, into per-block partials;
-//   B3. selective_scan_bwd_reduce_kernel: sums the partials of dB and dC
-//       over the blocks of a video, and those of dA and dD over the videos
-//       and chunks, each in a fixed order.
+// Design. The states come from the forward: under autograd its second
+// launch writes each 32-step sub-chunk's start state h (`states`
+// [Bt][ceil(T / 32)][D][N]), which it passes through anyway. So the
+// backward needs nothing of the forward's chunking and cuts time its own
+// way: into chunks of K2 sub-chunks, K2 chosen by the wrapper so that the
+// clusters below fill the card in whole waves. Let g_c be what the steps
+// after chunk c hand back into its last step: g_c = a_s' lambda_s' (s' the
+// first step after the chunk). Inside a chunk [s, e], lambda_e = dy_e C_e +
+// g_c, and the map g_c -> g_{c-1} = a_s lambda_s is affine with the decay
+// prod_{t=s}^{e} a_t; the same holds for every sub-chunk. Three launches:
+//   B1. selective_scan_bwd_chunk_kernel: every sub-chunk after the first
+//       chunk, one per CTA row, from g = 0, backwards, into its (decay,
+//       Q = a_s lambda_s) pair;
+//   B2. selective_scan_bwd_kernel: one thread-block cluster per (video,
+//       chunk), its CTAs the channel blocks of 16 channels (one warp each).
+//       Each warp folds B1's pairs of the sub-chunks after its chunk, last
+//       first, into g, then walks its sub-chunks backwards: reruns one
+//       forwards from its start state, keeping a_t (32 steps x 2 states per
+//       lane, registers) and h_t (a shared-memory tile), then steps lambda
+//       back with the same a_t: one exp per (t, d, n). The next sub-chunk's
+//       rows and states arrive by cp.async meanwhile. dx and ddt reduce over
+//       n in the warp (butterflies over 8 steps at a time) and leave
+//       through a shared tile in rows of 16 channels; dA and dD sum over the
+//       chunk in registers; dB and dC sum over the CTA's channels in channel
+//       order (four states per thread, unrolled) into a [32, 64] tile per
+//       sub-chunk, double-buffered. Each CTA arrives at a cluster barrier
+//       once its tiles are written and waits on it after the next
+//       sub-chunk's rerun; then it sums its share of the tiles' elements
+//       over the cluster's tiles (distributed shared memory), in rank
+//       order, and writes dB and dC.
+//   B3. selective_scan_bwd_reduce_kernel: sums dA and dD over the videos
+//       and chunks, in a fixed order.
 // No atomics and no memset: the same inputs give the same bits every run.
-// A block holds BWD_WARPS = 8 channels (one warp each, NS = 2 states per
-// lane), so the dB and dC partials are 16 per video at d_inner = 128.
 //
-// Bound on this card: per (t, d, n) an exp (B1, and three in B2: the chunk
-// scan, the rerun, the adjoint step) and ~16 fp32 flops, against ~5 bytes
-// per (t, d) and ~8 per (t, n) of inputs and outputs: the SFU rate bounds
-// it (PERF.md). exp is expf, as in the forward; the state and the adjoint
-// are fp32, and a_t is never inverted (exp(dt A) underflows).
+// Bound on this card: per (t, d, n) an exp (B1 and B2 one each) and ~16
+// fp32 flops, against ~5 bytes per (t, d) and ~8 per (t, n) of inputs and
+// outputs: the SFU and FP32 pipes bound it (PERF.md). exp is expf, as in the
+// forward; the state and the adjoint are fp32, and a_t is never inverted
+// (exp(dt A) underflows). The scratch is the adjoint's pairs and the dA, dD
+// partials: dB and dC never leave the chip before they are summed.
 
-constexpr int BWD_WARPS = 8;
+constexpr int BWD_WARPS = 8;  // B1: channels per block
 constexpr int BWD_THREADS = BWD_WARPS * 32;
-constexpr int BWD_PER = TC * N / BWD_THREADS;  // rows of B or C per thread per sub-chunk
-static_assert(TC * BWD_WARPS == BWD_THREADS, "one x, dt and dy value per thread");
-static_assert(BWD_PER * BWD_THREADS == TC * N, "every thread stages the same share");
+constexpr int CL_WARPS = 16;  // B2: channels per CTA of a cluster
+constexpr int CL_THREADS = CL_WARPS * 32;
+constexpr int CL_MAX = 8;     // CTAs per cluster at most (the portable size): D <= 128
+constexpr int RQ = 8;         // steps per butterfly of dx, ddt
+static_assert(TC * CL_WARPS == CL_THREADS, "one (step, 4 states) of a tile per thread");
+static_assert(TC % RQ == 0 && RQ <= 32, "butterfly groups tile the sub-chunk");
 
-// The backward's dynamic shared memory, in floats: B and C rows of a
-// sub-chunk, one [TC][N] tile per warp (h_t, then lambda_t), and the
-// channels' x, dt, dy.
-constexpr int BWD_SMEM_FLOATS = 2 * TC * N + BWD_WARPS * TC * N + 3 * TC * BWD_WARPS;
+// B2's dynamic shared memory, in floats: two stage buffers (the sub-chunk
+// being computed and the next one in flight by cp.async), each rows of B
+// and C [TC][N], the channels' x, dt, dy [TC][CL_WARPS] and start states
+// [CL_WARPS][N]; x, dt, dy again per channel [3][CL_WARPS][CL_TP], so that
+// a warp reads four steps' values in one broadcast; one [TC][N] tile per
+// warp (h_t, then lambda_t); dx and ddt [TC][CL_WARPS]; and the dB, dC
+// tiles [2 buffers][2][TC][N] that the cluster reads.
+constexpr int CL_RED = TC * N;
+constexpr int CL_STAGE = 2 * TC * N + 3 * TC * CL_WARPS + CL_WARPS * N;
+constexpr int CL_TP = TC + 4;  // row of a channel's step scalars: 16-byte rows, 2-way banks
+constexpr int CL_SMEM_FLOATS = 2 * CL_STAGE + 3 * CL_WARPS * CL_TP + CL_WARPS * TC * N +
+                               2 * TC * CL_WARPS + 4 * CL_RED;
 
-struct BwdTile {
-  float* sB;
-  float* sC;
-  float* hs;   // [BWD_WARPS][TC][N]
-  float* sx;   // [TC][BWD_WARPS]
-  float* sdt;
-  float* sdy;
-};
-
-__device__ __forceinline__ BwdTile bwd_tile(float* smem) {
-  BwdTile s;
-  s.sB = smem;
-  s.sC = s.sB + TC * N;
-  s.hs = s.sC + TC * N;
-  s.sx = s.hs + BWD_WARPS * TC * N;
-  s.sdt = s.sx + TC * BWD_WARPS;
-  s.sdy = s.sdt + TC * BWD_WARPS;
-  return s;
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
 }
 
-// Stage the sub-chunk [t0, t0 + TC) of one video into shared memory: rows
-// of B and/or C (null skips), and x, dt, dy of the block's channels; zero
-// past t_end and past D (dt = 0 and dy = 0 leave the state and the adjoint
-// as they are). Callers synchronize around it.
-__device__ __forceinline__ void bwd_stage(float* sB, float* sC, float* sx, float* sdt,
-                                          float* sdy, const float* Bm, const float* Cm,
-                                          const float* x, const float* dt, const float* dy,
-                                          size_t row0, int t0, int t_end, int d0, int D) {
-  const int valid = min(TC, t_end - t0) * N;
-#pragma unroll
-  for (int r = 0; r < BWD_PER; ++r) {
-    const int i = threadIdx.x + r * BWD_THREADS;
-    const size_t g = (row0 + t0) * N + i;
-    if (sB) sB[i] = i < valid ? Bm[g] : 0.f;
-    if (sC) sC[i] = i < valid ? Cm[g] : 0.f;
-  }
-  const int xw = threadIdx.x % BWD_WARPS, xt = threadIdx.x / BWD_WARPS;
-  const bool ok = t0 + xt < t_end && d0 + xw < D;
-  const size_t g = (row0 + t0 + xt) * D + d0 + xw;
-  if (sx) sx[threadIdx.x] = ok ? x[g] : 0.f;
-  if (sdt) sdt[threadIdx.x] = ok ? dt[g] : 0.f;
-  if (sdy) sdy[threadIdx.x] = ok ? dy[g] : 0.f;
-}
-
-// B1: the adjoint pair (Lambda_c, Q_c) of chunk c = blockIdx.y + 1, from
-// g = 0, into bpairs [2][Bt][chunks - 1][D][N] at index c - 1.
+// B1: the adjoint pair (Lambda_s, Q_s) of sub-chunk s = blockIdx.y + first,
+// from g = 0, into bpairs [2][Bt][subs - first][D][N] at index s - first:
+// every sub-chunk after B2's first chunk, one per CTA row.
 __global__ void __launch_bounds__(BWD_THREADS)
 selective_scan_bwd_chunk_kernel(const float* __restrict__ dt, const float* __restrict__ A,
                                 const float* __restrict__ Cm, const float* __restrict__ dy,
-                                float* __restrict__ bpairs, int T, int D, int L,
+                                float* __restrict__ bpairs, int T, int D, int first,
                                 int blocks_per_video) {
+  constexpr int PER = TC * N / BWD_THREADS;
+  static_assert(TC * BWD_WARPS == BWD_THREADS, "one dt and one dy value per thread");
   __shared__ float sC[TC * N];
   __shared__ float sdt[TC * BWD_WARPS];
   __shared__ float sdy[TC * BWD_WARPS];
@@ -324,213 +324,328 @@ selective_scan_bwd_chunk_kernel(const float* __restrict__ dt, const float* __res
   const int d0 = (blockIdx.x % blocks_per_video) * BWD_WARPS;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int d = d0 + warp;
-  const bool live = d < D;
-  const int chunk = blockIdx.y + 1, chunks = (T + L - 1) / L;
-  const int t_begin = chunk * L, t_end = min(T, t_begin + L);
+  const int subs = (T + TC - 1) / TC, s = blockIdx.y + first;
+  const int t0 = s * TC, rows = min(TC, T - t0);
   const size_t row0 = (size_t)video * T;
+#pragma unroll
+  for (int r = 0; r < PER; ++r) {  // zero past the video's end and past D
+    const int i = threadIdx.x + r * BWD_THREADS;
+    sC[i] = i < rows * N ? Cm[(row0 + t0) * N + i] : 0.f;
+  }
+  {
+    const int xw = threadIdx.x % BWD_WARPS, xt = threadIdx.x / BWD_WARPS;
+    const bool ok = xt < rows && d0 + xw < D;
+    const size_t g = (row0 + t0 + xt) * D + d0 + xw;
+    sdt[threadIdx.x] = ok ? dt[g] : 0.f;
+    sdy[threadIdx.x] = ok ? dy[g] : 0.f;
+  }
+  __syncthreads();
+  if (d >= D) return;
 
   float a_row[NS], carry[NS], decay[NS];
 #pragma unroll
   for (int j = 0; j < NS; ++j) {
-    a_row[j] = live ? A[(size_t)d * N + lane + 32 * j] : 0.f;
+    a_row[j] = A[(size_t)d * N + lane + 32 * j];
     carry[j] = 0.f;
     decay[j] = 1.f;
   }
-  for (int t0 = t_begin + (t_end - 1 - t_begin) / TC * TC; t0 >= t_begin; t0 -= TC) {
-    __syncthreads();
-    bwd_stage(nullptr, sC, nullptr, sdt, sdy, nullptr, Cm, nullptr, dt, dy, row0, t0, t_end,
-              d0, D);
-    __syncthreads();
-    if (!live) continue;
 #pragma unroll
-    for (int tt = TC - 1; tt >= 0; --tt) {
-      const float dv = sdt[tt * BWD_WARPS + warp], g = sdy[tt * BWD_WARPS + warp];
-#pragma unroll
-      for (int j = 0; j < NS; ++j) {
-        const float a = expf(dv * a_row[j]);
-        const float lam = g * sC[tt * N + lane + 32 * j] + carry[j];
-        carry[j] = a * lam;
-        decay[j] *= a;
-      }
-    }
-  }
-  if (live) {
-    const size_t stride = (size_t)gridDim.x / blocks_per_video * (chunks - 1) * D * N;
-    const size_t p = ((size_t)video * (chunks - 1) + chunk - 1) * D * N + (size_t)d * N;
+  for (int tt = TC - 1; tt >= 0; --tt) {
+    const float dv = sdt[tt * BWD_WARPS + warp], g = sdy[tt * BWD_WARPS + warp];
 #pragma unroll
     for (int j = 0; j < NS; ++j) {
-      bpairs[p + lane + 32 * j] = decay[j];
-      bpairs[stride + p + lane + 32 * j] = carry[j];
+      const float a = expf(dv * a_row[j]);
+      const float lam = g * sC[tt * N + lane + 32 * j] + carry[j];
+      carry[j] = a * lam;
+      decay[j] *= a;
     }
+  }
+  const size_t stride = (size_t)gridDim.x / blocks_per_video * (subs - first) * D * N;
+  const size_t p = ((size_t)video * (subs - first) + s - first) * D * N + (size_t)d * N;
+#pragma unroll
+  for (int j = 0; j < NS; ++j) {
+    bpairs[p + lane + 32 * j] = decay[j];
+    bpairs[stride + p + lane + 32 * j] = carry[j];
   }
 }
 
-// B2: one chunk (blockIdx.y) of BWD_WARPS channels of one video.
-__global__ void __launch_bounds__(BWD_THREADS)
+// The butterfly over RQ = 8 steps' entries, then the shuffles over the
+// remaining lane bits: every lane gets the warp's sum for step (lane & 7).
+__device__ __forceinline__ float reduce_scatter8(float (&part)[RQ], int lane) {
+  static_assert(RQ == 8, "the steps below are those of 8 entries");
+  butterfly_step<4>(part, lane);
+  butterfly_step<2>(part, lane);
+  butterfly_step<1>(part, lane);
+  float v = part[0];
+  v += __shfl_xor_sync(FULL_MASK, v, 8);
+  v += __shfl_xor_sync(FULL_MASK, v, 16);
+  return v;
+}
+
+// acc[0..3] += c[w] * tile row w (4 floats at `off` of warp w's tile), for
+// w = 0 .. CL_WARPS - 1 in order: one CTA's channel sum of a [TC][N] tile.
+__device__ __forceinline__ float4 channel_sum(const float (&c)[CL_WARPS], const float* tiles,
+                                              int off) {
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+  for (int w = 0; w < CL_WARPS; ++w) {
+    const float4 v = *reinterpret_cast<const float4*>(tiles + w * TC * N + off);
+    acc.x += c[w] * v.x;
+    acc.y += c[w] * v.y;
+    acc.z += c[w] * v.z;
+    acc.w += c[w] * v.w;
+  }
+  return acc;
+}
+
+// The CTA's CL_WARPS values of one step (a row of a [TC][CL_WARPS] tile),
+// by 16-byte loads.
+__device__ __forceinline__ void load_row(float (&c)[CL_WARPS], const float* row) {
+#pragma unroll
+  for (int q = 0; q < CL_WARPS / 4; ++q) {
+    const float4 v = reinterpret_cast<const float4*>(row)[q];
+    c[4 * q] = v.x, c[4 * q + 1] = v.y, c[4 * q + 2] = v.z, c[4 * q + 3] = v.w;
+  }
+}
+
+__device__ __forceinline__ float pick(const float4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+// B2: one chunk (blockIdx.y) of K2 sub-chunks of CL_WARPS channels of one
+// video; the cluster's CTAs (ranks 0 .. cl - 1 along blockIdx.x) hold the
+// video's channel blocks in order. D is a multiple of 4 (16-byte rows of x,
+// dt, dy). Warps past D compute on zeros (their tiles stay zero) and write
+// nothing.
+__global__ void __launch_bounds__(CL_THREADS, 1)
 selective_scan_bwd_kernel(const float* __restrict__ x, const float* __restrict__ dt,
                           const float* __restrict__ A, const float* __restrict__ Bm,
                           const float* __restrict__ Cm, const float* __restrict__ Dv,
-                          const float* __restrict__ dy, const float* __restrict__ pairs,
-                          const float* __restrict__ bpairs, float* __restrict__ hstart,
-                          float* __restrict__ dx, float* __restrict__ ddt,
-                          float* __restrict__ part_dB, float* __restrict__ part_dC,
-                          float* __restrict__ part_dA, float* __restrict__ part_dD, int Bt,
-                          int T, int D, int L, int blocks_per_video) {
-  extern __shared__ float smem[];
-  const BwdTile s = bwd_tile(smem);
-  const int video = blockIdx.x / blocks_per_video, block = blockIdx.x % blocks_per_video;
-  const int d0 = block * BWD_WARPS;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+                          const float* __restrict__ dy, const float* __restrict__ states,
+                          const float* __restrict__ bpairs, float* __restrict__ dx,
+                          float* __restrict__ ddt, float* __restrict__ dB,
+                          float* __restrict__ dC, float* __restrict__ part_dA,
+                          float* __restrict__ part_dD, int Bt, int T, int D, int K2) {
+  constexpr int W = CL_WARPS;
+  extern __shared__ __align__(16) float smem[];
+  float* const tT = smem + 2 * CL_STAGE;       // x, dt, dy [3][W][CL_TP]
+  float* const hs_all = tT + 3 * W * CL_TP;    // [W][TC][N]
+  float* const sdx = hs_all + W * TC * N;      // [TC][W]
+  float* const sddt = sdx + TC * W;
+  float* const red = sddt + TC * W;  // [buffer][dB, dC][TC][N]
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int cl = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int video = blockIdx.x / cl;
+  const int d0 = rank * W;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int d = d0 + warp;
   const bool live = d < D;
-  const int n_live = min(BWD_WARPS, D - d0);
-  const int chunk = blockIdx.y, chunks = (T + L - 1) / L;
-  const int t_begin = chunk * L, t_end = min(T, t_begin + L);
-  const int subs = (T + TC - 1) / TC;  // sub-chunks of the video: hstart's time index
+  const int chunk = blockIdx.y;
+  const int subs = (T + TC - 1) / TC;  // sub-chunks of the video
+  const int t_begin = chunk * K2 * TC, t_end = min(T, t_begin + K2 * TC);
   const size_t row0 = (size_t)video * T;
-  const size_t pair_stride = (size_t)Bt * (chunks - 1) * D * N;
-  auto pair_at = [&](int c) {
-    return ((size_t)video * (chunks - 1) + c) * D * N + (size_t)d * N;
-  };
-  float* hs = s.hs + warp * TC * N;  // this warp's tile
+  const int n_pairs = max(0, subs - K2);  // B1's pairs per (video, channel)
+  const size_t pair_stride = (size_t)Bt * n_pairs * D * N;
+  float* const hs = hs_all + warp * TC * N;  // this warp's tile
+  const float* const xT = tT + warp * CL_TP;
+  const float* const dtT = tT + (W + warp) * CL_TP;
+  const float* const dyT = tT + (2 * W + warp) * CL_TP;
 
-  float a_row[NS], h[NS], carry[NS], dA_acc[NS];
+  // cp.async of sub-chunk t0 into a stage buffer, zero past the video's end
+  // and past D; one commit group per sub-chunk
+  auto prefetch = [&](float* st, int t0) {
+    const int rows = min(TC, T - t0);
+    {  // B and C rows: one 16-byte piece of each per thread
+      const bool ok = tid / (N / 4) < rows;
+      const size_t g = (row0 + t0) * N + 4 * tid;
+      cp_async16(smem_addr(st + 4 * tid), ok ? Bm + g : Bm, ok);
+      cp_async16(smem_addr(st + TC * N + 4 * tid), ok ? Cm + g : Cm, ok);
+    }
+    if (tid < 3 * TC * W / 4) {  // x, dt, dy [TC][W]
+      const int which = tid / (TC * W / 4), q = tid % (TC * W / 4);
+      const int r = q / (W / 4), c4 = 4 * (q % (W / 4));
+      const bool ok = r < rows && d0 + c4 < D;
+      const float* src = which == 0 ? x : which == 1 ? dt : dy;
+      const size_t g = (row0 + t0 + r) * D + d0 + c4;
+      cp_async16(smem_addr(st + 2 * TC * N + which * TC * W + 4 * q), ok ? src + g : src, ok);
+    }
+    if (tid < W * N / 4) {  // the start states [W][N]
+      const int w = tid / (N / 4);
+      const bool ok = d0 + w < D;
+      const size_t g = (((size_t)video * subs + t0 / TC) * D + d0 + w) * N + 4 * (tid % (N / 4));
+      cp_async16(smem_addr(st + 2 * TC * N + 3 * TC * W + 4 * tid), ok ? states + g : states, ok);
+    }
+    cp_async_commit();
+  };
+
+  float a_row[NS], carry[NS], dA_acc[NS];
 #pragma unroll
   for (int j = 0; j < NS; ++j) {
     a_row[j] = live ? A[(size_t)d * N + lane + 32 * j] : 0.f;
-    h[j] = 0.f;
     carry[j] = 0.f;
     dA_acc[j] = 0.f;
   }
-  if (live) {
-    // h_in: the forward's pairs of chunks 0 .. chunk - 1, in order
-    for (int c = 0; c < chunk; ++c) {
-      const size_t p = pair_at(c);
+  int t0 = t_begin + (t_end - 1 - t_begin) / TC * TC;
+  prefetch(smem, t0);
+  if (live) {  // g: B1's pairs of the sub-chunks after this chunk, last first
+    const size_t base = (size_t)video * n_pairs * D * N + (size_t)d * N + lane;
+#pragma unroll 8
+    for (int s = subs - 1; s >= (chunk + 1) * K2; --s) {
+      const size_t p = base + (size_t)(s - K2) * D * N;
 #pragma unroll
       for (int j = 0; j < NS; ++j)
-        h[j] = pairs[p + lane + 32 * j] * h[j] + pairs[pair_stride + p + lane + 32 * j];
-    }
-    // g: the adjoint pairs of chunks chunks - 1 .. chunk + 1, last first
-    for (int c = chunks - 1; c > chunk; --c) {
-      const size_t p = pair_at(c - 1);
-#pragma unroll
-      for (int j = 0; j < NS; ++j)
-        carry[j] = bpairs[p + lane + 32 * j] * carry[j] + bpairs[pair_stride + p + lane + 32 * j];
+        carry[j] = bpairs[p + 32 * j] * carry[j] + bpairs[pair_stride + p + 32 * j];
     }
   }
   const float skip = live ? Dv[d] : 0.f;
-  auto hstart_at = [&](int t0) {
-    return (((size_t)video * subs + t0 / TC) * D + d) * N;
+  const int share = (CL_RED + cl - 1) / cl;  // tile elements this CTA sums over the cluster
+  const int e0 = rank * share, e1 = min(CL_RED, e0 + share);
+  // dB, dC of the sub-chunk whose tiles are in `red` buffer rb: the cluster's
+  // tiles summed in rank order, this CTA's share of the elements
+  auto cluster_reduce = [&](int rb, int s0, int rows) {
+    const float* tile = red + rb * 2 * CL_RED;
+    for (int i = e0 + tid; i < e1; i += CL_THREADS) {
+      if (i / N >= rows) break;
+      float rb_[CL_MAX], rc_[CL_MAX];  // every rank's load in flight, then the sums in order
+#pragma unroll
+      for (int r = 0; r < CL_MAX; ++r) {
+        const float* remote = cluster.map_shared_rank(tile, r < cl ? r : 0);
+        rb_[r] = remote[i];
+        rc_[r] = remote[CL_RED + i];
+      }
+      float b = 0.f, c = 0.f;
+#pragma unroll
+      for (int r = 0; r < CL_MAX; ++r)
+        if (r < cl) b += rb_[r], c += rc_[r];
+      const size_t o = (row0 + s0) * N + i;
+      dB[o] = b;
+      dC[o] = c;
+    }
   };
 
-  // the chunk forwards once: each sub-chunk's start state to the scratch
-  for (int t0 = t_begin; t0 < t_end; t0 += TC) {
-    if (live) {
-#pragma unroll
-      for (int j = 0; j < NS; ++j) hstart[hstart_at(t0) + lane + 32 * j] = h[j];
-    }
-    __syncthreads();
-    bwd_stage(s.sB, nullptr, s.sx, s.sdt, nullptr, Bm, nullptr, x, dt, nullptr, row0, t0, t_end,
-              d0, D);
-    __syncthreads();
-    if (!live) continue;
-#pragma unroll
-    for (int tt = 0; tt < TC; ++tt) {
-      const float dv = s.sdt[tt * BWD_WARPS + warp];
-      const float dxv = dv * s.sx[tt * BWD_WARPS + warp];
-#pragma unroll
-      for (int j = 0; j < NS; ++j)
-        h[j] = expf(dv * a_row[j]) * h[j] + dxv * s.sB[tt * N + lane + 32 * j];
-    }
-  }
-
-  // the sub-chunks backwards
   float dD_acc = 0.f;
-  const size_t part_row = ((size_t)block * Bt + video) * T;  // part_dB/dC [blocks][Bt][T][N]
-  for (int t0 = t_begin + (t_end - 1 - t_begin) / TC * TC; t0 >= t_begin; t0 -= TC) {
+  int sb = 0, rb = 0, prev_t0 = -1, prev_rows = 0;
+  for (; t0 >= t_begin; t0 -= TC, sb ^= 1, rb ^= 1) {
     const int tc = min(TC, t_end - t0);
-    __syncthreads();  // the previous sub-chunk's partials have read the tiles
-    bwd_stage(s.sB, s.sC, s.sx, s.sdt, s.sdy, Bm, Cm, x, dt, dy, row0, t0, t_end, d0, D);
+    cp_async_wait<0>();
+    __syncthreads();  // this sub-chunk's stage has landed; the other buffer is free
+    if (t0 - TC >= t_begin) prefetch(smem + (sb ^ 1) * CL_STAGE, t0 - TC);
+    const float* sB = smem + sb * CL_STAGE;
+    const float* sC = sB + TC * N;
+    const float* sx = sC + TC * N;  // [TC][W]
+    const float* sdt = sx + TC * W;
+    const float* sdy = sdt + TC * W;
+    const float* sh0 = sdy + TC * W;  // [W][N]
+    {  // each channel's x, dt, dy in a row of its own
+      const int tt = tid / W, w = tid % W;
+      tT[w * CL_TP + tt] = sx[tid];
+      tT[(W + w) * CL_TP + tt] = sdt[tid];
+      tT[(2 * W + w) * CL_TP + tt] = sdy[tid];
+    }
     __syncthreads();
-    float h0[NS];
-    if (live) {
+
+    float h0[NS], h[NS];
 #pragma unroll
-      for (int j = 0; j < NS; ++j) h[j] = h0[j] = hstart[hstart_at(t0) + lane + 32 * j];
+    for (int j = 0; j < NS; ++j) h[j] = h0[j] = sh0[warp * N + lane + 32 * j];
+    float a[TC][NS];  // a_t of the sub-chunk: the rerun's exps, reused by the adjoint
 #pragma unroll
-      for (int tt = 0; tt < TC; ++tt) {  // rerun: h_t of every step into the tile
-        const float dv = s.sdt[tt * BWD_WARPS + warp];
-        const float dxv = dv * s.sx[tt * BWD_WARPS + warp];
+    for (int q = 0; q < TC / 4; ++q) {  // rerun: h_t of every step into the tile
+      const float4 dt4 = reinterpret_cast<const float4*>(dtT)[q];
+      const float4 x4 = reinterpret_cast<const float4*>(xT)[q];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int tt = 4 * q + r;
+        const float dv = pick(dt4, r);
+        const float dxv = dv * pick(x4, r);
 #pragma unroll
         for (int j = 0; j < NS; ++j) {
           const int n = lane + 32 * j;
-          h[j] = expf(dv * a_row[j]) * h[j] + dxv * s.sB[tt * N + n];
+          a[tt][j] = expf(dv * a_row[j]);
+          h[j] = a[tt][j] * h[j] + dxv * sB[tt * N + n];
           hs[tt * N + n] = h[j];
         }
       }
     }
+    if (prev_t0 >= 0) {  // the previous sub-chunk's tiles, behind this rerun
+      cluster_wait();
+      cluster_reduce(rb ^ 1, prev_t0, prev_rows);
+    }
     __syncthreads();
-    // dC_t = sum_d dy_t h_t over the block's channels, in channel order
-    for (int i = threadIdx.x; i < tc * N; i += BWD_THREADS) {
-      const int tt = i / N, n = i % N;
-      float acc = 0.f;
-      for (int w = 0; w < n_live; ++w)
-        acc += s.sdy[tt * BWD_WARPS + w] * s.hs[(w * TC + tt) * N + n];
-      part_dC[(part_row + t0 + tt) * N + n] = acc;
+    float* const tile_dB = red + rb * 2 * CL_RED;
+    float* const tile_dC = tile_dB + CL_RED;
+    const int ct = tid / (N / 4), off = ct * N + 4 * (tid % (N / 4));  // (step, 4 states)
+    {  // dC_t = sum_d dy_t h_t over the CTA's channels, in channel order
+      float c[W];
+      load_row(c, sdy + ct * W);
+      *reinterpret_cast<float4*>(tile_dC + off) = channel_sum(c, hs_all, off);
     }
     __syncthreads();  // dC has read h_t: the tiles now take lambda_t
-    if (live) {
-      float p1[TC], p2[TC];  // per step: sum_n lambda B, sum_n lambda A a h_{t-1} (this lane's n)
 #pragma unroll
-      for (int tt = TC - 1; tt >= 0; --tt) {
-        const float dv = s.sdt[tt * BWD_WARPS + warp], g = s.sdy[tt * BWD_WARPS + warp];
-        float acc1 = 0.f, acc2 = 0.f;
+    for (int grp = TC / RQ - 1; grp >= 0; --grp) {
+      float p1[RQ], p2[RQ];  // per step: sum_n lambda B, sum_n lambda A a h_{t-1} (this lane's n)
 #pragma unroll
-        for (int j = 0; j < NS; ++j) {
-          const int n = lane + 32 * j;
-          const float a = expf(dv * a_row[j]);
-          const float h_prev = tt > 0 ? hs[(tt - 1) * N + n] : h0[j];
-          const float lam = g * s.sC[tt * N + n] + carry[j];
-          const float u = lam * a * h_prev;
-          acc1 += lam * s.sB[tt * N + n];
-          acc2 += u * a_row[j];
-          dA_acc[j] += u * dv;
-          carry[j] = a * lam;
-          hs[tt * N + n] = lam;  // h_t was last read as step t + 1's h_{t-1}
+      for (int q = RQ / 4 - 1; q >= 0; --q) {
+        const float4 dt4 = reinterpret_cast<const float4*>(dtT)[grp * RQ / 4 + q];
+        const float4 dy4 = reinterpret_cast<const float4*>(dyT)[grp * RQ / 4 + q];
+#pragma unroll
+        for (int r = 3; r >= 0; --r) {
+          const int k = 4 * q + r, tt = grp * RQ + k;
+          const float dv = pick(dt4, r), g = pick(dy4, r);
+          float acc1 = 0.f, acc2 = 0.f;
+#pragma unroll
+          for (int j = 0; j < NS; ++j) {
+            const int n = lane + 32 * j;
+            const float h_prev = tt > 0 ? hs[(tt - 1) * N + n] : h0[j];
+            const float lam = g * sC[tt * N + n] + carry[j];
+            const float u = lam * a[tt][j] * h_prev;
+            acc1 += lam * sB[tt * N + n];
+            acc2 += u * a_row[j];
+            dA_acc[j] += u * dv;
+            carry[j] = a[tt][j] * lam;
+            hs[tt * N + n] = lam;  // h_t was last read as step t + 1's h_{t-1}
+          }
+          p1[k] = acc1;
+          p2[k] = acc2;
         }
-        p1[tt] = acc1;
-        p2[tt] = acc2;
       }
-      butterfly_step<16>(p1, lane);
-      butterfly_step<8>(p1, lane);
-      butterfly_step<4>(p1, lane);
-      butterfly_step<2>(p1, lane);
-      butterfly_step<1>(p1, lane);
-      butterfly_step<16>(p2, lane);
-      butterfly_step<8>(p2, lane);
-      butterfly_step<4>(p2, lane);
-      butterfly_step<2>(p2, lane);
-      butterfly_step<1>(p2, lane);
-      if (lane < tc) {  // lane holds step t0 + lane
-        const float dv = s.sdt[lane * BWD_WARPS + warp], xv = s.sx[lane * BWD_WARPS + warp];
-        const float g = s.sdy[lane * BWD_WARPS + warp];
-        const size_t o = (row0 + t0 + lane) * D + d;
-        dx[o] = dv * p1[0] + skip * g;
-        ddt[o] = p2[0] + xv * p1[0];
-        dD_acc += g * xv;
+      const float s1 = reduce_scatter8(p1, lane), s2 = reduce_scatter8(p2, lane);
+      if (lane < RQ) {  // lane holds step grp * RQ + lane
+        const int tt = grp * RQ + lane;
+        const float dv = dtT[tt], xv = xT[tt], g = dyT[tt];
+        sdx[tt * W + warp] = dv * s1 + skip * g;
+        sddt[tt * W + warp] = s2 + xv * s1;
+        dD_acc += g * xv;  // zero past the chunk's end
       }
     }
     __syncthreads();
-    // dB_t = sum_d lambda_t dt_t x_t over the block's channels, in channel order
-    for (int i = threadIdx.x; i < tc * N; i += BWD_THREADS) {
-      const int tt = i / N, n = i % N;
-      float acc = 0.f;
-      for (int w = 0; w < n_live; ++w)
-        acc += s.sdt[tt * BWD_WARPS + w] * s.sx[tt * BWD_WARPS + w] * s.hs[(w * TC + tt) * N + n];
-      part_dB[(part_row + t0 + tt) * N + n] = acc;
+    {  // dx, ddt in rows of the CTA's channels
+      const int tt = tid / W, w = tid % W;
+      if (tt < tc && d0 + w < D) {
+        const size_t o = (row0 + t0 + tt) * D + d0 + w;
+        dx[o] = sdx[tid];
+        ddt[o] = sddt[tid];
+      }
     }
+    {  // dB_t = sum_d lambda_t dt_t x_t over the CTA's channels, in channel order
+      float c[W], cx[W];
+      load_row(c, sdt + ct * W);
+      load_row(cx, sx + ct * W);
+#pragma unroll
+      for (int w = 0; w < W; ++w) c[w] *= cx[w];
+      *reinterpret_cast<float4*>(tile_dB + off) = channel_sum(c, hs_all, off);
+    }
+    cluster_arrive();  // this CTA's tiles of the sub-chunk are written
+    prev_t0 = t0;
+    prev_rows = tc;
   }
+  cluster_wait();
+  cluster_reduce(rb ^ 1, prev_t0, prev_rows);
+  cluster_arrive();  // no CTA leaves while another reads its tiles
+  cluster_wait();
   if (live) {
-    const size_t q = (size_t)video * chunks + chunk;
+    const size_t q = (size_t)video * gridDim.y + chunk;
 #pragma unroll
     for (int j = 0; j < NS; ++j) part_dA[(q * D + d) * N + lane + 32 * j] = dA_acc[j];
     dD_acc = warp_sum(dD_acc);
@@ -538,38 +653,23 @@ selective_scan_bwd_kernel(const float* __restrict__ x, const float* __restrict__
   }
 }
 
-// B3: each output element sums its partials in a fixed order: dB, dC over
-// the blocks of its video; dA, dD over the videos and chunks.
-__global__ void selective_scan_bwd_reduce_kernel(const float* __restrict__ part_dB,
-                                                 const float* __restrict__ part_dC,
-                                                 const float* __restrict__ part_dA,
+// B3: dA and dD, each element summing its partials over the videos and
+// chunks in order.
+__global__ void selective_scan_bwd_reduce_kernel(const float* __restrict__ part_dA,
                                                  const float* __restrict__ part_dD,
-                                                 float* __restrict__ dB, float* __restrict__ dC,
                                                  float* __restrict__ dA, float* __restrict__ dD,
-                                                 int Bt, int T, int D, int blocks, int chunks) {
-  const size_t n_bc = (size_t)Bt * T * N, n_a = (size_t)D * N, n_d = D;
-  const int q_count = Bt * chunks;
-  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n_bc + n_a + n_d;
-       i += (size_t)gridDim.x * blockDim.x) {
-    if (i < n_bc) {
-      float b = 0.f, c = 0.f;
-      for (int p = 0; p < blocks; ++p) {
-        b += part_dB[p * n_bc + i];
-        c += part_dC[p * n_bc + i];
-      }
-      dB[i] = b;
-      dC[i] = c;
-    } else if (i < n_bc + n_a) {
-      const size_t j = i - n_bc;
-      float a = 0.f;
-      for (int q = 0; q < q_count; ++q) a += part_dA[q * n_a + j];
-      dA[j] = a;
-    } else {
-      const size_t j = i - n_bc - n_a;
-      float v = 0.f;
-      for (int q = 0; q < q_count; ++q) v += part_dD[q * n_d + j];
-      dD[j] = v;
-    }
+                                                 int D, int parts) {
+  const size_t n_a = (size_t)D * N;
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n_a) {
+    float a = 0.f;
+    for (int q = 0; q < parts; ++q) a += part_dA[q * n_a + i];
+    dA[i] = a;
+  } else if (i < n_a + D) {
+    const size_t j = i - n_a;
+    float v = 0.f;
+    for (int q = 0; q < parts; ++q) v += part_dD[q * (size_t)D + j];
+    dD[j] = v;
   }
 }
 
@@ -580,12 +680,14 @@ extern "C" {
 // x, dt, y [Bt, T, D]; A [D, N]; B, C [Bt, T, N]; D [D]; fp32, contiguous.
 // `chunk` (L) is the chunk length, a positive multiple of 32
 // (kernels/selective_scan.py::scan_chunk); `pairs` is fp32 scratch of
-// 2 * Bt * (ceil(T / L) - 1) * D * N values, null when T <= L. Returns
-// cudaGetLastError() after the launches (cudaErrorInvalidValue for an N
-// other than 64, a bad chunk length or missing scratch).
+// 2 * Bt * (ceil(T / L) - 1) * D * N values, null when T <= L. `states`,
+// null or [Bt, ceil(T / 32), D, N] fp32, receives each 32-step sub-chunk's
+// start state for the backward. Returns cudaGetLastError() after the
+// launches (cudaErrorInvalidValue for an N other than 64, a bad chunk
+// length or missing scratch).
 int selective_scan_forward(const void* x, const void* dt, const void* A, const void* B,
-                           const void* C, const void* Dv, void* y, void* pairs, int Bt, int T,
-                           int D, int n_state, int chunk, void* stream) {
+                           const void* C, const void* Dv, void* y, void* pairs, void* states,
+                           int Bt, int T, int D, int n_state, int chunk, void* stream) {
   auto f = [](const void* p) { return (const float*)p; };
   if (n_state != N || chunk < TC || chunk % TC) return (int)cudaErrorInvalidValue;
   if (Bt == 0 || T == 0 || D == 0) return (int)cudaGetLastError();
@@ -595,64 +697,112 @@ int selective_scan_forward(const void* x, const void* dt, const void* A, const v
   cudaStream_t s = (cudaStream_t)stream;
   if (chunks > 1)
     selective_scan_chunk_kernel<false><<<dim3(Bt * bpv, chunks - 1), WARPS * 32, 0, s>>>(
-        f(x), f(dt), f(A), f(B), f(C), f(Dv), (float*)y, (float*)pairs, T, D, chunk, bpv);
+        f(x), f(dt), f(A), f(B), f(C), f(Dv), (float*)y, (float*)pairs, nullptr, T, D, chunk,
+        bpv);
   selective_scan_chunk_kernel<true><<<dim3(Bt * bpv, chunks), WARPS * 32, 0, s>>>(
-      f(x), f(dt), f(A), f(B), f(C), f(Dv), (float*)y, (float*)pairs, T, D, chunk, bpv);
+      f(x), f(dt), f(A), f(B), f(C), f(Dv), (float*)y, (float*)pairs, (float*)states, T, D,
+      chunk, bpv);
   return (int)cudaGetLastError();
 }
 
 // The gradient of selective_scan_forward at dy [Bt, T, D]: dx, ddt [Bt, T, D],
-// dA [D, N], dB, dC [Bt, T, N], dD [D], fp32, contiguous; `pairs` is the
-// forward's workspace for the same inputs and chunk (null when T <= chunk),
-// `scratch` n_scratch fp32 values laid out as
-// kernels/selective_scan.py::backward_scratch_floats says. Returns
-// cudaGetLastError() after the launches (cudaErrorInvalidValue for an N
-// other than 64, a bad chunk length, missing pairs or too little scratch).
+// dA [D, N], dB, dC [Bt, T, N], dD [D], fp32, contiguous; `states` is the
+// forward's sub-chunk start states for the same inputs, `sub_chunks` (K2)
+// the 32-step sub-chunks per chunk of the cluster launch
+// (kernels/selective_scan.py::backward_chunk), `scratch` n_scratch fp32
+// values laid out as kernels/selective_scan.py::backward_scratch_floats
+// says. D is at most 16 x 8 (one cluster of channel blocks) and a multiple
+// of 4. Returns cudaGetLastError() after the launches (cudaErrorInvalidValue
+// for an N other than 64, a D the cluster cannot take, a bad chunk, missing
+// states or too little scratch).
 int selective_scan_backward(const void* x, const void* dt, const void* A, const void* B,
-                            const void* C, const void* Dv, const void* dy, const void* pairs,
+                            const void* C, const void* Dv, const void* dy, const void* states,
                             void* dx, void* ddt, void* dA, void* dB, void* dC, void* dD,
-                            void* scratch, int Bt, int T, int D, int n_state, int chunk,
+                            void* scratch, int Bt, int T, int D, int n_state, int sub_chunks,
                             int n_scratch, void* stream) {
   auto f = [](const void* p) { return (const float*)p; };
-  if (n_state != N || chunk < TC || chunk % TC) return (int)cudaErrorInvalidValue;
+  if (n_state != N || sub_chunks < 1 || D > CL_WARPS * CL_MAX || D % 4)
+    return (int)cudaErrorInvalidValue;
   if (Bt == 0 || T == 0 || D == 0) return (int)cudaGetLastError();
-  const int chunks = (T + chunk - 1) / chunk;
-  if (chunks > 65535 || (chunks > 1 && pairs == nullptr)) return (int)cudaErrorInvalidValue;
+  const int subs = (T + TC - 1) / TC, K2 = sub_chunks;
+  const int chunks = (subs + K2 - 1) / K2, n_b1 = subs > K2 ? subs - K2 : 0;
+  if (chunks > 65535 || n_b1 > 65535 || states == nullptr) return (int)cudaErrorInvalidValue;
   const int bpv = (D + BWD_WARPS - 1) / BWD_WARPS;
-  const size_t n_pairs = 2ull * Bt * (chunks - 1) * D * N;
-  const size_t n_hstart = (size_t)Bt * ((T + TC - 1) / TC) * D * N;
-  const size_t n_part = (size_t)bpv * Bt * T * N;
+  const int cl = (D + CL_WARPS - 1) / CL_WARPS;
+  const size_t n_pairs = 2ull * Bt * n_b1 * D * N;
   const size_t n_dA = (size_t)Bt * chunks * D * N;
-  if (n_pairs + n_hstart + 2 * n_part + n_dA + (size_t)Bt * chunks * D > (size_t)n_scratch)
+  if (n_pairs + n_dA + (size_t)Bt * chunks * D > (size_t)n_scratch)
     return (int)cudaErrorInvalidValue;
   float* bpairs = (float*)scratch;
-  float* hstart = bpairs + n_pairs;
-  float* part_dB = hstart + n_hstart;
-  float* part_dC = part_dB + n_part;
-  float* part_dA = part_dC + n_part;
+  float* part_dA = bpairs + n_pairs;
   float* part_dD = part_dA + n_dA;
   cudaStream_t s = (cudaStream_t)stream;
-  static bool smem_set = false;
-  constexpr int smem = BWD_SMEM_FLOATS * (int)sizeof(float);
-  if (!smem_set) {
-    cudaError_t e = cudaFuncSetAttribute(selective_scan_bwd_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return (int)e;
-    smem_set = true;
-  }
-  if (chunks > 1)
-    selective_scan_bwd_chunk_kernel<<<dim3(Bt * bpv, chunks - 1), BWD_THREADS, 0, s>>>(
-        f(dt), f(A), f(C), f(dy), bpairs, T, D, chunk, bpv);
-  selective_scan_bwd_kernel<<<dim3(Bt * bpv, chunks), BWD_THREADS, smem, s>>>(
-      f(x), f(dt), f(A), f(B), f(C), f(Dv), f(dy), f(pairs), bpairs, hstart, (float*)dx,
-      (float*)ddt, part_dB, part_dC, part_dA, part_dD, Bt, T, D, chunk, bpv);
-  const size_t total = (size_t)Bt * T * N + (size_t)D * N + D;
-  const int threads = 256;
-  const int grid = (int)std::min<size_t>((total + threads - 1) / threads, 132 * 16);
-  selective_scan_bwd_reduce_kernel<<<grid, threads, 0, s>>>(
-      part_dB, part_dC, part_dA, part_dD, (float*)dB, (float*)dC, (float*)dA, (float*)dD, Bt, T,
-      D, bpv, chunks);
+  constexpr int smem = CL_SMEM_FLOATS * (int)sizeof(float);
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      selective_scan_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return (int)attr;
+  if (n_b1 > 0)
+    selective_scan_bwd_chunk_kernel<<<dim3(Bt * bpv, n_b1), BWD_THREADS, 0, s>>>(
+        f(dt), f(A), f(C), f(dy), bpairs, T, D, K2, bpv);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(Bt * cl, chunks);
+  cfg.blockDim = dim3(CL_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute la[1];
+  la[0].id = cudaLaunchAttributeClusterDimension;
+  la[0].val.clusterDim.x = cl;
+  la[0].val.clusterDim.y = 1;
+  la[0].val.clusterDim.z = 1;
+  cfg.attrs = la;
+  cfg.numAttrs = 1;
+  cudaError_t e = cudaLaunchKernelEx(&cfg, selective_scan_bwd_kernel, f(x), f(dt), f(A), f(B),
+                                     f(C), f(Dv), f(dy), f(states), (const float*)bpairs,
+                                     (float*)dx, (float*)ddt, (float*)dB, (float*)dC, part_dA,
+                                     part_dD, Bt, T, D, K2);
+  if (e != cudaSuccess) return (int)e;
+  const int total = D * N + D, threads = 256;
+  selective_scan_bwd_reduce_kernel<<<(total + threads - 1) / threads, threads, 0, s>>>(
+      part_dA, part_dD, (float*)dA, (float*)dD, D, Bt * chunks);
   return (int)cudaGetLastError();
+}
+
+// What the backward's cluster kernel (B2) holds on this card, for the
+// record: out = [registers per thread, static shared bytes, dynamic shared
+// bytes, local (spill) bytes per thread, CTAs per SM, clusters of `cl`
+// CTAs active at once]. Returns a cudaError_t.
+int selective_scan_backward_resources(int* out, int cl) {
+  cudaFuncAttributes fa;
+  cudaError_t e = cudaFuncGetAttributes(&fa, selective_scan_bwd_kernel);
+  if (e != cudaSuccess) return (int)e;
+  constexpr int smem = CL_SMEM_FLOATS * (int)sizeof(float);
+  e = cudaFuncSetAttribute(selective_scan_bwd_kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  int per_sm = 0, clusters = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, selective_scan_bwd_kernel,
+                                                    CL_THREADS, smem);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cl, 1);
+  cfg.blockDim = dim3(CL_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cudaLaunchAttribute la[1];
+  la[0].id = cudaLaunchAttributeClusterDimension;
+  la[0].val.clusterDim.x = cl;
+  la[0].val.clusterDim.y = 1;
+  la[0].val.clusterDim.z = 1;
+  cfg.attrs = la;
+  cfg.numAttrs = 1;
+  e = cudaOccupancyMaxActiveClusters(&clusters, selective_scan_bwd_kernel, &cfg);
+  if (e != cudaSuccess) return (int)e;
+  out[0] = fa.numRegs;
+  out[1] = (int)fa.sharedSizeBytes;
+  out[2] = smem;
+  out[3] = (int)fa.localSizeBytes;
+  out[4] = per_sm;
+  out[5] = clusters;
+  return 0;
 }
 
 }  // extern "C"

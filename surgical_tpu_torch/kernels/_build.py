@@ -35,12 +35,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # arguments); every entry ends with the stream and returns cudaGetLastError()
 _ENTRY_POINTS = {
     "mit_block_forward": (23, 7),
-    "mit_block_packed2_forward": (23, 5),
+    "mit_block_packed2_forward": (25, 5),
     "mit_stage_forward": (35, 10),
     "mit_block_train_forward": (25, 7),
     "mit_block_train_mlp_backward": (11, 5),
     "mit_block_train_attn_backward": (16, 5),
-    "selective_scan_forward": (8, 5),
+    "selective_scan_forward": (9, 5),
     "selective_scan_backward": (15, 6),
 }
 

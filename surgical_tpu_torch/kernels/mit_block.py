@@ -401,8 +401,8 @@ def _ptr(t: torch.Tensor, shape, name: str, dtype=torch.bfloat16) -> int:
 
 
 # -- launch plans of the wgmma kernels --------------------------------------
-# mit_block_forward, mit_stage_forward and the three training entry points
-# take their grids, tile counts and shared-memory sizes from these plans;
+# mit_block_forward, mit_block_packed2_forward, mit_stage_forward and the
+# three training entry points take their grids, tile counts and shared-memory sizes from these plans;
 # the entry points check each plan against the shapes and refuse one that
 # does not fit.
 
@@ -502,6 +502,20 @@ def block_plan(B: int, H: int, W: int, C: int, heads: int, Nkv: int, hidden: int
     N = H * W
     return (*gemm_plan(B * N, C, C, ln=True), *attention_plan(B, N, heads, Nkv),
             *_mlp_plans(B * N, C, hidden))
+
+
+def packed2_plan(B: int, H: int, W: int, Nkv: int, hidden2: int) -> tuple:
+    """The plans of mit_block_packed2_forward's launches, flat: ``block_plan``
+    on the B / 2 lane-packed rows of 2 x HEAD_DIM = 128 lanes, the pair as the
+    image and each image's 64-lane segment as a head. The q and fc1 products
+    keep their 128-wide A panel resident (the per-half LayerNorm prologue);
+    fc2's panel is the packed hidden width, at most PANEL_MAX_K = 512."""
+    if B % 2 or B < 2:
+        raise ValueError(f"packed2 takes an even batch, got B={B}")
+    if hidden2 > PANEL_MAX_K:
+        raise ValueError(f"packed2 keeps fc2's A panel resident: hidden {hidden2} > "
+                         f"{PANEL_MAX_K}")
+    return block_plan(B // 2, H, W, 2 * HEAD_DIM, 2, Nkv, hidden2)
 
 
 def train_forward_plan(B: int, H: int, W: int, C: int, heads: int, Nkv: int,
@@ -631,8 +645,8 @@ def fused_mit_block_packed2(x, k, v, packed, *, H: int, W: int, row_chunks: int 
     64]. ``row_chunks`` must divide H, as in the JAX package; the kernel
     computes the whole grid at once, which is the same function.
 
-    The kernel reads ``ln1`` in fp32 as given; LN2's scale and bias (in the
-    weights' dtype) are converted here to fp32, which is exact."""
+    The kernel reads ``ln1`` in fp32 and LN2's scale and bias in bf16, as
+    ``pack_weights2`` gives them."""
     B, N, Nkv, hidden2 = _packed2_dims(x, k, packed, H, row_chunks)
     if x.device.type == "cpu":
         return fused_mit_block_packed2_plain(x, k, v, packed, H=H, W=W, row_chunks=row_chunks)
@@ -641,7 +655,7 @@ def fused_mit_block_packed2(x, k, v, packed, *, H: int, W: int, row_chunks: int 
     _build.refuse_grad("fused_mit_block_packed2", x, k, v, *packed.values())
     _check_dims(HEAD_DIM, 1, Nkv, hidden2, H, W, x)
     w, C, C2 = packed, HEAD_DIM, 2 * HEAD_DIM
-    ln2 = torch.stack([w["ln2_scale"], w["ln2_bias"]]).float()
+    plan = _plan_arg(packed2_plan(B, H, W, Nkv, hidden2))
     y = torch.empty_like(x)
     new = lambda rows, width: torch.empty(rows, width, dtype=x.dtype, device=x.device)
     M, Mkv = B // 2 * N, B // 2 * Nkv
@@ -652,10 +666,10 @@ def fused_mit_block_packed2(x, k, v, packed, *, H: int, W: int, row_chunks: int 
         _ptr(w["ln1"], (2, C2), "ln1", torch.float32),
         _ptr(w["wq"], (C2, C2), "wq"), _ptr(w["bq"], (C2,), "bq"),
         _ptr(w["wo"], (C2, C2), "wo"), _ptr(w["bo"], (C2,), "bo"),
-        _ptr(ln2, (2, C2), "ln2", torch.float32),
+        _ptr(w["ln2_scale"], (C2,), "ln2_scale"), _ptr(w["ln2_bias"], (C2,), "ln2_bias"),
         _ptr(w["w1"], (C2, hidden2), "w1"), _ptr(w["b1"], (hidden2,), "b1"),
         _ptr(w["wdw"], (9, hidden2), "wdw"), _ptr(w["bdw"], (hidden2,), "bdw"),
-        _ptr(w["w2"], (hidden2, C2), "w2"), _ptr(w["b2"], (C2,), "b2"),
+        _ptr(w["w2"], (hidden2, C2), "w2"), _ptr(w["b2"], (C2,), "b2"), ctypes.addressof(plan),
         xp.data_ptr(), kp.data_ptr(), vp.data_ptr(), q.data_ptr(), ctx.data_ptr(),
         hid.data_ptr(), act.data_ptr(), y.data_ptr(), B, H, W, Nkv, hidden2,
         torch.cuda.current_stream(x.device).cuda_stream)

@@ -25,8 +25,8 @@ kernel has none) runs the adjoint backwards in time, with a_t = exp(dt_t A):
     dB_t = Σ_d λ_t ⊙ (dt_t ⊙ x_t),         dC_t = Σ_d dy_t ⊗ h_t
 
 (dA and dD also sum over the videos). ``selective_scan_backward`` computes
-it, on the card from the forward's chunk pairs, which the autograd function
-keeps.
+it, on the card from the states the forward kernel writes at the start of
+every SUB_CHUNK steps, which the autograd function asks for and keeps.
 
 Each wrapper runs its plain version only for tensors that lie on the CPU;
 for CUDA tensors it launches its kernel or raises. ``selective_scan`` is
@@ -38,6 +38,9 @@ backward launches the backward kernel. The wrappers count their launches in
 
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import torch
 
 from surgical_tpu_torch.kernels import _build
@@ -45,7 +48,10 @@ from surgical_tpu_torch.kernels import _build
 STATE = 64  # the one d_state the kernel takes: MambaConfig()'s
 SUB_CHUNK = 32   # steps the kernel stages and reduces at once; a chunk is a multiple
 MAX_CHUNKS = 32  # chunks per video at most: the carry fold reads at most 31 pairs
-BWD_WARPS = 8    # channels per block of the backward kernel
+BWD_WARPS = 8    # channels per block of the backward's chunk-pair launch
+CLUSTER_WARPS = 16  # channels per CTA of the backward's main launch (one warp each)
+CLUSTER_MAX = 8     # CTAs per thread-block cluster at most, the portable size
+MAX_BWD_D = CLUSTER_WARPS * CLUSTER_MAX  # widest D the backward kernel takes: one cluster
 
 
 def scan_chunk(T: int) -> int:
@@ -115,16 +121,39 @@ def _chunks(T: int) -> tuple[int, int]:
     return chunk, -(-T // chunk)
 
 
-def backward_scratch_floats(Bt: int, T: int, D: int, N: int) -> int:
-    """fp32 scratch of the backward kernel, in the order ``csrc/selective_scan.cu``
-    lays it out: the adjoint's chunk pairs [2, Bt, chunks - 1, D, N], each
-    sub-chunk's start state [Bt, ceil(T / SUB_CHUNK), D, N], the per-block
-    partials of dB and of dC [ceil(D / BWD_WARPS), Bt, T, N] each, and those of
-    dA [Bt, chunks, D, N] and of dD [Bt, chunks, D]."""
-    _, chunks = _chunks(T)
-    blocks = -(-D // BWD_WARPS)
-    return (2 * Bt * (chunks - 1) * D * N + Bt * -(-T // SUB_CHUNK) * D * N
-            + 2 * blocks * Bt * T * N + Bt * chunks * D * N + Bt * chunks * D)
+def states_shape(Bt: int, T: int, D: int, N: int) -> tuple:
+    """Shape of the sub-chunk start states the forward kernel writes for the
+    backward: the state h before steps 0, SUB_CHUNK, 2 SUB_CHUNK, ..."""
+    return (Bt, -(-T // SUB_CHUNK), D, N)
+
+
+@functools.lru_cache(maxsize=256)
+def backward_chunk(Bt: int, T: int, active: int) -> int:
+    """Sub-chunks per chunk (K2) of the backward's cluster launch, one cluster
+    per (video, chunk), when ``active`` clusters fit on the card at once:
+    the K2 that finishes soonest, counting the sub-chunks a cluster walks in
+    series (waves x K2), the longest of equal counts (fewer pairs to write
+    and fold). With the H100's 15 clusters and one video: 13 at T = 6000 (15
+    clusters, one wave), 5 at T = 2000 (13 clusters)."""
+    subs = -(-T // SUB_CHUNK)
+    best = (None, 1)
+    for k in range(1, subs + 1):
+        cost = -(-Bt * -(-subs // k) // active) * k
+        if best[0] is None or cost <= best[0]:
+            best = (cost, k)
+    return best[1]
+
+
+def backward_scratch_floats(Bt: int, T: int, D: int, N: int, sub_chunks: int) -> int:
+    """fp32 scratch of the backward kernel at ``sub_chunks`` (K2) per chunk, in
+    the order ``csrc/selective_scan.cu`` lays it out: the adjoint pairs of the
+    sub-chunks after the first chunk [2, Bt, subs - K2, D, N], then the
+    per-chunk partials of dA [Bt, chunks, D, N] and of dD [Bt, chunks, D]. dB
+    and dC are summed on chip, across a thread-block cluster."""
+    subs = -(-T // SUB_CHUNK)
+    chunks = -(-subs // sub_chunks)
+    return (2 * Bt * max(0, subs - sub_chunks) * D * N + Bt * chunks * D * N
+            + Bt * chunks * D)
 
 
 def _check_state(N: int) -> None:
@@ -132,33 +161,45 @@ def _check_state(N: int) -> None:
         raise ValueError(f"kernel takes d_state == {STATE}, got {N}")
 
 
-def selective_scan_forward(x, dt, A, B, C, D):
-    """The forward kernel on CUDA tensors: (y, pairs), where ``pairs`` is its
-    chunk workspace [2, Bt, chunks - 1, D, N] (decay, then end state from
-    zero, per chunk but the last), None for a video of one chunk. The
-    backward kernel folds the pairs into each chunk's carry-in."""
+def _check_bwd_channels(D: int) -> None:
+    if D > MAX_BWD_D or D % 4:
+        raise ValueError(f"backward kernel takes D <= {MAX_BWD_D} (one cluster of "
+                         f"{CLUSTER_MAX} CTAs of {CLUSTER_WARPS} channels) and a multiple of 4 "
+                         f"(16-byte rows), got {D}")
+
+
+def selective_scan_forward(x, dt, A, B, C, D, states: bool = False):
+    """The forward kernel on CUDA tensors: (y, states). With ``states`` the
+    kernel also writes the state at the start of every SUB_CHUNK steps
+    (``states_shape``), which the backward kernel reruns from; else states
+    is None and the launches write only y and their chunk pairs."""
     Bt, T, Dch = x.shape
     N = A.shape[1]
     _check_state(N)
+    if states:
+        _check_bwd_channels(Dch)
     y = torch.empty_like(x)
     chunk, chunks = _chunks(T)
-    pairs = (torch.empty(2, Bt, chunks - 1, Dch, N, dtype=torch.float32, device=x.device)
-             if chunks > 1 else None)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    pairs = torch.empty(2, Bt, chunks - 1, Dch, N, **f32) if chunks > 1 else None
+    hs = torch.empty(states_shape(Bt, T, Dch, N), **f32) if states else None
     err = _build.load().selective_scan_forward(
         _ptr(x, (Bt, T, Dch), "x"), _ptr(dt, (Bt, T, Dch), "dt"), _ptr(A, (Dch, N), "A"),
         _ptr(B, (Bt, T, N), "B"), _ptr(C, (Bt, T, N), "C"), _ptr(D, (Dch,), "D"),
-        y.data_ptr(), None if pairs is None else pairs.data_ptr(), Bt, T, Dch, N, chunk,
+        y.data_ptr(), None if pairs is None else pairs.data_ptr(),
+        None if hs is None else hs.data_ptr(), Bt, T, Dch, N, chunk,
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "selective_scan_forward")
     selective_scan.launches += 1
-    return y, pairs
+    return y, hs
 
 
-def selective_scan_backward(x, dt, A, B, C, D, dy, pairs=None):
+def selective_scan_backward(x, dt, A, B, C, D, dy, states=None):
     """(dx, ddt, dA, dB, dC, dD) of the scan at the output gradient ``dy``.
     CPU tensors take ``selective_scan_plain_backward``; CUDA tensors the
-    backward kernel, which needs the forward's ``pairs`` (from
-    ``selective_scan_forward``) when the video spans more than one chunk."""
+    backward kernel, which needs the forward's sub-chunk start ``states``
+    (``selective_scan_forward(..., states=True)``) and takes D <= MAX_BWD_D,
+    a multiple of 4."""
     if x.device.type == "cpu":
         return selective_scan_plain_backward(x, dt, A, B, C, D, dy)
     if not x.is_cuda:
@@ -166,19 +207,18 @@ def selective_scan_backward(x, dt, A, B, C, D, dy, pairs=None):
     Bt, T, Dch = x.shape
     N = A.shape[1]
     _check_state(N)
-    chunk, chunks = _chunks(T)
-    if chunks > 1:
-        if pairs is None:
-            raise ValueError("selective_scan_backward: a video of more than one chunk needs "
-                             "the forward's pairs (selective_scan_forward)")
-        _ptr(pairs, (2, Bt, chunks - 1, Dch, N), "pairs")
+    _check_bwd_channels(Dch)
+    if states is None:
+        raise ValueError("selective_scan_backward: the kernel needs the forward's sub-chunk "
+                         "states (selective_scan_forward(..., states=True))")
     f32 = dict(dtype=torch.float32, device=x.device)
     dx, ddt = torch.empty_like(x), torch.empty_like(x)
     dA, dB, dC, dD = (torch.empty(Dch, N, **f32), torch.empty(Bt, T, N, **f32),
                       torch.empty(Bt, T, N, **f32), torch.empty(Dch, **f32))
-    # scratch: the adjoint's chunk pairs, each sub-chunk's start state, and
-    # the partial sums that the last launch reduces in a fixed order
-    n_scratch = backward_scratch_floats(Bt, T, Dch, N)
+    # scratch: the adjoint's sub-chunk pairs and the partials of dA and dD
+    # that the last launch sums in a fixed order
+    k2 = backward_chunk(Bt, T, _active_clusters(x.device, Dch))
+    n_scratch = backward_scratch_floats(Bt, T, Dch, N, k2)
     if n_scratch >= 2 ** 31:
         raise ValueError(f"selective_scan_backward: {n_scratch} floats of scratch at "
                          f"[Bt={Bt}, T={T}, D={Dch}]: split the batch")
@@ -186,9 +226,9 @@ def selective_scan_backward(x, dt, A, B, C, D, dy, pairs=None):
     err = _build.load().selective_scan_backward(
         _ptr(x, (Bt, T, Dch), "x"), _ptr(dt, (Bt, T, Dch), "dt"), _ptr(A, (Dch, N), "A"),
         _ptr(B, (Bt, T, N), "B"), _ptr(C, (Bt, T, N), "C"), _ptr(D, (Dch,), "D"),
-        _ptr(dy, (Bt, T, Dch), "dy"), None if pairs is None else pairs.data_ptr(),
+        _ptr(dy, (Bt, T, Dch), "dy"), _ptr(states, states_shape(Bt, T, Dch, N), "states"),
         dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(), dC.data_ptr(),
-        dD.data_ptr(), scratch.data_ptr(), Bt, T, Dch, N, chunk, n_scratch,
+        dD.data_ptr(), scratch.data_ptr(), Bt, T, Dch, N, k2, n_scratch,
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "selective_scan_backward")
     selective_scan_backward.launches += 1
@@ -197,22 +237,22 @@ def selective_scan_backward(x, dt, A, B, C, D, dy, pairs=None):
 
 class SelectiveScan(torch.autograd.Function):
     """The differentiable scan: on the CPU the plain forward and the plain
-    backward, on the card the forward kernel (its chunk pairs kept) and the
-    backward kernel."""
+    backward, on the card the forward kernel (its sub-chunk start states
+    kept) and the backward kernel."""
 
     @staticmethod
     def forward(ctx, x, dt, A, B, C, D):
         if x.is_cuda:
-            y, pairs = selective_scan_forward(x, dt, A, B, C, D)
+            y, states = selective_scan_forward(x, dt, A, B, C, D, states=True)
         else:
-            y, pairs = selective_scan_plain(x, dt, A, B, C, D), None
-        ctx.save_for_backward(x, dt, A, B, C, D, pairs)
+            y, states = selective_scan_plain(x, dt, A, B, C, D), None
+        ctx.save_for_backward(x, dt, A, B, C, D, states)
         return y
 
     @staticmethod
     def backward(ctx, dy):
-        x, dt, A, B, C, D, pairs = ctx.saved_tensors
-        return selective_scan_backward(x, dt, A, B, C, D, dy.contiguous(), pairs)
+        x, dt, A, B, C, D, states = ctx.saved_tensors
+        return selective_scan_backward(x, dt, A, B, C, D, dy.contiguous(), states)
 
 
 def selective_scan(x, dt, A, B, C, D):
@@ -225,6 +265,32 @@ def selective_scan(x, dt, A, B, C, D):
     if x.device.type == "cpu":
         return selective_scan_plain(x, dt, A, B, C, D)
     return selective_scan_forward(x, dt, A, B, C, D)[0]
+
+
+@functools.lru_cache(maxsize=16)
+def _active_clusters(device: torch.device, D: int) -> int:
+    """Clusters of the backward's main launch that fit on ``device`` at once."""
+    with torch.cuda.device(device):
+        active = backward_resources(D)["active_clusters"]
+    if active < 1:
+        raise RuntimeError(f"selective_scan_backward: no cluster of its launch fits on {device}")
+    return active
+
+
+def backward_resources(D: int = 128) -> dict:
+    """What the backward's cluster launch holds on the card at D channels:
+    registers per thread, static and dynamic shared memory per CTA, spill
+    bytes per thread, CTAs per SM and clusters active at once (CUDA's own
+    attribute and occupancy queries)."""
+    _check_bwd_channels(D)
+    fn = _build.load().selective_scan_backward_resources
+    fn.argtypes, fn.restype = [ctypes.c_void_p, ctypes.c_int], ctypes.c_int
+    out = (ctypes.c_int * 6)()
+    _build.check(fn(ctypes.addressof(out), -(-D // CLUSTER_WARPS)),
+                 "selective_scan_backward_resources")
+    keys = ("registers", "static_smem", "dynamic_smem", "local_bytes", "ctas_per_sm",
+            "active_clusters")
+    return dict(zip(keys, out))
 
 
 selective_scan.launches = 0

@@ -50,9 +50,6 @@ KINDS = (
     ("selective scan kernels", ("selective_scan",)),
     ("wgmma products (wgmma_linear)", ("wgmma_linear",)),
     ("tensor-core attention (attention_tc_kernel)", ("attention_tc_kernel",)),
-    # "gemm_bf16<": cuBLAS's own kernel names hold "gemm_bf16" too
-    ("first-design GEMMs (gemm_bf16: packed2)", ("gemm_bf16<",)),
-    ("packed2 attention kernel (attention_kernel)", ("attention_kernel",)),
     ("attention backward kernels (+ dk/dv reduce)", ("attention_bwd", "dkv_reduce")),
     ("dwconv kernels (+ GELU; transposed)", ("dwconv3x3",)),
     ("stage LN / SR regroup kernels", ("layernorm_kernel", "sr_patches")),

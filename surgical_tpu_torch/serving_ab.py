@@ -13,7 +13,9 @@ the order of the ``--tree`` options, then this tree twice, then the
 measurement times with CUDA events (20 launches after 3 warm-ups)
 ``fused_mit_block`` at MiT-b3 stages 1-3 and ``fused_mit_stage`` at stage 4
 (with a prompt base), at B = 8 and B = 200, 224x224, bf16, on seeded inputs
-that are the same in every tree; then the extraction rate of the b3 EVP
+that are the same in every tree, and ``fused_mit_block_packed2`` on the
+stage-1 inputs (weights from ``pack_weights2``, row_chunks 2; with the
+device time of each of its launches); then the extraction rate of the b3 EVP
 (``make_raw_feature_fn`` + ``extract_features``, random seeded weights,
 batches of 200 wire-format frames, the packed2 route off) in 3 runs of 12
 batches; the three kernels of ``fused_mit_block_train``
@@ -23,17 +25,23 @@ training batch 88, the same way; and the untraced training step of
 ``BackboneTrainer(use_fused=True)`` (b3, batch 88, 250-px wire frames
 cropped to 224, SGD): 5 steps after 2 warm-ups; then ``selective_scan`` on
 one video of T = 200, 2000 and 6000 frames at ``MambaConfig()``'s widths
-(D = 128, N = 64, fp32), the same way, and the latency per video of
+(D = 128, N = 64, fp32), the same way, ``selective_scan_backward`` at T =
+2000 and 6000 (fed what that tree's forward keeps for it; with the device
+time of each of its launches from torch.profiler), and the latency per
+video of
 ``predict_video`` with a seeded ``CausalMambaModel(MambaConfig())`` and
 ``RefinementTransformer(RefinerConfig())`` at the same T (host clock
-around synchronized calls, median of 5 after a warm-up). It prints one line per
-measurement and a summary with the card's name and power limit, and writes
-the JSON to FILE (default ``chiprun_out/serving_ab.json``).
+around synchronized calls, median of 5 after a warm-up). Each tree also
+records ``cuobjdump -res-usage`` of its scan kernels (registers, shared
+memory). It prints one line per measurement and a summary with the card's
+name and power limit, and writes the JSON to FILE (default
+``chiprun_out/serving_ab.json``).
 """
 
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import os
 import subprocess
@@ -48,6 +56,7 @@ STAGE4_DEPTH, PROMPT = 3, 128
 EXTRACT_BATCH, EXTRACT_BATCHES, EXTRACT_RUNS = 200, 12, 3
 TRAIN_B, TRAIN_STEPS, TRAIN_WARMUP = 88, 7, 2
 SCAN_T, SCAN_D, SCAN_N, LATENCY_RUNS = (200, 2000, 6000), 128, 64, 5
+SCAN_BWD_T = (2000, 6000)
 SEED = 0
 
 
@@ -92,7 +101,14 @@ def _measure(root: str) -> dict:
         end.synchronize()
         return start.elapsed_time(end) / reps
 
-    res = {"root": root, "kernels": {}}
+    from surgical_tpu_torch.kernels import _build
+
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    usage = subprocess.run([cuobjdump, "-res-usage", str(_build.build())], capture_output=True,
+                           text=True, check=True).stdout.splitlines()
+    res = {"root": root, "kernels": {}, "scan_res_usage": [
+        f"{ln.strip()} {usage[i + 1].strip()}" for i, ln in enumerate(usage[:-1])
+        if "selective_scan" in ln]}
     for stage, C, heads, side, sr in STAGES:
         rng = np.random.default_rng(SEED + stage)
         N, Nkv, hidden = side * side, (side // sr) ** 2, 4 * C
@@ -124,6 +140,16 @@ def _measure(root: str) -> dict:
             ms = time_ms(fn)
             res["kernels"][f"{name} stage{stage} B={B}"] = ms
             print(f"  {root}: {name} stage{stage} B={B}: {ms:.4f} ms", flush=True)
+            if stage == 1:
+                packed = mb.pack_weights2(w)
+                call = lambda: mb.fused_mit_block_packed2(x, k, v, packed, H=side, W=side,
+                                                          row_chunks=2)
+                ms = time_ms(call)
+                res["kernels"][f"mit_block_packed2_forward stage1 B={B}"] = ms
+                per_op = _device_op_us(call)
+                res.setdefault("packed2_ops_us", {})[str(B)] = per_op
+                print(f"  {root}: mit_block_packed2_forward stage1 B={B}: {ms:.4f} ms; device "
+                      f"us per call by kernel: {per_op}", flush=True)
             del x
 
     _measure_train(res, rand, weights, time_ms)
@@ -219,9 +245,31 @@ def _measure_train(res: dict, rand, weights, time_ms) -> None:
           + f" (median {float(np.median(steps)):.3f})", flush=True)
 
 
+def _device_op_us(fn, calls: int = 10) -> dict:
+    """Device time (us) per call of the kernels that ``fn`` launches, summed
+    by name (launches of one name added), from torch.profiler over ``calls``
+    calls."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    per = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            name = e.name.replace("(anonymous namespace)::", "").removeprefix("void ")
+            key = name.split("<")[0].split("(")[0]
+            per[key] = per.get(key, 0.0) + e.device_time_total / calls
+    return {k: round(v, 3) for k, v in per.items()}
+
+
 def _measure_temporal(res: dict, time_ms) -> None:
     """The scan per T on seeded inputs with Mamba's ranges (dt through
-    softplus, A = -exp(.)), then Mamba + refiner latency per video."""
+    softplus, A = -exp(.)) and its backward at SCAN_BWD_T, then Mamba +
+    refiner latency per video."""
     import numpy as np
     import torch
 
@@ -241,6 +289,22 @@ def _measure_temporal(res: dict, time_ms) -> None:
         ms = time_ms(lambda: ss.selective_scan(x, dt, A, B, C, Dv))
         res["kernels"][f"selective_scan_forward T={T}"] = ms
         print(f"  {res['root']}: selective_scan_forward T={T}: {ms:.4f} ms", flush=True)
+        if T not in SCAN_BWD_T:
+            continue
+        dy = f(1, T, SCAN_D)
+        # what the tree's forward keeps for its backward: the sub-chunk states,
+        # or (the first design) the chunk pairs
+        if "states" in inspect.signature(ss.selective_scan_forward).parameters:
+            kept = ss.selective_scan_forward(x, dt, A, B, C, Dv, states=True)[1]
+        else:
+            kept = ss.selective_scan_forward(x, dt, A, B, C, Dv)[1]
+        call = lambda: ss.selective_scan_backward(x, dt, A, B, C, Dv, dy, kept)
+        ms = time_ms(call)
+        res["kernels"][f"selective_scan_backward T={T}"] = ms
+        per_op = _device_op_us(call)
+        res.setdefault("scan_backward_ops_us", {})[str(T)] = per_op
+        print(f"  {res['root']}: selective_scan_backward T={T}: {ms:.4f} ms; device us per "
+              f"call by kernel: {per_op}", flush=True)
     mamba = CausalMambaModel(MambaConfig(), seed=SEED + 3, device=dev)
     refiner = RefinementTransformer(RefinerConfig(), seed=SEED + 4, device=dev)
     res["mamba_refiner_ms"] = {}
@@ -290,6 +354,8 @@ def main(argv=None) -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
     print(f"serving_ab on {smi} (order {', '.join(order)})")
+    for r in runs[:2]:
+        print(f"  {r['tree']} scan kernels: " + " | ".join(r["scan_res_usage"]))
     for key in runs[0]["kernels"]:
         vals = " / ".join(f"{r['tree']} {r['kernels'][key]:.4f}" for r in runs)
         print(f"  {key} ms: {vals}")
@@ -298,6 +364,12 @@ def main(argv=None) -> int:
         f"{r['tree']} {med(r['extract_fps']):.1f}" for r in runs))
     print("  training step ms (median of 5 steps each): " + " / ".join(
         f"{r['tree']} {med(r['train_step_ms']):.3f}" for r in runs))
+    for B in BATCHES:
+        print(f"  mit_block_packed2_forward B={B} device us per call by kernel: " + " / ".join(
+            f"{r['tree']} {r['packed2_ops_us'][str(B)]}" for r in runs))
+    for T in SCAN_BWD_T:
+        print(f"  selective_scan_backward T={T} device us per call by kernel: " + " / ".join(
+            f"{r['tree']} {r['scan_backward_ops_us'][str(T)]}" for r in runs))
     for T in SCAN_T:
         print(f"  Mamba + refiner T={T} ms (median of {LATENCY_RUNS}): " + " / ".join(
             f"{r['tree']} {med(r['mamba_refiner_ms'][str(T)]):.3f}" for r in runs))

@@ -11,10 +11,12 @@ chunks. Here, on the CPU:
   scans, at T in {1, 63, 65, 129} and 1 or 2 videos;
 - the same gradient against torch autograd through ``selective_scan_plain``;
 - ``torch.autograd.gradcheck`` in float64;
-- a plain mirror of the backward kernel's chunked form (the adjoint's chunk
-  pairs, shifted by one step against the forward's, folded last first) held
-  to ``jax.grad`` at the chunk edges;
-- the wrappers' CPU routes and the kernel's scratch layout.
+- a plain mirror of the backward kernel's chunked form (the forward's
+  sub-chunk start states, the adjoint's chunk pairs, shifted by one step
+  against the forward's, folded last first, dB and dC summed per channel
+  block and then over the cluster in rank order) held to ``jax.grad`` at the
+  chunk edges;
+- the wrappers' CPU routes, the kernel's scratch layout and its limit on D.
 
 CUDA cases (marker ``cuda``) hold the backward kernel to the plain backward
 on the card and check that two runs give the same bits.
@@ -97,72 +99,101 @@ def test_scan_gradcheck_float64():
     assert torch.autograd.gradcheck(ss.SelectiveScan.apply, ins)
 
 
-def selective_scan_chunked_plain_backward(x, dt, A, B, C, D, dy, chunk):
-    """The backward kernel's three launches in plain PyTorch, fp32. With
-    chunks [s_c, e_c] and a_t = exp(dt_t A):
-    B1. for every chunk but the first, from a zero carry, backwards:
-        lam_t = dy_t C_t + carry, carry = a_t lam_t, decay = prod a_t; the
-        pair is (decay, Q_c = carry after s_c);
-    B2. per chunk, h_in folds the forward's pairs of the chunks before it
-        (as the forward kernel), the carry g folds the adjoint pairs of the
-        chunks after it, last first (g = decay g + Q); then the chunk's
-        states forwards from h_in and lam backwards from g give the
-        gradients, dB and dC summed over channels, dA and dD per chunk;
+def selective_scan_chunked_plain_backward(x, dt, A, B, C, D, dy, chunk, sub=ss.SUB_CHUNK,
+                                          width=ss.CLUSTER_WARPS):
+    """The backward kernel's decomposition in plain PyTorch, fp32. With
+    sub-chunks of ``sub`` steps, the backward's chunks of ``chunk`` steps (a
+    multiple of ``sub``) and a_t = exp(dt_t A):
+    F.  the forward's launches at its own chunks (``scan_chunk``): every chunk
+        but the last from zero into its pair (decay, end state), each
+        chunk's carry-in folded from the pairs before it, and its rerun,
+        which records the state at the start of every sub-chunk;
+    B1. for every sub-chunk after the first chunk, from a zero carry,
+        backwards: lam_t = dy_t C_t + carry, carry = a_t lam_t, decay = prod
+        a_t; the pair is (decay, Q = carry after its first step);
+    B2. per chunk, the carry g folds B1's pairs of the sub-chunks after it,
+        last first (g = decay g + Q); then per sub-chunk, last first, the
+        states forwards from the recorded start state and lam backwards from
+        g give the gradients, dA and dD per chunk; dB and dC sum over each
+        block of ``width`` channels in channel order, then over the blocks in
+        rank order (the cluster's CTAs);
     B3. dA and dD summed over the chunks."""
     a = torch.exp(dt[..., None] * A)                  # [Bt, T, D, N]
     b = (dt * x)[..., None] * B[:, :, None, :]
-    T = x.shape[1]
-    spans = [(t0, min(T, t0 + chunk)) for t0 in range(0, T, chunk)]
+    T, Dch = x.shape[1], x.shape[2]
+    fchunk = ss.scan_chunk(T)
+    fspans = [(t0, min(T, t0 + fchunk)) for t0 in range(0, T, fchunk)]
     fwd = []
-    for t0, t1 in spans[:-1]:
+    for t0, t1 in fspans[:-1]:                                        # F
         h, decay = torch.zeros_like(a[:, 0]), torch.ones_like(a[:, 0])
         for t in range(t0, t1):
             h, decay = a[:, t] * h + b[:, t], decay * a[:, t]
         fwd.append((decay, h))
-    bwd = {}
-    for c, (t0, t1) in enumerate(spans[1:], start=1):                 # B1
-        carry, decay = torch.zeros_like(a[:, 0]), torch.ones_like(a[:, 0])
-        for t in range(t1 - 1, t0 - 1, -1):
-            lam = dy[:, t, :, None] * C[:, t, None, :] + carry
-            carry, decay = a[:, t] * lam, decay * a[:, t]
-        bwd[c] = (decay, carry)
-    dx, ddt, dB, dC = (torch.zeros_like(v) for v in (x, dt, B, C))
-    dA_parts, dD_parts = [], []
-    for c, (t0, t1) in enumerate(spans):                              # B2
+    states = {}
+    for c, (t0, t1) in enumerate(fspans):
         h = torch.zeros_like(a[:, 0])
         for decay, end in fwd[:c]:
             h = decay * h + end
-        carry = torch.zeros_like(a[:, 0])
-        for c2 in range(len(spans) - 1, c, -1):
-            decay, q = bwd[c2]
-            carry = decay * carry + q
-        hs = [h]
         for t in range(t0, t1):
-            hs.append(a[:, t] * hs[-1] + b[:, t])
-        dA_c = torch.zeros_like(A)
-        for t in range(t1 - 1, t0 - 1, -1):
-            k = t - t0
+            if t % sub == 0:
+                states[t // sub] = h
+            h = a[:, t] * h + b[:, t]
+    spans = [(t0, min(T, t0 + chunk)) for t0 in range(0, T, chunk)]
+    bwd = {}
+    for s0 in range(chunk, T, sub):                                   # B1
+        carry, decay = torch.zeros_like(a[:, 0]), torch.ones_like(a[:, 0])
+        for t in range(min(T, s0 + sub) - 1, s0 - 1, -1):
             lam = dy[:, t, :, None] * C[:, t, None, :] + carry
-            u = lam * a[:, t] * hs[k]
-            lam_B = (lam * B[:, t, None, :]).sum(-1)
-            dx[:, t] = dt[:, t] * lam_B + D * dy[:, t]
-            ddt[:, t] = (u * A).sum(-1) + x[:, t] * lam_B
-            dA_c = dA_c + (u * dt[:, t, :, None]).sum(0)
-            dB[:, t] = (lam * (dt[:, t] * x[:, t])[..., None]).sum(1)
-            dC[:, t] = (dy[:, t, :, None] * hs[k + 1]).sum(1)
-            carry = a[:, t] * lam
+            carry, decay = a[:, t] * lam, decay * a[:, t]
+        bwd[s0] = (decay, carry)
+
+    def cluster_sum(terms):  # [Bt, D, N] -> [Bt, N]: per block in channel order, then by rank
+        total = 0.0
+        for r0 in range(0, Dch, width):
+            part = 0.0
+            for d in range(r0, min(Dch, r0 + width)):
+                part = part + terms[:, d]
+            total = total + part
+        return total
+
+    dx, ddt, dB, dC = (torch.zeros_like(v) for v in (x, dt, B, C))
+    dA_parts, dD_parts = [], []
+    for t0, t1 in spans:                                              # B2
+        carry = torch.zeros_like(a[:, 0])
+        for s0 in sorted((s0 for s0 in bwd if s0 >= t1), reverse=True):
+            decay, q = bwd[s0]
+            carry = decay * carry + q
+        dA_c = torch.zeros_like(A)
+        for s0 in range(t0 + (t1 - 1 - t0) // sub * sub, t0 - 1, -sub):
+            s1 = min(t1, s0 + sub)
+            hs = [states[s0 // sub]]
+            for t in range(s0, s1):
+                hs.append(a[:, t] * hs[-1] + b[:, t])
+            for t in range(s1 - 1, s0 - 1, -1):
+                k = t - s0
+                lam = dy[:, t, :, None] * C[:, t, None, :] + carry
+                u = lam * a[:, t] * hs[k]
+                lam_B = (lam * B[:, t, None, :]).sum(-1)
+                dx[:, t] = dt[:, t] * lam_B + D * dy[:, t]
+                ddt[:, t] = (u * A).sum(-1) + x[:, t] * lam_B
+                dA_c = dA_c + (u * dt[:, t, :, None]).sum(0)
+                dB[:, t] = cluster_sum(lam * (dt[:, t] * x[:, t])[..., None])
+                dC[:, t] = cluster_sum(dy[:, t, :, None] * hs[k + 1])
+                carry = a[:, t] * lam
         dA_parts.append(dA_c)
         dD_parts.append((dy[:, t0:t1] * x[:, t0:t1]).sum((0, 1)))
     return dx, ddt, sum(dA_parts), dB, dC, sum(dD_parts)                 # B3
 
 
-@pytest.mark.parametrize("T, chunk", [(1, 64), (63, 64), (64, 64), (65, 64), (129, 64),
-                                      (197, 64), (129, 32)])
-def test_chunked_backward_mirror_matches_jax(T, chunk):
+@pytest.mark.parametrize("T, chunk, D", [(1, 64, 16), (63, 64, 16), (64, 64, 16),
+                                         (65, 64, 16), (129, 64, 16), (197, 64, 16),
+                                         (129, 32, 16), (97, 64, 40)])
+def test_chunked_backward_mirror_matches_jax(T, chunk, D):
     """One chunk; one chunk and one step past it (the adjoint's decay takes
     the next chunk's first step); three and four chunks with ragged ends;
-    five chunks of 32."""
-    args = scan_inputs(2, T, seed=T)
+    five chunks of one sub-chunk; a cluster of three channel blocks, the
+    last ragged."""
+    args = scan_inputs(2, T, D=D, seed=T)
     got = selective_scan_chunked_plain_backward(*(torch.from_numpy(a) for a in args), chunk)
     assert_close_to_scale([g.numpy() for g in got], jax_grads(selective_scan_ref, *args),
                           REL_JAX)
@@ -187,14 +218,47 @@ def test_cpu_routes():
 
 def test_backward_scratch_layout():
     """The scratch the wrapper allocates, region by region (the C entry point
-    checks the same sum): T = 6000 is 32 chunks of 192 and 188 sub-chunks."""
+    checks the same sum), and the forward's sub-chunk states: T = 6000 is
+    188 sub-chunks, in chunks of 13 at the H100's 15 active clusters. No dB /
+    dC partials: the cluster sums them on chip."""
     Bt, T, D, N = 1, 6000, 128, 64
-    assert ss.scan_chunk(T) == 192
-    blocks = D // ss.BWD_WARPS
-    want = (2 * 31 * D * N + 188 * D * N + 2 * blocks * T * N + 32 * D * N + 32 * D)
-    assert ss.backward_scratch_floats(Bt, T, D, N) == want
-    assert ss.backward_scratch_floats(3, 65, D, N) == (
-        2 * 3 * 1 * D * N + 3 * 3 * D * N + 2 * blocks * 3 * 65 * N + 3 * 2 * D * N + 3 * 2 * D)
+    assert ss.backward_scratch_floats(Bt, T, D, N, 13) == (
+        2 * 175 * D * N + 15 * D * N + 15 * D)
+    assert ss.backward_scratch_floats(3, 65, D, N, 5) == 3 * D * N + 3 * D  # one chunk: no pairs
+    assert ss.backward_scratch_floats(3, 65, D, N, 1) == (
+        2 * 3 * 2 * D * N + 3 * 3 * D * N + 3 * 3 * D)
+    assert ss.states_shape(Bt, T, D, N) == (1, 188, D, N)
+    assert ss.states_shape(3, 65, D, N) == (3, 3, D, N)
+
+
+@pytest.mark.parametrize("Bt, T, active, want", [
+    (1, 6000, 15, 13),   # 15 clusters: one wave of 13 sub-chunks each
+    (1, 2000, 15, 5),    # 13 clusters of 5
+    (1, 1, 15, 1),
+    (1, 65, 15, 1),      # 3 sub-chunks over 3 clusters
+    (3, 777, 15, 5),     # 25 sub-chunks per video: 3 x 5 clusters
+    (32, 2000, 15, 9),   # more videos than clusters: 7 chunks of 9 per video, 15 waves
+])
+def test_backward_chunk_fills_whole_waves(Bt, T, active, want):
+    """The cluster launch's chunk: the fewest sub-chunks walked in series
+    (waves x chunk), the longest chunk of equal counts."""
+    k = ss.backward_chunk(Bt, T, active)
+    assert k == want
+    subs = -(-T // ss.SUB_CHUNK)
+    cost = lambda k: -(-Bt * -(-subs // k) // active) * k
+    assert all(cost(k) <= cost(j) for j in range(1, subs + 1))
+
+
+def test_backward_refuses_a_d_over_one_cluster():
+    """D above one cluster of channel blocks, or not a multiple of 4, raises
+    before any launch."""
+    assert ss.MAX_BWD_D == 128
+    x, dt, A, B, C, D, _ = (torch.from_numpy(a) for a in scan_inputs(1, 4, D=129, seed=2))
+    with pytest.raises(ValueError, match="D <= 128"):
+        ss.selective_scan_forward(x, dt, A, B, C, D, states=True)
+    x, dt, A, B, C, D, _ = (torch.from_numpy(a) for a in scan_inputs(1, 4, D=30, seed=2))
+    with pytest.raises(ValueError, match="multiple of 4"):
+        ss.selective_scan_forward(x, dt, A, B, C, D, states=True)
 
 
 @pytest.mark.cuda
@@ -206,9 +270,9 @@ def test_backward_kernel_matches_plain_on_the_card(Bt, T):
         pytest.skip("needs a CUDA card and nvcc: the backward kernel has no CPU build")
     args = [torch.from_numpy(a).cuda() for a in scan_inputs(Bt, T, D=128, seed=T)]
     x, dt, A, B, C, D, dy = args
-    y, pairs = ss.selective_scan_forward(x, dt, A, B, C, D)
-    got = ss.selective_scan_backward(x, dt, A, B, C, D, dy, pairs)
-    again = ss.selective_scan_backward(x, dt, A, B, C, D, dy, pairs)
+    y, states = ss.selective_scan_forward(x, dt, A, B, C, D, states=True)
+    got = ss.selective_scan_backward(x, dt, A, B, C, D, dy, states)
+    again = ss.selective_scan_backward(x, dt, A, B, C, D, dy, states)
     want = ss.selective_scan_plain_backward(x, dt, A, B, C, D, dy)
     for name, g, g2, w in zip(NAMES, got, again, want):
         assert torch.equal(g, g2), name

@@ -1,6 +1,7 @@
 """Launch plans of the serving MiT kernels (kernels/mit_block.py): every
-shape the extraction path gives mit_block_forward and mit_stage_forward
-(MiT-b3 at 224 and 250 px, the CLI's batch sizes and ragged last batches),
+shape the extraction path gives mit_block_forward, mit_block_packed2_forward
+and mit_stage_forward (MiT-b3 at 224 and 250 px, the CLI's batch sizes and
+ragged last batches),
 checked on the CPU: the grids cover the rows, columns and query tiles
 exactly once, the shared memory fits one CTA, and the limits raise."""
 
@@ -101,7 +102,27 @@ def test_small_grids_split_column_tiles():
     assert mb.gemm_plan(200 * 3136, 64, 64, ln=True)[2:5] == (1, 4900, 1)
 
 
+@pytest.mark.parametrize("px", sorted(SIDES))
+@pytest.mark.parametrize("B", (2, 8, 200))
+def test_packed2_plans_cover_b3_stage1(px, B):
+    """packed2 at b3 stage 1: the B / 2 packed rows of 128 lanes; the q and
+    fc1 panels resident at K = 128 (the per-half LayerNorm's prologue), fc2's
+    at the packed hidden width K = 512; every product's shared memory fits."""
+    (C, heads, sr), side = B3[0], SIDES[px][0]
+    N, Nkv, C2, hidden2 = side * side, _kv_side(side, sr) ** 2, 2 * B3[0][0], 2 * 4 * B3[0][0]
+    plan = mb.packed2_plan(B, side, side, Nkv, hidden2)
+    assert len(plan) == 4 * 6 + 3 and C2 == 128 and hidden2 == mb.PANEL_MAX_K
+    P, M = B // 2, B // 2 * N
+    _check_gemm(plan[0:6], M, C2, C2, ln=True)
+    _check_attention(plan[6:9], P, N, 2)
+    _check_mlp(plan[9:27], P, side, side, C2, hidden2)
+    assert [plan[i + 1] for i in (0, 9, 15, 21)] == [1, 1, 1, 1]  # every panel resident
+    assert plan[15 + 5] <= plan[21 + 5] <= mb.SMEM_LIMIT  # K = 128 panel, then K = 512
+
+
 @pytest.mark.parametrize("call", [
+    lambda: mb.packed2_plan(7, 56, 56, 49, 512),      # an odd batch has no pairs
+    lambda: mb.packed2_plan(8, 56, 56, 49, 1024),     # fc2's panel wider than PANEL_MAX_K
     lambda: mb.gemm_plan(1000, 512, 520, ln=True),    # LN panel wider than PANEL_MAX_K
     lambda: mb.gemm_plan(1000, 100, 64),              # N not a multiple of 8
     lambda: mb.gemm_plan(1000, 64, 60),               # K not a multiple of 8
