@@ -58,7 +58,20 @@ nonzero without printing a result:
    step time, peak memory, a frozen trunk, moved trainable tensors and
    BatchNorm statistics, a checkpoint round trip with the optimizer state,
    and one step's loss and gradients against the plain train kernels;
-8. extraction CLI at b3 widths through ``cli.main`` on 250-px frames: a
+8. flax-graph backbone at b3 widths (``MiTEVP.graph_forward``, plain
+   PyTorch, no kernel): the default prompts, ``fft``, ``bimask`` and
+   ``fully_unshared`` at B=8, 224 px, bf16 (finite), and at B=2 on the
+   card in fp32 and in bf16 against the CPU's fp32; the per-frame feature
+   cosine against the serving graph on the kernels (``fused_forward``) on
+   the same weights at B=8; ``BackboneTrainer(use_fused=False)`` over the
+   training phase's frame caches (batch 88, 2 epochs of 3 steps with
+   mid-epoch validation, then ``evaluate``): step time, frames/s, peak
+   memory, no launch of any MiT kernel, a frozen trunk, moved trainable
+   tensors and BatchNorm statistics, a checkpoint round trip, and one
+   step's trainable gradients against the fused trunk's with the same
+   masks; then ``selfcheck --full --device cuda`` with its learned gates
+   where Pillow is importable;
+9. extraction CLI at b3 widths through ``cli.main`` on 250-px frames: a
    synthetic Cholec80-layout corpus of 4 videos, ``prepare-data --scheme
    smoke``, a seeded ``FrameCache`` per split (``cache-frames`` too where
    Pillow is importable), seeded models saved as reference ``.pth`` files,
@@ -66,7 +79,7 @@ nonzero without printing a result:
    (each store against ``extract_features`` on the same frames, the pickles
    read back), ``reference-parity --online`` on those stores (finite
    metrics, online/offline agreement), and the seconds of each verb;
-9. result: a JSON line of per-kernel numbers (the serving kernels' B=200
+10. result: a JSON line of per-kernel numbers (the serving kernels' B=200
    and the train kernels' B=88 times and bounds beside the B=8 ones; the
    scan's backward at T = 2000 and 6000), the card line, and the last line
    ``{"ok": true, "device": {...}}``.
@@ -74,6 +87,8 @@ nonzero without printing a result:
 
 from __future__ import annotations
 
+import copy
+import dataclasses
 import json
 import os
 import subprocess
@@ -123,6 +138,20 @@ TRAIN_B, TRAIN_BATCHES, TRAIN_EPOCHS = 88, 3, 2
 # relative difference. A few times the H100 readings (min cosine 0.9979,
 # loss rel 2.7e-5).
 GRAD_COS_BOUND, LOSS_REL_BOUND = 0.99, 2e-4
+# The flax-graph phase (phase_flax_graph): prompt variants at b3 widths, run
+# at FG_B frames on the card and at FG_CPU_B against the CPU's fp32 graph.
+FG_VARIANTS = {"default": {}, "fft": {"input_type": "fft"}, "bimask": {"input_type": "bimask"},
+               "fully_unshared": {"adaptor": "fully_unshared"}}
+FG_B, FG_CPU_B = 8, 2
+# Bounds, a few times the H100 readings: rel L2 of the pooled features,
+# card fp32 (TF32 off) vs CPU fp32, summation order only (read at most
+# 6.1e-7), and card bf16 vs CPU fp32, bf16 roundings through 28 blocks (read
+# at most 5.2e-3); the per-frame cosine of the flax graph's bf16 features
+# against the serving graph's, whose blocks take the tanh GELU where the
+# flax graph's take exact erf (read: min 0.999993); one step's trainable
+# gradients, flax graph vs fused trunk with the same masks, rel L2 per group
+# (read at most 7.2e-2: the GELU forms again, through 28 blocks).
+FG_FP32_BOUND, FG_BF16_BOUND, FG_COS_BOUND, FG_GRAD_BOUND = 5e-6, 2e-2, 0.9999, 0.2
 # Conv biases right before a train-mode BatchNorm: the batch mean removes
 # them, so their gradient is zero up to rounding and they need not move.
 BN_FED_BIASES = tuple(f"flow_encoder.conv{i}.bias" for i in (1, 2, 3, 4))
@@ -1116,7 +1145,7 @@ def phase_train(workdir: str) -> dict:
     ev = trainer.evaluate(batches("test", np.arange(TRAIN_B)), num_each=[TRAIN_B])
     if not all(np.isfinite(ev[k]) for k in ("acc", "precision_macro", "recall_macro")):
         raise AssertionError(f"evaluate: metrics not finite: {ev}")
-    print(f"train: evaluate on {TRAIN_B} test frames (serving graph): acc {ev['acc']:.4f} "
+    print(f"train: evaluate on {TRAIN_B} test frames (flax graph, eval mode): acc {ev['acc']:.4f} "
           f"acc_video {ev['acc_video']:.4f} (random weights: only finiteness is checked)")
 
     # checkpoint round trip: parameters, BatchNorm statistics, optimizer state
@@ -1171,7 +1200,211 @@ def phase_train(workdir: str) -> dict:
     if loss_rel > LOSS_REL_BOUND or min(cos.values()) < GRAD_COS_BOUND:
         raise AssertionError("the training path's kernels disagree with their plain versions")
     return {"launches": launches, "step_ms": med, "fps": TRAIN_B / med * 1e3,
-            "peak_gib": peak_gib, "grad_cos": cos, "loss_rel": loss_rel}
+            "peak_gib": peak_gib, "grad_cos": cos, "loss_rel": loss_rel, "caches": caches}
+
+
+def _rel_l2(got, want) -> float:
+    got, want = got.double().cpu(), want.double().cpu()
+    return float((got - want).norm() / want.norm().clamp_min(1e-30))
+
+
+def _mit_launches() -> dict:
+    from surgical_tpu_torch.kernels import mit_block as mb
+
+    return {k.__name__: k.launches for k in (
+        mb.fused_mit_block, mb.fused_mit_block_packed2, mb.fused_mit_stage,
+        mb.block_train_forward, mb.block_train_mlp_backward, mb.block_train_attn_backward)}
+
+
+def phase_flax_graph(workdir: str, caches: dict, cfg=None, head_cfg=None, device: str = "cuda",
+                     train_b: int = TRAIN_B, selfcheck: bool = True) -> dict:
+    """The flax module graph at b3 widths (defaults BackboneConfig(),
+    HeadConfig()): prompt variants on the card against the CPU, features
+    against the serving graph on the kernels, BackboneTrainer(use_fused=False)
+    over the training phase's frame caches with zero MiT-kernel launches, its
+    gradients against the fused trunk's, then selfcheck --full. Every line
+    it prints is asserted."""
+    from surgical_tpu_torch import cli
+    from surgical_tpu_torch.core.checkpoint import CheckpointStore
+    from surgical_tpu_torch.core.config import BackboneConfig, HeadConfig, OptimConfig, TrainConfig
+    from surgical_tpu_torch.core.rng import generator
+    from surgical_tpu_torch.data.datasets import ClipSampler, clip_start_indices, prefetch_batches
+    from surgical_tpu_torch.data.transforms import draw_params
+    from surgical_tpu_torch.kernels import mit_block as mb
+    from surgical_tpu_torch.models.mit_evp import MiTEVP
+    from surgical_tpu_torch.models.mit_fused import fused_forward
+    from surgical_tpu_torch.models.mit_train import draw_masks
+    from surgical_tpu_torch.train.backbone import BackboneTrainer, is_trainable
+
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    cfg, head_cfg = cfg or BackboneConfig(), head_cfg or HeadConfig()
+    rng = np.random.default_rng(SEED + 10)
+    size = cfg.img_size
+    inputs = [torch.from_numpy(rng.standard_normal((FG_B, size, size, c)).astype(np.float32))
+              for c in (3, 3, 2)]
+    small = [t[:FG_CPU_B] for t in inputs]
+    on_dev = lambda ts: [t.to(dev) for t in ts]
+    res = {"variants": {}}
+
+    # (a) the variants: finite at FG_B in bf16; at FG_CPU_B against the CPU
+    tf32 = torch.backends.cudnn.allow_tf32
+    for name, kw in FG_VARIANTS.items():
+        vcfg = dataclasses.replace(cfg, **kw)
+        cpu_model = MiTEVP(vcfg, head_cfg, seed=SEED + 11, device="cpu")
+        if vcfg.input_type == "bimask":  # a non-zero positional embedding
+            with torch.no_grad():
+                cpu_model.prompt_generator.bimask_pos_embed.normal_(
+                    0.0, 0.1, generator=torch.Generator().manual_seed(SEED + 12))
+        model = copy.deepcopy(cpu_model).to(dev)
+        with torch.no_grad():
+            feats = model.graph_forward(*on_dev(inputs), return_features=True,
+                                        dtype=torch.bfloat16)
+            want = cpu_model.graph_forward(*small, return_features=True)
+            torch.backends.cudnn.allow_tf32 = False
+            try:
+                got32 = model.graph_forward(*on_dev(small), return_features=True)
+            finally:
+                torch.backends.cudnn.allow_tf32 = tf32
+            got16 = model.graph_forward(*on_dev(small), return_features=True,
+                                        dtype=torch.bfloat16)
+        finite = bool(torch.isfinite(feats).all()) and feats.shape == (FG_B, head_cfg.embedding_dim)
+        e32, e16 = _rel_l2(got32, want), _rel_l2(got16.float(), want)
+        ok = finite and e32 <= FG_FP32_BOUND and e16 <= FG_BF16_BOUND
+        print(f"flax: variant {name}: B={FG_B} bf16 features {tuple(feats.shape)} "
+              f"{'finite' if finite else 'NOT FINITE'}; B={FG_CPU_B} vs CPU fp32: rel L2 card fp32 "
+              f"{e32:.3e} (bound {FG_FP32_BOUND}), card bf16 {e16:.3e} (bound {FG_BF16_BOUND}) "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"flax graph variant {name} disagrees with the CPU")
+        res["variants"][name] = {"rel_l2_fp32": e32, "rel_l2_bf16": e16}
+        if name == "default":
+            # (b) the same weights through the serving graph on the kernels
+            with torch.no_grad():
+                served = fused_forward(model, *on_dev(inputs))
+            cos = torch.nn.functional.cosine_similarity(feats.float(), served.float(), dim=1)
+            res["cosine_min"] = float(cos.min())
+            print(f"flax: flax graph vs serving graph (fused_forward, kernels) on the same "
+                  f"weights, B={FG_B}: per-frame feature cosine min {res['cosine_min']:.6f} "
+                  f"mean {float(cos.mean()):.6f} (bound {FG_COS_BOUND})")
+            if res["cosine_min"] < FG_COS_BOUND:
+                raise AssertionError("the flax graph disagrees with the serving graph")
+        del model, cpu_model
+
+    # (c) training on the flax graph
+    model = MiTEVP(cfg, head_cfg, seed=SEED, device=dev)
+    tcfg = TrainConfig(optim=OptimConfig(name="sgd", lr=1e-3, weight_decay=0.0,
+                                         grad_clip_norm=None))
+    n_batches = len(caches["train"]) // train_b
+    trainer = BackboneTrainer(model, tcfg, val_every=n_batches, use_fused=False)
+    opt = trainer.init()
+    before = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    batches = lambda name, idx: prefetch_batches(caches[name], idx, train_b)
+    n_train = len(caches["train"])
+    sync()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    mb.reset_launches()
+    epochs, step_ms = [], []
+    for epoch in range(TRAIN_EPOCHS):
+        idx = ClipSampler(1, clip_start_indices(1, [n_train])).indices(epoch=epoch, shuffle=True)
+        epochs.append(trainer.train_epoch(batches("train", idx), epoch,
+                                          val_batches=list(batches("val", np.arange(train_b)))))
+        step_ms += trainer.step_ms
+    sync()
+    launches = _mit_launches()
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30 if cuda else float("nan")
+    med = float(np.median(step_ms[1:]))  # the first step is the warm-up
+    print("flax: train step ms " + ", ".join(f"{v:.2f}" for v in step_ms)
+          + f"; median after warm-up {med:.3f} ms = {train_b / med * 1e3:.1f} frames/s; "
+          f"peak memory {peak_gib:.2f} GiB (batch {train_b})")
+    for e, tm in enumerate(epochs):
+        print(f"flax: epoch {e}: loss {tm['train_loss']:.4f} acc {tm['train_acc']:.4f}")
+    print(f"flax: MiT kernel launches during the flax-graph steps, mid-epoch validation "
+          f"included: {launches} (expected all 0)")
+    if any(launches.values()) or not all(np.isfinite(tm["train_loss"]) for tm in epochs):
+        raise AssertionError("the flax graph launched a MiT kernel, or its loss is not finite")
+    after = model.state_dict()
+    trainable = {n for n, p in model.named_parameters() if p.requires_grad}
+    moved = {k for k in after if not torch.equal(after[k], before[k])}
+    trunk_moved = [k for k in moved if not is_trainable(k)]
+    still = sorted(trainable - moved - set(BN_FED_BIASES))
+    bn_keys = [k for k in after if k.endswith(("running_mean", "running_var"))]
+    bn_moved = [k for k in bn_keys if k in moved]
+    print(f"flax: {len(trainable & moved)} of {len(trainable)} trainable tensors moved; trunk "
+          f"tensors moved: {len(trunk_moved)}; BatchNorm statistics moved: {len(bn_moved)} of "
+          f"{len(bn_keys)}")
+    if trunk_moved or still or len(bn_moved) != len(bn_keys):
+        raise AssertionError(f"trunk moved {trunk_moved[:5]}, trainable still {still[:5]}")
+    ev = trainer.evaluate(batches("test", np.arange(train_b)), num_each=[train_b])
+    print(f"flax: evaluate on {train_b} test frames: acc {ev['acc']:.4f} (finite metrics)")
+    if not all(np.isfinite(ev[k]) for k in ("acc", "precision_macro", "recall_macro")):
+        raise AssertionError(f"evaluate: metrics not finite: {ev}")
+
+    store = CheckpointStore(os.path.join(workdir, "ckpt", "backbone_flax"))
+    store.save(TRAIN_EPOCHS - 1, model.state_dict(), metrics={"val_acc": ev["acc"]},
+               aux={"optimizer": opt.state_dict()})
+    model2 = MiTEVP(cfg, head_cfg, seed=SEED + 9, device=dev)
+    opt2 = BackboneTrainer(model2, tcfg).init()
+    store.restore(TRAIN_EPOCHS - 1, model2, dev)
+    opt2.load_state_dict(store.restore_aux(TRAIN_EPOCHS - 1)["optimizer"])
+    same_model = all(torch.equal(model2.state_dict()[k], v) for k, v in model.state_dict().items())
+    st1, st2 = opt.state_dict()["state"], opt2.state_dict()["state"]
+    same_opt = st1.keys() == st2.keys() and all(
+        torch.equal(st1[i]["momentum_buffer"], st2[i]["momentum_buffer"]) for i in st1)
+    print(f"flax: checkpoint round trip: model {'equal' if same_model else 'DIFFERS'}, "
+          f"optimizer state ({len(st1)} momentum buffers) {'equal' if same_opt else 'DIFFERS'}")
+    if not (same_model and same_opt):
+        raise AssertionError("the flax-graph checkpoint does not round-trip")
+    del model2, opt2
+
+    # one batch, the same augmentation and masks, flax graph vs fused trunk
+    img, seg, flow, labels, ant = caches["train"].frames(np.arange(train_b))
+    ap = draw_params(generator(SEED, 0, purpose="augment", device=dev), trainer.aug_cfg, train_b)
+    masks = draw_masks(cfg, head_cfg, train_b, generator(SEED, 0, purpose="droppath", device=dev))
+
+    def grads(tr):
+        out, _ = tr.loss_and_grad(img, seg, flow, labels, ant, aug_params=ap, masks=masks)
+        groups = {}
+        for n, p in model.named_parameters():
+            if p.requires_grad:
+                groups.setdefault(n.split(".")[0], []).append(p.grad.flatten())
+        return out["loss"].item(), {g: torch.cat(v) for g, v in groups.items()}
+
+    loss_g, g_g = grads(trainer)
+    fused = BackboneTrainer(model, tcfg, use_fused=True)
+    fused.init()
+    loss_f, g_f = grads(fused)
+    model.zero_grad(set_to_none=True)
+    rel = {g: _rel_l2(g_g[g], g_f[g]) for g in g_g}
+    print(f"flax: one step, flax graph vs fused trunk, same masks: loss {loss_g:.5f} vs "
+          f"{loss_f:.5f}; gradient rel L2 per group " + ", ".join(f"{g} {v:.3e}" for g, v in
+                                                                  rel.items())
+          + f" (bound {FG_GRAD_BOUND})")
+    if max(rel.values()) > FG_GRAD_BOUND:
+        raise AssertionError("the flax graph's gradients disagree with the fused trunk's")
+    res.update({"step_ms": med, "fps": train_b / med * 1e3, "peak_gib": peak_gib,
+                "launches": launches, "grad_rel_l2": rel})
+    del model, trainer, fused, opt
+
+    # (d) the whole pipeline from synthetic images
+    try:
+        import PIL  # noqa: F401
+    except ImportError:
+        print("flax: selfcheck --full not run: Pillow is not importable on this machine (its "
+              "corpus writer saves JPEGs)")
+        return res
+    if not selfcheck:
+        return res
+    t0 = time.perf_counter()
+    rc = cli.main(["selfcheck", "--full", "--device", device])
+    res["selfcheck_s"] = time.perf_counter() - t0
+    print(f"flax: selfcheck --full --device {device}: rc {rc} in {res['selfcheck_s']:.1f} s "
+          "(Pillow importable)")
+    if rc != 0:
+        raise AssertionError("selfcheck --full failed")
+    return res
 
 
 def _index_split(work, split, labels_phase, lengths, ids, rng):
@@ -1629,6 +1862,7 @@ def main() -> int:
         tp = phase_temporal(workdir, sl)
         tt = phase_temporal_train(workdir)
         tr = phase_train(workdir)
+        phase_flax_graph(workdir, tr["caches"])
         phase_extract_cli(workdir)
     blk, stg, pk = checks["block"], checks["stage"], checks["packed2"]
     blk_main, stg_main = checks["block_main"], checks["stage_main"]

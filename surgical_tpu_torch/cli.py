@@ -5,6 +5,7 @@ work-dir layout.
     python -m surgical_tpu_torch.cli prepare-data --root data/cholec80 --out work/
     python -m surgical_tpu_torch.cli cache-frames --work work/
     python -m surgical_tpu_torch.cli extract-features --work work/ --frame-cache work/frame_cache
+    python -m surgical_tpu_torch.cli train-backbone --work work/
     python -m surgical_tpu_torch.cli train-backbone --work work/ --fused
     python -m surgical_tpu_torch.cli train-temporal --work work/ --model mamba
     python -m surgical_tpu_torch.cli train-refiner --work work/ --model mamba
@@ -14,6 +15,7 @@ work-dir layout.
     python -m surgical_tpu_torch.cli reference-parity --root data/cholec80 --work work/ \
         --evp evp.pth --temporal tecno.pth --refiner trans.pth --online
     python -m surgical_tpu_torch.cli selfcheck
+    python -m surgical_tpu_torch.cli selfcheck --full
 
 A work dir holds ``index/<split>_{labels,num_each,video_ids}.npy`` and
 ``index/<split>_paths.json`` (``prepare-data``), ``frame_cache/<split>/``
@@ -21,22 +23,27 @@ A work dir holds ``index/<split>_{labels,num_each,video_ids}.npy`` and
 ``extract-features``), and the port's checkpoint stores ``ckpt/backbone``,
 ``ckpt/temporal`` and ``ckpt/refiner`` (``core/checkpoint.py``; the JAX
 package's orbax stores are not read). ``train-backbone`` trains the
-frozen-trunk backbone on the fused train kernels (``--fused``; the flax
-training graph is not ported) and saves one step per epoch with its
-val/test metrics, the model's parameters and BatchNorm statistics, and the
-optimizer state. ``train-temporal`` and ``train-refiner`` train the temporal
+frozen-trunk backbone on the flax graph (``MiTEVP.graph_forward``, any
+``--variant`` and ``--no-flow``), or with ``--fused`` on the fused train
+kernels, evaluates on the flax graph in eval mode, and saves one step per
+epoch with its val/test metrics, the model's parameters and BatchNorm
+statistics, and the optimizer state. ``train-temporal`` and ``train-refiner`` train the temporal
 model (MS-TCN or Mamba, the Mamba's scan on its forward and backward
 kernels) and then the refiner on the frozen temporal model, one step per
 epoch with the JAX manifest's metrics and the optimizer state (and the
-plateau controller's) for ``--resume``. ``extract-features`` runs the serving graph
-(``models/mit_fused.py``) over every split with the backbone of a
-reference ``.pth`` or of ``ckpt/backbone``. ``predict`` restores each
+plateau controller's) for ``--resume``. ``extract-features`` runs the backbone
+of a reference ``.pth`` or of ``ckpt/backbone`` over every split: the serving
+graph on the kernels (``models/mit_fused.py``) for a preset size, the flax
+graph for ``--variant tiny`` on the card, the serving graph's plain versions
+on the CPU. ``predict`` restores each
 store's best step by ``val_acc`` and writes
 ``output/<Split>/video<NN>-phase.txt``. Every video runs at its true
 length. ``reference-parity`` goes from a data root and the reference's
 three ``.pth`` files to the quality table. ``selfcheck`` trains and scores
-both temporal stages on synthetic separable features. The verbs run on the
-card unless ``--device`` names another device.
+both temporal stages on synthetic separable features; ``selfcheck --full``
+runs the seven verbs from synthetic images to the relaxed evaluation with
+two learned-quality gates. The verbs run on the card unless ``--device``
+names another device.
 """
 
 from __future__ import annotations
@@ -267,7 +274,8 @@ def cmd_train_backbone(args) -> int:
     """Stage-1 backbone training / stage-2 finetune (train_evp.py /
     finetune_evp.py): per epoch, train (mid-epoch validation every
     ``val_every`` steps on fresh random val batches), evaluate val and test,
-    save a step with the metrics. ``--init-from`` is the finetune hand-off
+    save a step with the metrics. The step runs the flax graph, or the fused
+    train kernels with ``--fused``. ``--init-from`` is the finetune hand-off
     (best-by-val step of another store, fresh optimizer); ``--resume``
     continues from the latest step with the optimizer state."""
     from surgical_tpu_torch.core.checkpoint import CheckpointStore
@@ -631,14 +639,127 @@ def cmd_reference_parity(args) -> int:
     return 0
 
 
+def _write_synthetic_corpus(root: str, num_videos: int = 4, frames: int = 8) -> None:
+    """Synthetic Cholec80-layout corpus on disk: cutMargin jpgs, segmap jpgs
+    (path-substitution layout), phase annotation txts. Phase blocks are
+    painted into the images so a tiny backbone can actually learn them. A
+    copy of the JAX CLI's writer (surgical_tpu/cli.py:871-899)."""
+    from PIL import Image
+
+    from surgical_tpu_torch.core.config import PHASE_NAMES
+
+    rng = np.random.default_rng(0)
+    os.makedirs(os.path.join(root, "phase_annotations"), exist_ok=True)
+    for v in range(1, num_videos + 1):
+        img_dir = os.path.join(root, "cutMargin", str(v))
+        seg_dir = os.path.join(root, "ss_Bimasks_pos_ep10", str(v))
+        os.makedirs(img_dir, exist_ok=True)
+        os.makedirs(seg_dir, exist_ok=True)
+        phases_25 = np.repeat(np.arange(7), -(-frames * 25 // 7))[: frames * 25]
+        with open(os.path.join(root, "phase_annotations", f"video{v:02d}-phase.txt"), "w") as f:
+            f.write("Frame\tPhase\n")
+            for i, p in enumerate(phases_25):
+                f.write(f"{i}\t{PHASE_NAMES[p]}\n")
+        for n in range(0, frames * 25, 25):
+            p = int(phases_25[n])
+            img = rng.integers(0, 80, (64, 64, 3), dtype=np.uint8)
+            img[:, : 8 * (p + 1)] = 200  # phase-coded bright band
+            Image.fromarray(img).save(os.path.join(img_dir, f"{n}.jpg"))
+            seg = np.zeros((64, 64, 3), np.uint8)
+            seg[: 8 * (p + 1)] = 255
+            Image.fromarray(seg).save(os.path.join(seg_dir, f"{n}.jpg"))
+
+
+def cmd_selfcheck_full(args) -> int:
+    """Whole-pipeline drive over synthetic images through the CLI's verbs,
+    as the JAX CLI's ``selfcheck --full`` (surgical_tpu/cli.py:901-1003):
+    prepare-data -> train-backbone (tiny, flax graph, no flow) ->
+    extract-features -> train-temporal -> train-refiner -> predict ->
+    evaluate, each on ``--device``, then its two learned-quality gates: the
+    backbone's best val accuracy and its last epoch's train accuracy above
+    0.25 (chance is 1/7), and the predicted txts' frame accuracy at least
+    0.75. Returns 0 when every verb succeeded and both gates hold."""
+    import tempfile
+    import time
+
+    from surgical_tpu_torch.core.checkpoint import CheckpointStore
+    from surgical_tpu_torch.eval.predictions import read_phase_txt, video_txt_name, write_phase_txt
+
+    dev = ["--device", args.device]
+
+    def run(*argv) -> None:
+        print(f"selfcheck --full: {argv[0]}", flush=True)
+        t0 = time.perf_counter()
+        if main(list(argv)) != 0:
+            raise RuntimeError(f"selfcheck --full: {argv[0]} failed")
+        print(f"selfcheck --full: {argv[0]} done in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    with tempfile.TemporaryDirectory() as td:
+        root, work = os.path.join(td, "cholec80"), os.path.join(td, "work")
+        # 21 frames per video = 3 per phase, as the JAX selfcheck --full
+        _write_synthetic_corpus(root, num_videos=4, frames=21)
+        run("prepare-data", "--root", root, "--out", work, "--num-videos", "4",
+            "--scheme", "smoke")
+        run("train-backbone", "--work", work, "--variant", "tiny", "--epochs", "4",
+            "--batch-size", "8", "--lr", "0.02", "--no-flow", "--midval-batches", "1", *dev)
+        run("extract-features", "--work", work, "--variant", "tiny", "--batch-size", "8",
+            "--no-flow", *dev)
+        run("train-temporal", "--work", work, "--epochs", "40", "--lr", "0.005", *dev)
+        run("train-refiner", "--work", work, "--epochs", "15", "--lr", "0.005", *dev)
+        run("predict", "--work", work, "--split", "test", *dev)
+
+        # ground-truth txts from the index -> relaxed evaluation
+        idx = _work_paths(work)["index"]
+        labels = np.load(os.path.join(idx, "test_labels.npy"))
+        num_each = np.load(os.path.join(idx, "test_num_each.npy"))
+        video_ids = _split_video_ids(work, "test", len(num_each))
+        gt_dir = os.path.join(td, "gt-phase")
+        os.makedirs(gt_dir, exist_ok=True)
+        off = 0
+        for vid, n in zip(video_ids, num_each):
+            write_phase_txt(os.path.join(gt_dir, video_txt_name(vid)),
+                            labels[off:off + n, 0].astype(int))
+            off += n
+        pred_dir = os.path.join(_work_paths(work)["output"], "Test")
+        run("evaluate", "--gt", gt_dir, "--pred", pred_dir,
+            "--first", str(min(video_ids)), "--last", str(max(video_ids)))
+
+        # the JAX selfcheck's learned-quality gates, with its margins: the
+        # backbone's best val accuracy (1 video of 21 frames) and last train
+        # accuracy (84 frames) above 0.25, chance being 1/7; the predicted
+        # txts' frame accuracy at least 0.75
+        bstore = CheckpointStore(os.path.join(work, "ckpt", "backbone"))
+        steps = bstore.steps()
+        bb = max(bstore.manifest(s)["metrics"]["val_acc"] for s in steps)
+        bt = bstore.manifest(steps[-1])["metrics"]["train_acc"]
+        correct = total = off = 0
+        for vid, n in zip(video_ids, num_each):
+            pred = read_phase_txt(os.path.join(pred_dir, video_txt_name(vid)))
+            gt = labels[off:off + n, 0].astype(int)
+            correct += int(np.sum(pred[:int(n)] == gt))
+            total += int(n)
+            off += int(n)
+        acc = correct / total
+        gates = {"backbone": bb > 0.25 and bt > 0.25, "pipeline": acc >= 0.75}
+        print(f"selfcheck --full gate backbone: best val_acc {bb:.3f}, final train_acc "
+              f"{bt:.3f} (both > 0.25): {'pass' if gates['backbone'] else 'FAIL'}")
+        print(f"selfcheck --full gate pipeline: test frame acc {acc:.3f} (>= 0.75): "
+              f"{'pass' if gates['pipeline'] else 'FAIL'}")
+        if not all(gates.values()):
+            print("SELFCHECK-FULL FAILED: a learned-quality gate did not hold", file=sys.stderr)
+            return 1
+        print(f"SELFCHECK-FULL OK: all 7 stages composed; learned gates: backbone val_acc="
+              f"{bb:.3f}, pipeline frame acc={acc:.3f}")
+        return 0
+
+
 def cmd_selfcheck(args) -> int:
     """Synthetic end-to-end check of the temporal stages, as the JAX CLI's
     ``selfcheck``: separable features (label + 0.1 noise) of 3 videos,
     MS-TCN (2 stages x 4 layers, f_maps 16, dropout 0.1) trained 20 epochs
     at lr 1e-2, the refiner (f_maps 16) 10 epochs at Adam 5e-3, relaxed
     evaluation; passes when the refined frame accuracy exceeds 0.5.
-    ``--full`` (the whole pipeline from images) needs the flax-graph
-    backbone, which the port does not have yet: it exits nonzero."""
+    ``--full`` runs the whole pipeline from images (``cmd_selfcheck_full``)."""
     import tempfile
 
     from surgical_tpu_torch.core.config import MSTCNConfig, OptimConfig, RefinerConfig, TrainConfig
@@ -651,10 +772,7 @@ def cmd_selfcheck(args) -> int:
     from surgical_tpu_torch.train.temporal import TemporalTrainer, VideoDataset
 
     if args.full:
-        print("selfcheck --full trains the backbone on the flax graph (train-backbone without "
-              "--fused), which the port does not have yet (ROADMAP Queue 1 item 4); nothing "
-              "was run", file=sys.stderr)
-        return 2
+        return cmd_selfcheck_full(args)
     device = resolve_device(args.device)
     rng = np.random.default_rng(0)
     lengths = [60, 80, 70]
@@ -798,7 +916,8 @@ def main(argv=None) -> int:
                     help="val batches for mid-epoch validation (0 disables)")
     sp.add_argument("--fused", action="store_true",
                     help="run the frozen trunk on the fused train kernels (forward and "
-                         "backward); required, as the flax training graph is not ported")
+                         "backward) instead of the flax graph; the default prompt "
+                         "configuration only")
     sp.add_argument("--device", default="cuda",
                     help="torch device to run on (default: the card)")
     sp.set_defaults(fn=cmd_train_backbone)
@@ -850,8 +969,8 @@ def main(argv=None) -> int:
 
     sp = sub.add_parser("selfcheck", help="synthetic end-to-end check of the temporal stages")
     sp.add_argument("--full", action="store_true",
-                    help="the whole pipeline from synthetic images (needs the flax-graph "
-                         "backbone: not ported yet, exits nonzero)")
+                    help="the whole pipeline from synthetic images through the seven verbs, "
+                         "with learned-quality gates")
     sp.add_argument("--device", default="cuda",
                     help="torch device to run on (default: the card)")
     sp.set_defaults(fn=cmd_selfcheck)

@@ -47,7 +47,11 @@ def _put_bn(sd, key, p, stats):
 def export_evp_state_dict(params: Mapping, batch_stats: Mapping) -> dict:
     """JAX ``MiTEVP`` (params, batch_stats) of numpy arrays -> the reference
     key state dict that the port's ``MiTEVP.load_state_dict`` takes: the
-    inverse of ``surgical_tpu.models.convert.import_evp_state_dict``."""
+    inverse of ``surgical_tpu.models.convert.import_evp_state_dict``, for
+    every ``BackboneConfig``: the prompt generator's modules of any input
+    type, adaptor mode and tuning subset (``bimask_pos_embed`` transposed
+    to [3, H, W]), no flow encoder or cross-attention without flow, linears
+    without bias."""
     sd: dict = {}
     for s in range(1, 5):
         _put_conv(sd, f"patch_embed{s}.proj", params[f"patch_embed{s}"]["proj"])
@@ -69,21 +73,30 @@ def export_evp_state_dict(params: Mapping, batch_stats: Mapping) -> dict:
         _put_ln(sd, f"norm{s}", params[f"norm{s}"])
 
     P = "prompt_generator"
-    for key, p in params[P].items():
-        if key.startswith("handcrafted_generator"):
+    for key, p in params.get(P, {}).items():
+        if key == "bimask_pos_embed":  # flax [H, W, 3] -> the reference's [3, H, W]
+            sd[f"{P}.{key}"] = np.asarray(p).transpose(2, 0, 1)
+        elif key.startswith("handcrafted_generator"):
             _put_conv(sd, f"{P}.{key}.proj", p["proj"])
             _put_ln(sd, f"{P}.{key}.norm", p["norm"])
         elif key.startswith("lightweight_mlp"):
             _put_dense(sd, f"{P}.{key}.0", p)
+        elif key.startswith(("fully_shared_mlp", "fully_unshared_mlp")):
+            # flax {name}_0 / {name}_1 -> torch Sequential {name}.0 / {name}.2
+            base, layer = key.rsplit("_", 1)
+            _put_dense(sd, f"{P}.{base}.{2 * int(layer)}", p)
         else:  # embedding_generator{s}, shared_mlp{s}
             _put_dense(sd, f"{P}.{key}", p)
 
-    fe, fs = params["flow_encoder"], batch_stats["flow_encoder"]
-    for i in (1, 2, 3, 4):
-        _put_conv(sd, f"flow_encoder.conv{i}", fe[f"conv{i}"])
-        _put_bn(sd, f"flow_encoder.bn{i}", fe[f"bn{i}"], fs[f"bn{i}"])
+    if "flow_encoder" in params:
+        fe, fs = params["flow_encoder"], batch_stats["flow_encoder"]
+        for i in (1, 2, 3, 4):
+            _put_conv(sd, f"flow_encoder.conv{i}", fe[f"conv{i}"])
+            _put_bn(sd, f"flow_encoder.bn{i}", fe[f"bn{i}"], fs[f"bn{i}"])
 
     for name in ("cross_attn_s3", "cross_attn_s4"):
+        if name not in params:
+            continue
         p = params[name]
         qkv = [p[f"{n}_proj"] for n in "qkv"]
         sd[f"{name}.cross_attn.in_proj_weight"] = np.concatenate(

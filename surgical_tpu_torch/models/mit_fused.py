@@ -8,7 +8,11 @@ kernel (``kernels.mit_block``) when the batch is a multiple of
 runs block by block like stages 1-3. The patch embeds, the prompt cascade
 and the per-block prompt adds (exact-erf GELU), LN1 and the spatial-reduction
 / kv path, the flow encoder, the two cross-attentions and the pooled head
-are plain PyTorch, as the JAX package leaves them to XLA.
+are plain PyTorch, as the JAX package leaves them to XLA. A model without
+flow fusion (``with_flow=False``) skips the flow branch, as JAX's graph
+does. The kernels compute the default prompt configuration only
+(``_check_supported``); the flax graph (``MiTEVP.graph_forward``) runs the
+others.
 
 The lane-packed route is mirrored with the JAX module's names and defaults
 (``_ROUTE_PACKED2``, off; ``_PACKED2_ROW_CHUNKS``,
@@ -47,6 +51,26 @@ _PACKED2_MIN_N_FOR_CHUNKING = 2048
 _FUSE_BT = {4: 8}
 
 
+def _check_supported(cfg) -> None:
+    """Refuse what the fused graphs' kernels and prompt path do not compute:
+    another prompt input type or adaptor, a tuning subset, no qkv bias."""
+    why = []
+    if cfg.input_type != "gaussian":
+        why.append(f"input_type={cfg.input_type!r}")
+    if cfg.adaptor != "adaptor":
+        why.append(f"adaptor={cfg.adaptor!r}")
+    if not (cfg.handcrafted_tune and cfg.embedding_tune and cfg.tuning_stage == "1234"):
+        why.append(f"handcrafted_tune={cfg.handcrafted_tune}, embedding_tune="
+                   f"{cfg.embedding_tune}, tuning_stage={cfg.tuning_stage!r}")
+    if not cfg.qkv_bias:
+        why.append("qkv_bias=False")
+    if why:
+        raise NotImplementedError(
+            "the fused graphs compute the default prompt configuration only (gaussian input, "
+            "adaptor MLPs on all four stages, qkv bias); " + "; ".join(why)
+            + ": use the flax graph (MiTEVP.graph_forward, train-backbone without --fused)")
+
+
 def kernel_weights(model, dtype=torch.bfloat16) -> dict:
     """{stage: [block weight dict per block]} for stages 1-3, {4: stage
     weight dict}, {"block4": [block weight dict per block]} for stage 4's
@@ -75,6 +99,7 @@ def fused_forward(model, images, segmaps, flow, return_features: bool = True):
     dtype; cast to bf16) -> pooled features [B, E] fp32, or (phase logits,
     anticipation) with ``return_features=False``."""
     cfg = model.cfg
+    _check_supported(cfg)
     dt = torch.bfloat16
     x = images.to(dt)
     B = x.shape[0]
@@ -122,7 +147,7 @@ def fused_forward(model, images, segmaps, flow, return_features: bool = True):
         grids.append(x.reshape(B, H, W, C))
         x = grids[-1]
 
-    if flow is not None:
+    if cfg.with_flow and flow is not None:
         f3, f4 = model.flow_encoder(flow.to(dt))
         for idx, ca, ft in ((2, model.cross_attn_s3, f3), (3, model.cross_attn_s4, f4)):
             g = grids[idx]

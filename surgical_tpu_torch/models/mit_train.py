@@ -16,6 +16,11 @@ Train-mode semantics of the flax model, reproduced as the JAX graph does:
   running statistics updated at flax's momentum 0.99, in the flow encoder
   and the head's fuse BN;
 - channel dropout on the head map before the pool.
+The train-mode BatchNorm and dropout are ``_ops.bn_train`` / ``_ops.dropout``
+inside the flow encoder's and the head's forwards, which the flax graph
+(``MiTEVP.graph_forward``) calls too. The default prompt configuration only,
+without block dropout (``cfg.drop_rate`` 0), as the kernels compute; a model
+without flow skips the flow branch.
 
 Randomness comes from an explicit ``torch.Generator``, or the masks are
 given (``masks=``), so that a test can inject the JAX-drawn ones.
@@ -29,9 +34,7 @@ import torch.nn.functional as F
 
 from surgical_tpu_torch.kernels.mit_block import block_weights_from_params, fused_mit_block_train
 from surgical_tpu_torch.models import _ops
-from surgical_tpu_torch.models.segformer_head import bilinear_resize
-
-BN_MOMENTUM = 0.99  # flax nn.BatchNorm default, as the flax model uses
+from surgical_tpu_torch.models.mit_fused import _check_supported
 
 
 def droppath_rates(cfg) -> list[float]:
@@ -76,22 +79,10 @@ def train_block_weights(model, dtype) -> dict:
     return cached[1]
 
 
-def _bn_train(x, bn):
-    """Train-mode BatchNorm over NHWC x: (y in x.dtype, (new running mean,
-    new running var)), the flax update with the biased batch variance."""
-    x32 = x.float()
-    mean = x32.mean(dim=(0, 1, 2))
-    var = (x32 * x32).mean(dim=(0, 1, 2)) - mean * mean
-    y = (x32 - mean) * torch.rsqrt(var + bn.eps) * bn.weight + bn.bias
-    with torch.no_grad():
-        new = (BN_MOMENTUM * bn.running_mean + (1 - BN_MOMENTUM) * mean,
-               BN_MOMENTUM * bn.running_var + (1 - BN_MOMENTUM) * var)
-    return y.to(x.dtype), new
-
-
 def write_bn_stats(model, stats: dict) -> None:
-    """Copy the running statistics ``fused_train_forward`` returned into the
-    BatchNorm buffers of ``model``."""
+    """Copy the running statistics that ``fused_train_forward`` or
+    ``MiTEVP.graph_forward(train=True)`` returned into the BatchNorm buffers
+    of ``model``."""
     with torch.no_grad():
         for name, (mean, var) in stats.items():
             bn = model.get_submodule(name)
@@ -108,6 +99,10 @@ def fused_train_forward(model, images, segmaps, flow, *, generator=None, masks=N
     cast to ``dtype``). The DropPath and dropout masks come from ``masks``
     (``draw_masks``'s layout) or are drawn from ``generator``."""
     cfg, head_cfg = model.cfg, model.head_cfg
+    _check_supported(cfg)
+    if cfg.drop_rate > 0.0:
+        raise NotImplementedError("the train kernels apply no block dropout (drop_rate="
+                                  f"{cfg.drop_rate}): use the flax graph")
     dt = dtype
     x = images.to(dt)
     B = x.shape[0]
@@ -152,38 +147,16 @@ def fused_train_forward(model, images, segmaps, flow, *, generator=None, masks=N
         x = grids[-1]
 
     stats = {}
-    if flow is not None:
-        fe = model.flow_encoder
-
-        def enc(h, i):
-            c = getattr(fe, f"conv{i}")
-            h = _ops.conv(h, c, c.stride[0], c.padding[0])
-            h, stats[f"flow_encoder.bn{i}"] = _bn_train(h, getattr(fe, f"bn{i}"))
-            return torch.relu(h)
-
-        f3 = enc(enc(enc(flow.to(dt), 1), 2), 3)
-        f4 = enc(f3, 4)
+    if cfg.with_flow and flow is not None:
+        fs = {}
+        f3, f4 = model.flow_encoder(flow.to(dt), _ops.FUSED, fs)
+        stats.update({f"flow_encoder.{k}": v for k, v in fs.items()})
         for idx, ca, ft in ((2, model.cross_attn_s3, f3), (3, model.cross_attn_s4, f4)):
             g = grids[idx]
-            grids[idx] = ca(g.reshape(B, -1, g.shape[-1]),
-                            ft.reshape(B, -1, ft.shape[-1])).reshape(g.shape)
+            grids[idx] = ca(g.reshape(B, -1, g.shape[-1]), ft).reshape(g.shape)
 
-    head = model.head
-    target = grids[3].shape[1:3]
-    parts = []
-    for i, g in ((4, grids[3]), (3, grids[2]), (2, grids[1]), (1, grids[0])):
-        if g.shape[1:3] != target:
-            g = bilinear_resize(g, target)
-        parts.append(_ops.dense(g, getattr(head, f"linear_c{i}").proj))
-    h = _ops.conv(torch.cat(parts, dim=-1), head.linear_fuse.conv, 1, 0)
-    h, stats["head.linear_fuse.bn"] = _bn_train(h, head.linear_fuse.bn)
-    h = torch.relu(h)
-    if head_cfg.dropout > 0.0:
-        keep = masks["dropout"].to(h.device).reshape(B, 1, 1, -1)
-        h = torch.where(keep, h / (1.0 - head_cfg.dropout), torch.zeros_like(h))
-    feat = h.float().mean(dim=(1, 2)).to(h.dtype).float()
-
-    def mlp_head(seq):
-        return _ops.dense(torch.relu(_ops.dense(feat, seq[0])), seq[2])
-
-    return mlp_head(head.fc), mlp_head(head.fc_ant), stats
+    hs = {}
+    y, y_ant = model.head(grids, return_features=False, bn_stats=hs,
+                          keep=masks["dropout"] if head_cfg.dropout > 0.0 else None)
+    stats.update({f"head.{k}": v for k, v in hs.items()})
+    return y, y_ant, stats

@@ -4,8 +4,12 @@ Port of ``surgical_tpu/models/segformer_head.py`` in the reference's key
 names (``linear_c{i}.proj``, ``linear_fuse.conv``, ``linear_fuse.bn``,
 ``fc.{0,2}``, ``fc_ant.{0,2}``): per-stage linear embedding, bilinear
 downsampling of stages 1-3 to stage 4's grid, concat in [c4, c3, c2, c1]
-order, 1x1 conv + BN + ReLU, global average pool to the LFB feature, then two
-MLP heads. Inference only (the channel dropout is identity).
+order, 1x1 conv + BN + ReLU, channel dropout, global average pool to the LFB
+feature, then two MLP heads. In train mode (``bn_stats`` given) the BatchNorm
+normalizes with the batch statistics and writes the new running statistics
+into ``bn_stats``, and the channel dropout keeps the channels of ``keep``
+(one mask per image, broadcast over H and W, as flax's ``broadcast_dims=(1,
+2)``).
 """
 
 from __future__ import annotations
@@ -43,6 +47,7 @@ class SegFormerPoolHead(nn.Module):
     def __init__(self, cfg: HeadConfig, in_dims: tuple[int, ...]):
         super().__init__()
         E = cfg.embedding_dim
+        self.dropout = cfg.dropout
         for i, d in enumerate(in_dims, start=1):
             setattr(self, f"linear_c{i}", _Proj(d, E))
         self.linear_fuse = _Fuse(E)
@@ -51,9 +56,13 @@ class SegFormerPoolHead(nn.Module):
         self.fc_ant = nn.Sequential(nn.Linear(E, cfg.hidden), nn.ReLU(),
                                     nn.Linear(cfg.hidden, cfg.num_phases))
 
-    def forward(self, grids, return_features: bool = True):
-        """grids: 4 NHWC maps c1..c4 in the activation dtype -> the fp32
-        pooled feature [B, E], or (phase logits, anticipation) [B, 7] each."""
+    def forward(self, grids, return_features: bool = True, ops=_ops.FUSED, bn_stats=None,
+                keep=None):
+        """grids: 4 NHWC maps c1..c4 in the activation dtype -> the pooled
+        feature [B, E], or (phase logits, anticipation) [B, 7] each; fp32
+        under ``ops=_ops.FUSED``, the activation dtype under ``_ops.FLAX``.
+        ``bn_stats``: a dict for train mode (gets "linear_fuse.bn"); ``keep``:
+        [B, E] bool channel-dropout mask, or None."""
         c1, c2, c3, c4 = grids
         target = c4.shape[1:3]
         parts = []
@@ -61,15 +70,23 @@ class SegFormerPoolHead(nn.Module):
             # resize commutes with the linear projection: downsample first
             if g.shape[1:3] != target:
                 g = bilinear_resize(g, target)
-            parts.append(_ops.dense(g, getattr(self, f"linear_c{i}").proj))
-        h = _ops.conv(torch.cat(parts, dim=-1), self.linear_fuse.conv, 1, 0)
-        h = torch.relu(_ops.batchnorm(h, self.linear_fuse.bn))
+            parts.append(ops.dense(g, getattr(self, f"linear_c{i}").proj))
+        h = ops.conv(torch.cat(parts, dim=-1), self.linear_fuse.conv, 1, 0)
+        if bn_stats is None:
+            h = _ops.batchnorm(h, self.linear_fuse.bn)
+        else:
+            h, bn_stats["linear_fuse.bn"] = _ops.bn_train(h, self.linear_fuse.bn)
+        h = torch.relu(h)
+        if keep is not None:
+            h = _ops.dropout(h, keep.to(h.device).reshape(h.shape[0], 1, 1, -1), self.dropout)
         # mean accumulates in fp32 and is rounded to the activation dtype
-        feat = h.float().mean(dim=(1, 2)).to(h.dtype).float()
+        feat = h.float().mean(dim=(1, 2)).to(h.dtype)
+        if ops.pooled_fp32:
+            feat = feat.float()
         if return_features:
             return feat
 
         def mlp_head(seq):
-            return _ops.dense(torch.relu(_ops.dense(feat, seq[0])), seq[2])
+            return ops.dense(torch.relu(ops.dense(feat, seq[0])), seq[2])
 
         return mlp_head(self.fc), mlp_head(self.fc_ant)

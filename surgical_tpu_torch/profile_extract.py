@@ -20,7 +20,9 @@ wire-format frames, it measures:
   b3, batch 88, 224 crop, SGD): step ms (median of 5 after 2 warm-up steps)
   and peak memory, and a trace of 3 steps: device time by kernel kind, the
   three train kernels' share and their device time per step by kernel, and
-  the idle share;
+  the idle share; then the same for the flax graph
+  (``BackboneTrainer(use_fused=False)``, the CLI's default), which launches
+  no train kernel;
 - temporal training (``TemporalTrainer``, ``MambaConfig()``, one video of
   T = 6000 per step, AdamW): step ms (median of 5 after 2 warm-up steps) and
   a trace of one step: busy and idle share, the scan's forward and backward
@@ -116,13 +118,16 @@ def _print_kinds(prefix, trace):
         print(f"{prefix}: {100 * v / total:5.1f}% {v:9.3f} ms  {k}")
 
 
-def profile_train(dev, acts) -> dict:
-    """BackboneTrainer(use_fused=True) at b3, batch 88, on seeded 250-px wire
-    batches held on the host: step time, peak memory, and one trace."""
+def profile_train(dev, acts, use_fused: bool = True) -> dict:
+    """BackboneTrainer(use_fused=use_fused) at b3, batch 88, on seeded 250-px
+    wire batches held on the host: step time, peak memory, and one trace.
+    Lines start "train" for the fused trunk, "train flax" for the flax
+    graph."""
     from surgical_tpu_torch.kernels import mit_block as mb
     from surgical_tpu_torch.serving_ab import train_setup
 
-    trainer, batches = train_setup(dev)
+    label = "train" if use_fused else "train flax"
+    trainer, batches = train_setup(dev, use_fused)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     trainer.train_epoch((batches[i % 2] for i in range(TRAIN_STEPS)), 0)
@@ -131,7 +136,7 @@ def profile_train(dev, acts) -> dict:
     res = {"batch": TRAIN_B, "step_ms": med, "step_ms_runs": steps,
            "frames_per_s": TRAIN_B / med * 1e3,
            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
-    print(f"train b3 B={TRAIN_B}: step {med:.3f} ms (median of {len(steps)} after 2 warm-up: "
+    print(f"{label} b3 B={TRAIN_B}: step {med:.3f} ms (median of {len(steps)} after 2 warm-up: "
           + ", ".join(f"{v:.2f}" for v in steps) + f") = {res['frames_per_s']:.1f} frames/s, "
           f"peak {res['peak_gib']:.2f} GiB")
     mb.reset_launches()
@@ -161,13 +166,13 @@ def profile_train(dev, acts) -> dict:
                            "mlp_backward": mb.block_train_mlp_backward.launches,
                            "attn_backward": mb.block_train_attn_backward.launches})
     res["trace"] = trace
-    print(f"train trace: {TRAIN_TRACED} steps, {len(evs)} device kernels, wall "
+    print(f"{label} trace: {TRAIN_TRACED} steps, {len(evs)} device kernels, wall "
           f"{trace['wall_ms']:.2f} ms, busy {trace['busy_ms']:.2f} ms, idle share "
           f"{trace['idle_share']:.4f}; train kernels {trace['train_kernels_ms']:.2f} ms = "
           f"{100 * trace['train_kernels_share']:.1f}% of busy; launches {trace['launches']}")
-    _print_kinds("train trace", trace)
+    _print_kinds(f"{label} trace", trace)
     for k, v in trace["train_kernels_ms_per_step_by_name"].items():
-        print(f"train trace, train kernels per step: {v:9.3f} ms  {k}")
+        print(f"{label} trace, train kernels per step: {v:9.3f} ms  {k}")
     return res
 
 
@@ -346,6 +351,7 @@ def main() -> int:
                   f"{1 - busy / wall_us:.4f}, selective scan {scan_us / 1e3:.3f} ms")
 
     res["train"] = profile_train(dev, acts)
+    res["train_flax"] = profile_train(dev, acts, use_fused=False)
     res["temporal_train"] = profile_temporal_train(dev, acts)
 
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

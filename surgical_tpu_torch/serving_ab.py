@@ -178,11 +178,11 @@ def _measure(root: str) -> dict:
     return res
 
 
-def train_setup(dev):
-    """(trainer, batches): ``BackboneTrainer(use_fused=True)`` on a seeded
-    MiT-b3 EVP with SGD, initialized, and two seeded 250-px wire batches of
-    TRAIN_B frames held on the host. Imports the package on ``sys.path``,
-    so it serves any tree's measurement."""
+def train_setup(dev, use_fused: bool = True):
+    """(trainer, batches): ``BackboneTrainer(use_fused=use_fused)`` on a
+    seeded MiT-b3 EVP with SGD, initialized, and two seeded 250-px wire
+    batches of TRAIN_B frames held on the host. Imports the package on
+    ``sys.path``, so it serves any tree's measurement."""
     import numpy as np
 
     from surgical_tpu_torch.core.config import (BackboneConfig, HeadConfig, OptimConfig,
@@ -192,7 +192,7 @@ def train_setup(dev):
 
     model = MiTEVP(BackboneConfig(), HeadConfig(), seed=SEED, device=dev)
     trainer = BackboneTrainer(model, TrainConfig(optim=OptimConfig(
-        name="sgd", lr=1e-3, weight_decay=0.0, grad_clip_norm=None)), use_fused=True)
+        name="sgd", lr=1e-3, weight_decay=0.0, grad_clip_norm=None)), use_fused=use_fused)
     trainer.init()
     rng = np.random.default_rng(SEED + 1)
     r = trainer.aug_cfg.resize

@@ -1,19 +1,19 @@
 """Backbone (spatial-stage) training: the train_evp.py / finetune_evp.py
-step on the fused training graph.
+step.
 
-Port of ``surgical_tpu/train/backbone.py`` for ``use_fused=True``. The
-reference recipe (train_evp.py): sum-reduction CE + sum-reduction SmoothL1
-(:390-391,509); every parameter frozen except the head, the prompt
-generator, the flow encoder and the two cross-attention fusions
-(:379-382). Here: bf16 compute, fp32 parameters and optimizer state, the
-frozen parameters with ``requires_grad=False`` and outside the optimizer,
-the frozen MiT blocks on the fused train kernels in both directions
-(``models/mit_train.py``).
+Port of ``surgical_tpu/train/backbone.py``. The reference recipe
+(train_evp.py): sum-reduction CE + sum-reduction SmoothL1 (:390-391,509);
+every parameter frozen except the head, the prompt generator, the flow
+encoder and the two cross-attention fusions (:379-382). Here: bf16 compute,
+fp32 parameters and optimizer state, the frozen parameters with
+``requires_grad=False`` and outside the optimizer.
 
-The flax training graph (``use_fused=False`` in the JAX package) is not
-ported (ROADMAP Queue 1 item 3). Evaluation runs the port's serving graph
-(``models/mit_fused.py``), where the JAX trainer runs the flax graph in
-eval mode (ROADMAP Queue 3).
+The step runs one of two graphs, as in JAX: by default (``use_fused=False``)
+the flax module graph in train mode (``MiTEVP.graph_forward``, plain
+PyTorch, any ``BackboneConfig``); with ``use_fused=True`` the frozen MiT
+blocks on the fused train kernels in both directions
+(``models/mit_train.py``), which requires a frozen trunk. Evaluation runs
+the flax graph in eval mode for both, as JAX's ``_eval_step_impl`` does.
 """
 
 from __future__ import annotations
@@ -28,7 +28,6 @@ from surgical_tpu_torch.core import rng as rnglib
 from surgical_tpu_torch.core.config import TrainConfig
 from surgical_tpu_torch.data.transforms import (AugConfig, eval_preprocess_clip,
                                                 train_preprocess_batch)
-from surgical_tpu_torch.models.mit_fused import fused_forward
 from surgical_tpu_torch.models.mit_train import fused_train_forward, write_bn_stats
 from surgical_tpu_torch.train.losses import backbone_loss
 from surgical_tpu_torch.train.optim import build_optimizer
@@ -36,25 +35,23 @@ from surgical_tpu_torch.train.optim import build_optimizer
 # Parameter-name parts that stay trainable (train_evp.py:379-382).
 TRAINABLE_KEYS = ("head", "prompt_generator", "flow_encoder", "cross_attn_s3", "cross_attn_s4")
 
-_NOT_PORTED = ("the flax training graph (use_fused=False) is not ported yet "
-               "(ROADMAP Queue 1 item 3); use the fused trunk")
-
 
 def is_trainable(name: str) -> bool:
     """True for a parameter under a trainable top-level module."""
     return any(k in part for part in name.split(".") for k in TRAINABLE_KEYS)
 
 
-def freeze_trunk(model) -> list:
+def freeze_trunk(model, fused: bool = True) -> list:
     """Set ``requires_grad`` from ``TRAINABLE_KEYS``; returns the trainable
-    parameters. Fails if a trunk block or norm would train: the fused blocks
-    give their weights no gradient, so such a parameter would silently stay
-    where it is."""
+    parameters. With ``fused`` it fails if a trunk block or norm would
+    train: the fused blocks give their weights no gradient, so such a
+    parameter would silently stay where it is (the flax graph
+    differentiates every parameter and needs no such check, as in JAX)."""
     trainable = []
     for name, p in model.named_parameters():
         p.requires_grad_(is_trainable(name))
         if p.requires_grad:
-            assert not ("block" in name or name.startswith("norm")), (
+            assert not (fused and ("block" in name or name.startswith("norm"))), (
                 f"the fused trunk requires a frozen trunk, but {name} is trainable")
             trainable.append(p)
     return trainable
@@ -76,7 +73,8 @@ class EarlyStop:
 class BackboneTrainer:
     """Epoch-level orchestration of the spatial stage (train_evp.py:300-908,
     finetune_evp.py): wire-format host batches, per-image synchronized
-    augmentation on the device, the frozen-trunk train step, mid-epoch
+    augmentation on the device, the frozen-trunk train step on the flax
+    graph (or on the fused train kernels with ``use_fused``), mid-epoch
     validation every ``val_every`` steps (train_evp.py:526-564).
 
     The model (a port ``MiTEVP``) and the optimizer hold the state: a
@@ -86,9 +84,8 @@ class BackboneTrainer:
     def __init__(self, model, cfg: TrainConfig, aug_cfg: AugConfig | None = None,
                  val_every: int = 15, use_fused: bool = False,
                  compute_dtype=torch.bfloat16):
-        if not use_fused:
-            raise NotImplementedError(_NOT_PORTED)
         self.model = model
+        self.use_fused = use_fused
         self.cfg = cfg
         self.aug_cfg = aug_cfg or AugConfig()
         self.val_every = val_every
@@ -100,7 +97,8 @@ class BackboneTrainer:
     def init(self) -> torch.optim.Optimizer:
         """Freeze the trunk and build the optimizer over the trainable
         parameters only."""
-        self.optimizer = build_optimizer(self.cfg.optim, freeze_trunk(self.model))
+        self.optimizer = build_optimizer(self.cfg.optim,
+                                         freeze_trunk(self.model, fused=self.use_fused))
         return self.optimizer
 
     # -- wire format -> device float ----------------------------------------
@@ -130,9 +128,13 @@ class BackboneTrainer:
         img, seg, flow = train_preprocess_batch(
             img, seg, flow, self._generator(epoch, step, "augment"), self.aug_cfg, aug_params)
         labels, ant = self._to_device(labels).long(), self._to_device(ant).float()
-        y, y_ant, stats = fused_train_forward(
-            self.model, img, seg, flow, generator=self._generator(epoch, step, "droppath"),
-            masks=masks, dtype=self.dtype)
+        gen = self._generator(epoch, step, "droppath")
+        if self.use_fused:
+            y, y_ant, stats = fused_train_forward(self.model, img, seg, flow, generator=gen,
+                                                  masks=masks, dtype=self.dtype)
+        else:
+            (y, y_ant), stats = self.model.graph_forward(img, seg, flow, train=True, generator=gen,
+                                                         masks=masks, dtype=self.dtype)
         y = y.float()
         loss, ce, reg = backbone_loss(y, y_ant.float(), labels, ant)
         self.model.zero_grad(set_to_none=True)
@@ -153,10 +155,11 @@ class BackboneTrainer:
 
     @torch.no_grad()
     def eval_step(self, img_u8, seg_u8, flow_f16):
-        """(phase logits, anticipation) fp32 from the serving graph."""
+        """(phase logits, anticipation) fp32 from the flax graph in eval mode
+        at the compute dtype, whichever graph trains."""
         img, seg, flow = self._dequant(*map(self._to_device, (img_u8, seg_u8, flow_f16)))
         img, seg, flow = eval_preprocess_clip(img, seg, flow, self.aug_cfg)
-        y, y_ant = fused_forward(self.model, img, seg, flow, return_features=False)
+        y, y_ant = self.model.graph_forward(img, seg, flow, dtype=self.dtype)
         return y.float(), y_ant.float()
 
     # -- loops ----------------------------------------------------------------

@@ -6,6 +6,13 @@ arrive in the wire format (uint8 RGB frames, uint8 single-channel segmaps,
 float16 flow); dequantization and normalization run on the device, and
 features leave it in float16 (the reference's fp16-autocast precision).
 
+The backbone graph follows the JAX package's rule (``_use_fused_default``,
+surgical_tpu/train/extract.py:52-65): on the card a preset-size backbone
+runs the fused serving graph on the kernels and the ``tiny`` variant the
+flax graph (``MiTEVP.graph_forward`` at bf16). On the CPU the port runs the
+serving graph with the kernels' plain versions whatever the variant, where
+JAX runs the flax graph.
+
 While the device computes batch i+1, batch i's features copy to pinned host
 memory on a side stream; the host waits on that copy only when it writes the
 features out. A ragged last batch is zero-padded to ``batch_size``, as the
@@ -45,12 +52,23 @@ def wire_dequant(device=DEFAULT_DEVICE):
     return dequant
 
 
-def make_raw_feature_fn(model, d2h_dtype=torch.float16):
+def use_fused_default(cfg, device) -> bool:
+    """The serving graph's route: the fused kernels for a preset-size
+    backbone on the card, the flax graph for ``tiny`` there; the serving
+    graph (the kernels' plain versions) on the CPU."""
+    return torch.device(device).type == "cpu" or cfg.variant != "tiny"
+
+
+def make_raw_feature_fn(model, d2h_dtype=torch.float16, use_fused=None):
     """Feature extractor over wire-format host batches (numpy or tensors):
     fn(img_u8, seg_u8, flow_f16 | None) -> [B, E] features in ``d2h_dtype``
-    on the model's device."""
+    on the model's device. ``use_fused``: the fused serving graph (True) or
+    the flax graph at bf16 (False); None takes ``use_fused_default``. The
+    choice is ``fn.use_fused``."""
     device = next(model.parameters()).device
     dequant = wire_dequant(device)
+    if use_fused is None:
+        use_fused = use_fused_default(model.cfg, device)
 
     def to_dev(a):
         return torch.as_tensor(a).to(device, non_blocking=True)
@@ -59,8 +77,14 @@ def make_raw_feature_fn(model, d2h_dtype=torch.float16):
     def feature_fn(img_u8, seg_u8, flow_f16):
         img, seg = dequant(to_dev(img_u8), to_dev(seg_u8))
         flow = None if flow_f16 is None else to_dev(flow_f16).to(torch.bfloat16)
-        return fused_forward(model, img, seg, flow, return_features=True).to(d2h_dtype)
+        if use_fused:
+            feats = fused_forward(model, img, seg, flow, return_features=True)
+        else:
+            feats = model.graph_forward(img, seg, flow, return_features=True,
+                                        dtype=torch.bfloat16)
+        return feats.to(d2h_dtype)
 
+    feature_fn.use_fused = use_fused
     return feature_fn
 
 

@@ -1,5 +1,6 @@
-"""The port's BackboneTrainer (fused trunk) against the JAX train step, its
-freeze semantics, and ``cli train-backbone`` on a small PNG work dir (CPU).
+"""The port's BackboneTrainer against the JAX train step on both graphs, its
+freeze semantics, its evaluator, and ``cli train-backbone`` on a small PNG
+work dir (CPU).
 
 The JAX step is assembled as ``BackboneTrainer._train_step_impl``
 (surgical_tpu/train/backbone.py:207-247) does it: dequant, the batch
@@ -13,11 +14,20 @@ Stated bound after three steps: every parameter and BatchNorm statistic
 within rtol 1e-4 / atol 1e-6 of JAX's (fp32 on both sides, summation
 orders differ; measured here: max abs difference 2.4e-7, on a BatchNorm
 running variance of ~1).
+
+The flax graph (``use_fused=False``, the default) is held to JAX's own
+``BackboneTrainer._train_step_impl`` (the flax model in train mode) for
+three steps with the augmentation parameters injected and the DropPath and
+head-dropout draws replaced on both sides by the same masks (flax's through
+``flax.linen.intercept_methods``), at the same bound; ``evaluate`` to JAX's
+``BackboneTrainer.evaluate`` on the same weights.
 """
 
+import dataclasses
 import json
 import shutil
 
+import flax.linen as fnn
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -27,9 +37,12 @@ import torch
 
 from surgical_tpu.core.config import BackboneConfig, HeadConfig
 from surgical_tpu.core.config import OptimConfig as JaxOptimConfig
+from surgical_tpu.core.config import TrainConfig as JaxTrainConfig
 from surgical_tpu.data import transforms as jtf
+from surgical_tpu.models import mit_evp as jme
 from surgical_tpu.models import mit_train as jmt
 from surgical_tpu.train import losses as jlosses
+from surgical_tpu.train.backbone import BackboneTrainer as JaxBackboneTrainer
 from surgical_tpu.train.backbone import combine_params, partition_params
 from surgical_tpu.train.optim import build_optimizer as jax_build_optimizer
 from surgical_tpu_torch import cli
@@ -43,6 +56,11 @@ from surgical_tpu_torch.train import backbone as pbb
 from test_torch_mit_train import jax_masks, seeded_variables
 
 CFG = BackboneConfig.preset("tiny", drop_path_rate=0.1, img_size=64)
+# The flax-graph steps run at prompt width C / 2: at the tiny preset's C / 4
+# stage 1's prompt LayerNorm normalizes 2 channels, whose output is +-1 for
+# any input, so the handcrafted generator's gradient there is roundoff alone
+# and differs between any two summation orders.
+FLAX_CFG = dataclasses.replace(CFG, prompt_scale_factor=2)
 HEAD = HeadConfig(embedding_dim=64, hidden=32, dropout=0.1)
 JAUG, PAUG = jtf.AugConfig(resize=72, crop=64), AugConfig(resize=72, crop=64)
 B, STEPS, LR = 2, 3, 0.05
@@ -99,15 +117,74 @@ def _jax_steps(variables, batches):
     return params, jax.tree.map(np.asarray, bs), draws, losses
 
 
-def _port_trainer(variables, lr=LR):
-    model = MiTEVP(CFG, HEAD, device="cpu")
+def _port_trainer(variables, lr=LR, use_fused=True, cfg=CFG):
+    model = MiTEVP(cfg, HEAD, device="cpu")
     load_evp_params(model, variables["params"], variables["batch_stats"])
     trainer = pbb.BackboneTrainer(
         model, TrainConfig(optim=OptimConfig(name="sgd", lr=lr, weight_decay=0.0,
                                              grad_clip_norm=None)),
-        aug_cfg=PAUG, use_fused=True, compute_dtype=torch.float32)
+        aug_cfg=PAUG, use_fused=use_fused, compute_dtype=torch.float32)
     trainer.init()
     return model, trainer
+
+
+def _step_masks(seed, cfg=FLAX_CFG):
+    """Seeded DropPath factors {0, 1/keep} per block and branch and the
+    head's channel keep mask, in the port's ``masks=`` layout."""
+    rng = np.random.default_rng(seed)
+    dp = []
+    for r in np.linspace(0, cfg.drop_path_rate, sum(cfg.depths)):
+        keep = 1.0 - r
+        dp.append(tuple(torch.from_numpy((rng.random(B) < keep).astype(np.float32) / keep)
+                        for _ in range(2)))
+    return {"droppath": dp,
+            "dropout": torch.from_numpy(rng.random((B, HEAD.embedding_dim)) >= HEAD.dropout)}
+
+
+def _jax_flax_steps(variables, batches):
+    """STEPS of JAX's BackboneTrainer._train_step_impl on the flax model
+    (fp32), each DropPath and head-dropout draw replaced by ``_step_masks``;
+    returns (params, batch_stats), the port's injected draws and the losses."""
+    jt = JaxBackboneTrainer(jme.MiTEVP(FLAX_CFG, HEAD), JaxTrainConfig(), aug_cfg=JAUG)
+    jt._tx = jax_build_optimizer(JaxOptimConfig(name="sgd", lr=LR, weight_decay=0.0,
+                                                grad_clip_norm=None))
+    params, bs = variables["params"], variables["batch_stats"]
+    opt_state = jt._tx.init(partition_params(params)[0])
+
+    def step(params, bs, opt_state, img, seg, flow, labels, ant, key, dp, keep):
+        calls = iter(dp)
+
+        def inject(next_fun, args, kwargs, context):
+            mod, x = context.module, args[0] if args else None
+            if context.method_name == "__call__" and isinstance(mod, jme.DropPath):
+                f = next(calls)
+                if mod.rate == 0.0:
+                    return x
+                kept = (f > 0).reshape((x.shape[0],) + (1,) * (x.ndim - 1))
+                return jnp.where(kept, x / (1.0 - mod.rate), 0.0).astype(x.dtype)
+            if (context.method_name == "__call__" and isinstance(mod, fnn.Dropout)
+                    and mod.rate > 0):
+                return jnp.where(keep[:, None, None, :], x / (1.0 - mod.rate), 0.0
+                                 ).astype(x.dtype)
+            return next_fun(*args, **kwargs)
+
+        with fnn.intercept_methods(inject):
+            return jt._train_step_impl(params, bs, opt_state, img, seg, flow, labels, ant, key)
+
+    step = jax.jit(step)
+    draws, losses = [], []
+    for bi, (img, seg, flow, labels, ant) in enumerate(batches):
+        key = jax.random.key(200 + bi)
+        keys = jax.vmap(lambda i: jax.random.fold_in(jax.random.fold_in(key, 0), i))(
+            jnp.arange(B))
+        ap = jax.vmap(lambda k: jtf.draw_params(k, JAUG))(keys)
+        masks = _step_masks(bi)
+        dp = [jnp.asarray(m.numpy()) for pair in masks["droppath"] for m in pair]
+        params, bs, opt_state, loss, *_ = step(params, bs, opt_state, img, seg, flow, labels,
+                                               ant, key, dp, jnp.asarray(masks["dropout"].numpy()))
+        draws.append((AugParams(*(torch.from_numpy(np.array(f)) for f in ap)), masks))
+        losses.append(float(loss))
+    return jax.tree.map(np.asarray, params), jax.tree.map(np.asarray, bs), draws, losses, jt
 
 
 @pytest.fixture(scope="module")
@@ -139,6 +216,40 @@ def test_three_steps_match_jax(setup):
     assert all(pbb.is_trainable(k) for k in moved)  # the trunk is bit-unchanged
 
 
+def test_flax_graph_steps_match_jax_train_step(setup):
+    """use_fused=False (the default): three steps against JAX's own train
+    step on the flax model, then evaluate against JAX's evaluate."""
+    batches = setup[1]
+    variables = seeded_variables(FLAX_CFG, HEAD, 6)
+    jparams, jbs, draws, jlosses_, jt = _jax_flax_steps(variables, batches)
+    model, trainer = _port_trainer(variables, use_fused=False, cfg=FLAX_CFG)
+    assert not trainer.use_fused
+    for bi, (batch, (ap, masks)) in enumerate(zip(batches, draws)):
+        out = trainer.train_step(*batch, epoch=0, step=bi, aug_params=ap, masks=masks)
+        np.testing.assert_allclose(out["loss"].item(), jlosses_[bi], rtol=1e-5)
+    want = export_evp_state_dict(jparams, jbs)
+    got = model.state_dict()
+    assert sorted(want) == sorted(got)
+    for k, w in want.items():
+        if not k.endswith("num_batches_tracked"):
+            np.testing.assert_allclose(got[k].numpy(), w, rtol=1e-4, atol=1e-6, err_msg=k)
+    # the evaluator: the flax graph in eval mode on the trained weights
+    rng = np.random.default_rng(9)
+    ev = [(rng.integers(0, 256, (4, 72, 72, 3), dtype=np.uint8),
+           rng.integers(0, 256, (4, 72, 72, 1), dtype=np.uint8),
+           rng.standard_normal((4, 72, 72, 2)).astype(np.float16),
+           rng.integers(0, 7, 4).astype(np.int32),
+           rng.uniform(0, 1, (4, 7)).astype(np.float32)) for _ in range(2)]
+    jm = jt.evaluate((jparams, jbs), ev, num_each=[5, 3])
+    pm = trainer.evaluate(ev, num_each=[5, 3])
+    y, _ = trainer.eval_step(*ev[0][:3])
+    jy, _ = jt._eval_step(jparams, jbs, *ev[0][:3])
+    np.testing.assert_allclose(y.numpy(), np.asarray(jy), rtol=1e-4, atol=1e-5)
+    assert pm.keys() == jm.keys()
+    for k, v in jm.items():
+        np.testing.assert_allclose(pm[k], v, rtol=1e-4, atol=1e-6, err_msg=k)
+
+
 def test_freeze_semantics_and_lr0_ablation(setup):
     """Only TRAINABLE_KEYS train; the optimizer holds only them; lr = 0
     leaves every parameter bit-unchanged while the BatchNorm statistics
@@ -166,8 +277,13 @@ def test_frozen_trunk_is_enforced(monkeypatch):
     monkeypatch.setattr(pbb, "TRAINABLE_KEYS", pbb.TRAINABLE_KEYS + ("block1",))
     with pytest.raises(AssertionError, match="frozen trunk"):
         pbb.freeze_trunk(model)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        pbb.BackboneTrainer(model, TrainConfig(), use_fused=False)
+    with pytest.raises(AssertionError, match="frozen trunk"):
+        pbb.BackboneTrainer(model, TrainConfig(), use_fused=True).init()
+    # the flax graph differentiates every parameter: a trainable trunk block
+    # is the recipe's business, as in JAX (asserted only under use_fused)
+    opt = pbb.BackboneTrainer(model, TrainConfig(), use_fused=False).init()
+    held = {id(p) for g in opt.param_groups for p in g["params"]}
+    assert id(model.block1[0].attn.q.weight) in held
 
 
 def test_early_stop():
@@ -277,9 +393,61 @@ def test_pretrained_trunk_loads_by_key_name(tmp_path):
         load_mit_trunk(dst, bad)
 
 
+@pytest.fixture
+def one_thread():
+    """One intra-op thread for a run of many small ops (the suite runs its
+    files in parallel processes)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _cli_flax(work, *extra):
+    return cli.main(["train-backbone", "--work", str(work), "--device", "cpu",
+                     "--variant", "tiny", "--batch-size", "4", "--midval-batches", "1", *extra])
+
+
+def test_cli_train_backbone_flax_graph_resume(tmp_path, capsys, one_thread):
+    """Without --fused the CLI trains on the flax graph; one epoch, then
+    --resume to epoch 2, ends bit-identical to two epochs in one run."""
+    one = _png_work(tmp_path / "one")
+    shutil.copytree(one, tmp_path / "two", symlinks=True)
+    two = tmp_path / "two"
+    assert _cli_flax(one, "--epochs", "2") == 0
+    assert _cli_flax(two, "--epochs", "1") == 0
+    assert _cli_flax(two, "--epochs", "2", "--resume") == 0
+    assert "resumed full train state from epoch 0" in capsys.readouterr().out
+    a = torch.load(one / "ckpt" / "backbone" / "step_00000001.pt", weights_only=True)
+    b = torch.load(two / "ckpt" / "backbone" / "step_00000001.pt", weights_only=True)
+    first = torch.load(two / "ckpt" / "backbone" / "step_00000000.pt", weights_only=True)
+    assert sorted(a) == sorted(b)
+    for k in a:
+        assert torch.equal(a[k], b[k]), k
+    oa = CheckpointStore(str(one / "ckpt" / "backbone")).restore_aux(1)["optimizer"]
+    ob = CheckpointStore(str(two / "ckpt" / "backbone")).restore_aux(1)["optimizer"]
+    assert oa["state"].keys() == ob["state"].keys() and len(oa["state"]) > 40
+    for i in oa["state"]:
+        assert torch.equal(oa["state"][i]["momentum_buffer"], ob["state"][i]["momentum_buffer"])
+    assert any(not torch.equal(first[k], b[k]) for k in b if k.startswith("prompt_generator."))
+    assert all(torch.equal(first[k], b[k]) for k in b if k.startswith("block"))
+
+
 def test_cli_train_backbone_refuses_what_is_not_ported(tmp_path):
+    """--no-flow trains on the flax graph (a model without the flow encoder
+    and fusions); the fused trunk still refuses a prompt configuration its
+    kernels do not compute."""
     work = _png_work(tmp_path)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        cli.main(["train-backbone", "--work", str(work), "--device", "cpu", "--variant", "tiny"])
-    with pytest.raises(NotImplementedError, match="with_flow=False"):
-        _cli(work, "--no-flow")
+    assert _cli_flax(work, "--no-flow", "--epochs", "1") == 0
+    sd = torch.load(work / "ckpt" / "backbone" / "step_00000000.pt", weights_only=True)
+    assert not any(k.startswith(("flow_encoder", "cross_attn")) for k in sd)
+    model = MiTEVP(BackboneConfig.preset("tiny", input_type="srm"),
+                   HeadConfig(embedding_dim=32, hidden=16), device="cpu")
+    batch = _wire_batches()[0]
+    trainer = pbb.BackboneTrainer(model, TrainConfig(), aug_cfg=PAUG, use_fused=True)
+    trainer.init()
+    with pytest.raises(NotImplementedError, match="fused graphs compute the default"):
+        trainer.train_step(*batch)
+    trainer = pbb.BackboneTrainer(model, TrainConfig(), aug_cfg=PAUG)
+    trainer.init()
+    assert np.isfinite(trainer.train_step(*batch)["loss"].item())

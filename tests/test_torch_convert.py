@@ -39,8 +39,38 @@ def test_evp_state_dict_round_trip():
 
 
 def test_unsupported_prompt_config_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        MiTEVP(BackboneConfig(input_type="srm"), device="cpu")
+    """Every prompt input type, adaptor mode and tuning subset, with and
+    without flow and qkv bias: the port's state dict imports into exactly
+    the JAX model's parameter and BatchNorm trees (keys and shapes, against
+    ``jax.eval_shape`` of a flax init), exports back unchanged and loads
+    strictly; the fused graphs still raise on what their kernels do not
+    compute."""
+    from test_torch_mit_graph import VARIANTS, _drop_none, tiny
+
+    from surgical_tpu.models.mit_evp import MiTEVP as JaxMiTEVP
+    from surgical_tpu_torch.models.mit_fused import fused_forward
+
+    head = HeadConfig(embedding_dim=32, hidden=16)
+    shapes = lambda tree: jax.tree.map(lambda a: tuple(np.shape(a)), tree)
+    for name, kw in VARIANTS.items():
+        cfg = tiny(**kw)
+        model = MiTEVP(cfg, head, seed=3, device="cpu")
+        sd = {k: v.numpy() for k, v in model.state_dict().items()}
+        params, batch_stats = import_evp_state_dict(sd, cfg.depths)
+        params = _drop_none(params)  # the JAX importer's reading of a missing bias
+        z = jnp.zeros((1, cfg.img_size, cfg.img_size, 3))
+        flow = jnp.zeros((1, cfg.img_size, cfg.img_size, 2)) if cfg.with_flow else None
+        want = jax.eval_shape(JaxMiTEVP(cfg, head).init, jax.random.key(0), z, z, flow)
+        assert shapes(params) == shapes(want["params"]), name
+        assert shapes(batch_stats) == shapes(want.get("batch_stats", {})), name
+        back = convert.export_evp_state_dict(params, batch_stats)
+        assert sorted(back) == sorted(sd), name
+        for key, val in sd.items():
+            np.testing.assert_array_equal(back[key], val, err_msg=f"{name} {key}")
+        model.load_state_dict(convert.to_torch(back), strict=True)
+        if name not in ("gaussian", "gaussian_flow"):
+            with pytest.raises(NotImplementedError, match="fused graphs compute the default"):
+                fused_forward(model, torch.zeros(1, 64, 64, 3), torch.zeros(1, 64, 64, 3), None)
 
 
 def test_mstcn_loads_jax_weights_strictly():

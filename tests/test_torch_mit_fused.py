@@ -108,11 +108,12 @@ def test_logits_match_jax(setup):
 
 
 def test_trainer_evaluate_runs_the_serving_graph_like_jax(setup):
-    """BackboneTrainer.evaluate runs the serving graph: its logits are held
-    to JAX's fused_forward on the same wire batch, dequantized (bf16) and
-    centre-cropped as the JAX trainer's eval step does, not to the flax graph
-    that step applies (a known difference, ROADMAP Queue 3); its metrics are
-    the JAX package's metric functions of those logits."""
+    """BackboneTrainer.evaluate runs the flax graph in eval mode at the
+    trainer's compute dtype (bf16) for both values of use_fused, as the JAX
+    trainer's eval step applies the flax model: its logits are held to
+    JAX's MiTEVP.apply at bf16 on the same wire batch, dequantized (bf16) and
+    centre-cropped as that step does; its metrics are the JAX package's
+    metric functions of those logits."""
     from surgical_tpu.data import transforms as jtf
     from surgical_tpu.eval import metrics as jmetrics
     from surgical_tpu_torch.core.config import TrainConfig
@@ -131,17 +132,18 @@ def test_trainer_evaluate_runs_the_serving_graph_like_jax(setup):
     bf = jnp.bfloat16
     jimg = jnp.asarray(img).astype(bf) / jnp.asarray(255.0, bf)
     jseg = jnp.broadcast_to(jnp.asarray(seg).astype(bf) / jnp.asarray(255.0, bf), jimg.shape)
-    want = jax_fused_interpret(variables, *jtf.eval_preprocess_clip(
-        jimg, jseg, jnp.asarray(flow).astype(bf), jtf.AugConfig(resize=r, crop=crop)),
-        return_features=False)
+    want = jax.jit(JaxMiTEVP(CFG, HEAD, compute_dtype=bf).apply)(
+        variables, *jtf.eval_preprocess_clip(jimg, jseg, jnp.asarray(flow).astype(bf),
+                                             jtf.AugConfig(resize=r, crop=crop)))
 
-    trainer = BackboneTrainer(model, TrainConfig(), aug_cfg=AugConfig(resize=r, crop=crop),
-                              use_fused=True)
-    got = trainer.eval_step(img, seg, flow)
-    for g, w in zip(got, want):
-        w = np.asarray(w, np.float32)
-        assert g.dtype == torch.float32 and g.shape == w.shape == (B, HEAD.num_phases)
-        assert np.corrcoef(g.numpy().ravel(), w.ravel())[0, 1] > 0.999
+    for use_fused in (False, True):
+        trainer = BackboneTrainer(model, TrainConfig(), aug_cfg=AugConfig(resize=r, crop=crop),
+                                  use_fused=use_fused)
+        got = trainer.eval_step(img, seg, flow)
+        for g, w in zip(got, want):
+            w = np.asarray(w, np.float32)
+            assert g.dtype == torch.float32 and g.shape == w.shape == (B, HEAD.num_phases)
+            assert np.corrcoef(g.numpy().ravel(), w.ravel())[0, 1] > 0.999
 
     metrics = trainer.evaluate([(img, seg, flow, labels, ant)], num_each=[B // 2, B // 2])
     pred = got[0].argmax(-1).numpy()

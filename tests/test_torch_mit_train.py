@@ -23,7 +23,7 @@ from surgical_tpu.models import mit_train as jmt
 from surgical_tpu.models.convert import import_evp_state_dict
 from surgical_tpu.train.backbone import combine_params, partition_params
 from surgical_tpu_torch.models.convert import export_evp_state_dict, load_evp_params
-from surgical_tpu_torch.models.mit_evp import MiTEVP
+from surgical_tpu_torch.models.mit_evp import MiTEVP, _init_weights
 from surgical_tpu_torch.models.mit_train import draw_masks, fused_train_forward, write_bn_stats
 from surgical_tpu_torch.train.backbone import freeze_trunk
 
@@ -49,7 +49,14 @@ def seeded_variables(cfg, head, seed):
     model's weights through the JAX package's importer (much faster here
     than a flax init), every leaf perturbed so that no bias is zero, and
     non-trivial BatchNorm statistics."""
-    sd = {k: v.numpy() for k, v in MiTEVP(cfg, head, seed=seed, device="cpu").state_dict().items()}
+    model = MiTEVP(cfg, head, seed=seed, device="cpu")
+    # the reference's init scheme in every module: the weights these parity
+    # bounds were measured on (the model itself draws the head and the
+    # cross-attention with flax's lecun-normal, as the JAX model does, which
+    # scales up every gradient into the trunk; at the tiny preset's 2-channel
+    # prompt LayerNorm the handcrafted generator's gradient is pure roundoff)
+    _init_weights(model, torch.Generator().manual_seed(seed))
+    sd = {k: v.numpy() for k, v in model.state_dict().items()}
     params, stats = import_evp_state_dict(sd, cfg.depths)
     rng = np.random.default_rng(seed)
     params = jax.tree.map(

@@ -401,7 +401,7 @@ def test_cli_train_resume_equals_uninterrupted(kind, tmp_path):
 def test_cli_selfcheck(capsys):
     assert cli.main(["selfcheck", "--device", "cpu"]) == 0
     assert "SELFCHECK OK" in capsys.readouterr().out
-    assert cli.main(["selfcheck", "--full", "--device", "cpu"]) != 0
+    # selfcheck --full runs the whole pipeline: tests/test_torch_selfcheck_full.py
 
 
 def test_chip_smoke_temporal_train_phase_on_cpu(tmp_path, monkeypatch):
