@@ -12,7 +12,8 @@ nonzero without printing a result:
    work: the MiT serving kernels in bf16 (MiT-b3, 224x224, at B=8 and at
    the extraction batch B=200, the plain version timed at B=8 only; packed2
    at stage 1, B=8, with row_chunks 1 and 2, beside the block kernel's
-   time), then the count of HGMMA (wgmma) instructions in the built
+   time; the block kernel at the streaming session's shapes, B=1 at all
+   four b3 stages and stage 4 at B=8, both versions timed), then the count of HGMMA (wgmma) instructions in the built
    library's SASS, which must exceed the serving products' own; the
    selective scan in fp32 (d_inner 128, d_state 64; 2000 and 6000 frames,
    3 ragged videos of 777, and the chunk edges: 1, 63 and 65 frames at its
@@ -36,14 +37,22 @@ nonzero without printing a result:
    22 block and 1 stage launches per batch; feature cosine against the
    route-off features), and the extraction rate over 3 runs of 12 batches
    of 200 frames with the route off and on in turns;
-5. temporal serving slice: seeded random Mamba (``MambaConfig()``) and
+5. streaming session: ``OnlineSession`` with the seeded b3 backbone (with
+   flow) over 64 wire frames at 224 px, once with MS-TCN + refiner and once
+   with Mamba alone: 28 block launches and no stage launch per frame, the
+   features equal to offline extraction at batch 1 and the logits within
+   1e-4 of the offline temporal (+ refiner) composition, the features'
+   cosine against offline extraction at B=8 (the stage kernel), ms per
+   frame split into the feature and temporal legs with each leg's device
+   operations, and the refusal of a frame without flow;
+6. temporal serving slice: seeded random Mamba (``MambaConfig()``) and
    refiner weights saved through ``CheckpointStore`` into a work dir whose
    ``val`` split is the extraction slice's three videos and whose ``test``
    split is two videos of 2000 and 6000 frames of random features; then
    ``cli predict --model mamba`` on test (8 scan launches per video),
    ``cli predict --model mamba --online`` on val, online vs offline logits,
    ``cli evaluate``, and Mamba + refiner latency per video;
-6. temporal training at full width through ``cli.main``: separable
+7. temporal training at full width through ``cli.main``: separable
    synthetic 2048-d features (train videos of 2000, 4000 and 6000 frames),
    ``train-temporal`` for ``MambaConfig()`` and for ``MSTCNConfig()``, cut
    one epoch short and ``--resume``d, against the uninterrupted run
@@ -51,14 +60,14 @@ nonzero without printing a result:
    step; ``train-refiner``; ``predict`` with the learned gate (frame
    accuracy >= 0.75 on the test txts) and ``evaluate``; the median train
    step at T = 2000 and 6000; ``selfcheck`` on the card;
-7. backbone training: ``BackboneTrainer(use_fused=True)`` at b3, batch 88,
+8. backbone training: ``BackboneTrainer(use_fused=True)`` at b3, batch 88,
    224 crop, SGD, over a seeded ``FrameCache`` (3 train batches, one val and
    one test batch) for 2 epochs of ``train_epoch`` with mid-epoch
    validation, then ``evaluate``: 28 launches of each train kernel per step,
    step time, peak memory, a frozen trunk, moved trainable tensors and
    BatchNorm statistics, a checkpoint round trip with the optimizer state,
    and one step's loss and gradients against the plain train kernels;
-8. flax-graph backbone at b3 widths (``MiTEVP.graph_forward``, plain
+9. flax-graph backbone at b3 widths (``MiTEVP.graph_forward``, plain
    PyTorch, no kernel): the default prompts, ``fft``, ``bimask`` and
    ``fully_unshared`` at B=8, 224 px, bf16 (finite), and at B=2 on the
    card in fp32 and in bf16 against the CPU's fp32; the per-frame feature
@@ -71,26 +80,39 @@ nonzero without printing a result:
    step's trainable gradients against the fused trunk's with the same
    masks; then ``selfcheck --full --device cuda`` with its learned gates
    where Pillow is importable;
-9. extraction CLI at b3 widths through ``cli.main`` on 250-px frames: a
+10. RAFT: a seeded upstream-layout ``.pth`` loaded strictly, two 250-px
+   frames padded to 256: the card's fp32 flow at 20 iterations against the
+   CPU's, the dense lookup against the gather oracle on the card, pairs per
+   second; then ``cli precompute-flow`` over 2 synthetic videos of 6 JPEGs:
+   each file against the flow_fn of its pair, a rerun that writes nothing, a
+   corrupt JPEG that fails one pair and no other;
+11. extraction CLI at b3 widths through ``cli.main`` on 250-px frames: a
    synthetic Cholec80-layout corpus of 4 videos, ``prepare-data --scheme
-   smoke``, a seeded ``FrameCache`` per split (``cache-frames`` too where
-   Pillow is importable), seeded models saved as reference ``.pth`` files,
+   smoke``, a seeded ``FrameCache`` per split (where Pillow is importable,
+   ``precompute-flow`` over the val split's JPEGs and ``cache-frames``,
+   whose cache must carry that flow), seeded models saved as reference ``.pth`` files,
    ``extract-features --pretrained-evp --frame-cache --reference-pickles``
    (each store against ``extract_features`` on the same frames, the pickles
    read back), ``reference-parity --online`` on those stores (finite
    metrics, online/offline agreement), and the seconds of each verb;
-10. result: a JSON line of per-kernel numbers (the serving kernels' B=200
+12. result: a JSON line of per-kernel numbers (the serving kernels' B=200
    and the train kernels' B=88 times and bounds beside the B=8 ones; the
-   scan's backward at T = 2000 and 6000), the card line, and the last line
+   scan's backward at T = 2000 and 6000; the block kernel's B=1 rows and its
+   launches in the session) with the session's ms per frame and launches
+   per frame and RAFT's pairs per second beside them, the card line, and
+   the last line
    ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import ast
 import copy
 import dataclasses
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -150,7 +172,9 @@ FG_B, FG_CPU_B = 8, 2
 # against the serving graph's, whose blocks take the tanh GELU where the
 # flax graph's take exact erf (read: min 0.999993); one step's trainable
 # gradients, flax graph vs fused trunk with the same masks, rel L2 per group
-# (read at most 7.2e-2: the GELU forms again, through 28 blocks).
+# (read at most 7.2e-2: bf16 rounding, each graph's bf16 gradient lying
+# 7-8e-2 from its own fp32 one at b3; in fp32 the two graphs differ by
+# 6e-3 to 1.2e-2, the blocks' GELU forms).
 FG_FP32_BOUND, FG_BF16_BOUND, FG_COS_BOUND, FG_GRAD_BOUND = 5e-6, 2e-2, 0.9999, 0.2
 # Conv biases right before a train-mode BatchNorm: the batch mean removes
 # them, so their gradient is zero up to rounding and they need not move.
@@ -193,6 +217,36 @@ CLI_LENGTHS = (150, 120, 200, 230)
 # Max abs logits, streaming vs offline Mamba + refiner on the val videos, both
 # fp32: a few times the H100 reading (7.2e-7).
 ONLINE_BOUND = 5e-6
+
+# The streaming session (phase_online_session): b3 at 224 px, one frame per
+# step through OnlineSession, SESSION_FRAMES frames through each of two
+# sessions (MS-TCN + refiner, then Mamba alone); SESSION_BLOCKS block
+# launches and no stage launch per frame (stage 4 block by block at B = 1).
+SESSION_FRAMES, SESSION_BLOCKS = 64, 28
+# Session logits against the offline composition on offline extraction at
+# batch 1 (the same features, bit for bit): fp32 on both sides, summed in
+# other orders (streaming steps vs cuDNN / the scan kernel); JAX's own bound
+# (tests/test_online.py; H100 reading at most 1.0e-6).
+SESSION_LOGIT_BOUND = 1e-4
+# Per-frame feature cosine, the session's features against offline
+# extraction at B = CHECK_B, where stage 4 runs the stage kernel (tanh prompt
+# GELU in the kernel) and not the block kernel (exact erf): 1 - cosine at
+# most a few times the H100 reading (min cosine 0.9999954).
+SESSION_COS_BOUND = 0.99998
+
+# RAFT (phase_raft): upstream's 20 iterations on 250-px frames padded to 256
+# (a 32x32 feature grid, levels 32 / 16 / 8 / 4); two synthetic videos of
+# RAFT_VIDEO_FRAMES 1-fps frames for precompute-flow. Card fp32 (TF32 off)
+# against the port's CPU fp32 on the same weights: rel L2 of the flow and
+# the largest end-point error (px), a few times the H100 readings (1.6e-7
+# and 2.9e-6 px on flows up to 6.8 px: summation order through 20
+# iterations):
+RAFT_SIZE, RAFT_ITERS, RAFT_VIDEO_FRAMES, RAFT_TIMED = 250, 20, 6, 10
+RAFT_REL_BOUND, RAFT_EPE_BOUND = 1e-6, 1e-5
+# Dense tent-weight lookup against the gather oracle on the card, max abs
+# error over the largest |sample| (fp32, other summation order; the JAX
+# test's bound, H100 reading 1.3e-7):
+RAFT_LOOKUP_BOUND = 1e-5
 
 # Temporal training at full width (phase_temporal_train): videos of
 # Cholec80 lengths, features that separate the phases (after the JAX
@@ -420,7 +474,9 @@ def phase_kernel_checks() -> dict:
     """The serving kernels at B = CHECK_B (checked, timed, the plain version
     timed too) and at the main path's B = BATCH (checked and timed): the
     block at stages 1-3, packed2 at stage 1 (beside the block kernel on the
-    same inputs), the stage kernel at stage 4."""
+    same inputs), the stage kernel at stage 4; then the block at the
+    streaming session's shapes (B = 1 at stages 1-4, stage 4 at CHECK_B),
+    both versions timed."""
     from surgical_tpu_torch.kernels import mit_block as mb
 
     rng = np.random.default_rng(SEED)
@@ -525,6 +581,37 @@ def phase_kernel_checks() -> dict:
             "shape": shape, "rel_l2": rel, "max_abs_err": mx, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bms, "bound_by": by}
         del x, base, got, want
+
+    # the streaming session's shapes (phase_online_session): the block at
+    # B = 1 on every b3 stage, stage 4 block by block (49 rows: under one
+    # 128-row product tile and one 64-row attention tile; C = 512, the
+    # widest resident panel and LayerNorm prologue; fc2 at K = 2048 streams
+    # A), and stage 4's block at B = CHECK_B. Stage 4's block takes stage
+    # 3's bounds (BOUNDS[4] is the stage kernel's); both versions timed.
+    session_rows = []
+    for stage, C, heads, side, sr in TRAIN_STAGES:
+        N, Nkv, hidden = side * side, (side // sr) ** 2, 4 * C
+        w = _block_weights(rng, C, hidden)
+        kw = dict(heads=heads, H=side, W=side)
+        for b in ((1, B) if stage == 4 else (1,)):
+            x, k, v = _rand(rng, (b, N, C)), _rand(rng, (b, Nkv, C)), _rand(rng, (b, Nkv, C))
+            got = mb.fused_mit_block(x, k, v, w, **kw)
+            want = mb.fused_mit_block_plain(x, k, v, w, **kw)
+            torch.cuda.synchronize()
+            shape = f"stage{stage} [B={b}, N={N}, C={C}, heads={heads}, Nkv={Nkv}]"
+            rel, mx = _compare(f"block {shape}", got, want, min(stage, 3))
+            del got, want
+            ms = time_ms(lambda: mb.fused_mit_block(x, k, v, w, **kw))
+            plain_ms = time_ms(lambda: mb.fused_mit_block_plain(x, k, v, w, **kw))
+            nbytes, flops = block_work(b, N, C, Nkv, hidden)
+            bms, by = bound_ms(nbytes, flops / BF16_FLOPS)
+            print(f"time block stage{stage} B={b}: kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
+                  f"bound {bms:.4f} ms ({by}: {nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP)")
+            session_rows.append({"shape": shape, "B": b, "rel_l2": rel, "max_abs_err": mx,
+                                 "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+                                 "bound_by": by})
+            del x, k, v
+    res["block_session"] = session_rows
     return res
 
 
@@ -1027,6 +1114,143 @@ def phase_slice(workdir: str) -> dict:
     return {"launches": launches, "route_launches": route_launches, "fps": fps,
             "fps_route": fps_route, "latency_ms": lat, "lfb": os.path.join(workdir, "lfb"),
             "labels": labels}
+
+
+def phase_online_session(device: str = "cuda", cfg=None, head_cfg=None, size: int = 224,
+                         frames: int = SESSION_FRAMES, batch: int = CHECK_B) -> dict:
+    """The frame-in / phase-out streaming session at b3 widths
+    (``BackboneConfig()`` with flow, ``HeadConfig()``): seeded models, wire
+    frames (u8 frames and segmaps, f16 flow) through ``OnlineSession.step``
+    one at a time, with ``MSTCNConfig()`` + ``RefinerConfig(f_dim=2048)`` and
+    then with ``MambaConfig()`` alone. Per session: the launches of the
+    counted run (``SESSION_BLOCKS`` block launches, no stage launch per
+    frame); a second pass that times the feature leg and the temporal (+
+    refiner) leg apart and gives the same logits; the features equal to
+    offline extraction at batch 1 (``extract_features``) and the logits
+    within ``SESSION_LOGIT_BOUND`` of the offline temporal (+ refiner)
+    composition on them; the features' cosine against offline extraction
+    at ``batch`` (the stage kernel's route) and the argmax agreement of the
+    logits there; the device operations of each leg; then the refusal of a
+    frame without flow. ``cfg``, ``head_cfg``, ``size`` and ``device`` size
+    it down for a rehearsal on the CPU, where nothing is timed or counted."""
+    from surgical_tpu_torch.core.config import (BackboneConfig, HeadConfig, MambaConfig,
+                                                MSTCNConfig, RefinerConfig)
+    from surgical_tpu_torch.kernels import mit_block as mb
+    from surgical_tpu_torch.models.mamba import CausalMambaModel
+    from surgical_tpu_torch.models.mit_evp import MiTEVP
+    from surgical_tpu_torch.models.mstcn import MultiStageTCN
+    from surgical_tpu_torch.models.transsv import RefinementTransformer
+    from surgical_tpu_torch.serving.online import (OnlineMamba, OnlineMSTCN, OnlineRefiner,
+                                                   OnlineSession)
+    from surgical_tpu_torch.train.extract import extract_features, make_raw_feature_fn
+    from surgical_tpu_torch.train.refiner import predict_video
+
+    cfg, head_cfg = cfg or BackboneConfig(), head_cfg or HeadConfig()
+    cuda = device == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    f_dim = head_cfg.embedding_dim
+    t0 = time.perf_counter()
+    backbone = MiTEVP(cfg, head_cfg, seed=SEED + 20, device=device)
+    mstcn = MultiStageTCN(MSTCNConfig(f_dim=f_dim), seed=SEED + 21, device=device)
+    refiner = RefinementTransformer(RefinerConfig(f_dim=f_dim), seed=SEED + 22, device=device)
+    mamba = CausalMambaModel(MambaConfig(f_dim=f_dim), seed=SEED + 23, device=device)
+    rng = np.random.default_rng(SEED + 20)
+    wire = (rng.integers(0, 256, (frames, size, size, 3), dtype=np.uint8),
+            rng.integers(0, 256, (frames, size, size, 1), dtype=np.uint8),
+            rng.standard_normal((frames, size, size, 2), dtype=np.float32).astype(np.float16))
+    frame = lambda t: tuple(a[t] for a in wire)
+
+    # offline extraction of the same frames, at batch 1 (the session's route)
+    # and at `batch` (stage 4 on the stage kernel at a multiple of 8)
+    feature_fn = make_raw_feature_fn(backbone)
+    feats1, _ = extract_features(feature_fn, (tuple(a[t:t + 1] for a in wire)
+                                              for t in range(frames)), frames, f_dim, 1)
+    feats_b, _ = extract_features(feature_fn, (tuple(a[i:i + batch] for a in wire)
+                                               for i in range(0, frames, batch)),
+                                  frames, f_dim, batch)
+    print(f"session: b3 models + {frames} wire frames at {size} px, offline extraction at "
+          f"batch 1 and {batch}, in {time.perf_counter() - t0:.2f} s")
+
+    res = {}
+    for name, temporal, ref in (("mstcn+refiner", OnlineMSTCN(mstcn), OnlineRefiner(refiner)),
+                                ("mamba", OnlineMamba(mamba), None)):
+        session = OnlineSession(backbone, temporal, refiner=ref)
+        session.step(*frame(0))  # warm-up of the temporal leg's shapes
+        session.reset()
+        sync()
+        mb.reset_launches()
+        outs, step_ms = [], []
+        for t in range(frames):
+            t1 = time.perf_counter()
+            outs.append(session.step(*frame(t)))
+            step_ms.append((time.perf_counter() - t1) * 1e3)
+        launches = {"mit_block_forward": mb.fused_mit_block.launches,
+                    "mit_stage_forward": mb.fused_mit_stage.launches}
+        want = {"mit_block_forward": SESSION_BLOCKS * frames, "mit_stage_forward": 0}
+        print(f"session {name}: launches over {frames} frames {launches} (expected {want})")
+        if cuda and launches != want:
+            raise AssertionError("the session did not launch the block kernel as expected")
+        outs = np.stack(outs)
+
+        # the two legs timed apart on a second pass over the same frames
+        session.reset()
+        feat_ms, leg_ms, feats, again = [], [], [], []
+        for t in range(frames):
+            sync()
+            t1 = time.perf_counter()
+            f = session.features(*frame(t))
+            sync()
+            t2 = time.perf_counter()
+            again.append(session.advance(f).cpu().numpy())
+            feat_ms.append((t2 - t1) * 1e3)
+            leg_ms.append((time.perf_counter() - t2) * 1e3)
+            feats.append(f.cpu().numpy())
+        feats = np.stack(feats)
+        if not np.array_equal(np.stack(again), outs):
+            raise AssertionError(f"session {name}: a second pass gave other logits")
+        if feats.shape != (frames, f_dim) or not np.array_equal(feats, feats1):
+            raise AssertionError(f"session {name}: features differ from offline extraction at "
+                                 f"batch 1 (max abs {np.abs(feats - feats1).max():.3e})")
+        with torch.no_grad():
+            offline = lambda lfb: (predict_video(mstcn, refiner, lfb) if ref is not None
+                                   else mamba(lfb[None])[-1, 0]).cpu().numpy()
+            off1 = offline(torch.tensor(feats1, device=device))
+            off_b = offline(torch.tensor(feats_b, device=device))
+        err = float(np.abs(outs - off1).max())
+        cos = torch.nn.functional.cosine_similarity(torch.tensor(feats), torch.tensor(feats_b),
+                                                    dim=-1).numpy()
+        agree = float((outs[:, :7].argmax(-1) == off_b[:, :7].argmax(-1)).mean())
+        print(f"session {name}: features equal offline extraction at batch 1; logits vs the "
+              f"offline composition max abs {err:.3e} (bound {SESSION_LOGIT_BOUND}); features vs "
+              f"offline at batch {batch}: cosine min {cos.min():.7f} median "
+              f"{np.median(cos):.7f} (bound {SESSION_COS_BOUND}); phase argmax agreement "
+              f"there {agree:.4f} (information)")
+        if not np.isfinite(outs).all() or err > SESSION_LOGIT_BOUND:
+            raise AssertionError(f"session {name}: logits disagree with the offline pipeline")
+        if cos.min() < SESSION_COS_BOUND:
+            raise AssertionError(f"session {name}: features disagree with the stage route")
+        row = {"ms_per_frame": float(np.median(step_ms)),
+               "feature_ms": float(np.median(feat_ms)), "temporal_ms": float(np.median(leg_ms)),
+               "launches": launches, "logit_err": err, "cos_min": float(cos.min()),
+               "argmax_agreement": agree}
+        if cuda:
+            f0 = session.features(*frame(0))
+            row["device_ops"] = {"features": len(device_ops(lambda: session.features(*frame(0)))),
+                                 "temporal": len(device_ops(lambda: session.advance(f0)))}
+            print(f"time session {name}: median ms per frame {row['ms_per_frame']:.3f} "
+                  f"(features {row['feature_ms']:.3f}, temporal leg {row['temporal_ms']:.3f}; "
+                  f"step range {min(step_ms):.3f}-{max(step_ms):.3f}); device operations per "
+                  f"frame {row['device_ops']}")
+        res[name] = row
+
+    img, seg, _ = frame(0)
+    try:
+        session.step(img, seg, None)
+    except ValueError as e:
+        print(f"session: a frame without flow is refused: {str(e)[:60]}...")
+    else:
+        raise AssertionError("a flow-trained backbone served a frame without flow")
+    return res
 
 
 class _WireFrames:
@@ -1712,6 +1936,178 @@ def phase_temporal_train(workdir: str, device: str = "cuda") -> dict:
     return {**out, "step_ms": step_ms, "seconds": seconds}
 
 
+def _raft_frames(rng, size: int, n: int) -> np.ndarray:
+    """``n`` uint8 frames [size, size, 3] of one smooth texture moving by
+    (2, 3) px per frame (bilinear upsampling of coarse noise)."""
+    pad = 3 * n + 8
+    coarse = torch.from_numpy(rng.uniform(0, 255, (1, 3, (size + pad) // 8 + 2,
+                                                   (size + pad) // 8 + 2)).astype(np.float32))
+    canvas = torch.nn.functional.interpolate(coarse, scale_factor=8, mode="bilinear")
+    canvas = canvas[0].permute(1, 2, 0).clamp(0, 255).round().to(torch.uint8).numpy()
+    return np.stack([canvas[2 * i:2 * i + size, 3 * i:3 * i + size] for i in range(n)])
+
+
+def _flow_files(root: str) -> dict:
+    out = {}
+    flow_root = os.path.join(root, "raft_flow_npy")
+    for v in sorted(os.listdir(flow_root)):
+        for f in sorted(os.listdir(os.path.join(flow_root, v)), key=lambda s: int(s[:-4])):
+            out[f"{v}/{f}"] = np.load(os.path.join(flow_root, v, f))
+    return out
+
+
+def _flow_log(root: str) -> tuple[dict, str]:
+    """(the stats of the log's last ``video <v>: {stats}`` line, the log)."""
+    with open(os.path.join(root, "flow_precompute_log.txt")) as f:
+        text = f.read()
+    return ast.literal_eval(re.findall(r"video \S+: (\{.*\})$", text, re.M)[-1]), text
+
+
+def phase_raft(workdir: str, device: str = "cuda", size: int = RAFT_SIZE,
+               iters: int = RAFT_ITERS, video_frames: int = RAFT_VIDEO_FRAMES) -> dict:
+    """RAFT and ``cli precompute-flow``: a seeded upstream-layout state dict
+    (cnet BatchNorm statistics away from identity) saved as a ``.pth`` with
+    the DataParallel prefix and loaded strictly on the card; one pair of
+    ``size``-px frames padded to a multiple of 8: the card's fp32 flow
+    (TF32 off) against the port's CPU fp32 on the same weights at ``iters``
+    iterations, the dense lookup against the gather oracle on the card at
+    the pair's feature grid, pairs per second and the device operations of
+    one pair; then ``precompute-flow`` through ``cli.main`` over a
+    Cholec80-layout corpus of 2 videos x ``video_frames`` JPEGs at stride
+    25: every file equal to the flow_fn of its pair, a rerun that writes
+    nothing, and a corrupt JPEG that fails its one pair (a logged
+    traceback) while every other pair is written."""
+    from PIL import Image
+
+    from surgical_tpu_torch import cli
+    from surgical_tpu_torch.data.datasets import load_image
+    from surgical_tpu_torch.flow.precompute import FlowPrecomputeDriver, pad_to_multiple_hw
+    from surgical_tpu_torch.models import raft as R
+    from surgical_tpu_torch.models.convert import load_torch_pth
+
+    cuda = device == "cuda"
+    rng = np.random.default_rng(SEED + 30)
+    d = os.path.join(workdir, "raft")
+    os.makedirs(d, exist_ok=True)
+    cpu_model = R.RAFT(iters=iters, seed=SEED + 30, device="cpu")
+    with torch.no_grad():
+        for m in cpu_model.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                c = m.num_features
+                m.running_mean.copy_(torch.from_numpy(0.1 * rng.standard_normal(c)))
+                m.running_var.copy_(torch.from_numpy(rng.uniform(0.5, 1.5, c)))
+    pth = os.path.join(d, "raft-things.pth")
+    torch.save({f"module.{k}": v for k, v in cpu_model.state_dict().items()}, pth)
+    card = R.RAFT(iters=iters, device=device)
+    card.load_state_dict(load_torch_pth(pth), strict=True)
+
+    f1, f2 = _raft_frames(rng, size, 2).astype(np.float32)
+    p1, _ = pad_to_multiple_hw(f1)
+    p2, _ = pad_to_multiple_hw(f2)
+    flow_fn = R.make_flow_fn(card)
+    t0 = time.perf_counter()
+    got = flow_fn(p1, p2)
+    first_s = time.perf_counter() - t0
+    want = R.make_flow_fn(cpu_model)(p1, p2)
+    rel = float(np.linalg.norm(got - want) / np.linalg.norm(want))
+    epe = float(np.sqrt(((got - want) ** 2).sum(-1)).max())
+    print(f"raft: {iters} iterations on {size}-px frames padded to {p1.shape[0]}: card vs CPU "
+          f"fp32 flow rel L2 {rel:.3e} (bound {RAFT_REL_BOUND}), max end-point error {epe:.3e} px "
+          f"(bound {RAFT_EPE_BOUND}); |flow| up to {np.abs(want).max():.3f} px; first call "
+          f"{first_s:.2f} s")
+    if got.shape != p1.shape[:2] + (2,) or not np.isfinite(got).all():
+        raise AssertionError(f"raft: flow of shape {got.shape}, finite {np.isfinite(got).all()}")
+    if rel > RAFT_REL_BOUND or epe > RAFT_EPE_BOUND:
+        raise AssertionError("raft: the card's flow disagrees with the CPU's")
+
+    # the dense lookup against the gather oracle on the pair's feature grid
+    with torch.no_grad(), R.fp32_precision():
+        x = (torch.from_numpy(np.stack([p1, p2])).to(device) / 127.5 - 1.0).permute(0, 3, 1, 2)
+        fa, fb = card.fnet(x.contiguous())
+        pyr = R.corr_pyramid(R.all_pairs_correlation(fa, fb), card.corr_levels)
+        grid = tuple(fa.shape[1:])
+        lookup_err = 0.0
+        for scale in (0.0, 0.5, 3.7, 30.0):
+            flow = torch.from_numpy((scale * rng.standard_normal((2, *grid))).astype(np.float32))
+            flow = flow.to(device)
+            dense = R.lookup_pyramid(pyr, flow, card.corr_radius)
+            oracle = R.lookup_pyramid_gather(pyr, flow, card.corr_radius)
+            lookup_err = max(lookup_err, ((dense - oracle).abs().max()
+                                          / oracle.abs().max()).item())
+        timing = ""
+        if cuda:
+            dense_ms = time_ms(lambda: R.lookup_pyramid(pyr, flow, card.corr_radius))
+            gather_ms = time_ms(lambda: R.lookup_pyramid_gather(pyr, flow, card.corr_radius))
+            timing = f"; one lookup {dense_ms:.4f} ms dense, {gather_ms:.4f} ms gather"
+    print(f"raft: dense lookup vs gather at the {grid[0]}x{grid[1]} grid, {len(pyr)} levels: max "
+          f"abs error over max |sample| {lookup_err:.3e} (bound {RAFT_LOOKUP_BOUND}){timing}")
+    if lookup_err > RAFT_LOOKUP_BOUND:
+        raise AssertionError("raft: the dense lookup disagrees with the gather oracle")
+    out = {"iters": iters, "size": [size, size], "padded": list(p1.shape[:2]), "rel_l2": rel,
+           "max_epe": epe, "lookup_err": lookup_err}
+    if cuda:
+        ms = median_ms(lambda: flow_fn(p1, p2), runs=RAFT_TIMED)
+        a = torch.from_numpy(p1).to(device) / 127.5 - 1.0
+        b = torch.from_numpy(p2).to(device) / 127.5 - 1.0
+        ops = len(device_ops(lambda: card(a, b)))
+        out.update(ms_per_pair=ms, pairs_per_s=1e3 / ms, device_ops_per_pair=ops)
+        print(f"time raft: {ms:.3f} ms per pair = {1e3 / ms:.2f} pairs/s (host clock, median of "
+              f"{RAFT_TIMED}, frames from and flow to the host); {ops} device operations per "
+              f"pair ({ops / iters:.1f} per iteration and the encoders)")
+
+    # precompute-flow through the CLI over a synthetic corpus
+    root = os.path.join(d, "cholec80")
+    for v in (1, 2):
+        vdir = os.path.join(root, "cutMargin", str(v))
+        os.makedirs(vdir, exist_ok=True)
+        for i, img in enumerate(_raft_frames(rng, size, video_frames)):
+            Image.fromarray(img).save(os.path.join(vdir, f"{25 * i}.jpg"))
+    args = ["precompute-flow", "--iters", str(iters), "--torch-checkpoint", pth,
+            "--device", device]
+    seconds = {}
+
+    def run(name, at):
+        t = time.perf_counter()
+        if cli.main([*args, "--root", at]) != 0:
+            raise AssertionError(f"cli precompute-flow ({name}) failed")
+        seconds[name] = time.perf_counter() - t
+        return _flow_files(at), _flow_log(at)
+
+    pairs = 2 * (video_frames - 1)
+    files, (stats, _) = run("first", root)
+    driver = FlowPrecomputeDriver(flow_fn, os.path.join(d, "unused"))
+    for key, flow in files.items():
+        v, n = key[:-4].split("/")
+        load = lambda m: load_image(os.path.join(root, "cutMargin", v, f"{m}.jpg")).astype(
+            np.float32)
+        if flow.shape != (size, size, 2) or not np.array_equal(
+                flow, driver.compute_pair(load(int(n)), load(int(n) + 25))):
+            raise AssertionError(f"precompute-flow: {key} differs from its pair's flow_fn")
+    if stats != {"done": pairs, "skipped": 0, "failed": 0} or len(files) != pairs:
+        raise AssertionError(f"precompute-flow: {len(files)} files, stats {stats}")
+    mtimes = {k: os.path.getmtime(os.path.join(root, "raft_flow_npy", k)) for k in files}
+    again, (stats2, _) = run("rerun", root)
+    if (stats2 != {"done": 0, "skipped": pairs, "failed": 0} or again.keys() != files.keys()
+            or {k: os.path.getmtime(os.path.join(root, "raft_flow_npy", k))
+                for k in files} != mtimes):
+        raise AssertionError(f"precompute-flow rerun: stats {stats2}")
+    bad = os.path.join(d, "corrupt")
+    shutil.copytree(os.path.join(root, "cutMargin"), os.path.join(bad, "cutMargin"))
+    with open(os.path.join(bad, "cutMargin", "2", "0.jpg"), "wb") as f:
+        f.write(b"not a jpeg")
+    rest, (stats3, log) = run("corrupt", bad)
+    if (stats3 != {"done": pairs - 1, "skipped": 0, "failed": 1} or "2/0.npy" in rest
+            or "video 2 frame 0 FAILED" not in log or "Traceback" not in log
+            or any(not np.array_equal(f, files[k]) for k, f in rest.items())
+            or len(rest) != pairs - 1):
+        raise AssertionError(f"precompute-flow with a corrupt frame: stats {stats3}")
+    print(f"raft: precompute-flow wrote {pairs} pairs of 2 videos x {video_frames} frames, each "
+          f"equal to its pair's flow_fn (last frames without a file); the rerun {stats2}; a "
+          f"corrupt JPEG {stats3}, its traceback in the log, the other pairs equal; seconds "
+          + ", ".join(f"{k} {v:.3f}" for k, v in seconds.items()))
+    return {**out, "seconds": seconds}
+
+
 def _write_phase_annotations(root: str, lengths, rng) -> None:
     """Cholec80-layout annotations: phase_annotations/video<NN>-phase.txt,
     one ``frame<TAB>Phase`` row per 25-fps frame, ``lengths`` 1-fps frames
@@ -1739,12 +2135,14 @@ def _write_frames(root: str, paths, rng) -> None:
 
 
 def phase_extract_cli(workdir: str, cfg=None, head_cfg=None, model_flags=(), device="cuda",
-                      lengths=CLI_LENGTHS, batch=BATCH) -> dict:
+                      lengths=CLI_LENGTHS, batch=BATCH, raft_iters=RAFT_ITERS) -> dict:
     """The extraction CLI at b3 widths (``BackboneConfig()``,
     ``HeadConfig()``) through ``cli.main``: a synthetic Cholec80-layout
     corpus -> ``prepare-data --scheme smoke``; a seeded ``FrameCache`` per
-    split written here (and ``cache-frames`` over JPEGs when Pillow is
-    importable); seeded port models saved as reference-format ``.pth``
+    split written here (and, when Pillow is importable, ``precompute-flow``
+    over the val split's JPEGs at ``raft_iters`` iterations, then
+    ``cache-frames`` over them, whose cache must carry that flow); seeded
+    port models saved as reference-format ``.pth``
     files -> ``extract-features --pretrained-evp --frame-cache
     --reference-pickles`` (each store against ``extract_features`` run
     directly on the same frames, each pickle read back) -> ``reference-parity
@@ -1753,7 +2151,7 @@ def phase_extract_cli(workdir: str, cfg=None, head_cfg=None, model_flags=(), dev
     from surgical_tpu_torch import cli
     from surgical_tpu_torch.core.config import (BackboneConfig, HeadConfig, MSTCNConfig,
                                                 RefinerConfig)
-    from surgical_tpu_torch.data.datasets import FrameCache, prefetch_batches
+    from surgical_tpu_torch.data.datasets import FrameCache, load_flow, prefetch_batches
     from surgical_tpu_torch.data.feature_store import FeatureStore
     from surgical_tpu_torch.models.mit_evp import MiTEVP
     from surgical_tpu_torch.models.mstcn import MultiStageTCN
@@ -1791,14 +2189,28 @@ def phase_extract_cli(workdir: str, cfg=None, head_cfg=None, model_flags=(), dev
         pil = False
     if pil:
         with open(os.path.join(idx, "val_paths.json")) as f:
-            _write_frames(root, json.load(f), rng)
+            val_paths = json.load(f)
+        _write_frames(root, val_paths, rng)
+        run("precompute-flow", "--root", root, "--iters", str(raft_iters), "--device", device)
         run("cache-frames", "--work", work, "--out", os.path.join(work, "pil_cache"),
             "--splits", "val")
         fc = FrameCache(os.path.join(work, "pil_cache", "val"))
         if (len(fc), fc.meta["resize"], fc.meta["with_flow"]) != (len(caches["val"]), 250, True):
             raise AssertionError(f"cache-frames: {len(fc)} frames, meta {fc.meta}")
-    pil_note = ("importable: cache-frames ran on the val split's JPEGs" if pil
-                else "not importable: cache-frames not run")
+        # the cache carries RAFT's flow: every frame but the video's last has
+        # a file, non-zero, and the cache holds load_flow of each frame
+        has_file = [os.path.exists(p.replace("cutMargin", "raft_flow_npy").replace(".jpg", ".npy"))
+                    for p in val_paths]
+        cached = np.asarray(fc.flow)
+        if (sum(has_file) != len(val_paths) - 1 or has_file[-1]
+                or not np.array_equal(cached, np.stack([load_flow(p, 250) for p in val_paths]))
+                or not all(np.abs(cached[i]).max() > 0 for i, h in enumerate(has_file) if h)):
+            raise AssertionError("cache-frames: the cache does not carry precompute-flow's flow")
+        print(f"cli: precompute-flow wrote {sum(has_file)} flow files for the val split's "
+              f"{len(val_paths)} frames; the frame cache holds them (max |flow| "
+              f"{np.abs(cached).max():.3f} px at 250 px)")
+    pil_note = ("importable: precompute-flow and cache-frames ran on the val split's JPEGs"
+                if pil else "not importable: precompute-flow and cache-frames not run")
     print(f"cli: corpus of {len(lengths)} videos ({', '.join(map(str, lengths))} frames), "
           f"index and seeded frame caches ready; Pillow {pil_note}")
 
@@ -1859,13 +2271,16 @@ def main() -> int:
     phase_grad_guard()
     with tempfile.TemporaryDirectory() as workdir:
         sl = phase_slice(workdir)
+        ses = phase_online_session()
         tp = phase_temporal(workdir, sl)
         tt = phase_temporal_train(workdir)
         tr = phase_train(workdir)
         phase_flax_graph(workdir, tr["caches"])
+        rf = phase_raft(workdir)
         phase_extract_cli(workdir)
     blk, stg, pk = checks["block"], checks["stage"], checks["packed2"]
     blk_main, stg_main = checks["block_main"], checks["stage_main"]
+    blk_b1 = [r for r in checks["block_session"] if r["B"] == 1]
     main_scan = [r for r in scan if r["shape"].startswith("[Bt=1,") and r["T"] in TEST_LENGTHS]
     summed = lambda rows, key: sum(r[key] for r in rows)
     by = lambda rows: max(("bytes", "operations"),
@@ -1880,7 +2295,11 @@ def main() -> int:
          "bound_ms": summed(blk, "bound_ms"), "bound_by": by(blk), "library_ms": None,
          f"ms_b{BATCH}": summed(blk_main, "ms"), f"bound_ms_b{BATCH}": summed(blk_main, "bound_ms"),
          f"max_abs_err_b{BATCH}": max(r["max_abs_err"] for r in blk_main), "hgmma": n_hgmma,
-         "shapes": blk + blk_main},
+         "launches_online_session": ses["mstcn+refiner"]["launches"]["mit_block_forward"],
+         "ms_b1": summed(blk_b1, "ms"), "plain_ms_b1": summed(blk_b1, "plain_ms"),
+         "bound_ms_b1": summed(blk_b1, "bound_ms"),
+         "max_abs_err_b1": max(r["max_abs_err"] for r in blk_b1),
+         "shapes": blk + blk_main + checks["block_session"]},
         {"name": "mit_block_packed2_forward", "route": "cuda", "source": SOURCE,
          "replaces": "surgical_tpu/kernels/mit_block.py:801",
          "launches": sl["route_launches"]["mit_block_packed2_forward"],
@@ -1938,7 +2357,13 @@ def main() -> int:
     banned = ("jax", "flax", "optax", "orbax", "surgical_tpu")
     if any(m.split(".")[0] in banned for m in sys.modules):
         raise AssertionError("the port's run imported JAX or the JAX package")
-    print(json.dumps({"kernels": kernels}))
+    session = {"frames": SESSION_FRAMES, "launches_per_frame": {
+        k: v // SESSION_FRAMES for k, v in ses["mstcn+refiner"]["launches"].items()},
+        **{name: {k: row[k] for k in ("ms_per_frame", "feature_ms", "temporal_ms", "device_ops")}
+           for name, row in ses.items()}}
+    raft = {k: rf[k] for k in ("pairs_per_s", "ms_per_pair", "iters", "size", "padded",
+                               "device_ops_per_pair")}
+    print(json.dumps({"kernels": kernels, "online_session": session, "raft": raft}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

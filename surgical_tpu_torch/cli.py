@@ -14,6 +14,8 @@ work-dir layout.
     python -m surgical_tpu_torch.cli evaluate --gt data/cholec80/gt-phase --pred work/output/Test
     python -m surgical_tpu_torch.cli reference-parity --root data/cholec80 --work work/ \
         --evp evp.pth --temporal tecno.pth --refiner trans.pth --online
+    python -m surgical_tpu_torch.cli precompute-flow --root data/cholec80 \
+        --torch-checkpoint raft-things.pth
     python -m surgical_tpu_torch.cli selfcheck
     python -m surgical_tpu_torch.cli selfcheck --full
 
@@ -35,7 +37,9 @@ plateau controller's) for ``--resume``. ``extract-features`` runs the backbone
 of a reference ``.pth`` or of ``ckpt/backbone`` over every split: the serving
 graph on the kernels (``models/mit_fused.py``) for a preset size, the flax
 graph for ``--variant tiny`` on the card, the serving graph's plain versions
-on the CPU. ``predict`` restores each
+on the CPU. ``precompute-flow`` runs RAFT (``models/raft.py``) over a data
+root's 1-fps frames into ``raft_flow_npy/``, where ``ClipDataset`` and
+``cache-frames`` read flow. ``predict`` restores each
 store's best step by ``val_acc`` and writes
 ``output/<Split>/video<NN>-phase.txt``. Every video runs at its true
 length. ``reference-parity`` goes from a data root and the reference's
@@ -639,6 +643,52 @@ def cmd_reference_parity(args) -> int:
     return 0
 
 
+def cmd_precompute_flow(args) -> int:
+    """Optical-flow precompute (RAFT.py, surgical_tpu/cli.py:814-869):
+    RAFT flow between 1-fps frame n and n+25 of every video under
+    ``<root>/cutMargin/<v>/<n>.jpg`` into ``<root>/raft_flow_npy/<v>/<n>.npy``
+    (``flow/precompute.py``: resumable, atomic, per-pair error-continue, one
+    ``video <v>: {stats}`` line per video in
+    ``<root>/flow_precompute_log.txt``). Weights: an upstream-layout
+    ``--torch-checkpoint`` .pth (``raft-things.pth``), else the latest step of
+    a port ``--checkpoint`` store, else the seeded initialization. RAFT runs
+    in fp32 with TF32 off (``models/raft.py``)."""
+    from surgical_tpu_torch.core.checkpoint import CheckpointStore
+    from surgical_tpu_torch.core.device import resolve_device
+    from surgical_tpu_torch.data.datasets import load_image
+    from surgical_tpu_torch.flow.precompute import FlowPrecomputeDriver
+    from surgical_tpu_torch.models.convert import load_torch_pth
+    from surgical_tpu_torch.models.raft import RAFT, make_flow_fn
+
+    device = resolve_device(args.device)
+    model = RAFT(iters=args.iters, device=device)
+    if args.torch_checkpoint:
+        model.load_state_dict(load_torch_pth(args.torch_checkpoint), strict=True)
+    elif args.checkpoint:
+        store = CheckpointStore(args.checkpoint)
+        step = store.latest_step()
+        if step is None:
+            raise FileNotFoundError(f"no checkpoint in {args.checkpoint}")
+        store.restore(step, model, device)
+    else:
+        print("precompute-flow: no checkpoint given: RAFT runs its seeded initialization",
+              file=sys.stderr)
+    driver = FlowPrecomputeDriver(
+        make_flow_fn(model), os.path.join(args.root, "raft_flow_npy"),
+        log_path=os.path.join(args.root, "flow_precompute_log.txt"))
+    img_root = os.path.join(args.root, "cutMargin")
+    for video in sorted(os.listdir(img_root), key=lambda s: int(s) if s.isdigit() else 0):
+        vdir = os.path.join(img_root, video)
+        if not os.path.isdir(vdir):
+            continue
+        frames = sorted(int(f[:-4]) for f in os.listdir(vdir) if f.endswith(".jpg"))
+        driver.run_video(
+            video, frames,
+            lambda n, vdir=vdir: load_image(os.path.join(vdir, f"{n}.jpg")).astype(np.float32))
+        print(f"video {video}: {driver.stats}")
+    return 0
+
+
 def _write_synthetic_corpus(root: str, num_videos: int = 4, frames: int = 8) -> None:
     """Synthetic Cholec80-layout corpus on disk: cutMargin jpgs, segmap jpgs
     (path-substitution layout), phase annotation txts. Phase blocks are
@@ -966,6 +1016,16 @@ def main(argv=None) -> int:
     sp.add_argument("--first", type=int, default=41)
     sp.add_argument("--last", type=int, default=80)
     sp.set_defaults(fn=cmd_evaluate)
+
+    sp = sub.add_parser("precompute-flow", help="RAFT optical flow over a data root's frames")
+    sp.add_argument("--root", required=True, help="dataset root with cutMargin/")
+    sp.add_argument("--iters", type=int, default=20)
+    sp.add_argument("--checkpoint", default=None, help="RAFT checkpoint store dir (the port's)")
+    sp.add_argument("--torch-checkpoint", default=None,
+                    help="upstream raft-things.pth to load (RAFT.py:36)")
+    sp.add_argument("--device", default="cuda",
+                    help="torch device to run on (default: the card)")
+    sp.set_defaults(fn=cmd_precompute_flow)
 
     sp = sub.add_parser("selfcheck", help="synthetic end-to-end check of the temporal stages")
     sp.add_argument("--full", action="store_true",

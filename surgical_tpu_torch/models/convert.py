@@ -4,9 +4,10 @@ The port keeps the reference's state-dict key names, so a JAX parameter tree
 becomes a port state dict through the numpy exporters below, copied from
 ``surgical_tpu/models/convert.py`` (the port imports nothing of the JAX
 package): ``export_mstcn_state_dict``, ``export_refiner_state_dict`` and
-``export_mamba_state_dict``. The MiT-EVP backbone has only an importer
-there; ``export_evp_state_dict`` here is its inverse. The ``load_*_params``
-functions load JAX weights into a port module with ``strict=True``.
+``export_mamba_state_dict``. The MiT-EVP backbone and RAFT have only
+importers there; ``export_evp_state_dict`` and ``export_raft_state_dict``
+here are their inverses. The ``load_*_params`` functions load JAX weights
+into a port module with ``strict=True``.
 ``infer_mstcn_dims`` and ``infer_refiner_dims`` are copies of the JAX
 module's, which read a reference checkpoint's model dims off its state dict.
 """
@@ -200,6 +201,51 @@ def export_mamba_state_dict(params: Mapping, layers: int) -> dict:
     return sd
 
 
+def _put_raft_encoder(sd, enc, p, batch_norm: bool):
+    """BasicEncoder: conv1, three 2-unit residual layers, conv2; BatchNorm
+    (``FrozenBatchNorm``'s scale / bias / mean / var) only in ``cnet``, the
+    instance norms of ``fnet`` have no state."""
+    _put_conv(sd, f"{enc}.conv1", p["conv1"])
+    _put_conv(sd, f"{enc}.conv2", p["conv2"])
+    if batch_norm:
+        _put_bn(sd, f"{enc}.norm1", p["norm1"], p["norm1"])
+    for L in (1, 2, 3):
+        for b in (0, 1):
+            u, pre = p[f"layer{L}_{b}"], f"{enc}.layer{L}.{b}"
+            _put_conv(sd, f"{pre}.conv1", u["conv1"])
+            _put_conv(sd, f"{pre}.conv2", u["conv2"])
+            if batch_norm:
+                _put_bn(sd, f"{pre}.norm1", u["norm1"], u["norm1"])
+                _put_bn(sd, f"{pre}.norm2", u["norm2"], u["norm2"])
+            if "downsample" in u:
+                _put_conv(sd, f"{pre}.downsample.0", u["downsample"])
+                if batch_norm:
+                    _put_bn(sd, f"{pre}.downsample.1", u["norm3"], u["norm3"])
+
+
+def export_raft_state_dict(params: Mapping) -> dict:
+    """JAX ``RAFT`` params (the bare tree) -> the upstream ``raft-things``
+    key state dict that the port's ``RAFT.load_state_dict`` takes: the
+    inverse of ``surgical_tpu.models.convert.import_raft_state_dict``
+    (flax conv kernels [kh, kw, in, out] to [out, in, kh, kw];
+    ``FrozenBatchNorm`` to ``weight`` / ``bias`` / ``running_mean`` /
+    ``running_var`` + ``num_batches_tracked``)."""
+    sd: dict = {}
+    _put_raft_encoder(sd, "fnet", params["fnet"], batch_norm=False)
+    _put_raft_encoder(sd, "cnet", params["cnet"], batch_norm=True)
+    ub, pre = params["update_block"], "update_block"
+    for k in ("convc1", "convc2", "convf1", "convf2", "conv"):
+        _put_conv(sd, f"{pre}.encoder.{k}", ub["encoder"][k])
+    for g in "zrq":
+        for suffix, i in (("h", 1), ("v", 2)):
+            _put_conv(sd, f"{pre}.gru.conv{g}{i}", ub["gru"][f"conv{g}_{suffix}"])
+    _put_conv(sd, f"{pre}.flow_head.conv1", ub["flow_head1"])
+    _put_conv(sd, f"{pre}.flow_head.conv2", ub["flow_head2"])
+    _put_conv(sd, f"{pre}.mask.0", ub["mask1"])
+    _put_conv(sd, f"{pre}.mask.2", ub["mask2"])
+    return sd
+
+
 def to_torch(sd: Mapping) -> dict:
     """numpy state dict -> torch tensors (copies, contiguous)."""
     return {k: torch.from_numpy(np.array(v)) for k, v in sd.items()}
@@ -208,6 +254,11 @@ def to_torch(sd: Mapping) -> dict:
 def load_evp_params(model, params: Mapping, batch_stats: Mapping) -> None:
     """Load JAX ``MiTEVP`` weights into a port ``MiTEVP`` (strict)."""
     model.load_state_dict(to_torch(export_evp_state_dict(params, batch_stats)), strict=True)
+
+
+def load_raft_params(model, params: Mapping) -> None:
+    """Load JAX ``RAFT`` params (the bare tree) into a port ``RAFT``."""
+    model.load_state_dict(to_torch(export_raft_state_dict(params)), strict=True)
 
 
 def load_torch_pth(path: str) -> dict:

@@ -1,8 +1,8 @@
 """Streaming per-frame temporal inference with offline parity.
 
 Port of ``surgical_tpu/serving/online.py`` (``run_pipeline``, ``OnlineMSTCN``,
-``OnlineMamba``, ``OnlineRefiner``). The causal temporal models admit a
-constant-state streaming form:
+``OnlineMamba``, ``OnlineRefiner``, ``OnlineSession``). The causal temporal
+models admit a constant-state streaming form:
 
 - ``OnlineMSTCN``: each dilated residual layer reads x[t], x[t-d], x[t-2d];
   a ring buffer of the last ``2d`` layer inputs per layer replays the
@@ -19,12 +19,19 @@ constant-state streaming form:
 Each exposes ``init_state``, ``step(state, ...) -> (state, out)`` and
 ``run(...)``, a Python loop over ``step``. The models are the port's own
 modules; their weights are read in place. Dropout is off, as offline.
+``OnlineSession`` puts the frozen backbone's feature extraction in front:
+frames in, phase logits out.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
+import numpy as np
 import torch
 import torch.nn.functional as F
+
+from surgical_tpu_torch.train.extract import make_raw_feature_fn
 
 
 def run_pipeline(temporal, refiner, feats: torch.Tensor) -> torch.Tensor:
@@ -185,3 +192,77 @@ class OnlineRefiner:
             state, out = self.step(state, g_t, lfb_t)
             outs.append(out)
         return torch.stack(outs)
+
+
+# -------------------------------------------------------------- session
+
+
+class OnlineSession:
+    """Frame-in / phase-out streaming pipeline: the frozen backbone's
+    features (the extraction contract, one B = 1 micro-batch per frame)
+    chained into a streaming temporal model and, when given, the refiner.
+
+    ``temporal`` is an ``OnlineMSTCN`` or ``OnlineMamba``; frames follow
+    ``train/extract.py``'s wire format (uint8 image and segmap, float16
+    flow). ``use_fused`` picks the backbone's graph as ``make_raw_feature_fn``
+    does (None: the kernels for a preset-size backbone on the card). The
+    features leave the backbone in ``feature_dtype`` (the extraction wire,
+    float16, on which the temporal models are trained) and enter the
+    temporal step in fp32. The temporal and refiner models must sit on the
+    backbone's device: the session moves nothing.
+    """
+
+    def __init__(self, backbone, temporal, refiner: Optional[OnlineRefiner] = None,
+                 use_fused: Optional[bool] = None, feature_dtype=torch.float16):
+        device = next(backbone.parameters()).device
+        for name, part in (("temporal", temporal), ("refiner", refiner)):
+            if part is not None and next(part.model.parameters()).device != device:
+                raise ValueError(
+                    f"the {name} model's parameters are on "
+                    f"{next(part.model.parameters()).device}, the backbone's on {device}: "
+                    "move it to the backbone's device (the session moves nothing)")
+        # a flow-trained backbone gates its flow fusion on `flow is not None`:
+        # serving it without flow would give other features, so step refuses
+        self._needs_flow = backbone.cfg.with_flow
+        self._feature_fn = make_raw_feature_fn(backbone, d2h_dtype=feature_dtype,
+                                               use_fused=use_fused)
+        self.temporal, self.refiner = temporal, refiner
+        self.reset()
+
+    def reset(self) -> None:
+        self.state = self.temporal.init_state()
+        self.refiner_state = self.refiner.init_state() if self.refiner else None
+        self.frame_idx = 0
+
+    def features(self, img_u8, seg_u8, flow_f16) -> torch.Tensor:
+        """One frame ([H, W, 3] u8, [H, W, 1] u8, [H, W, 2] f16 or None) ->
+        its feature [E] in fp32 on the backbone's device (the feature leg)."""
+        if self._needs_flow and flow_f16 is None:
+            raise ValueError(
+                "backbone was built with with_flow=True: serving without a "
+                "flow frame silently skips the flow cross-attention and "
+                "produces wrong features; pass flow_f16 (precompute with "
+                "models/raft.py) or rebuild the backbone with with_flow=False")
+        # a batch axis with the strides of a stacked batch: a[None] gives it
+        # stride 0, for which the convolutions may take another memory-format
+        # path and round differently from offline extraction
+        one = lambda a: None if a is None else a.reshape((1, *a.shape))
+        return self._feature_fn(one(img_u8), one(seg_u8), one(flow_f16))[0].float()
+
+    def advance(self, feat: torch.Tensor) -> torch.Tensor:
+        """One frame's feature [E] -> its logits (the temporal + refiner
+        leg): the temporal step, then, with a refiner, the refiner step on
+        the temporal model's final stage and the same feature."""
+        self.frame_idx += 1
+        self.state, logits = self.temporal.step(self.state, feat)
+        g = logits[-1] if logits.dim() == 2 else logits
+        if self.refiner is None:
+            return g
+        self.refiner_state, refined = self.refiner.step(self.refiner_state, g, feat)
+        return refined
+
+    def step(self, img_u8, seg_u8, flow_f16) -> np.ndarray:
+        """One frame -> this frame's logits: refined when a refiner is
+        attached (the full pipeline, online), else the temporal model's
+        final stage."""
+        return self.advance(self.features(img_u8, seg_u8, flow_f16)).cpu().numpy()

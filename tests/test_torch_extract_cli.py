@@ -347,6 +347,7 @@ def test_chip_smoke_cli_phase_on_cpu(tmp_path):
     res = chip_smoke.phase_extract_cli(
         str(tmp_path), cfg=BackboneConfig.preset("tiny"),
         head_cfg=HeadConfig(embedding_dim=32, hidden=16), model_flags=["--variant", "tiny"],
-        device="cpu", lengths=(6, 5, 8, 9), batch=4)
+        device="cpu", lengths=(6, 5, 8, 9), batch=4, raft_iters=2)
     assert res["agreement"] == 1.0
-    assert {"prepare-data", "extract-features", "reference-parity"} <= set(res["seconds"])
+    assert {"prepare-data", "precompute-flow", "cache-frames", "extract-features",
+            "reference-parity"} <= set(res["seconds"])
