@@ -95,12 +95,30 @@ nonzero without printing a result:
    (each store against ``extract_features`` on the same frames, the pickles
    read back), ``reference-parity --online`` on those stores (finite
    metrics, online/offline agreement), and the seconds of each verb;
-12. result: a JSON line of per-kernel numbers (the serving kernels' B=200
+12. deployment export at b3 widths with flow on 224-px frames: ``cli
+   export-serving`` of a seeded ``.pth`` (the flax graph and ``--fused``, at
+   B=200 and B=1) and the streaming MS-TCN and refiner steps exported beside
+   them; each backbone artifact run in a fresh process that imports torch
+   (and ``kernels.ops`` for a fused one) and no model code, its outputs
+   equal to the eager graph's bit for bit, the fused B=200 artifact
+   launching the block kernel 25 times and the stage kernel once; 64 frames
+   streamed through the three artifacts equal to ``OnlineSession`` bit for
+   bit with 28 block launches per frame; export seconds, artifact bytes,
+   load seconds, ms per call and per frame beside the eager graphs', and
+   one custom-op dispatch's host cost against the bare launch;
+13. int8 weights at b3, B=200: the extraction path with bf16 and with
+   int8 weights on the same frames: int8 features equal the graph on the
+   dequantized weights bit for bit, 25 block and 1 stage launch per batch,
+   the held bytes, scripts/probe_int8.py's drift metrics under the JAX
+   package's test gates, frames/s of each (median of 3, in turns) and the
+   dequantization's device ms per batch;
+14. result: a JSON line of per-kernel numbers (the serving kernels' B=200
    and the train kernels' B=88 times and bounds beside the B=8 ones; the
    scan's backward at T = 2000 and 6000; the block kernel's B=1 rows and its
-   launches in the session) with the session's ms per frame and launches
-   per frame and RAFT's pairs per second beside them, the card line, and
-   the last line
+   launches in the session; the serving kernels' launches through the ops
+   in the export and int8 phases) with the session's ms per frame and
+   launches per frame and RAFT's pairs per second beside them, the card
+   line, and the last line
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -233,6 +251,21 @@ SESSION_LOGIT_BOUND = 1e-4
 # GELU in the kernel) and not the block kernel (exact erf): 1 - cosine at
 # most a few times the H100 reading (min cosine 0.9999954).
 SESSION_COS_BOUND = 0.99998
+
+# The export phase (phase_export): b3 with flow on 224-px wire frames; a
+# flax and a fused artifact through ``cli export-serving`` at B = BATCH and at
+# 1, each run in a fresh process that imports torch (and kernels.ops for a
+# fused one) and nothing of the model code, EXPORT_REPS timed calls; the
+# stream of SESSION_FRAMES frames through the fused B = 1 backbone, MS-TCN
+# step and refiner step artifacts. Each artifact's outputs equal the eager
+# graph's bit for bit: the same ops, kernels and weights.
+EXPORT_REPS = 5
+# The int8 phase (phase_int8): INT8_BATCHES batches of BATCH frames with bf16
+# and with int8 weights, extraction timed over INT8_RUNS runs in turns; the
+# int8 features against the bf16 ones under the JAX package's own gates
+# (tests/test_quant.py: median relative delta, correlation).
+INT8_BATCHES, INT8_RUNS = 3, 3
+INT8_MEDIAN_REL, INT8_CORR = 0.2, 0.95
 
 # RAFT (phase_raft): upstream's 20 iterations on 250-px frames padded to 256
 # (a 32x32 feature grid, levels 32 / 16 / 8 / 4); two synthetic videos of
@@ -408,6 +441,19 @@ def device_ops(fn, tries: int = 3) -> list:
         if names:
             return names
     raise AssertionError(f"torch.profiler saw no device operation in {tries} traced calls")
+
+
+def device_busy(fn) -> tuple[float, int]:
+    """(ms the device spent in the operations of one call of ``fn``, their
+    number), from torch.profiler: the sum of the kernels', copies' and
+    memsets' durations, without the host's issue time between them."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return sum(e.time_range.end - e.time_range.start for e in evs) / 1e3, len(evs)
 
 
 def _op_name(name: str) -> str:
@@ -2261,6 +2307,450 @@ def phase_extract_cli(workdir: str, cfg=None, head_cfg=None, model_flags=(), dev
     return {"seconds": seconds, "agreement": agree}
 
 
+# Run in a fresh process by phase_export: loads artifacts with
+# serving/export.py's loader alone, runs them on .npy inputs, and prints one
+# JSON line (load seconds, ms per call or per streamed frame, kernel launches
+# when kernels.ops was loaded, the modules the load and the calls imported).
+_ARTIFACT_RUNNER = r"""
+import json, sys, time
+import numpy as np
+import torch
+
+before = set(sys.modules)
+from surgical_tpu_torch.serving.export import load_artifact
+
+job = json.load(open(sys.argv[1]))
+dev = job["device"]
+sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+t0 = time.perf_counter()
+fns = [load_artifact(d) for d in job["artifacts"]]
+sync()
+res = {"load_s": time.perf_counter() - t0}
+ins = [torch.from_numpy(np.load(p)).to(dev) for p in job["inputs"]]
+mb = sys.modules.get("surgical_tpu_torch.kernels.mit_block")
+
+
+def launches():
+    if mb is None:
+        return None
+    return {"mit_block_forward": mb.fused_mit_block.launches,
+            "mit_block_packed2_forward": mb.fused_mit_block_packed2.launches,
+            "mit_stage_forward": mb.fused_mit_stage.launches}
+
+
+def zeros(aval):
+    name, dims = aval[:-1].split("[")
+    return torch.zeros([int(d) for d in dims.split(",") if d], dtype=getattr(torch, name),
+                       device=dev)
+
+
+if job["mode"] == "call":
+    fn = fns[0]
+    fn(*ins)
+    sync()
+    if mb is not None:
+        mb.reset_launches()
+    out = fn(*ins)
+    sync()
+    res["launches"] = launches()
+    for i, o in enumerate(out if isinstance(out, tuple) else (out,)):
+        np.save(f"{job['out']}{i}.npy", o.cpu().numpy())
+    times = []
+    for _ in range(job["reps"]):
+        sync()
+        t = time.perf_counter()
+        fn(*ins)
+        sync()
+        times.append((time.perf_counter() - t) * 1e3)
+    res["ms"] = float(np.median(times))
+    if dev == "cuda":
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            fn(*ins)
+            sync()
+        evs = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        res["device_ms"] = sum(e.time_range.end - e.time_range.start for e in evs) / 1e3
+        res["device_ops"] = len(evs)
+else:
+    # frame-in / phase-out: the B = 1 backbone (features rounded to the f16
+    # extraction wire, as OnlineSession), the temporal step from its zero
+    # state (the manifest's shapes), the refiner step on its final stage
+    backbone, temporal, refiner = fns
+    img, seg, flow = ins
+
+    def stream(n):
+        state = [zeros(a) for a in temporal.manifest["in_avals"][:-1]]
+        buf = zeros(refiner.manifest["in_avals"][0])
+        outs, ms = [], []
+        for t in range(n):
+            t1 = time.perf_counter()
+            feat = backbone(img[t:t + 1], seg[t:t + 1], flow[t:t + 1])[0]
+            feat = feat.to(torch.float16).float()
+            *state, logits = temporal(*state, feat)
+            buf, refined = refiner(buf, logits[-1], feat)
+            outs.append(refined.cpu().numpy())
+            ms.append((time.perf_counter() - t1) * 1e3)
+        return np.stack(outs), ms
+
+    stream(1)
+    if mb is not None:
+        mb.reset_launches()
+    outs, ms = stream(len(img))
+    res["launches"] = launches()
+    res["ms_per_frame"] = float(np.median(ms))
+    np.save(f"{job['out']}0.npy", outs)
+res["new_modules"] = sorted(set(sys.modules) - before)
+if "eager" in job:
+    # the eager graph (or session) on the same inputs in this same process,
+    # timed the same way, after the artifact's modules were recorded
+    from surgical_tpu_torch.train.extract import WireForward
+
+    mods = torch.load(job["eager"], weights_only=False, map_location=dev)
+    with torch.no_grad():
+        if job["mode"] == "call":
+            serve = WireForward(mods["model"], job["fused"], out_dtype=torch.float32)
+            serve(*ins)
+            times = []
+            for _ in range(job["reps"]):
+                sync()
+                t = time.perf_counter()
+                serve(*ins)
+                sync()
+                times.append((time.perf_counter() - t) * 1e3)
+            res["eager_ms"] = float(np.median(times))
+        else:
+            from surgical_tpu_torch.serving.online import (OnlineMSTCN, OnlineRefiner,
+                                                           OnlineSession)
+
+            session = OnlineSession(mods["model"], OnlineMSTCN(mods["mstcn"]),
+                                    OnlineRefiner(mods["refiner"]))
+            session.step(img[0], seg[0], flow[0])
+            session.reset()
+            ms = []
+            for t in range(len(img)):
+                t1 = time.perf_counter()
+                session.step(img[t], seg[t], flow[t])
+                ms.append((time.perf_counter() - t1) * 1e3)
+            res["eager_ms_per_frame"] = float(np.median(ms))
+print(json.dumps(res))
+"""
+
+
+def _run_artifacts(root: str, name: str, job: dict) -> dict:
+    """Run ``_ARTIFACT_RUNNER`` on ``job`` in a fresh Python process; returns
+    its report with the outputs it saved. Raises on a nonzero exit, or when
+    the process imported the model code, JAX, or (without a fused artifact)
+    the kernels."""
+    path = os.path.join(root, f"{name}.json")
+    job = {**job, "out": os.path.join(root, f"{name}_out")}
+    with open(path, "w") as f:
+        json.dump(job, f)
+    env = {**os.environ, "PYTHONPATH": os.path.dirname(os.path.abspath(__file__))}
+    proc = subprocess.run([sys.executable, "-c", _ARTIFACT_RUNNER, path], capture_output=True,
+                          text=True, env=env, timeout=900)
+    if proc.returncode != 0:
+        raise AssertionError(f"artifact run {name} failed:\n{proc.stderr[-4000:]}")
+    rep = json.loads(proc.stdout.strip().splitlines()[-1])
+    banned = ("surgical_tpu_torch.models", "surgical_tpu_torch.train", "surgical_tpu.", "jax",
+              "flax") + (() if rep["launches"] is not None else ("surgical_tpu_torch.kernels",))
+    bad = [m for m in rep["new_modules"] if m.startswith(banned) or m == "surgical_tpu"]
+    if bad:
+        raise AssertionError(f"artifact run {name} imported {bad[:5]}")
+    outs, i = [], 0
+    while os.path.exists(f"{job['out']}{i}.npy"):
+        outs.append(np.load(f"{job['out']}{i}.npy"))
+        i += 1
+    rep["outputs"] = outs
+    return rep
+
+
+def _host_us_per_call(fn, calls: int = 100) -> float:
+    """Host microseconds per call of ``fn`` issued back to back (the issue
+    cost: the device work queues behind it), after a synchronization."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t) * 1e6 / calls
+    torch.cuda.synchronize()
+    return us
+
+
+def phase_export(workdir: str, cfg=None, head_cfg=None, model_flags=(), device="cuda",
+                 size: int = 224, batch: int = BATCH, frames: int = SESSION_FRAMES,
+                 reps: int = EXPORT_REPS) -> dict:
+    """The deployment leg at b3 widths with flow: ``cli export-serving`` of
+    a seeded reference-format ``.pth``, the flax graph and ``--fused``, at
+    ``batch`` and at 1 (export seconds and artifact bytes); the streaming
+    MS-TCN and refiner steps exported beside them; each backbone artifact run
+    in a fresh process that imports torch and the loader (and
+    ``kernels.ops`` for a fused one) and no model code: its outputs equal
+    the eager graph's bit for bit, its load seconds, its ms per call beside
+    the eager graph's (timed after it in the same process, whose state
+    sways a host-bound call) and device time per call beside the eager
+    graph's, and the kernel launches of one call (a fused artifact at ``batch``: the block
+    kernel per block of stages 1-3 and the stage kernel once); then the
+    ``frames``-frame stream through the three artifacts (fused backbone at
+    B = 1, MS-TCN step, refiner step) in one such process, equal to
+    ``OnlineSession`` bit for bit, with its ms per frame beside the eager
+    session's and the block launches per frame; and the host cost of one
+    custom-op dispatch against the bare launch. ``cfg``, ``head_cfg``,
+    ``model_flags``, ``size`` and ``device`` size it down for a rehearsal on
+    the CPU, where nothing is timed or counted."""
+    from surgical_tpu_torch import cli
+    from surgical_tpu_torch.core.config import (BackboneConfig, HeadConfig, MSTCNConfig,
+                                                RefinerConfig)
+    from surgical_tpu_torch.kernels import mit_block as mb
+    from surgical_tpu_torch.models import mit_fused as mf
+    from surgical_tpu_torch.models.mit_evp import MiTEVP
+    from surgical_tpu_torch.models.mstcn import MultiStageTCN
+    from surgical_tpu_torch.models.transsv import RefinementTransformer
+    from surgical_tpu_torch.serving.export import (export_online_refiner,
+                                                   export_online_temporal, save_artifact)
+    from surgical_tpu_torch.serving.online import OnlineMSTCN, OnlineRefiner, OnlineSession
+    from surgical_tpu_torch.train.extract import WireForward
+
+    cfg, head_cfg = cfg or BackboneConfig(), head_cfg or HeadConfig()
+    cuda = device == "cuda"
+    root = os.path.join(workdir, "export")
+    os.makedirs(root)
+    f_dim = head_cfg.embedding_dim
+    model = MiTEVP(cfg, head_cfg, seed=SEED + 30, device=device)
+    pth = os.path.join(root, "evp.pth")
+    torch.save({k: v.cpu() for k, v in model.state_dict().items()}, pth)
+    mstcn = MultiStageTCN(MSTCNConfig(f_dim=f_dim), seed=SEED + 31, device=device)
+    refiner = RefinementTransformer(RefinerConfig(f_dim=f_dim), seed=SEED + 32, device=device)
+    rng = np.random.default_rng(SEED + 30)
+    n = max(batch, frames)
+    wire = (rng.integers(0, 256, (n, size, size, 3), dtype=np.uint8),
+            rng.integers(0, 256, (n, size, size, 1), dtype=np.uint8),
+            rng.standard_normal((n, size, size, 2), dtype=np.float32).astype(np.float16))
+    eager = os.path.join(root, "eager_models.pt")
+    torch.save({"model": model, "mstcn": mstcn, "refiner": refiner}, eager)
+    inputs = {}
+    for B in (batch, 1, frames):
+        inputs[B] = []
+        for i, a in enumerate(wire):
+            inputs[B].append(os.path.join(root, f"in_b{B}_{i}.npy"))
+            np.save(inputs[B][-1], a[:B])
+
+    res = {"export_s": {}, "bytes": {}, "load_s": {}, "ms": {}, "eager_ms": {}, "launches": {},
+           "device": {}}
+    names = [(g, B) for g in ("flax", "fused") for B in (batch, 1)]
+    for graph, B in names:
+        name, d = f"{graph}_b{B}", os.path.join(root, f"{graph}_b{B}")
+        t = time.perf_counter()
+        if cli.main(["export-serving", "--out", d, "--pretrained-evp", pth, "--batch-size",
+                     str(B), "--size", str(size), "--device", device, *model_flags,
+                     *(["--fused"] if graph == "fused" else [])]) != 0:
+            raise AssertionError(f"cli export-serving {name} failed")
+        res["export_s"][name] = time.perf_counter() - t
+        with open(os.path.join(d, "manifest.json")) as f:
+            m = json.load(f)
+        if m["platforms"] != [device] or m["surgical_tpu_ops"] != (graph == "fused"):
+            raise AssertionError(f"{name}: manifest {m}")
+        res["bytes"][name] = m["bytes"]
+    steps = {"mstcn_step": export_online_temporal(OnlineMSTCN(mstcn), f_dim),
+             "refiner_step": export_online_refiner(OnlineRefiner(refiner))}
+    for name, ep in steps.items():
+        save_artifact(os.path.join(root, name), ep, meta={"model": name})
+    print(f"export: {len(names)} backbone artifacts via cli export-serving "
+          + ", ".join(f"{k} {v:.2f} s / {res['bytes'][k] / 2**20:.1f} MiB"
+                      for k, v in res["export_s"].items()) + "; the MS-TCN and refiner steps")
+
+    blocks = sum(cfg.depths[:3]) + (0 if batch % mf._FUSE_BT[4] == 0 else cfg.depths[3])
+    for graph, B in names:
+        name = f"{graph}_b{B}"
+        serve = WireForward(model, graph == "fused", out_dtype=torch.float32)
+        dev_in = [torch.from_numpy(a[:B]).to(device) for a in wire]
+        with torch.no_grad():
+            want = serve(*dev_in).cpu().numpy()
+            if cuda:
+                busy, ops = device_busy(lambda: serve(*dev_in))
+        rep = _run_artifacts(root, name, {"mode": "call", "device": device, "reps": reps,
+                                          "artifacts": [os.path.join(root, name)],
+                                          "inputs": inputs[B], "eager": eager,
+                                          "fused": graph == "fused"})
+        if len(rep["outputs"]) != 1 or not np.array_equal(rep["outputs"][0], want):
+            raise AssertionError(f"{name}: the artifact's features differ from the eager graph")
+        res["load_s"][name], res["launches"][name] = rep["load_s"], rep["launches"]
+        if cuda:
+            res["ms"][name], res["eager_ms"][name] = rep["ms"], rep["eager_ms"]
+            res["device"][name] = {"eager_ms": busy, "eager_ops": ops,
+                                   "artifact_ms": rep["device_ms"],
+                                   "artifact_ops": rep["device_ops"]}
+        if graph == "fused" and B == batch and cuda and rep["launches"] != {
+                "mit_block_forward": blocks, "mit_block_packed2_forward": 0,
+                "mit_stage_forward": int(blocks == sum(cfg.depths[:3]))}:
+            raise AssertionError(f"{name}: launches {rep['launches']}")
+        print(f"export {name}: equal to the eager graph bit for bit in a process with torch "
+              f"alone{' + kernels.ops' if graph == 'fused' else ''}; load {rep['load_s']:.2f} s"
+              + (f", {rep['ms']:.3f} ms per call (eager {res['eager_ms'][name]:.3f}); device "
+                 f"{rep['device_ms']:.3f} ms in {rep['device_ops']} operations (eager {busy:.3f} "
+                 f"in {ops})" if cuda else "") + f"; launches per call {rep['launches']}")
+
+    session = OnlineSession(model, OnlineMSTCN(mstcn), OnlineRefiner(refiner))
+    frame = lambda t: tuple(a[t] for a in wire)
+    want = [session.step(*frame(t)) for t in range(frames)]
+    rep = _run_artifacts(root, "stream", {
+        "mode": "stream", "device": device, "inputs": inputs[frames], "eager": eager,
+        "artifacts": [os.path.join(root, k) for k in ("fused_b1", "mstcn_step", "refiner_step")]})
+    if not np.array_equal(rep["outputs"][0], np.stack(want)):
+        raise AssertionError("the three-artifact stream differs from OnlineSession")
+    per_frame = sum(cfg.depths)
+    if cuda and rep["launches"] != {"mit_block_forward": per_frame * frames,
+                                    "mit_block_packed2_forward": 0, "mit_stage_forward": 0}:
+        raise AssertionError(f"stream launches {rep['launches']}")
+    res["launches"]["stream"] = rep["launches"]
+    res["stream"] = {"frames": frames, "load_s": rep["load_s"]}
+    if cuda:
+        res["stream"].update(ms_per_frame=rep["ms_per_frame"],
+                             session_ms_per_frame=rep["eager_ms_per_frame"])
+    print(f"export stream: {frames} frames through the fused B = 1, MS-TCN and refiner step "
+          f"artifacts equal OnlineSession bit for bit; launches {rep['launches']}"
+          + (f"; {rep['ms_per_frame']:.3f} ms per frame (eager session "
+             f"{res['stream']['session_ms_per_frame']:.3f})" if cuda else ""))
+
+    if cuda:
+        # one custom-op dispatch against the bare launch, stage 4's block at B = 1
+        side = size
+        for k, st, p in ((7, 4, 3), (3, 2, 1), (3, 2, 1), (3, 2, 1)):
+            side = (side + 2 * p - k) // st + 1
+        C, heads = cfg.embed_dims[3], cfg.num_heads[3]
+        w = mf.kernel_weights(model)["block4"][0]
+        x, k, v = (torch.randn(1, side * side, C, device=device, dtype=torch.bfloat16)
+                   for _ in range(3))
+        with torch.no_grad():
+            op_us, raw_us = [], []
+            for _ in range(3):
+                op_us.append(_host_us_per_call(
+                    lambda: mb.fused_mit_block(x, k, v, w, heads=heads, H=side, W=side)))
+                raw_us.append(_host_us_per_call(
+                    lambda: mb.mit_block_forward_cuda(x, k, v, w, heads=heads, H=side, W=side)))
+        res["dispatch_us"] = {"op": float(np.median(op_us)), "launch": float(np.median(raw_us))}
+        extra = res["dispatch_us"]["op"] - res["dispatch_us"]["launch"]
+        print(f"time export: custom-op dispatch {res['dispatch_us']['op']:.1f} us per call "
+              f"against the bare launch's {res['dispatch_us']['launch']:.1f} us: "
+              f"{extra:.1f} us per call, {extra * per_frame / 1e3:.3f} ms per streamed frame "
+              f"({per_frame} calls)")
+    print(json.dumps({"export": {k: v for k, v in res.items() if k != "launches"}}))
+    return res
+
+
+def phase_int8(cfg=None, head_cfg=None, device="cuda", size: int = 224, batch: int = BATCH,
+               n_batches: int = INT8_BATCHES, runs: int = INT8_RUNS) -> dict:
+    """``extract-features --weight-quant int8``'s path at b3 widths with
+    flow: ``make_raw_feature_fn`` with bf16 and with int8 weights on the
+    same ``n_batches`` batches of ``batch`` seeded wire frames. The int8
+    features equal the bf16 graph on a model whose weights were set to the
+    dequantized values, bit for bit, with the block and stage kernels'
+    launches of that run; the held bytes (int8 + fp32 scales against bf16);
+    scripts/probe_int8.py's metrics (feature median relative error and
+    correlation, gated at the JAX package's test bounds; a seeded MS-TCN
+    (2 stages x 8 layers, 32 maps) and refiner on each: final-stage and
+    refined logits MAE, anticipation MAE delta, phase argmax agreement);
+    on the card frames/s of each, median of ``runs`` runs in turns, and the
+    dequantization's device ms per batch. ``cfg``, ``head_cfg``, ``size``
+    and ``device`` size it down for a rehearsal on the CPU, where nothing is
+    timed or counted."""
+    from surgical_tpu_torch.core.config import (BackboneConfig, HeadConfig, MSTCNConfig,
+                                                RefinerConfig)
+    from surgical_tpu_torch.kernels import mit_block as mb
+    from surgical_tpu_torch.models import mit_fused as mf
+    from surgical_tpu_torch.models.mit_evp import MiTEVP
+    from surgical_tpu_torch.models.mstcn import MultiStageTCN
+    from surgical_tpu_torch.models.transsv import RefinementTransformer
+    from surgical_tpu_torch.serving.quant import dequantize_state, quantize_state
+    from surgical_tpu_torch.train.extract import extract_features, make_raw_feature_fn
+
+    cfg, head_cfg = cfg or BackboneConfig(), head_cfg or HeadConfig()
+    cuda = device == "cuda"
+    f_dim, n = head_cfg.embedding_dim, batch * n_batches
+    model = MiTEVP(cfg, head_cfg, seed=SEED + 40, device=device)
+    rng = np.random.default_rng(SEED + 40)
+    wire = (rng.integers(0, 256, (n, size, size, 3), dtype=np.uint8),
+            rng.integers(0, 256, (n, size, size, 1), dtype=np.uint8),
+            rng.standard_normal((n, size, size, 2), dtype=np.float32).astype(np.float16))
+    batches = [tuple(a[i:i + batch] for a in wire) for i in range(0, n, batch)]
+    fns = {"bf16": make_raw_feature_fn(model),
+           "int8": make_raw_feature_fn(model, weight_quant="int8")}
+    extract = lambda fn: extract_features(fn, batches, n, f_dim, batch)
+    for fn in fns.values():
+        extract(fn)  # warm-up
+    mb.reset_launches()
+    feats_q, _ = extract(fns["int8"])
+    launches = {"mit_block_forward": mb.fused_mit_block.launches,
+                "mit_stage_forward": mb.fused_mit_stage.launches}
+    stage_route = batch % mf._FUSE_BT[4] == 0
+    want = {"mit_block_forward": n_batches * (sum(cfg.depths[:3])
+                                             + (0 if stage_route else cfg.depths[3])),
+            "mit_stage_forward": n_batches * int(stage_route)}
+    if cuda and launches != want:
+        raise AssertionError(f"int8 extraction launches {launches}, expected {want}")
+    feats, _ = extract(fns["bf16"])
+
+    q_state, scales = quantize_state(model.state_dict())
+    ref = MiTEVP(cfg, head_cfg, seed=SEED + 40, device=device)
+    ref.load_state_dict({k: v.float() if k in scales else v
+                         for k, v in dequantize_state(q_state, scales).items()})
+    ref_feats, _ = extract(make_raw_feature_fn(ref))
+    if not np.array_equal(feats_q, ref_feats):
+        raise AssertionError("int8 features differ from the graph on the dequantized weights")
+    held_q, held_s = fns["int8"].held
+    if any(t.dtype != torch.int8 or t.device.type != device for t in held_q.values()):
+        raise AssertionError("the int8 path does not hold int8 weights on the device")
+    res = {"frames": n, "quantized_tensors": len(held_q), "launches": launches,
+           "bytes_int8": sum(t.numel() for t in held_q.values())
+           + sum(4 * s.numel() for s in held_s.values()),
+           "bytes_bf16": sum(2 * t.numel() for t in held_q.values())}
+
+    rel = np.abs(feats - feats_q) / np.maximum(np.abs(feats), 1e-3)
+    res["feature_median_rel_err"] = float(np.median(rel))
+    res["feature_corr"] = float(np.corrcoef(feats.ravel(), feats_q.ravel())[0, 1])
+    mstcn = MultiStageTCN(MSTCNConfig(stages=2, layers=8, f_maps=32, f_dim=f_dim),
+                          seed=SEED + 41, device=device)
+    refiner = RefinementTransformer(RefinerConfig(f_maps=32, f_dim=f_dim), seed=SEED + 42,
+                                    device=device)
+    with torch.no_grad():
+        outs = {}
+        for name, f in (("bf16", feats), ("int8", feats_q)):
+            lfb = torch.tensor(f, device=device)
+            g = mstcn(lfb[None])[-1, 0]
+            outs[name] = (g.cpu().numpy(), refiner(g, lfb).cpu().numpy())
+    (ga, ra), (gb, rb) = outs["bf16"], outs["int8"]
+    res.update(mstcn_final_mae=float(np.abs(ga - gb).mean()),
+               logits_mae=float(np.abs(ra - rb).mean()),
+               anticipation_mae_delta=float(np.abs(ra[:, 7:] - rb[:, 7:]).mean()),
+               mstcn_argmax_agreement=float((ga[:, :7].argmax(-1) == gb[:, :7].argmax(-1)).mean()),
+               phase_argmax_agreement=float((ra[:, :7].argmax(-1) == rb[:, :7].argmax(-1)).mean()))
+    print(f"int8: {res['quantized_tensors']} tensors held as int8 ({res['bytes_int8'] / 2**20:.2f} "
+          f"MiB with scales, bf16 {res['bytes_bf16'] / 2**20:.2f} MiB); features equal the "
+          f"graph on the dequantized weights bit for bit; launches {launches}; vs bf16: median "
+          f"rel {res['feature_median_rel_err']:.4f} (gate {INT8_MEDIAN_REL}), corr "
+          f"{res['feature_corr']:.5f} (gate {INT8_CORR}), MS-TCN final MAE "
+          f"{res['mstcn_final_mae']:.3e}, refined MAE {res['logits_mae']:.3e}, anticipation "
+          f"MAE delta {res['anticipation_mae_delta']:.3e}, argmax agreement MS-TCN "
+          f"{res['mstcn_argmax_agreement']:.4f}, refined {res['phase_argmax_agreement']:.4f}")
+    if not (res["feature_median_rel_err"] < INT8_MEDIAN_REL and res["feature_corr"] > INT8_CORR):
+        raise AssertionError("int8 features fail the JAX package's gates")
+    if cuda:
+        fps = {"bf16": [], "int8": []}
+        for r in range(runs):
+            for name in (("bf16", "int8") if r % 2 == 0 else ("int8", "bf16")):
+                fps[name].append(extract(fns[name])[1]["fps"])
+        res["fps"] = {k: float(np.median(v)) for k, v in fps.items()}
+        res["fps_runs"] = fps
+        res["dequant_ms"] = time_ms(lambda: dequantize_state(held_q, held_s))
+        res["dequant_device_ms"], res["dequant_device_ops"] = device_busy(
+            lambda: dequantize_state(held_q, held_s))
+        print(f"time int8: frames/s bf16 {res['fps']['bf16']:.1f}, int8 {res['fps']['int8']:.1f} "
+              f"(median of {runs}, in turns; runs {fps}); dequantization "
+              f"{res['dequant_ms']:.3f} ms per batch (CUDA events, host issue included), device "
+              f"{res['dequant_device_ms']:.3f} ms in {res['dequant_device_ops']} operations")
+    print(json.dumps({"int8": res}))
+    return res
+
+
 def main() -> int:
     smi = phase_toolchain()
     phase_build()
@@ -2278,11 +2768,17 @@ def main() -> int:
         phase_flax_graph(workdir, tr["caches"])
         rf = phase_raft(workdir)
         phase_extract_cli(workdir)
+        ex = phase_export(workdir)
+        q8 = phase_int8()
     blk, stg, pk = checks["block"], checks["stage"], checks["packed2"]
     blk_main, stg_main = checks["block_main"], checks["stage_main"]
     blk_b1 = [r for r in checks["block_session"] if r["B"] == 1]
     main_scan = [r for r in scan if r["shape"].startswith("[Bt=1,") and r["T"] in TEST_LENGTHS]
     summed = lambda rows, key: sum(r[key] for r in rows)
+    # launches counted through the ops in the export phase's artifact runs
+    ex_launches = {k: sum((r or {}).get(k, 0) for r in ex["launches"].values())
+                   for k in ("mit_block_forward", "mit_block_packed2_forward",
+                             "mit_stage_forward")}
     by = lambda rows: max(("bytes", "operations"),
                           key=lambda b: sum(r["bound_ms"] for r in rows if r["bound_by"] == b))
     kernels = [
@@ -2296,6 +2792,8 @@ def main() -> int:
          f"ms_b{BATCH}": summed(blk_main, "ms"), f"bound_ms_b{BATCH}": summed(blk_main, "bound_ms"),
          f"max_abs_err_b{BATCH}": max(r["max_abs_err"] for r in blk_main), "hgmma": n_hgmma,
          "launches_online_session": ses["mstcn+refiner"]["launches"]["mit_block_forward"],
+         "launches_export": ex_launches["mit_block_forward"],
+         "launches_int8": q8["launches"]["mit_block_forward"],
          "ms_b1": summed(blk_b1, "ms"), "plain_ms_b1": summed(blk_b1, "plain_ms"),
          "bound_ms_b1": summed(blk_b1, "bound_ms"),
          "max_abs_err_b1": max(r["max_abs_err"] for r in blk_b1),
@@ -2303,6 +2801,7 @@ def main() -> int:
         {"name": "mit_block_packed2_forward", "route": "cuda", "source": SOURCE,
          "replaces": "surgical_tpu/kernels/mit_block.py:801",
          "launches": sl["route_launches"]["mit_block_packed2_forward"],
+         "launches_export": ex_launches["mit_block_packed2_forward"],
          "max_abs_err": max(r["max_abs_err"] for r in pk),
          "ms": pk[1]["ms"], "plain_ms": pk[1]["plain_ms"], "bound_ms": pk[1]["bound_ms"],
          "bound_by": pk[1]["bound_by"], "library_ms": None,
@@ -2311,6 +2810,8 @@ def main() -> int:
         {"name": "mit_stage_forward", "route": "cuda", "source": SOURCE,
          "replaces": "surgical_tpu/kernels/mit_block.py:1202",
          "launches": sl["launches"]["mit_stage_forward"],
+         "launches_export": ex_launches["mit_stage_forward"],
+         "launches_int8": q8["launches"]["mit_stage_forward"],
          "max_abs_err": stg["max_abs_err"], "ms": stg["ms"], "plain_ms": stg["plain_ms"],
          "bound_ms": stg["bound_ms"], "bound_by": stg["bound_by"], "library_ms": None,
          f"ms_b{BATCH}": stg_main["ms"], f"bound_ms_b{BATCH}": stg_main["bound_ms"],

@@ -5,6 +5,8 @@ work-dir layout.
     python -m surgical_tpu_torch.cli prepare-data --root data/cholec80 --out work/
     python -m surgical_tpu_torch.cli cache-frames --work work/
     python -m surgical_tpu_torch.cli extract-features --work work/ --frame-cache work/frame_cache
+    python -m surgical_tpu_torch.cli extract-features --work work/ --weight-quant int8
+    python -m surgical_tpu_torch.cli export-serving --work work/ --out serving/ [--fused]
     python -m surgical_tpu_torch.cli train-backbone --work work/
     python -m surgical_tpu_torch.cli train-backbone --work work/ --fused
     python -m surgical_tpu_torch.cli train-temporal --work work/ --model mamba
@@ -37,7 +39,9 @@ plateau controller's) for ``--resume``. ``extract-features`` runs the backbone
 of a reference ``.pth`` or of ``ckpt/backbone`` over every split: the serving
 graph on the kernels (``models/mit_fused.py``) for a preset size, the flax
 graph for ``--variant tiny`` on the card, the serving graph's plain versions
-on the CPU. ``precompute-flow`` runs RAFT (``models/raft.py``) over a data
+on the CPU; with ``--weight-quant int8`` the weights are held as int8 and
+dequantized per batch. ``export-serving`` writes that backbone's serving
+graph as a ``torch.export`` artifact (``serving/export.py``). ``precompute-flow`` runs RAFT (``models/raft.py``) over a data
 root's 1-fps frames into ``raft_flow_npy/``, where ``ClipDataset`` and
 ``cache-frames`` read flow. ``predict`` restores each
 store's best step by ``val_acc`` and writes
@@ -161,8 +165,9 @@ def _restore_backbone(args, model, device):
     (``--pretrained-evp``, loaded strictly), else the port's
     ``ckpt/backbone`` store at ``--step``, else its best step by
     ``val_acc``, else its latest step, with parameters and BatchNorm
-    statistics. Returns the restored step (None for a ``.pth`` or an empty
-    store, which leaves the model's own initialization)."""
+    statistics. Returns the restored step (None for a ``.pth``, for no
+    ``--work`` or an empty store, which leave the model's own
+    initialization)."""
     from surgical_tpu_torch.core.checkpoint import CheckpointStore
     from surgical_tpu_torch.models.convert import load_torch_pth
 
@@ -170,11 +175,13 @@ def _restore_backbone(args, model, device):
         model.load_state_dict(load_torch_pth(args.pretrained_evp), strict=True)
         print(f"loaded full EVP stage-2 weights from {args.pretrained_evp}")
         return None
+    if not args.work:
+        return None
     store = CheckpointStore(os.path.join(args.work, "ckpt", "backbone"))
     step = args.step if args.step >= 0 else store.best_step("val_acc")
     step = step if step is not None else store.latest_step()
     if step is None:
-        print(f"no backbone checkpoint under {args.work}: extracting with the model's "
+        print(f"no backbone checkpoint under {args.work}: the model keeps its "
               "initialization", file=sys.stderr)
         return None
     store.restore(step, model, device)
@@ -256,7 +263,7 @@ def cmd_extract_features(args) -> int:
                                  f"resize={datasets[name].resize}; rebuild the cache")
             datasets[name] = fc
             print(f"{name}: serving frames from cache {d}")
-    fn = make_raw_feature_fn(model)
+    fn = make_raw_feature_fn(model, weight_quant=args.weight_quant)
     idx = _work_paths(args.work)["index"]
     for name, ds in datasets.items():
         if name not in wanted:
@@ -271,6 +278,40 @@ def cmd_extract_features(args) -> int:
         print(f"{name}: {stats['frames']} frames at {stats['fps']:.0f} fps")
         if args.reference_pickles:
             fstore.to_reference_pickle(os.path.join(args.work, "lfb", f"evp_LFB_{name}.pkl"))
+    return 0
+
+
+def cmd_export_serving(args) -> int:
+    """Deployment export (the JAX CLI's ``export-serving``): the frozen
+    serving graph, the wire-format dequant and the MiT-EVP forward with the
+    weights that ``extract-features`` would restore, as a ``torch.export``
+    artifact that ``serving/export.py::load_artifact`` runs without the
+    model code. ``--fused`` exports the fused graph with the Hopper kernels
+    as custom ops (bound to the card); the default is the flax graph."""
+    from surgical_tpu_torch.core.device import resolve_device
+    from surgical_tpu_torch.serving.export import export_feature_extractor, save_artifact
+
+    device = resolve_device(args.device)
+    model = _backbone(args, device)
+    # the restore path of extract-features: an artifact carries exactly the
+    # weights extraction would use
+    step = _restore_backbone(args, model, device)
+    if step is None and not args.pretrained_evp:
+        if args.work:
+            raise SystemExit(f"no backbone checkpoint under {args.work}")
+        print("WARNING: exporting with RANDOM init (no --work / --pretrained-evp)",
+              file=sys.stderr)
+    exported = export_feature_extractor(
+        model, args.batch_size, size=args.size, with_flow=not args.no_flow,
+        features=not args.logits, use_fused=args.fused)
+    save_artifact(args.out, exported, meta={
+        "variant": args.variant, "checkpoint_step": step,
+        "pretrained_evp": args.pretrained_evp, "size": args.size,
+        "batch_size": args.batch_size, "with_flow": not args.no_flow,
+        "output": "logits" if args.logits else "features", "fused": bool(args.fused)})
+    with open(os.path.join(args.out, "manifest.json")) as f:
+        platforms = json.load(f)["platforms"]
+    print(f"wrote serving artifact to {args.out} (platforms={platforms})")
     return 0
 
 
@@ -918,7 +959,37 @@ def main(argv=None) -> int:
     sp.add_argument("--frame-cache", default=None,
                     help="frame-cache root (cache-frames output); splits with a cache are "
                          "read from it")
+    sp.add_argument("--weight-quant", default=None, choices=["int8"],
+                    help="opt-in int8 weights for the backbone (serving/quant.py), "
+                         "dequantized to bf16 at each batch; not bit-compatible with the "
+                         "reference's fp16 features. Its speed and drift on the H100 are in "
+                         "PERF.md")
     sp.set_defaults(fn=cmd_extract_features)
+
+    sp = sub.add_parser(
+        "export-serving",
+        help="write the frozen serving graph (weights in the program) as a torch.export "
+             "artifact")
+    sp.add_argument("--out", required=True)
+    sp.add_argument("--work", default=None)
+    sp.add_argument("--variant", default="b3")
+    sp.add_argument("--batch-size", type=int, default=200)
+    sp.add_argument("--size", type=int, default=250)
+    sp.add_argument("--step", type=int, default=-1)
+    sp.add_argument("--pretrained-evp", default=None)
+    sp.add_argument("--no-flow", action="store_true")
+    sp.add_argument("--logits", action="store_true",
+                    help="export (phase, anticipation) logits instead of LFB features")
+    sp.add_argument("--fused", action="store_true",
+                    help="export the fused graph with the Hopper kernels as custom ops (needs "
+                         "surgical_tpu_torch.kernels.ops and the card at load time; default: "
+                         "the portable flax graph)")
+    sp.add_argument("--depths", default=None)
+    sp.add_argument("--head-dim", type=int, default=None)
+    sp.add_argument("--head-hidden", type=int, default=None)
+    sp.add_argument("--device", default="cuda",
+                    help="torch device to export on (default: the card)")
+    sp.set_defaults(fn=cmd_export_serving)
 
     sp = sub.add_parser("reference-parity",
                         help="quality drive from the reference's data and .pth files to the "

@@ -22,6 +22,14 @@ kernels have no backward of their own, and only ``fused_mit_block_train``
 differentiates, through its backward kernels. Each wrapper counts its kernel
 launches in ``<wrapper>.launches``.
 
+The three serving wrappers reach their kernels through ``torch.library``
+custom ops (``kernels/ops.py``), whose CPU implementation is the plain
+version and whose CUDA implementation is the ``*_cuda`` launch here: so
+``torch.export`` keeps them as opaque calls in a serving graph, and the
+count sits in the launch, where a loaded artifact's calls reach it too.
+The training kernels and the scan are plain ctypes calls: no exported graph
+reaches them.
+
 Weight dicts keep the JAX package's layout ([in, out] matrices, dy-major
 depthwise taps ``wdw [9, hidden]``, stacked per-depth stage weights with the
 same keys and shapes), so the kernels read them as they are.
@@ -602,15 +610,35 @@ def _check_dims(C, heads, Nkv, hidden, H, W, x):
         raise ValueError(f"token count {x.shape[1]} != H*W = {H * W}")
 
 
+def _ops():
+    """``kernels/ops.py``, which registers the serving kernels as custom ops
+    over this module's launches and plain versions (it imports this module,
+    so the wrappers import it at call time)."""
+    from surgical_tpu_torch.kernels import ops
+
+    return ops
+
+
+def _serving_device(name: str, x) -> None:
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: no kernel for device {x.device}")
+
+
 def fused_mit_block(x, k, v, weights, *, heads: int, H: int, W: int):
     """One MiT block: LN1 -> q -> attention over the precomputed SR k/v ->
     out proj + residual -> LN2 -> fc1 -> 3x3 dwconv -> tanh GELU -> fc2 +
-    residual. x [B, N, C], k/v [B, Nkv, C] -> [B, N, C]."""
-    if x.device.type == "cpu":
-        return fused_mit_block_plain(x, k, v, weights, heads=heads, H=H, W=W)
-    if not x.is_cuda:
-        raise ValueError(f"fused_mit_block: no kernel for device {x.device}")
-    _build.refuse_grad("fused_mit_block", x, k, v, *weights.values())
+    residual. x [B, N, C], k/v [B, Nkv, C] -> [B, N, C], through the op
+    ``surgical_tpu::mit_block_forward``."""
+    _serving_device("fused_mit_block", x)
+    if x.is_cuda:
+        _build.refuse_grad("fused_mit_block", x, k, v, *weights.values())
+    ops = _ops()
+    return ops.mit_block_forward(x, k, v, ops.as_list(weights, ops.BLOCK_KEYS), heads, H, W)
+
+
+def mit_block_forward_cuda(x, k, v, weights, *, heads: int, H: int, W: int):
+    """The block kernel's launch, the op's CUDA implementation; counted in
+    ``fused_mit_block.launches``."""
     B, N, C = x.shape
     Nkv = k.shape[1]
     hidden = weights["w1"].shape[1]
@@ -647,12 +675,19 @@ def fused_mit_block_packed2(x, k, v, packed, *, H: int, W: int, row_chunks: int 
 
     The kernel reads ``ln1`` in fp32 and LN2's scale and bias in bf16, as
     ``pack_weights2`` gives them."""
+    _packed2_dims(x, k, packed, H, row_chunks)
+    _serving_device("fused_mit_block_packed2", x)
+    if x.is_cuda:
+        _build.refuse_grad("fused_mit_block_packed2", x, k, v, *packed.values())
+    ops = _ops()
+    return ops.mit_block_packed2_forward(x, k, v, ops.as_list(packed, ops.PACKED2_KEYS),
+                                         H, W, row_chunks)
+
+
+def mit_block_packed2_forward_cuda(x, k, v, packed, *, H: int, W: int, row_chunks: int = 1):
+    """The packed2 kernel's launch, the op's CUDA implementation; counted in
+    ``fused_mit_block_packed2.launches``."""
     B, N, Nkv, hidden2 = _packed2_dims(x, k, packed, H, row_chunks)
-    if x.device.type == "cpu":
-        return fused_mit_block_packed2_plain(x, k, v, packed, H=H, W=W, row_chunks=row_chunks)
-    if not x.is_cuda:
-        raise ValueError(f"fused_mit_block_packed2: no kernel for device {x.device}")
-    _build.refuse_grad("fused_mit_block_packed2", x, k, v, *packed.values())
     _check_dims(HEAD_DIM, 1, Nkv, hidden2, H, W, x)
     w, C, C2 = packed, HEAD_DIM, 2 * HEAD_DIM
     plan = _plan_arg(packed2_plan(B, H, W, Nkv, hidden2))
@@ -684,12 +719,19 @@ fused_mit_block_packed2.launches = 0
 def fused_mit_stage(x, base, sw, *, heads: int, H: int, W: int, sr: int):
     """All blocks of one MiT stage (per block: prompt add from ``base``, LN1,
     SR conv + LN for sr > 1, kv/q projections, attention, MLP).
-    x [B, N, C], base [B, N, Cb] or None -> [B, N, C]."""
-    if x.device.type == "cpu":
-        return fused_mit_stage_plain(x, base, sw, heads=heads, H=H, W=W, sr=sr)
-    if not x.is_cuda:
-        raise ValueError(f"fused_mit_stage: no kernel for device {x.device}")
-    _build.refuse_grad("fused_mit_stage", x, base, *sw.values())
+    x [B, N, C], base [B, N, Cb] or None -> [B, N, C], through the op
+    ``surgical_tpu::mit_stage_forward``."""
+    _serving_device("fused_mit_stage", x)
+    if x.is_cuda:
+        _build.refuse_grad("fused_mit_stage", x, base, *sw.values())
+    ops = _ops()
+    keys = ops.stage_keys(sr, base is not None)
+    return ops.mit_stage_forward(x, base, ops.as_list(sw, keys), heads, H, W, sr)
+
+
+def mit_stage_forward_cuda(x, base, sw, *, heads: int, H: int, W: int, sr: int):
+    """The stage kernel's launch, the op's CUDA implementation; counted in
+    ``fused_mit_stage.launches``."""
     B, N, C = x.shape
     D, _, hidden = sw["w1"].shape
     Nkv = (H // sr) * (W // sr)

@@ -23,7 +23,9 @@ tables (stage fusion, batch tiles, VMEM sizing, prompt folding) only
 stage 4's batch tile is mirrored, since it picks the prompt GELU's form; the
 rest encode TPU measurements and have no counterpart here. The kernels'
 weight dicts are built once per model and parameter state
-(``kernel_weights``), not per batch.
+(``kernel_weights``), not per batch. The kernels run as ``torch.library``
+custom ops (``kernels/ops.py``), so ``torch.export`` traces this graph with
+them inside (``serving/export.py``).
 """
 
 from __future__ import annotations
@@ -94,10 +96,13 @@ def kernel_weights(model, dtype=torch.bfloat16) -> dict:
 
 
 @torch.no_grad()
-def fused_forward(model, images, segmaps, flow, return_features: bool = True):
+def fused_forward(model, images, segmaps, flow, return_features: bool = True, weights=None):
     """images, segmaps [B, H, W, 3], flow [B, H, W, 2] or None (any float
     dtype; cast to bf16) -> pooled features [B, E] fp32, or (phase logits,
-    anticipation) with ``return_features=False``."""
+    anticipation) with ``return_features=False``. ``weights``: the kernel
+    weights as ``kernel_weights`` gives them, else taken from its cache
+    (which reads parameter addresses, so a graph traced by ``torch.export``
+    passes them in)."""
     cfg = model.cfg
     _check_supported(cfg)
     dt = torch.bfloat16
@@ -105,7 +110,7 @@ def fused_forward(model, images, segmaps, flow, return_features: bool = True):
     B = x.shape[0]
     pg = model.prompt_generator
     hand = pg.init_prompts(segmaps.to(dt))
-    kw = kernel_weights(model, dt)
+    kw = kernel_weights(model, dt) if weights is None else weights
 
     grids = []
     for si in range(4):

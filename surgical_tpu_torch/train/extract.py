@@ -28,11 +28,14 @@ from typing import Callable, Iterable
 
 import numpy as np
 import torch
+from torch import nn
+from torch.utils._pytree import tree_flatten, tree_unflatten
 
 from surgical_tpu_torch.core.config import CHOLEC80_MEAN, CHOLEC80_STD
 from surgical_tpu_torch.core.device import DEFAULT_DEVICE, resolve_device
 from surgical_tpu_torch.data.feature_store import FeatureStore
-from surgical_tpu_torch.models.mit_fused import fused_forward
+from surgical_tpu_torch.models.mit_fused import fused_forward, kernel_weights
+from surgical_tpu_torch.serving.quant import dequantize_state, quantize_state
 
 
 def wire_dequant(device=DEFAULT_DEVICE):
@@ -59,32 +62,85 @@ def use_fused_default(cfg, device) -> bool:
     return torch.device(device).type == "cpu" or cfg.variant != "tiny"
 
 
-def make_raw_feature_fn(model, d2h_dtype=torch.float16, use_fused=None):
+class WireForward(nn.Module):
+    """The serving computation over wire-format batches, as one module:
+    ``wire_dequant``, then the fused serving graph (``use_fused``) or the
+    flax graph at bf16, cast to ``out_dtype``: fn(img_u8 [B,H,W,3], seg_u8
+    [B,H,W,1], flow_f16 [B,H,W,2] or None) -> features [B, E], or (phase
+    logits, anticipation) with ``features=False``. Extraction
+    (``make_raw_feature_fn``) and the serving export
+    (``serving/export.py``) both run it. With ``hold_kernel_weights`` the
+    fused graph's kernel-layout weights (``mit_fused.kernel_weights``) are
+    this module's buffers, laid out once, rather than read from the model's
+    cache."""
+
+    def __init__(self, model, use_fused: bool, *, features: bool = True,
+                 out_dtype=torch.float16, hold_kernel_weights: bool = False):
+        super().__init__()
+        self.model, self.use_fused = model, use_fused
+        self.features, self.out_dtype = features, out_dtype
+        self.dequant = wire_dequant(next(model.parameters()).device)
+        self._kw_spec = None
+        if hold_kernel_weights and use_fused:
+            leaves, self._kw_spec = tree_flatten(kernel_weights(model))
+            for i, t in enumerate(leaves):
+                self.register_buffer(f"kernel_weight{i}", t.clone())
+
+    def forward(self, img_u8, seg_u8, flow_f16=None):
+        img, seg = self.dequant(img_u8, seg_u8)
+        flow = None if flow_f16 is None else flow_f16.to(torch.bfloat16)
+        if self.use_fused:
+            kw = None
+            if self._kw_spec is not None:
+                kw = tree_unflatten([getattr(self, f"kernel_weight{i}")
+                                     for i in range(self._kw_spec.num_leaves)], self._kw_spec)
+            out = fused_forward(self.model, img, seg, flow, return_features=self.features,
+                                weights=kw)
+        else:
+            out = self.model.graph_forward(img, seg, flow, return_features=self.features,
+                                           dtype=torch.bfloat16)
+        if self.features:
+            return out.to(self.out_dtype)
+        return tuple(o.to(self.out_dtype) for o in out)
+
+
+def make_raw_feature_fn(model, d2h_dtype=torch.float16, use_fused=None, weight_quant=None):
     """Feature extractor over wire-format host batches (numpy or tensors):
     fn(img_u8, seg_u8, flow_f16 | None) -> [B, E] features in ``d2h_dtype``
     on the model's device. ``use_fused``: the fused serving graph (True) or
     the flax graph at bf16 (False); None takes ``use_fused_default``. The
-    choice is ``fn.use_fused``."""
+    choice is ``fn.use_fused``.
+
+    ``weight_quant="int8"`` holds the model's weights as int8 with fp32
+    per-channel scales on its device (``serving/quant.py``, ``fn.held``) and
+    dequantizes them to bf16 at every dispatch, feeding them to the same
+    graph through ``torch.func.functional_call``, as the JAX package does
+    (surgical_tpu/train/extract.py:122-134)."""
     device = next(model.parameters()).device
-    dequant = wire_dequant(device)
     if use_fused is None:
         use_fused = use_fused_default(model.cfg, device)
+    if weight_quant not in (None, "int8"):
+        raise ValueError(f"unknown weight_quant {weight_quant!r} (int8|None)")
+    serve = WireForward(model, use_fused, out_dtype=d2h_dtype)
+    held = None
+    if weight_quant == "int8":
+        q_state, scales = quantize_state(model.state_dict())
+        held = ({f"model.{k}": q_state[k] for k in scales},
+                {f"model.{k}": s for k, s in scales.items()})
 
     def to_dev(a):
         return torch.as_tensor(a).to(device, non_blocking=True)
 
     @torch.no_grad()
     def feature_fn(img_u8, seg_u8, flow_f16):
-        img, seg = dequant(to_dev(img_u8), to_dev(seg_u8))
-        flow = None if flow_f16 is None else to_dev(flow_f16).to(torch.bfloat16)
-        if use_fused:
-            feats = fused_forward(model, img, seg, flow, return_features=True)
-        else:
-            feats = model.graph_forward(img, seg, flow, return_features=True,
-                                        dtype=torch.bfloat16)
-        return feats.to(d2h_dtype)
+        args = (to_dev(img_u8), to_dev(seg_u8),
+                None if flow_f16 is None else to_dev(flow_f16))
+        if held is None:
+            return serve(*args)
+        return torch.func.functional_call(serve, dequantize_state(*held), args)
 
     feature_fn.use_fused = use_fused
+    feature_fn.held = held
     return feature_fn
 
 

@@ -225,6 +225,29 @@ def test_extract_features_equals_extract_to_store(corpus, extracted, tmp_path):
         np.testing.assert_array_equal(np.asarray(jstore.features), np.asarray(got.features))
 
 
+def test_extract_features_weight_quant_int8(corpus, extracted, tmp_path):
+    """``extract-features --weight-quant int8``: the store equals
+    ``make_raw_feature_fn(weight_quant="int8")`` on the same frames, and
+    lies near the fp store within JAX's gates (tests/test_quant.py)."""
+    work = str(tmp_path / "work_int8")
+    shutil.copytree(os.path.join(extracted, "index"), os.path.join(work, "index"))
+    assert cli.main(["extract-features", "--work", work, *DIMS, "--device", "cpu",
+                     "--pretrained-evp", corpus["evp"], "--weight-quant", "int8",
+                     "--splits", "val", "--batch-size", str(BATCH)]) == 0
+    ds = _split_dataset(work, "val")
+    lengths = np.load(os.path.join(work, "index", "val_num_each.npy"))
+    batches = ((i, s, f) for i, s, f, _, _ in prefetch_batches(ds, np.arange(len(ds)), BATCH))
+    want, _ = extract_to_store(make_raw_feature_fn(_port_model(corpus["evp"]),
+                                                   weight_quant="int8"),
+                               batches, lengths.tolist(), tce.E, BATCH, str(tmp_path / "want"))
+    got, fp = _features(work, "val"), _features(extracted, "val")
+    np.testing.assert_array_equal(got, np.asarray(want.features))
+    assert not os.path.exists(os.path.join(work, "lfb", "train"))
+    rel = np.abs(got - fp) / np.maximum(np.abs(fp), 1e-2)
+    assert not np.array_equal(got, fp) and np.median(rel) < 0.2
+    assert np.corrcoef(got.ravel(), fp.ravel())[0, 1] > 0.95
+
+
 def test_extracted_features_match_jax_fused_graph(corpus, extracted):
     """The val split's batch through JAX's wire dequant and fused graph
     (interpret mode) under the JAX import of the same .pth."""
