@@ -112,14 +112,32 @@ nonzero without printing a result:
    the held bytes, scripts/probe_int8.py's drift metrics under the JAX
    package's test gates, frames/s of each (median of 3, in turns) and the
    dequantization's device ms per batch;
-14. result: a JSON line of per-kernel numbers (the serving kernels' B=200
+14. result: printed after phase 15, a JSON line of per-kernel numbers (the serving kernels' B=200
    and the train kernels' B=88 times and bounds beside the B=8 ones; the
    scan's backward at T = 2000 and 6000; the block kernel's B=1 rows and its
    launches in the session; the serving kernels' launches through the ops
    in the export and int8 phases) with the session's ms per frame and
    launches per frame and RAFT's pairs per second beside them, the card
    line, and the last line
-   ``{"ok": true, "device": {...}}``.
+   ``{"ok": true, "device": {...}}``;
+15. multi-rank (``surgical_tpu_torch/parallel/``): ranks spawned on cuda:0
+   over gloo (one card per rank over NCCL where there are enough cards):
+   the backend takes CUDA tensors in each collective; ``sp_mstcn_infer``
+   and ``sp_mamba_infer`` at ``MSTCNConfig()`` / ``MambaConfig()``, T = 6000
+   over 2 ranks, against the one-rank model (fp32, TF32 off; 1e-5 and 2e-4,
+   8 scan launches per rank), and MS-TCN at T = 256 over 4 ranks (a halo
+   over several chunks); data-parallel extraction of 208 frames bit for bit
+   against one rank on each shard (25 block-wrapper launches, stages 1-3,
+   and 1 stage launch per rank);
+   the batch-sharded b3 step against the one-rank step, fp32 on the flax
+   graph at batch 8 (rel L2 1e-5) and bf16 on the fused train kernels at
+   batch 88 (5e-2, 28 launches of each per rank, the ranks' states equal);
+   with two cards a block kernel and a scan launched on cuda:1 from current
+   device 0; ``extract-features`` under ``torch.distributed.run`` on phase
+   11's corpus at batch 200 against one process at batch 100, store by
+   store bit for bit, 28 block-wrapper launches (stage 4 block by block at
+   100 frames) and no stage launch per rank per batch;
+   seconds per leg. The result line gains the launches per rank.
 """
 
 from __future__ import annotations
@@ -302,6 +320,30 @@ GATE = 0.75
 # max abs difference (equal bits expected where every kernel of the step is
 # deterministic; cuDNN's convolution backward in MS-TCN need not be).
 RESUME_TOL = 1e-5
+
+# The multi-rank phase (phase_multirank): DP_RANKS ranks that all sit on
+# cuda:0 over gloo (NCCL refuses two ranks on one card), or one card per
+# rank over NCCL where the machine has as many. Time-sharded MS-TCN and
+# Mamba (MSTCNConfig(), MambaConfig(), T = DP_T) against the one-rank model
+# on the card, fp32 with TF32 off, max abs at JAX's bounds
+# (__graft_entry__.py:182-184, :202-204); MS-TCN again at DP_HOP_T frames
+# over DP_HOP_RANKS ranks, where the last layer's 256-frame halo spans four
+# chunks. Extraction of a DP_EXTRACT_B-frame batch (104 frames per rank:
+# 25 block + 1 stage launch per rank) bit for bit against one rank on each
+# shard. The batch-sharded b3 step against the one-rank step on the same
+# frames and draws: in fp32 on the flax graph at DP_STEP_FP32_B frames, rel
+# L2 of the trainable gradients, the BatchNorm statistics and the parameters
+# after one SGD step (the sharded sums add in another order); in bf16 with
+# the fused train kernels at TRAIN_B frames, loss and gradients in rel L2
+# (44 frames per rank round where 88 do; the bound of FG_GRAD_BOUND's kind),
+# the ranks' states after the step equal bit for bit. Then the extraction
+# CLI under torch.distributed.run on phase 11's corpus at BATCH against one
+# process at BATCH / DP_RANKS (each rank's shard is that run's batch: 28
+# block launches and no stage launch per rank per batch).
+DP_RANKS, DP_T, DP_HOP_T, DP_HOP_RANKS = 2, 6000, 256, 4
+DP_EXTRACT_B, DP_STEP_FP32_B = 208, 8
+DP_MSTCN_BOUND, DP_MAMBA_BOUND = 1e-5, 2e-4
+DP_FP32_BOUND, DP_BF16_BOUND = 1e-5, 5e-2
 
 # Peak rates of one H100 SXM (NVIDIA's data sheet, dense, at 700 W): HBM
 # bytes/s, bf16 tensor-core FLOP/s, fp32 CUDA-core FLOP/s; SFU results/s
@@ -2304,7 +2346,8 @@ def phase_extract_cli(workdir: str, cfg=None, head_cfg=None, model_flags=(), dev
     if not np.isfinite(values).all() or agree < 0.999:
         raise AssertionError(f"reference-parity: metrics {values}, agreement {agree}")
     print("cli: seconds per verb: " + ", ".join(f"{v} {s:.3f}" for v, s in seconds.items()))
-    return {"seconds": seconds, "agreement": agree}
+    return {"seconds": seconds, "agreement": agree, "work": work, "cache_root": cache_root,
+            "evp": ckpt["evp"]}
 
 
 # Run in a fresh process by phase_export: loads artifacts with
@@ -2750,6 +2793,235 @@ def phase_int8(cfg=None, head_cfg=None, device="cuda", size: int = 224, batch: i
     print(json.dumps({"int8": res}))
     return res
 
+def _extraction_launches(batch: int) -> dict:
+    """The b3 serving graph's kernel launches per batch of ``batch`` frames:
+    the block wrapper at stages 1-3 (3 + 4 + 18), and stage 4 on the stage
+    kernel at a multiple of 8, else its 3 blocks on the block kernel."""
+    return ({"mit_block_forward": 25, "mit_stage_forward": 1} if batch % 8 == 0
+            else {"mit_block_forward": 28, "mit_stage_forward": 0})
+
+
+_LAUNCH_LINE = re.compile(r"^(\w+): kernel launches per rank (\[.*\])$", re.M)
+
+
+def phase_multirank_cli(workdir: str, cli: dict, model_flags=(), device="cuda:0",
+                        backend="gloo", batch: int = BATCH, ranks: int = DP_RANKS) -> dict:
+    """``extract-features`` under ``python -m torch.distributed.run
+    --nproc-per-node ranks`` on phase 11's corpus (``cli``: its work dir,
+    frame caches and ``.pth``) at ``batch``, against one process at
+    ``batch / ranks`` (``cli.main`` in this process) in a work dir of its own:
+    every split's store equal bit for bit, the pickles written, and, on the
+    card, each rank's launches per batch those of one process at ``batch /
+    ranks`` (28 block launches and no stage launch at 100 frames). Both run
+    with one CPU thread. ``model_flags`` and ``device`` size it down for the
+    CPU."""
+    from surgical_tpu_torch import cli as cli_mod
+    from surgical_tpu_torch.data.feature_store import FeatureStore
+
+    runs = {name: {"work": os.path.join(workdir, "multirank_cli", name)}
+            for name in ("one_process", "ranks")}
+    argv = lambda name, b: ["extract-features", "--work", runs[name]["work"], *model_flags,
+                            "--batch-size", str(b), "--device", device, "--pretrained-evp",
+                            cli["evp"], "--frame-cache", cli["cache_root"], "--reference-pickles"]
+    for r in runs.values():
+        shutil.copytree(os.path.join(cli["work"], "index"), os.path.join(r["work"], "index"))
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)  # the torchrun workers' one OpenMP thread
+    t = time.perf_counter()
+    try:
+        if cli_mod.main(argv("one_process", batch // ranks)) != 0:
+            raise AssertionError("extract-features (one process) failed")
+    finally:
+        torch.set_num_threads(threads)
+    runs["one_process"]["seconds"] = time.perf_counter() - t
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
+           str(ranks), "-m", "surgical_tpu_torch.cli", *argv("ranks", batch), "--dist-backend",
+           backend]
+    t = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=os.path.dirname(os.path.abspath(__file__)),
+                          env={**os.environ, "OMP_NUM_THREADS": "1"}, capture_output=True,
+                          text=True, timeout=900)
+    if proc.returncode != 0:
+        raise AssertionError(f"extract-features over {ranks} ranks exited {proc.returncode}:"
+                             f"\n{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
+    runs["ranks"].update(stdout=proc.stdout, seconds=time.perf_counter() - t)
+    launches = {m.group(1): json.loads(m.group(2))
+                for m in _LAUNCH_LINE.finditer(runs["ranks"]["stdout"])}
+    per = batch // ranks
+    per_batch = (_extraction_launches(per)
+                 if device != "cpu" else {"mit_block_forward": 0, "mit_stage_forward": 0})
+    splits = sorted(os.listdir(os.path.join(runs["one_process"]["work"], "lfb")))
+    splits = [s for s in splits if not s.endswith(".pkl")]
+    for split in splits:
+        got, want = (FeatureStore.open(os.path.join(runs[k]["work"], "lfb", split))
+                     for k in ("ranks", "one_process"))
+        if not np.array_equal(np.asarray(got.features), np.asarray(want.features)):
+            raise AssertionError(f"{split}: the {ranks}-rank store differs from one process at "
+                                 f"batch {per}")
+        if not os.path.exists(os.path.join(runs["ranks"]["work"], "lfb", f"evp_LFB_{split}.pkl")):
+            raise AssertionError(f"{split}: rank 0 wrote no reference pickle")
+        n_batches = -(-len(got.features) // batch)
+        want_l = {k: v * n_batches for k, v in per_batch.items()}
+        got_l = [{k: r[k] for k in want_l} for r in launches.get(split, [])]
+        print(f"multirank cli: {split}: {len(got.features)} frames, {n_batches} batches of "
+              f"{batch} ({per} per rank): launches per rank {got_l} (expected {want_l} each: "
+              f"per batch {per_batch['mit_block_forward'] - 4 * (device != 'cpu')} of the block "
+              f"at stages 1, 3 and 4's blocks, {4 * (device != 'cpu')} at stage 2); "
+              f"store equal to one process at batch {per} bit for bit")
+        if got_l != [want_l] * ranks:
+            raise AssertionError(f"{split}: launches per rank {got_l}, expected {want_l}")
+    seconds = {k: r["seconds"] for k, r in runs.items()}
+    print("multirank cli: seconds " + ", ".join(f"{k} {s:.3f}" for k, s in seconds.items()))
+    return {"seconds": seconds, "launches": launches, "splits": splits}
+
+
+def phase_cross_device() -> dict:
+    """With two or more cards: the block kernel (stage 1, B = CHECK_B) and
+    the scan (T = 2000) launched on tensors on cuda:1 while the current
+    device is 0, against the same launch on cuda:0, bit for bit."""
+    from surgical_tpu_torch.kernels import mit_block as mb
+    from surgical_tpu_torch.kernels import selective_scan as ss
+
+    torch.cuda.set_device(0)
+    rng = np.random.default_rng(SEED + 40)
+    C, side, heads = 64, 56, 1
+    w = _block_weights(rng, C, 4 * C)
+    x, k, v = (_rand(rng, s) for s in ((CHECK_B, side * side, C), (CHECK_B, 49, C),
+                                       (CHECK_B, 49, C)))
+    scan = scan_inputs(rng, 1, 2000)
+    with torch.no_grad():
+        on = {d: (mb.fused_mit_block(x.to(d), k.to(d), v.to(d),
+                                     {n: t.to(d) for n, t in w.items()}, heads=heads, H=side,
+                                     W=side),
+                  ss.selective_scan_forward(*(t.to(d) for t in scan))[0])
+              for d in ("cuda:0", "cuda:1")}
+    torch.cuda.synchronize(0)
+    torch.cuda.synchronize(1)
+    equal = [torch.equal(a.cpu(), b.cpu()) for a, b in zip(on["cuda:0"], on["cuda:1"])]
+    print(f"multirank: block kernel and scan on cuda:1 from current device "
+          f"{torch.cuda.current_device()}: equal to cuda:0 bit for bit {equal}")
+    if not all(equal):
+        raise AssertionError("a kernel launched on cuda:1 differs from cuda:0")
+    return {"equal": equal}
+
+
+def phase_multirank(workdir: str, cli: dict) -> dict:
+    """Multi-rank paths on the card (constants above DP_RANKS): the probe
+    that the backend takes CUDA tensors in each collective, the time-sharded
+    MS-TCN and Mamba, data-parallel extraction, the batch-sharded b3 step in fp32 and
+    bf16 (DP_RANKS ranks in one spawn), MS-TCN with a multi-chunk halo
+    (DP_HOP_RANKS ranks), the cross-device launch where there are two cards,
+    and the extraction CLI under torch.distributed.run. Launches per rank,
+    distances and seconds per leg."""
+    from surgical_tpu_torch.core.config import BackboneConfig, HeadConfig, MambaConfig, MSTCNConfig
+    from surgical_tpu_torch.parallel import dryrun, mesh
+
+    cards = torch.cuda.device_count()
+    place = lambda n: (("cuda", "nccl") if cards >= n else ("cuda:0", "gloo"))
+    device, backend = place(DP_RANKS)
+    print(f"multirank: {DP_RANKS} ranks, backend {backend}, "
+          f"{'one card per rank' if backend == 'nccl' else 'every rank on cuda:0'} "
+          f"({cards} card(s) here)")
+    cfg, head = BackboneConfig(), HeadConfig()
+    mcfg = MambaConfig()
+    legs = [
+        (dryrun.probe_leg, {}),
+        (dryrun.temporal_leg, dict(kind="mstcn", cfg=MSTCNConfig(), T=DP_T, seed=SEED + 30)),
+        (dryrun.temporal_leg, dict(kind="mamba", cfg=mcfg, T=DP_T, seed=SEED + 31)),
+        (dryrun.extract_leg, dict(cfg=cfg, head_cfg=head, frames=DP_EXTRACT_B,
+                                  batch=DP_EXTRACT_B, size=224, seed=SEED + 32)),
+        (dryrun.step_leg, dict(cfg=cfg, head_cfg=head, batch=DP_STEP_FP32_B, resize=250,
+                               crop=224, dtype=torch.float32, seed=SEED + 33)),
+        (dryrun.step_leg, dict(cfg=cfg, head_cfg=head, batch=TRAIN_B, resize=250, crop=224,
+                               dtype=torch.bfloat16, use_fused=True, seed=SEED + 34)),
+    ]
+    t = time.perf_counter()
+    ranks = dryrun.spawn(dryrun.run_legs, DP_RANKS, legs, device=device, backend=backend)
+    seconds = {"spawn_2_ranks": time.perf_counter() - t}
+    probe, mstcn, mamba, ext, fp32, bf16 = ranks[0]
+    names = ("mstcn", "mamba", "extract", "step_fp32", "step_bf16")
+    seconds.update({n: max(r[i + 1]["seconds"] for r in ranks) for i, n in enumerate(names)})
+    res = {"backend": backend, "probe": probe}
+    refused = {op: err for op, err in probe.items() if err is not None}
+    print(f"multirank: {backend} takes CUDA tensors in "
+          f"{sorted(op for op in mesh.COLLECTIVES if op not in refused)}, refuses {refused}")
+    if refused or set(probe) != set(mesh.COLLECTIVES):
+        raise AssertionError(f"{backend} refuses collectives on CUDA tensors: {refused}")
+
+    for name, r, bound in (("MS-TCN", mstcn, DP_MSTCN_BOUND), ("Mamba", mamba, DP_MAMBA_BOUND)):
+        print(f"multirank: {name} T={DP_T} over {DP_RANKS} ranks vs one rank: max abs "
+              f"{r['max_abs']:.3e} (bound {bound:g}, max |ref| {np.abs(r['ref']).max():.3f})")
+        if not r["max_abs"] <= bound:
+            raise AssertionError(f"time-sharded {name} off the one-rank model")
+    scan_l = [r[2]["scan_launches"] for r in ranks]
+    print(f"multirank: Mamba selective_scan_forward calls per rank {scan_l} (one per layer: "
+          f"{mcfg.layers})")
+    if scan_l != [mcfg.layers] * DP_RANKS:
+        raise AssertionError("the time-sharded Mamba did not run the scan kernel once per layer")
+
+    ext_l = [{k: r[3]["launches"][k] for k in ("mit_block_forward", "mit_stage_forward")}
+             for r in ranks]
+    per = DP_EXTRACT_B // DP_RANKS
+    want = _extraction_launches(per)
+    print(f"multirank: extraction of {DP_EXTRACT_B} frames ({per} per rank): launches per rank "
+          f"{ext_l} (expected {want}: {want['mit_block_forward'] - 4} of the block at stages "
+          f"1, 3 and 4's blocks, 4 at stage 2); equal to one rank on each shard bit for bit "
+          f"{ext['equal']}; a batch that does not divide raised on every rank "
+          f"{all(r[3]['odd_batch_raised'] for r in ranks)}, and came back whole without a "
+          f"group {all(r[3]['alone_rows'] == r[3]['odd'] for r in ranks)}")
+    if (ext_l != [want] * DP_RANKS or not ext["equal"]
+            or not all(r[3]["odd_batch_raised"] for r in ranks)
+            or not all(r[3]["alone_rows"] == r[3]["odd"] for r in ranks)):
+        raise AssertionError("data-parallel extraction")
+
+    for name, r, idx, bound in (("fp32 flax graph", fp32, 4, DP_FP32_BOUND),
+                                ("bf16 fused trunk", bf16, 5, DP_BF16_BOUND)):
+        same = len({rk[idx]["hash"] for rk in ranks}) == 1
+        dist_keys = (("loss_rel", "grad_rel_l2", "bn_rel_l2", "param_rel_l2")
+                     if idx == 4 else ("loss_rel", "grad_rel_l2"))
+        print(f"multirank: b3 step, {name}, {r['grads']} trainable tensors, batch "
+              f"{DP_STEP_FP32_B if idx == 4 else TRAIN_B} over {DP_RANKS} ranks vs one rank: "
+              + ", ".join(f"{k} {r[k]:.3e}" for k in dist_keys)
+              + f" (bound {bound:g}); loss {r['loss']:.4f} vs {r['ref_loss']:.4f}; BatchNorm "
+              f"statistics moved rel {r['bn_moved']:.3e}; states after the step equal across "
+              f"ranks {same}")
+        if max(r[k] for k in dist_keys) > bound or not same or not r["bn_moved"] > 0:
+            raise AssertionError(f"the batch-sharded step ({name}) off the one-rank step")
+    train_l = [{k: v for k, v in r[5]["launches"].items() if "train" in k} for r in ranks]
+    print(f"multirank: bf16 step train-kernel launches per rank {train_l} (expected 28 each)")
+    if any(set(d.values()) != {28} for d in train_l):
+        raise AssertionError("the batch-sharded fused step did not launch each train kernel 28 "
+                             "times per rank")
+
+    hop_device, hop_backend = place(DP_HOP_RANKS)
+    t = time.perf_counter()
+    hop = dryrun.spawn(dryrun.run_legs, DP_HOP_RANKS,
+                       [(dryrun.temporal_leg, dict(kind="mstcn", cfg=MSTCNConfig(), T=DP_HOP_T,
+                                                   seed=SEED + 35))],
+                       device=hop_device, backend=hop_backend)[0][0]
+    seconds["spawn_4_ranks_mstcn"] = time.perf_counter() - t
+    halo = 2 * 2 ** (MSTCNConfig().layers - 1)
+    print(f"multirank: MS-TCN T={DP_HOP_T} over {DP_HOP_RANKS} ranks ({hop_backend}; the last "
+          f"layer's {halo}-frame halo over {DP_HOP_T // DP_HOP_RANKS}-frame chunks) vs one rank: "
+          f"max abs {hop['max_abs']:.3e} (bound {DP_MSTCN_BOUND:g})")
+    if not hop["max_abs"] <= DP_MSTCN_BOUND:
+        raise AssertionError("time-sharded MS-TCN with a multi-chunk halo off the one-rank model")
+
+    if cards >= 2:
+        res["cross_device"] = phase_cross_device()
+    cl = phase_multirank_cli(workdir, cli, device="cuda" if backend == "nccl" else device,
+                             backend=backend)
+    seconds.update({f"cli_{k}": s for k, s in cl["seconds"].items()})
+    print("multirank: seconds per leg " + ", ".join(f"{k} {s:.3f}" for k, s in seconds.items())
+          + " (ranks sharing one card: not a multi-GPU scaling figure)" * (backend == "gloo"))
+    res.update(seconds=seconds, launches_per_rank={
+        "mit_block_forward": [d["mit_block_forward"] for d in ext_l],
+        "mit_stage_forward": [d["mit_stage_forward"] for d in ext_l],
+        "selective_scan_forward": scan_l,
+        **{k: [d[k] for d in train_l] for k in train_l[0]}},
+        cli_launches=cl["launches"])
+    return res
+
 
 def main() -> int:
     smi = phase_toolchain()
@@ -2767,9 +3039,10 @@ def main() -> int:
         tr = phase_train(workdir)
         phase_flax_graph(workdir, tr["caches"])
         rf = phase_raft(workdir)
-        phase_extract_cli(workdir)
+        cl = phase_extract_cli(workdir)
         ex = phase_export(workdir)
         q8 = phase_int8()
+        mr = phase_multirank(workdir, cl)
     blk, stg, pk = checks["block"], checks["stage"], checks["packed2"]
     blk_main, stg_main = checks["block_main"], checks["stage_main"]
     blk_b1 = [r for r in checks["block_session"] if r["B"] == 1]
@@ -2794,6 +3067,7 @@ def main() -> int:
          "launches_online_session": ses["mstcn+refiner"]["launches"]["mit_block_forward"],
          "launches_export": ex_launches["mit_block_forward"],
          "launches_int8": q8["launches"]["mit_block_forward"],
+         "launches_multirank": mr["launches_per_rank"]["mit_block_forward"],
          "ms_b1": summed(blk_b1, "ms"), "plain_ms_b1": summed(blk_b1, "plain_ms"),
          "bound_ms_b1": summed(blk_b1, "bound_ms"),
          "max_abs_err_b1": max(r["max_abs_err"] for r in blk_b1),
@@ -2812,6 +3086,7 @@ def main() -> int:
          "launches": sl["launches"]["mit_stage_forward"],
          "launches_export": ex_launches["mit_stage_forward"],
          "launches_int8": q8["launches"]["mit_stage_forward"],
+         "launches_multirank": mr["launches_per_rank"]["mit_stage_forward"],
          "max_abs_err": stg["max_abs_err"], "ms": stg["ms"], "plain_ms": stg["plain_ms"],
          "bound_ms": stg["bound_ms"], "bound_by": stg["bound_by"], "library_ms": None,
          f"ms_b{BATCH}": stg_main["ms"], f"bound_ms_b{BATCH}": stg_main["bound_ms"],
@@ -2820,6 +3095,7 @@ def main() -> int:
         {"name": "selective_scan_forward", "route": "cuda", "source": SCAN_SOURCE,
          "replaces": "surgical_tpu/kernels/selective_scan.py:130",
          "launches": tp["launches"],
+         "launches_multirank": mr["launches_per_rank"]["selective_scan_forward"],
          "max_abs_err": max(r["max_abs_err"] for r in scan),
          "ms": summed(main_scan, "ms"), "plain_ms": summed(main_scan, "plain_ms"),
          "bound_ms": summed(main_scan, "bound_ms"), "bound_by": by(main_scan),
@@ -2846,6 +3122,7 @@ def main() -> int:
             "name": name, "route": "cuda", "source": SOURCE,
             "replaces": f"surgical_tpu/kernels/mit_block.py:{line}",
             "launches": tr["launches"][name],
+            "launches_multirank": mr["launches_per_rank"][name],
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": summed(rows, "ms"), "plain_ms": summed(rows, "plain_ms"),
             "bound_ms": summed(rows, "bound_ms"), "bound_by": by(rows), "library_ms": None,
@@ -2864,7 +3141,10 @@ def main() -> int:
            for name, row in ses.items()}}
     raft = {k: rf[k] for k in ("pairs_per_s", "ms_per_pair", "iters", "size", "padded",
                                "device_ops_per_pair")}
-    print(json.dumps({"kernels": kernels, "online_session": session, "raft": raft}))
+    multirank = {"backend": mr["backend"], "seconds": mr["seconds"],
+                 "cli_launches_per_rank": mr["cli_launches"]}
+    print(json.dumps({"kernels": kernels, "online_session": session, "raft": raft,
+                      "multirank": multirank}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -6,6 +6,8 @@ work-dir layout.
     python -m surgical_tpu_torch.cli cache-frames --work work/
     python -m surgical_tpu_torch.cli extract-features --work work/ --frame-cache work/frame_cache
     python -m surgical_tpu_torch.cli extract-features --work work/ --weight-quant int8
+    python -m torch.distributed.run --nproc-per-node 4 -m surgical_tpu_torch.cli \
+        extract-features --work work/ --frame-cache work/frame_cache
     python -m surgical_tpu_torch.cli export-serving --work work/ --out serving/ [--fused]
     python -m surgical_tpu_torch.cli train-backbone --work work/
     python -m surgical_tpu_torch.cli train-backbone --work work/ --fused
@@ -52,6 +54,16 @@ both temporal stages on synthetic separable features; ``selfcheck --full``
 runs the seven verbs from synthetic images to the relaxed evaluation with
 two learned-quality gates. The verbs run on the card unless ``--device``
 names another device.
+
+Under ``torch.distributed.run`` (``WORLD_SIZE`` > 1) ``extract-features``
+runs data-parallel: every rank iterates the same batches, reads only its
+slice of each from the source, runs it on its own card (``--device cuda``:
+``cuda:LOCAL_RANK``; ranks that name ``cuda:0`` share one card) and
+all-gathers the features; rank 0 writes the stores and the pickles and
+prints. The group's backend is NCCL on the card and gloo on the CPU, or
+``--dist-backend``. Every other verb refuses to run under a world of more
+than one rank: the JAX package computes them replicated on every chip, and
+ranks writing the same files would race.
 """
 
 from __future__ import annotations
@@ -237,11 +249,17 @@ def cmd_extract_features(args) -> int:
     a frame cache under ``--frame-cache`` is read from it. ``--chain-depth``
     is accepted for the JAX CLI's command lines and has no effect: there is
     no dispatch chain to build. An error raises; nothing is retried."""
-    from surgical_tpu_torch.core.device import resolve_device
-    from surgical_tpu_torch.data.datasets import FrameCache, prefetch_batches
+    import torch.distributed as dist
+
+    from surgical_tpu_torch.data.datasets import FrameCache, RankSlice, prefetch_batches
+    from surgical_tpu_torch.kernels import mit_block
+    from surgical_tpu_torch.parallel.mesh import init_from_env
     from surgical_tpu_torch.train.extract import extract_to_store, make_raw_feature_fn
 
-    device = resolve_device(args.device)
+    rank, world, device = init_from_env(args.device, args.dist_backend)
+    if args.batch_size % world:
+        raise SystemExit(f"--batch-size {args.batch_size} does not divide over {world} ranks")
+    say = print if rank == 0 else (lambda *a, **k: None)
     model = _backbone(args, device)
     _restore_backbone(args, model, device)
     datasets = _clip_datasets(args.work, with_flow=not args.no_flow)
@@ -262,22 +280,32 @@ def cmd_extract_features(args) -> int:
                 raise SystemExit(f"{d}: cache resize={fc.meta['resize']} != run "
                                  f"resize={datasets[name].resize}; rebuild the cache")
             datasets[name] = fc
-            print(f"{name}: serving frames from cache {d}")
-    fn = make_raw_feature_fn(model, weight_quant=args.weight_quant)
+            say(f"{name}: serving frames from cache {d}")
+    fn = make_raw_feature_fn(model, weight_quant=args.weight_quant,
+                             group=dist.group.WORLD if world > 1 else None)
     idx = _work_paths(args.work)["index"]
     for name, ds in datasets.items():
         if name not in wanted:
             continue
         num_each = np.load(os.path.join(idx, f"{name}_num_each.npy"))
+        source = RankSlice(ds, args.batch_size, rank, world)
         batches = ((i, s, f) for (i, s, f, _p, _a)
-                   in prefetch_batches(ds, np.arange(len(ds)), args.batch_size))
+                   in prefetch_batches(source, np.arange(len(ds)), args.batch_size))
+        before = mit_block.launch_counts()
         fstore, stats = extract_to_store(
             fn, batches, num_each.tolist(), feature_dim=model.head_cfg.embedding_dim,
             batch_size=args.batch_size, directory=os.path.join(_work_paths(args.work)["lfb"], name),
             meta={"split": name})
-        print(f"{name}: {stats['frames']} frames at {stats['fps']:.0f} fps")
-        if args.reference_pickles:
+        say(f"{name}: {stats['frames']} frames at {stats['fps']:.0f} fps")
+        if world > 1:
+            launches = [None] * world
+            dist.all_gather_object(launches, {k: n - before[k] for k, n
+                                              in mit_block.launch_counts().items()})
+            say(f"{name}: kernel launches per rank {json.dumps(launches)}")
+        if args.reference_pickles and fstore is not None:
             fstore.to_reference_pickle(os.path.join(args.work, "lfb", f"evp_LFB_{name}.pkl"))
+    if world > 1:
+        dist.destroy_process_group()
     return 0
 
 
@@ -964,6 +992,9 @@ def main(argv=None) -> int:
                          "dequantized to bf16 at each batch; not bit-compatible with the "
                          "reference's fp16 features. Its speed and drift on the H100 are in "
                          "PERF.md")
+    sp.add_argument("--dist-backend", default=None, choices=["nccl", "gloo"],
+                    help="process group backend under torch.distributed.run (default: nccl "
+                         "on the card, gloo on the CPU); gloo lets ranks share one card")
     sp.set_defaults(fn=cmd_extract_features)
 
     sp = sub.add_parser(
@@ -1107,6 +1138,11 @@ def main(argv=None) -> int:
     sp.set_defaults(fn=cmd_selfcheck)
 
     args = p.parse_args(argv)
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world > 1 and args.cmd != "extract-features":
+        raise SystemExit(f"{args.cmd} runs in one process (WORLD_SIZE={world}): only "
+                         "extract-features runs over several ranks; the JAX package computes "
+                         "the other verbs replicated, and ranks writing the same files would race")
     return args.fn(args)
 
 

@@ -5,7 +5,28 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
 typedef __nv_bfloat16 bf16;
+
+// cudaFuncSetAttribute acts on the current device alone. A kernel that takes
+// more dynamic shared memory than the default 48 KB sets its limit once on
+// every device it launches on: `set` is the call site's flag per device
+// (static, so zero-initialised), read and written atomically because the
+// entry points run without the interpreter lock.
+constexpr int kMaxDevices = 64;
+
+template <typename Kernel>
+inline cudaError_t smem_limit_once(Kernel kern, int bytes, std::atomic<bool>* set) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (set[dev].load(std::memory_order_acquire)) return cudaSuccess;
+  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e == cudaSuccess) set[dev].store(true, std::memory_order_release);
+  return e;
+}
 
 #define FULL_MASK 0xffffffffu
 

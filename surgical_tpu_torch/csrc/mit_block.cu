@@ -660,8 +660,8 @@ template <Pro PRO, Epi EPI, int NSLAB, bool RESIDENT, bool BT>
 int wg_launch(cudaStream_t s, dim3 grid, int smem, const CUtensorMap& ta, const CUtensorMap& tb,
               const WgArgs& a) {
   auto kern = wgmma_linear<PRO, EPI, NSLAB, RESIDENT, BT>;
-  static const cudaError_t attr =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_LIMIT);
+  static std::atomic<bool> attr_set[kMaxDevices];
+  const cudaError_t attr = smem_limit_once(kern, SMEM_LIMIT, attr_set);
   if (attr != cudaSuccess) return (int)attr;
   kern<<<grid, WG_THREADS, smem, s>>>(ta, tb, a);
   return (int)cudaGetLastError();
@@ -1117,8 +1117,9 @@ int attention_bwd_tc(cudaStream_t s, const int* plan, const bf16* q, const bf16*
   if (tpc < 1 || Nkv < 1 || Nkv > MAX_KV || C != heads * HD || splits != (qtiles + tpc - 1) / tpc ||
       plan[2] != B * heads || (splits > 1 && part == nullptr))
     return (int)cudaErrorInvalidValue;
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      attention_bwd_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, sizeof(AbwSmem));
+  static std::atomic<bool> attr_set[kMaxDevices];
+  const cudaError_t attr =
+      smem_limit_once(attention_bwd_tc_kernel, (int)sizeof(AbwSmem), attr_set);
   if (attr != cudaSuccess) return (int)attr;
   attention_bwd_tc_kernel<<<dim3(splits, plan[2]), ABW_THREADS, sizeof(AbwSmem), s>>>(
       q, k, v, dctx, dq, dk, dv, splits > 1 ? part : nullptr, N, Nkv, C, heads, tpc,

@@ -738,8 +738,8 @@ int selective_scan_backward(const void* x, const void* dt, const void* A, const 
   float* part_dD = part_dA + n_dA;
   cudaStream_t s = (cudaStream_t)stream;
   constexpr int smem = CL_SMEM_FLOATS * (int)sizeof(float);
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      selective_scan_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  static std::atomic<bool> attr_set[kMaxDevices];
+  const cudaError_t attr = smem_limit_once(selective_scan_bwd_kernel, smem, attr_set);
   if (attr != cudaSuccess) return (int)attr;
   if (n_b1 > 0)
     selective_scan_bwd_chunk_kernel<<<dim3(Bt * bpv, n_b1), BWD_THREADS, 0, s>>>(

@@ -14,6 +14,8 @@ workers.
   decoded with PIL (the JAX package's native C++ decoder is not ported)
 - ``prefetch_batches``: decode ``depth`` batches ahead of the consumer
 - ``FrameCache``: packed memmap cache with the same ``frames`` contract
+- ``RankSlice``: a source read only in this rank's slice of each batch
+  (data-parallel extraction)
 """
 
 from __future__ import annotations
@@ -286,3 +288,43 @@ class FrameCache:
                    os.path.join(directory, cls.MANIFEST))
         os.remove(prog_path)
         return cls(directory)
+
+
+class RankSlice:
+    """A ``frames`` source for data-parallel extraction: of each batch of at
+    most ``batch_size`` indices (``prefetch_batches``' chunks) it reads or
+    decodes only the frames in this rank's slice of the batch padded to
+    ``batch_size`` (rank r of w: positions [r b/w, (r+1) b/w)), and returns
+    the batch at its full length with zeros elsewhere. Every rank iterates
+    the same batches, and ``make_raw_feature_fn`` over the group keeps each
+    rank's slice; the labels are read whole. ``batch_size`` must divide over
+    the ranks."""
+
+    def __init__(self, source, batch_size: int, rank: int, world: int):
+        if batch_size % world:
+            raise ValueError(f"batch_size {batch_size} does not divide over {world} ranks")
+        self.source, self.world = source, world
+        per = batch_size // world
+        self.lo, self.hi = rank * per, (rank + 1) * per
+
+    def __len__(self) -> int:
+        return len(self.source)
+
+    def frames(self, indices: Sequence[int]):
+        idx = np.asarray(indices)
+        if self.world == 1:
+            return self.source.frames(idx)
+        mine = idx[self.lo:self.hi]
+        # a rank whose slice lies wholly in the padding reads one frame for
+        # the shapes and dtypes
+        imgs, segs, flow, _p, _a = self.source.frames(mine if len(mine) else idx[:1])
+        out = []
+        for a in (imgs, segs, flow):
+            if a is None:
+                out.append(None)
+                continue
+            full = np.zeros((len(idx), *a.shape[1:]), dtype=a.dtype)
+            full[self.lo:self.lo + len(mine)] = a[:len(mine)]
+            out.append(full)
+        labels, (a0, a1) = self.source.labels, self.source.ant_cols
+        return (*out, labels[idx, 0].astype(np.int32), labels[idx, a0:a1].astype(np.float32))

@@ -648,17 +648,18 @@ def mit_block_forward_cuda(x, k, v, weights, *, heads: int, H: int, W: int):
     y = torch.empty_like(x)
     new = lambda width: torch.empty(B * N, width, dtype=x.dtype, device=x.device)
     q, ctx, hid, act = new(C), new(C), new(hidden), new(hidden)
-    err = _build.load().mit_block_forward(
-        _ptr(x, (B, N, C), "x"), _ptr(k, (B, Nkv, C), "k"), _ptr(v, (B, Nkv, C), "v"),
-        _ptr(w["ln1_scale"], (C,), "ln1_scale"), _ptr(w["ln1_bias"], (C,), "ln1_bias"),
-        _ptr(w["wq"], (C, C), "wq"), _ptr(w["bq"], (C,), "bq"),
-        _ptr(w["wo"], (C, C), "wo"), _ptr(w["bo"], (C,), "bo"),
-        _ptr(w["ln2_scale"], (C,), "ln2_scale"), _ptr(w["ln2_bias"], (C,), "ln2_bias"),
-        _ptr(w["w1"], (C, hidden), "w1"), _ptr(w["b1"], (hidden,), "b1"),
-        _ptr(w["wdw"], (9, hidden), "wdw"), _ptr(w["bdw"], (hidden,), "bdw"),
-        _ptr(w["w2"], (hidden, C), "w2"), _ptr(w["b2"], (C,), "b2"), ctypes.addressof(plan),
-        q.data_ptr(), ctx.data_ptr(), hid.data_ptr(), act.data_ptr(), y.data_ptr(),
-        B, H, W, C, heads, Nkv, hidden, torch.cuda.current_stream(x.device).cuda_stream)
+    with torch.cuda.device(x.device):  # the launch's current device
+        err = _build.load().mit_block_forward(
+            _ptr(x, (B, N, C), "x"), _ptr(k, (B, Nkv, C), "k"), _ptr(v, (B, Nkv, C), "v"),
+            _ptr(w["ln1_scale"], (C,), "ln1_scale"), _ptr(w["ln1_bias"], (C,), "ln1_bias"),
+            _ptr(w["wq"], (C, C), "wq"), _ptr(w["bq"], (C,), "bq"),
+            _ptr(w["wo"], (C, C), "wo"), _ptr(w["bo"], (C,), "bo"),
+            _ptr(w["ln2_scale"], (C,), "ln2_scale"), _ptr(w["ln2_bias"], (C,), "ln2_bias"),
+            _ptr(w["w1"], (C, hidden), "w1"), _ptr(w["b1"], (hidden,), "b1"),
+            _ptr(w["wdw"], (9, hidden), "wdw"), _ptr(w["bdw"], (hidden,), "bdw"),
+            _ptr(w["w2"], (hidden, C), "w2"), _ptr(w["b2"], (C,), "b2"), ctypes.addressof(plan),
+            q.data_ptr(), ctx.data_ptr(), hid.data_ptr(), act.data_ptr(), y.data_ptr(),
+            B, H, W, C, heads, Nkv, hidden, torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "mit_block_forward")
     fused_mit_block.launches += 1
     return y
@@ -696,18 +697,19 @@ def mit_block_packed2_forward_cuda(x, k, v, packed, *, H: int, W: int, row_chunk
     M, Mkv = B // 2 * N, B // 2 * Nkv
     xp, q, ctx = new(M, C2), new(M, C2), new(M, C2)
     kp, vp, hid, act = new(Mkv, C2), new(Mkv, C2), new(M, hidden2), new(M, hidden2)
-    err = _build.load().mit_block_packed2_forward(
-        _ptr(x, (B, N, C), "x"), _ptr(k, (B, Nkv, C), "k"), _ptr(v, (B, Nkv, C), "v"),
-        _ptr(w["ln1"], (2, C2), "ln1", torch.float32),
-        _ptr(w["wq"], (C2, C2), "wq"), _ptr(w["bq"], (C2,), "bq"),
-        _ptr(w["wo"], (C2, C2), "wo"), _ptr(w["bo"], (C2,), "bo"),
-        _ptr(w["ln2_scale"], (C2,), "ln2_scale"), _ptr(w["ln2_bias"], (C2,), "ln2_bias"),
-        _ptr(w["w1"], (C2, hidden2), "w1"), _ptr(w["b1"], (hidden2,), "b1"),
-        _ptr(w["wdw"], (9, hidden2), "wdw"), _ptr(w["bdw"], (hidden2,), "bdw"),
-        _ptr(w["w2"], (hidden2, C2), "w2"), _ptr(w["b2"], (C2,), "b2"), ctypes.addressof(plan),
-        xp.data_ptr(), kp.data_ptr(), vp.data_ptr(), q.data_ptr(), ctx.data_ptr(),
-        hid.data_ptr(), act.data_ptr(), y.data_ptr(), B, H, W, Nkv, hidden2,
-        torch.cuda.current_stream(x.device).cuda_stream)
+    with torch.cuda.device(x.device):  # the launch's current device
+        err = _build.load().mit_block_packed2_forward(
+            _ptr(x, (B, N, C), "x"), _ptr(k, (B, Nkv, C), "k"), _ptr(v, (B, Nkv, C), "v"),
+            _ptr(w["ln1"], (2, C2), "ln1", torch.float32),
+            _ptr(w["wq"], (C2, C2), "wq"), _ptr(w["bq"], (C2,), "bq"),
+            _ptr(w["wo"], (C2, C2), "wo"), _ptr(w["bo"], (C2,), "bo"),
+            _ptr(w["ln2_scale"], (C2,), "ln2_scale"), _ptr(w["ln2_bias"], (C2,), "ln2_bias"),
+            _ptr(w["w1"], (C2, hidden2), "w1"), _ptr(w["b1"], (hidden2,), "b1"),
+            _ptr(w["wdw"], (9, hidden2), "wdw"), _ptr(w["bdw"], (hidden2,), "bdw"),
+            _ptr(w["w2"], (hidden2, C2), "w2"), _ptr(w["b2"], (C2,), "b2"), ctypes.addressof(plan),
+            xp.data_ptr(), kp.data_ptr(), vp.data_ptr(), q.data_ptr(), ctx.data_ptr(),
+            hid.data_ptr(), act.data_ptr(), y.data_ptr(), B, H, W, Nkv, hidden2,
+            torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "mit_block_packed2_forward")
     fused_mit_block_packed2.launches += 1
     return y
@@ -761,19 +763,20 @@ def mit_stage_forward_cuda(x, base, sw, *, heads: int, H: int, W: int, sr: int):
     patches = new(Mkv, sr * sr * C if sr > 1 else 0)
     red, kvin, kv = new(Mkv, C), new(Mkv, C), new(Mkv, 2 * C)
     hid, act = new(M, hidden), new(M, hidden)
-    err = _build.load().mit_stage_forward(
-        _ptr(x, (B, N, C), "x"), *prompt, *sr_args,
-        _ptr(sw["ln1"], (D, 2, C), "ln1"), _ptr(sw["wkv"], (D, C, 2 * C), "wkv"),
-        _ptr(sw["bkv"], (D, 1, 2 * C), "bkv"), _ptr(sw["wq"], (D, C, C), "wq"),
-        _ptr(sw["bq"], (D, 1, C), "bq"), _ptr(sw["wo"], (D, C, C), "wo"),
-        _ptr(sw["bo"], (D, 1, C), "bo"), _ptr(sw["ln2"], (D, 2, C), "ln2"),
-        _ptr(sw["w1"], (D, C, hidden), "w1"), _ptr(sw["b1"], (D, 1, hidden), "b1"),
-        _ptr(sw["wdw"], (D, 9, hidden), "wdw"), _ptr(sw["bdw"], (D, 1, hidden), "bdw"),
-        _ptr(sw["w2"], (D, hidden, C), "w2"), _ptr(sw["b2"], (D, 1, C), "b2"),
-        ctypes.addressof(plan), y.data_ptr(), xln.data_ptr(), feat.data_ptr(),
-        patches.data_ptr(), red.data_ptr(), kvin.data_ptr(), kv.data_ptr(), q.data_ptr(),
-        ctx.data_ptr(), hid.data_ptr(), act.data_ptr(), B, H, W, C, heads, sr, D, Cb, C4, hidden,
-        torch.cuda.current_stream(x.device).cuda_stream)
+    with torch.cuda.device(x.device):  # the launch's current device
+        err = _build.load().mit_stage_forward(
+            _ptr(x, (B, N, C), "x"), *prompt, *sr_args,
+            _ptr(sw["ln1"], (D, 2, C), "ln1"), _ptr(sw["wkv"], (D, C, 2 * C), "wkv"),
+            _ptr(sw["bkv"], (D, 1, 2 * C), "bkv"), _ptr(sw["wq"], (D, C, C), "wq"),
+            _ptr(sw["bq"], (D, 1, C), "bq"), _ptr(sw["wo"], (D, C, C), "wo"),
+            _ptr(sw["bo"], (D, 1, C), "bo"), _ptr(sw["ln2"], (D, 2, C), "ln2"),
+            _ptr(sw["w1"], (D, C, hidden), "w1"), _ptr(sw["b1"], (D, 1, hidden), "b1"),
+            _ptr(sw["wdw"], (D, 9, hidden), "wdw"), _ptr(sw["bdw"], (D, 1, hidden), "bdw"),
+            _ptr(sw["w2"], (D, hidden, C), "w2"), _ptr(sw["b2"], (D, 1, C), "b2"),
+            ctypes.addressof(plan), y.data_ptr(), xln.data_ptr(), feat.data_ptr(),
+            patches.data_ptr(), red.data_ptr(), kvin.data_ptr(), kv.data_ptr(), q.data_ptr(),
+            ctx.data_ptr(), hid.data_ptr(), act.data_ptr(), B, H, W, C, heads, sr, D, Cb, C4,
+            hidden, torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "mit_stage_forward")
     fused_mit_stage.launches += 1
     return y
@@ -800,19 +803,20 @@ def block_train_forward(x, xln, k, v, weights, m1, m2, *, heads: int, H: int, W:
     y, x1 = torch.empty_like(x), torch.empty_like(x)
     new = lambda width: torch.empty(B * N, width, dtype=x.dtype, device=x.device)
     q, ctx, hid, act = new(C), new(C), new(hidden), new(hidden)
-    err = _build.load().mit_block_train_forward(
-        _ptr(x, (B, N, C), "x"), _ptr(xln, (B, N, C), "xln"),
-        _ptr(k, (B, Nkv, C), "k"), _ptr(v, (B, Nkv, C), "v"),
-        _ptr(m1, (B,), "m1", torch.float32), _ptr(m2, (B,), "m2", torch.float32),
-        _ptr(w["wq"], (C, C), "wq"), _ptr(w["bq"], (C,), "bq"),
-        _ptr(w["wo"], (C, C), "wo"), _ptr(w["bo"], (C,), "bo"),
-        _ptr(w["ln2_scale"], (C,), "ln2_scale"), _ptr(w["ln2_bias"], (C,), "ln2_bias"),
-        _ptr(w["w1"], (C, hidden), "w1"), _ptr(w["b1"], (hidden,), "b1"),
-        _ptr(w["wdw"], (9, hidden), "wdw"), _ptr(w["bdw"], (hidden,), "bdw"),
-        _ptr(w["w2"], (hidden, C), "w2"), _ptr(w["b2"], (C,), "b2"), ctypes.addressof(plan),
-        q.data_ptr(), ctx.data_ptr(), hid.data_ptr(), act.data_ptr(), x1.data_ptr(),
-        y.data_ptr(), B, H, W, C, heads, Nkv, hidden,
-        torch.cuda.current_stream(x.device).cuda_stream)
+    with torch.cuda.device(x.device):  # the launch's current device
+        err = _build.load().mit_block_train_forward(
+            _ptr(x, (B, N, C), "x"), _ptr(xln, (B, N, C), "xln"),
+            _ptr(k, (B, Nkv, C), "k"), _ptr(v, (B, Nkv, C), "v"),
+            _ptr(m1, (B,), "m1", torch.float32), _ptr(m2, (B,), "m2", torch.float32),
+            _ptr(w["wq"], (C, C), "wq"), _ptr(w["bq"], (C,), "bq"),
+            _ptr(w["wo"], (C, C), "wo"), _ptr(w["bo"], (C,), "bo"),
+            _ptr(w["ln2_scale"], (C,), "ln2_scale"), _ptr(w["ln2_bias"], (C,), "ln2_bias"),
+            _ptr(w["w1"], (C, hidden), "w1"), _ptr(w["b1"], (hidden,), "b1"),
+            _ptr(w["wdw"], (9, hidden), "wdw"), _ptr(w["bdw"], (hidden,), "bdw"),
+            _ptr(w["w2"], (hidden, C), "w2"), _ptr(w["b2"], (C,), "b2"), ctypes.addressof(plan),
+            q.data_ptr(), ctx.data_ptr(), hid.data_ptr(), act.data_ptr(), x1.data_ptr(),
+            y.data_ptr(), B, H, W, C, heads, Nkv, hidden,
+            torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "mit_block_train_forward")
     block_train_forward.launches += 1
     return y, x1
@@ -839,13 +843,14 @@ def block_train_mlp_backward(h2ln, dmlp, weights, *, H: int, W: int):
     buf_a, buf_b = (torch.empty(B * N, hidden, dtype=h2ln.dtype, device=h2ln.device)
                     for _ in range(2))
     dh2ln = torch.empty(B, N, C, dtype=torch.float32, device=h2ln.device)
-    err = _build.load().mit_block_train_mlp_backward(
-        _ptr(h2ln, (B, N, C), "h2ln"), _ptr(dmlp, (B, N, C), "dmlp"),
-        _ptr(w["w1"], (C, hidden), "w1"), _ptr(w["b1"], (hidden,), "b1"),
-        _ptr(w["wdw"], (9, hidden), "wdw"), _ptr(w["bdw"], (hidden,), "bdw"),
-        _ptr(w["w2"], (hidden, C), "w2"), ctypes.addressof(plan), buf_a.data_ptr(),
-        buf_b.data_ptr(), dh2ln.data_ptr(), B, H, W, C, hidden,
-        torch.cuda.current_stream(h2ln.device).cuda_stream)
+    with torch.cuda.device(h2ln.device):  # the launch's current device
+        err = _build.load().mit_block_train_mlp_backward(
+            _ptr(h2ln, (B, N, C), "h2ln"), _ptr(dmlp, (B, N, C), "dmlp"),
+            _ptr(w["w1"], (C, hidden), "w1"), _ptr(w["b1"], (hidden,), "b1"),
+            _ptr(w["wdw"], (9, hidden), "wdw"), _ptr(w["bdw"], (hidden,), "bdw"),
+            _ptr(w["w2"], (hidden, C), "w2"), ctypes.addressof(plan), buf_a.data_ptr(),
+            buf_b.data_ptr(), dh2ln.data_ptr(), B, H, W, C, hidden,
+            torch.cuda.current_stream(h2ln.device).cuda_stream)
     _build.check(err, "mit_block_train_mlp_backward")
     block_train_mlp_backward.launches += 1
     return dh2ln
@@ -876,13 +881,14 @@ def block_train_attn_backward(xln, k, v, dx1, m1, weights, *, heads: int):
     part = (torch.empty(splits, 2, B * Nkv * C, dtype=torch.float32, device=xln.device)
             if splits > 1 else None)
     plan = _plan_arg(plan)
-    err = _build.load().mit_block_train_attn_backward(
-        _ptr(xln, (B, N, C), "xln"), _ptr(k, (B, Nkv, C), "k"), _ptr(v, (B, Nkv, C), "v"),
-        _ptr(dx1, (B, N, C), "dx1"), _ptr(m1, (B,), "m1", torch.float32),
-        _ptr(w["wq"], (C, C), "wq"), _ptr(w["bq"], (C,), "bq"), _ptr(w["wo"], (C, C), "wo"),
-        ctypes.addressof(plan), q.data_ptr(), dctx.data_ptr(), dq.data_ptr(),
-        None if part is None else part.data_ptr(), dxln.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), B, N, C, heads, Nkv, torch.cuda.current_stream(xln.device).cuda_stream)
+    with torch.cuda.device(xln.device):  # the launch's current device
+        err = _build.load().mit_block_train_attn_backward(
+            _ptr(xln, (B, N, C), "xln"), _ptr(k, (B, Nkv, C), "k"), _ptr(v, (B, Nkv, C), "v"),
+            _ptr(dx1, (B, N, C), "dx1"), _ptr(m1, (B,), "m1", torch.float32),
+            _ptr(w["wq"], (C, C), "wq"), _ptr(w["bq"], (C,), "bq"), _ptr(w["wo"], (C, C), "wo"),
+            ctypes.addressof(plan), q.data_ptr(), dctx.data_ptr(), dq.data_ptr(),
+            None if part is None else part.data_ptr(), dxln.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), B, N, C, heads, Nkv, torch.cuda.current_stream(xln.device).cuda_stream)
     _build.check(err, "mit_block_train_attn_backward")
     block_train_attn_backward.launches += 1
     return dxln, dk, dv
@@ -919,6 +925,16 @@ def fused_mit_block_train(x, xln, k, v, weights, m1, m2, *, heads: int, H: int, 
     LN1(x), k/v [B, Nkv, C], DropPath factors m1, m2 [B] -> y [B, N, C].
     Gradients reach x, xln, k and v; the block weights get none."""
     return _FusedBlockTrain.apply(x, xln, k, v, m1, m2, weights, heads, H, W)
+
+
+def launch_counts() -> dict:
+    """Every wrapper's launch count, by the kernel's entry point."""
+    return {"mit_block_forward": fused_mit_block.launches,
+            "mit_block_packed2_forward": fused_mit_block_packed2.launches,
+            "mit_stage_forward": fused_mit_stage.launches,
+            "mit_block_train_forward": block_train_forward.launches,
+            "mit_block_train_mlp_backward": block_train_mlp_backward.launches,
+            "mit_block_train_attn_backward": block_train_attn_backward.launches}
 
 
 def reset_launches() -> None:

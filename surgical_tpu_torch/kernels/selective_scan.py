@@ -183,12 +183,13 @@ def selective_scan_forward(x, dt, A, B, C, D, states: bool = False):
     f32 = dict(dtype=torch.float32, device=x.device)
     pairs = torch.empty(2, Bt, chunks - 1, Dch, N, **f32) if chunks > 1 else None
     hs = torch.empty(states_shape(Bt, T, Dch, N), **f32) if states else None
-    err = _build.load().selective_scan_forward(
-        _ptr(x, (Bt, T, Dch), "x"), _ptr(dt, (Bt, T, Dch), "dt"), _ptr(A, (Dch, N), "A"),
-        _ptr(B, (Bt, T, N), "B"), _ptr(C, (Bt, T, N), "C"), _ptr(D, (Dch,), "D"),
-        y.data_ptr(), None if pairs is None else pairs.data_ptr(),
-        None if hs is None else hs.data_ptr(), Bt, T, Dch, N, chunk,
-        torch.cuda.current_stream(x.device).cuda_stream)
+    with torch.cuda.device(x.device):  # the launch's current device
+        err = _build.load().selective_scan_forward(
+            _ptr(x, (Bt, T, Dch), "x"), _ptr(dt, (Bt, T, Dch), "dt"), _ptr(A, (Dch, N), "A"),
+            _ptr(B, (Bt, T, N), "B"), _ptr(C, (Bt, T, N), "C"), _ptr(D, (Dch,), "D"),
+            y.data_ptr(), None if pairs is None else pairs.data_ptr(),
+            None if hs is None else hs.data_ptr(), Bt, T, Dch, N, chunk,
+            torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "selective_scan_forward")
     selective_scan.launches += 1
     return y, hs
@@ -223,13 +224,14 @@ def selective_scan_backward(x, dt, A, B, C, D, dy, states=None):
         raise ValueError(f"selective_scan_backward: {n_scratch} floats of scratch at "
                          f"[Bt={Bt}, T={T}, D={Dch}]: split the batch")
     scratch = torch.empty(n_scratch, **f32)
-    err = _build.load().selective_scan_backward(
-        _ptr(x, (Bt, T, Dch), "x"), _ptr(dt, (Bt, T, Dch), "dt"), _ptr(A, (Dch, N), "A"),
-        _ptr(B, (Bt, T, N), "B"), _ptr(C, (Bt, T, N), "C"), _ptr(D, (Dch,), "D"),
-        _ptr(dy, (Bt, T, Dch), "dy"), _ptr(states, states_shape(Bt, T, Dch, N), "states"),
-        dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(), dC.data_ptr(),
-        dD.data_ptr(), scratch.data_ptr(), Bt, T, Dch, N, k2, n_scratch,
-        torch.cuda.current_stream(x.device).cuda_stream)
+    with torch.cuda.device(x.device):  # the launch's current device
+        err = _build.load().selective_scan_backward(
+            _ptr(x, (Bt, T, Dch), "x"), _ptr(dt, (Bt, T, Dch), "dt"), _ptr(A, (Dch, N), "A"),
+            _ptr(B, (Bt, T, N), "B"), _ptr(C, (Bt, T, N), "C"), _ptr(D, (Dch,), "D"),
+            _ptr(dy, (Bt, T, Dch), "dy"), _ptr(states, states_shape(Bt, T, Dch, N), "states"),
+            dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(), dC.data_ptr(),
+            dD.data_ptr(), scratch.data_ptr(), Bt, T, Dch, N, k2, n_scratch,
+            torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "selective_scan_backward")
     selective_scan_backward.launches += 1
     return dx, ddt, dA, dB, dC, dD

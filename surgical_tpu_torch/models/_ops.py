@@ -22,6 +22,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from surgical_tpu_torch.kernels.mit_block import layer_norm
+from surgical_tpu_torch.parallel.mesh import all_reduce_autograd
 
 
 def layernorm(x, norm: nn.LayerNorm):
@@ -63,14 +64,28 @@ def batchnorm(x, bn: nn.BatchNorm2d):
 BN_MOMENTUM = 0.99  # flax nn.BatchNorm default, as the flax model uses
 
 
-def bn_train(x, bn: nn.BatchNorm2d):
+def bn_train(x, bn: nn.BatchNorm2d, group=None):
     """Train-mode BatchNorm over NHWC x: (y in x.dtype, (new running mean,
     new running var)), flax's update: fp32 batch statistics with the biased
     variance E[x^2] - E[x]^2 clipped at 0, running statistics at momentum
-    0.99."""
+    0.99.
+
+    With a process ``group`` (a batch sharded over ranks, as JAX's jit of
+    the step over a sharded batch computes it) the statistics are those of
+    the whole group's batch: the sum, the sum of squares and the count,
+    summed over the group by an all-reduce that autograd differentiates.
+    ``group=None`` takes this batch's statistics alone."""
     x32 = x.float()
-    mean = x32.mean(dim=(0, 1, 2))
-    var = ((x32 * x32).mean(dim=(0, 1, 2)) - mean * mean).clamp_min(0.0)
+    if group is None:
+        mean = x32.mean(dim=(0, 1, 2))
+        var = ((x32 * x32).mean(dim=(0, 1, 2)) - mean * mean).clamp_min(0.0)
+    else:
+        C = x.shape[-1]
+        sums = all_reduce_autograd(torch.cat([
+            x32.sum(dim=(0, 1, 2)), (x32 * x32).sum(dim=(0, 1, 2)),
+            x32.new_full((1,), float(x32[..., 0].numel()))]), group)
+        mean = sums[:C] / sums[2 * C]
+        var = (sums[C:2 * C] / sums[2 * C] - mean * mean).clamp_min(0.0)
     y = (x32 - mean) * torch.rsqrt(var + bn.eps) * bn.weight + bn.bias
     with torch.no_grad():
         new = (BN_MOMENTUM * bn.running_mean + (1 - BN_MOMENTUM) * mean,

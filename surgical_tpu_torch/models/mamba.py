@@ -33,13 +33,15 @@ from surgical_tpu_torch.models.mstcn import DropoutMasks, dropout, torch_like_un
 LN_EPS = 1e-6
 
 
-def causal_depthwise_conv(x, weight, bias):
+def causal_depthwise_conv(x, weight, bias, left=None):
     """x [B, T, C], weight [C, 1, K], bias [C] -> [B, T, C]:
     out[t] = sum_k x[t - K + 1 + k] * weight[:, 0, k] + bias, zeros before
-    t = 0. Written out tap by tap in fp32 (no cuDNN, so no TF32), the same
-    arithmetic as ``OnlineMamba``'s per-frame window."""
+    t = 0, or the K - 1 frames ``left`` [B, K - 1, C] there (a time shard's
+    halo, ``parallel/sequence.py``). Written out tap by tap in fp32 (no
+    cuDNN, so no TF32), the same arithmetic as ``OnlineMamba``'s per-frame
+    window."""
     K, T = weight.shape[-1], x.shape[1]
-    padded = F.pad(x, (0, 0, K - 1, 0))
+    padded = F.pad(x, (0, 0, K - 1, 0)) if left is None else torch.cat([left, x], dim=1)
     w = weight[:, 0, :]
     out = padded[:, 0:T] * w[:, 0]
     for k in range(1, K):

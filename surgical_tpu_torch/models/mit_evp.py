@@ -334,17 +334,18 @@ class OpticalFlowEncoder(nn.Module):
             setattr(self, f"conv{i}", nn.Conv2d(cin, cout, k, s, k // 2))
             setattr(self, f"bn{i}", nn.BatchNorm2d(cout))
 
-    def forward(self, flow, ops=_ops.FUSED, bn_stats=None):
+    def forward(self, flow, ops=_ops.FUSED, bn_stats=None, bn_group=None):
         """flow [B, H, W, 2] -> (stage-3 tokens, stage-4 tokens). In train
-        mode (``bn_stats`` a dict) BatchNorm uses the batch statistics and
-        the new running statistics go into ``bn_stats`` as "bn{i}"."""
+        mode (``bn_stats`` a dict) BatchNorm uses the batch statistics (over
+        the process group ``bn_group`` when one is given, ``_ops.bn_train``)
+        and the new running statistics go into ``bn_stats`` as "bn{i}"."""
         def enc(h, i):
             c, bn = getattr(self, f"conv{i}"), getattr(self, f"bn{i}")
             h = ops.conv(h, c, c.stride[0], c.padding[0])
             if bn_stats is None:
                 h = _ops.batchnorm(h, bn)
             else:
-                h, bn_stats[f"bn{i}"] = _ops.bn_train(h, bn)
+                h, bn_stats[f"bn{i}"] = _ops.bn_train(h, bn, bn_group)
             return torch.relu(h)
 
         f3 = enc(enc(enc(flow, 1), 2), 3)
@@ -475,7 +476,7 @@ class MiTEVP(nn.Module):
 
     def graph_forward(self, images, segmaps, flow=None, *, return_features: bool = False,
                       train: bool = False, generator=None, masks=None,
-                      capture_attn: bool = False, dtype=torch.float32):
+                      capture_attn: bool = False, dtype=torch.float32, bn_group=None):
         """The flax module graph (surgical_tpu/models/mit_evp.py:512-597) at
         compute dtype ``dtype`` (parameters stay fp32).
 
@@ -491,9 +492,12 @@ class MiTEVP(nn.Module):
 
         Returns the outputs alone in eval mode; in train mode (outputs, new
         BatchNorm statistics {module name: (running mean, running var)}, the
-        layout of ``models.mit_train.write_bn_stats``). ``capture_attn``
-        appends {"block{s}.{d}": attention probabilities [B, heads, N,
-        Nkv]}, the counterpart of ``sow("intermediates", "attn")``."""
+        layout of ``models.mit_train.write_bn_stats``), the statistics over
+        the process group ``bn_group`` when one is given (a batch sharded
+        over ranks, ``parallel/dryrun.py::data_parallel_step``).
+        ``capture_attn`` appends {"block{s}.{d}": attention probabilities
+        [B, heads, N, Nkv]}, the counterpart of ``sow("intermediates",
+        "attn")``."""
         cfg, head_cfg = self.cfg, self.head_cfg
         dt = dtype
         x = images.to(dt)
@@ -548,7 +552,7 @@ class MiTEVP(nn.Module):
         stats = {} if train else None
         if cfg.with_flow and flow is not None:
             fs = {} if train else None
-            f3, f4 = self.flow_encoder(flow.to(dt), _ops.FLAX, fs)
+            f3, f4 = self.flow_encoder(flow.to(dt), _ops.FLAX, fs, bn_group)
             if train:
                 stats.update({f"flow_encoder.{k}": v for k, v in fs.items()})
             for idx, ca, ft in ((2, self.cross_attn_s3, f3), (3, self.cross_attn_s4, f4)):
@@ -558,7 +562,7 @@ class MiTEVP(nn.Module):
         hs = {} if train else None
         keep = masks["dropout"] if train and head_cfg.dropout > 0.0 else None
         out = self.head(grids, return_features=return_features, ops=_ops.FLAX, bn_stats=hs,
-                        keep=keep)
+                        keep=keep, bn_group=bn_group)
         if train:
             stats.update({f"head.{k}": v for k, v in hs.items()})
         res = (out,) + ((stats,) if train else ()) + ((attn_out,) if capture_attn else ())

@@ -91,13 +91,15 @@ def write_bn_stats(model, stats: dict) -> None:
 
 
 def fused_train_forward(model, images, segmaps, flow, *, generator=None, masks=None,
-                        dtype=torch.bfloat16):
+                        dtype=torch.bfloat16, bn_group=None):
     """One training forward: (phase logits [B, 7] fp32, anticipation [B, 7]
     fp32, new BN statistics {module name: (running_mean, running_var)}).
 
     images, segmaps [B, H, W, 3], flow [B, H, W, 2] or None (any float dtype;
     cast to ``dtype``). The DropPath and dropout masks come from ``masks``
-    (``draw_masks``'s layout) or are drawn from ``generator``."""
+    (``draw_masks``'s layout) or are drawn from ``generator``. BatchNorm
+    takes its statistics over the process group ``bn_group`` when one is
+    given (``_ops.bn_train``)."""
     cfg, head_cfg = model.cfg, model.head_cfg
     _check_supported(cfg)
     if cfg.drop_rate > 0.0:
@@ -149,7 +151,7 @@ def fused_train_forward(model, images, segmaps, flow, *, generator=None, masks=N
     stats = {}
     if cfg.with_flow and flow is not None:
         fs = {}
-        f3, f4 = model.flow_encoder(flow.to(dt), _ops.FUSED, fs)
+        f3, f4 = model.flow_encoder(flow.to(dt), _ops.FUSED, fs, bn_group)
         stats.update({f"flow_encoder.{k}": v for k, v in fs.items()})
         for idx, ca, ft in ((2, model.cross_attn_s3, f3), (3, model.cross_attn_s4, f4)):
             g = grids[idx]
@@ -157,6 +159,7 @@ def fused_train_forward(model, images, segmaps, flow, *, generator=None, masks=N
 
     hs = {}
     y, y_ant = model.head(grids, return_features=False, bn_stats=hs,
-                          keep=masks["dropout"] if head_cfg.dropout > 0.0 else None)
+                          keep=masks["dropout"] if head_cfg.dropout > 0.0 else None,
+                          bn_group=bn_group)
     stats.update({f"head.{k}": v for k, v in hs.items()})
     return y, y_ant, stats

@@ -57,11 +57,12 @@ class SegFormerPoolHead(nn.Module):
                                     nn.Linear(cfg.hidden, cfg.num_phases))
 
     def forward(self, grids, return_features: bool = True, ops=_ops.FUSED, bn_stats=None,
-                keep=None):
+                keep=None, bn_group=None):
         """grids: 4 NHWC maps c1..c4 in the activation dtype -> the pooled
         feature [B, E], or (phase logits, anticipation) [B, 7] each; fp32
         under ``ops=_ops.FUSED``, the activation dtype under ``_ops.FLAX``.
-        ``bn_stats``: a dict for train mode (gets "linear_fuse.bn"); ``keep``:
+        ``bn_stats``: a dict for train mode (gets "linear_fuse.bn"; the
+        statistics over the process group ``bn_group`` when given); ``keep``:
         [B, E] bool channel-dropout mask, or None."""
         c1, c2, c3, c4 = grids
         target = c4.shape[1:3]
@@ -75,7 +76,7 @@ class SegFormerPoolHead(nn.Module):
         if bn_stats is None:
             h = _ops.batchnorm(h, self.linear_fuse.bn)
         else:
-            h, bn_stats["linear_fuse.bn"] = _ops.bn_train(h, self.linear_fuse.bn)
+            h, bn_stats["linear_fuse.bn"] = _ops.bn_train(h, self.linear_fuse.bn, bn_group)
         h = torch.relu(h)
         if keep is not None:
             h = _ops.dropout(h, keep.to(h.device).reshape(h.shape[0], 1, 1, -1), self.dropout)

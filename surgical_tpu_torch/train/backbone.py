@@ -118,12 +118,14 @@ class BackboneTrainer:
 
     # -- steps ----------------------------------------------------------------
     def loss_and_grad(self, img_u8, seg_u8, flow_f16, labels, ant, epoch: int = 0,
-                      step: int = 0, aug_params=None, masks=None):
+                      step: int = 0, aug_params=None, masks=None, bn_group=None):
         """Forward and backward on a wire-format batch, leaving the
         gradients in the trainable parameters' ``.grad``; returns ({loss, ce,
         reg, correct} as device tensors, the new BatchNorm statistics).
         ``aug_params`` / ``masks`` replace the draws of (epoch, step)'s
-        generators."""
+        generators. ``bn_group``: a process group whose ranks hold the other
+        shards of the batch, over which BatchNorm takes its statistics
+        (``parallel/dryrun.py::data_parallel_step``)."""
         img, seg, flow = self._dequant(*map(self._to_device, (img_u8, seg_u8, flow_f16)))
         img, seg, flow = train_preprocess_batch(
             img, seg, flow, self._generator(epoch, step, "augment"), self.aug_cfg, aug_params)
@@ -131,10 +133,11 @@ class BackboneTrainer:
         gen = self._generator(epoch, step, "droppath")
         if self.use_fused:
             y, y_ant, stats = fused_train_forward(self.model, img, seg, flow, generator=gen,
-                                                  masks=masks, dtype=self.dtype)
+                                                  masks=masks, dtype=self.dtype, bn_group=bn_group)
         else:
             (y, y_ant), stats = self.model.graph_forward(img, seg, flow, train=True, generator=gen,
-                                                         masks=masks, dtype=self.dtype)
+                                                         masks=masks, dtype=self.dtype,
+                                                         bn_group=bn_group)
         y = y.float()
         loss, ce, reg = backbone_loss(y, y_ant.float(), labels, ant)
         self.model.zero_grad(set_to_none=True)

@@ -19,6 +19,16 @@ features out. A ragged last batch is zero-padded to ``batch_size``, as the
 JAX package pads it: the batch size picks stage 4's route in
 ``fused_forward`` (whole-stage kernel at a multiple of 8), so the tail runs
 the route the full batches run, as it does in JAX.
+
+Over a process group (``make_raw_feature_fn(group=...)``, which
+``extract-features`` passes as the default group under
+``torch.distributed.run``; without one, each process extracts its own
+batches alone) extraction is data-parallel, as JAX runs
+the fused graph per chip under ``shard_map`` over its data mesh: every rank
+takes the same padded batch, runs its contiguous B / world frames through
+the graph and all-gathers the features in rank order. The route is decided
+on each rank's B / world frames: stage 4 takes the stage kernel only where
+(B / world) % 8 == 0. Only rank 0 writes the store.
 """
 
 from __future__ import annotations
@@ -35,6 +45,7 @@ from surgical_tpu_torch.core.config import CHOLEC80_MEAN, CHOLEC80_STD
 from surgical_tpu_torch.core.device import DEFAULT_DEVICE, resolve_device
 from surgical_tpu_torch.data.feature_store import FeatureStore
 from surgical_tpu_torch.models.mit_fused import fused_forward, kernel_weights
+from surgical_tpu_torch.parallel import mesh
 from surgical_tpu_torch.serving.quant import dequantize_state, quantize_state
 
 
@@ -104,7 +115,8 @@ class WireForward(nn.Module):
         return tuple(o.to(self.out_dtype) for o in out)
 
 
-def make_raw_feature_fn(model, d2h_dtype=torch.float16, use_fused=None, weight_quant=None):
+def make_raw_feature_fn(model, d2h_dtype=torch.float16, use_fused=None, weight_quant=None,
+                        group=None):
     """Feature extractor over wire-format host batches (numpy or tensors):
     fn(img_u8, seg_u8, flow_f16 | None) -> [B, E] features in ``d2h_dtype``
     on the model's device. ``use_fused``: the fused serving graph (True) or
@@ -115,7 +127,17 @@ def make_raw_feature_fn(model, d2h_dtype=torch.float16, use_fused=None, weight_q
     per-channel scales on its device (``serving/quant.py``, ``fn.held``) and
     dequantizes them to bf16 at every dispatch, feeding them to the same
     graph through ``torch.func.functional_call``, as the JAX package does
-    (surgical_tpu/train/extract.py:122-134)."""
+    (surgical_tpu/train/extract.py:122-134).
+
+    ``group``: the process group that shares each batch
+    (``torch.distributed.group.WORLD`` for the default group); None, the
+    default, is this process alone, whatever group is initialised, so a
+    caller whose ranks each extract their own frames is unaffected. Over a
+    group of n ranks each
+    call takes the padded global batch of B frames (B % n == 0, else it
+    raises), runs this rank's B / n frames (``mesh.shard_batch``) and
+    returns all B features, gathered in rank order. ``fn.rank`` is this
+    rank within the group."""
     device = next(model.parameters()).device
     if use_fused is None:
         use_fused = use_fused_default(model.cfg, device)
@@ -128,35 +150,27 @@ def make_raw_feature_fn(model, d2h_dtype=torch.float16, use_fused=None, weight_q
         held = ({f"model.{k}": q_state[k] for k in scales},
                 {f"model.{k}": s for k, s in scales.items()})
 
+    rank, world = (0, 1) if group is None else mesh.rank_world(group)
+
     def to_dev(a):
-        return torch.as_tensor(a).to(device, non_blocking=True)
+        return None if a is None else torch.as_tensor(a).to(device, non_blocking=True)
 
     @torch.no_grad()
     def feature_fn(img_u8, seg_u8, flow_f16):
-        args = (to_dev(img_u8), to_dev(seg_u8),
-                None if flow_f16 is None else to_dev(flow_f16))
+        batch = (img_u8, seg_u8, flow_f16)
+        if world > 1:
+            batch = mesh.shard_batch(batch, group)
+        args = tuple(map(to_dev, batch))
         if held is None:
-            return serve(*args)
-        return torch.func.functional_call(serve, dequantize_state(*held), args)
+            feats = serve(*args)
+        else:
+            feats = torch.func.functional_call(serve, dequantize_state(*held), args)
+        return mesh.all_gather(feats, group) if world > 1 else feats
 
     feature_fn.use_fused = use_fused
     feature_fn.held = held
+    feature_fn.rank = rank
     return feature_fn
-
-
-def _pad_batch(batch: tuple, size: int) -> tuple:
-    """Zero-pad each array of a host batch (``None`` stays) along its leading
-    axis to ``size`` frames (surgical_tpu/parallel/mesh.py::pad_batch)."""
-    n = batch[0].shape[0]
-    if n == size:
-        return batch
-
-    def pad(a):
-        if isinstance(a, torch.Tensor):
-            return torch.cat([a, a.new_zeros((size - n, *a.shape[1:]))])
-        return np.pad(a, [(0, size - n)] + [(0, 0)] * (a.ndim - 1))
-
-    return tuple(None if a is None else pad(a) for a in batch)
 
 
 def _start_copy(feats: torch.Tensor, stream):
@@ -200,7 +214,7 @@ def extract_features(
         n = batch[0].shape[0]
         if n > batch_size:
             raise ValueError(f"batch of {n} frames exceeds batch_size={batch_size}")
-        feats = feature_fn(*_pad_batch(batch, batch_size))
+        feats = feature_fn(*mesh.pad_batch(tuple(batch), batch_size)[0])
         host, done = _start_copy(feats, stream)
         if pending is not None:
             drain(pending)
@@ -223,8 +237,12 @@ def extract_to_store(
     directory: str,
     meta: dict | None = None,
 ) -> tuple[FeatureStore, dict]:
-    """Extract and publish the features as a FeatureStore."""
+    """Extract and publish the features as a FeatureStore. Over a process
+    group (``feature_fn.rank``) rank 0 writes the store; the other ranks
+    return (None, stats) after the last gather."""
     total = int(np.sum(lengths))
     feats, stats = extract_features(feature_fn, batches, total, feature_dim, batch_size)
+    if getattr(feature_fn, "rank", 0) != 0:
+        return None, stats
     store = FeatureStore.create(directory, feats, lengths, meta={**(meta or {}), **stats})
     return store, stats
