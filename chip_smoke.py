@@ -149,7 +149,18 @@ nonzero without printing a result:
    at ``MSTCNConfig()`` on a 2000-frame video and ``Adaptor`` in both
    modes (max abs 1e-5); ``resize_bilinear`` (250 -> 224, 200 -> 250) and
    ``rotate`` (bit for bit); ``cli evaluate --vis`` on phase 6's txts where
-   matplotlib imports. The result line gains its numbers.
+   matplotlib imports. The result line gains its numbers;
+17. widths (``phase_widths``), what the JAX package runs beyond b3 and
+   ``MambaConfig()``: the block kernel at MiT-b0's stages 1-3 and the stage
+   kernel at its stage 4 (head width 32) at B=8 and 200 against their plain
+   versions, a 200-frame b0 extraction batch on the kernels (6 block and 1
+   stage launch) against the plain serving graph, the b0 ``OnlineSession``
+   (8 block launches per frame); the scan's forward and backward at the
+   (d_state, d_inner) of ``WIDTH_SCAN`` (2000 frames) against the plain
+   versions, with their launches; a refiner whose LayerNorms and FFN biases
+   are away from identity and zero, card against CPU and streamed against
+   offline. The kernel line's serving rows gain ``head_dims`` and a ``b0``
+   block, the scan's rows ``widths``.
 """
 
 from __future__ import annotations
@@ -365,6 +376,31 @@ DP_FP32_BOUND, DP_BF16_BOUND = 1e-5, 5e-2
 DECODE_FRAMES, DECODE_SIDE, COMPLETION_FRAMES = 64, 250, 2000
 COMPLETION_ATTN_BOUND, COMPLETION_ABS_BOUND = 1e-5, 1e-5
 
+# Phase 17 (phase_widths): the widths beyond MiT-b3 and MambaConfig() that
+# the JAX package runs. MiT-b0 (BackboneConfig.preset("b0"): widths 32 / 64 /
+# 160 / 256 over 1 / 2 / 5 / 8 heads, head width 32 at every stage, depth 2
+# per stage) at 224 px: (stage, C, heads, grid side, sr) of the block
+# kernel's stages and stage 4's (C, heads, side, depth, Cb, C4) for the stage
+# kernel; a BATCH-frame extraction batch takes 2 block launches at each of
+# stages 1-3 and one stage launch, a streamed frame 8 block launches.
+B0_STAGES = ((1, 32, 1, 56, 8), (2, 64, 2, 28, 4), (3, 160, 5, 14, 2))
+B0_STAGE4 = (256, 8, 7, 2, 64, 64)
+B0_BATCH_LAUNCHES = {"mit_block_forward": 6, "mit_stage_forward": 1}
+B0_SESSION_FRAMES, B0_SESSION_BLOCKS = 8, 8
+# The scan at these (d_state, d_inner): padded to the 32-state build (8, 16),
+# the 64-state build as MambaConfig() (64), the 128-state build (128: the
+# backward as two launches on its halves), one channel group (32 to 128
+# channels) and two (256: d_model 128); WIDTH_SCAN_T frames, one video.
+WIDTH_SCAN = ((8, 32), (16, 128), (16, 256), (64, 256), (64, 128), (128, 64))
+WIDTH_SCAN_T = 2000
+# A refiner (RefinerConfig(f_dim=2048)) whose LayerNorm scales and biases and
+# FFN biases are moved from identity and zero by 0.2 x normal draws: the
+# card against the CPU over a REFINER_T-frame video and the streaming step
+# against the offline refiner over its first REFINER_STREAM_T frames, both
+# fp32 within SESSION_LOGIT_BOUND.
+REFINER_T, REFINER_STREAM_T = 2000, 300
+REFINER_LN_BIAS = ("layernorm.weight", "layernorm.bias", "fc.0.bias", "fc.2.bias")
+
 # Peak rates of one H100 SXM (NVIDIA's data sheet, dense, at 700 W): HBM
 # bytes/s, bf16 tensor-core FLOP/s, fp32 CUDA-core FLOP/s; SFU results/s
 # from 132 SMs x 16 per clock x the 1.98 GHz boost clock.
@@ -578,6 +614,78 @@ def _compare(name, got, want, stage):
     return rel, mx
 
 
+def _block_check(rng, w, stage, heads, side, sr, b, plain: bool, bound_stage=None,
+                 tag: str = "") -> dict:
+    """The block kernel at one shape (random x, k, v of batch ``b``) against
+    its plain version within ``BOUNDS[bound_stage or stage]``; the kernel
+    timed, the plain version too with ``plain``; the bound of the work."""
+    from surgical_tpu_torch.kernels import mit_block as mb
+
+    C, hidden = w["wq"].shape[0], w["w1"].shape[1]
+    N, Nkv = side * side, (side // sr) ** 2
+    kw = dict(heads=heads, H=side, W=side)
+    x, k, v = _rand(rng, (b, N, C)), _rand(rng, (b, Nkv, C)), _rand(rng, (b, Nkv, C))
+    got = mb.fused_mit_block(x, k, v, w, **kw)
+    want = mb.fused_mit_block_plain(x, k, v, w, **kw)
+    torch.cuda.synchronize()
+    shape = f"{tag}stage{stage} [B={b}, N={N}, C={C}, heads={heads}, Nkv={Nkv}]"
+    rel, mx = _compare(f"block {shape}", got, want, bound_stage or stage)
+    del got, want
+    ms = time_ms(lambda: mb.fused_mit_block(x, k, v, w, **kw))
+    plain_ms = time_ms(lambda: mb.fused_mit_block_plain(x, k, v, w, **kw)) if plain else None
+    nbytes, flops = block_work(b, N, C, Nkv, hidden)
+    bms, by = bound_ms(nbytes, flops / BF16_FLOPS)
+    print(f"time block {tag}stage{stage} B={b}: kernel {ms:.4f} ms plain "
+          f"{'-' if plain_ms is None else f'{plain_ms:.4f}'} ms bound {bms:.4f} ms "
+          f"({by}: {nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP)")
+    return {"shape": shape, "B": b, "rel_l2": rel, "max_abs_err": mx, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by}
+
+
+def _stage_weights(rng, C, depth, Cb, C4):
+    """Random stage weights in ``stage_weights_from_params``' layout, with the
+    in-kernel prompt (lww, lwb, sharedw, sharedb) at sr = 1."""
+    sw = _block_weights(rng, C, 4 * C, lead=(depth,))
+    sw = {k: (t.reshape(depth, 1, -1) if t.dim() == 2 else t) for k, t in sw.items()}
+    sw["ln1"] = torch.stack([sw.pop("ln1_scale")[:, 0], sw.pop("ln1_bias")[:, 0]], 1)
+    sw["ln2"] = torch.stack([sw.pop("ln2_scale")[:, 0], sw.pop("ln2_bias")[:, 0]], 1)
+    sw["wkv"] = _rand(rng, (depth, C, 2 * C), C ** -0.5)
+    sw["bkv"] = _rand(rng, (depth, 1, 2 * C), 0.1)
+    sw["lww"] = _rand(rng, (depth, Cb, C4), Cb ** -0.5)
+    sw["lwb"] = _rand(rng, (depth, 1, C4), 0.1)
+    sw["sharedw"] = _rand(rng, (C4, C), C4 ** -0.5)
+    sw["sharedb"] = _rand(rng, (1, C), 0.1)
+    return {k: t.contiguous() for k, t in sw.items()}
+
+
+def _stage_check(rng, sw, heads, side, b, plain: bool, tag: str = "") -> dict:
+    """The stage kernel (stage 4, sr = 1, with the prompt base) at batch ``b``
+    against its plain version within ``BOUNDS[4]``, timed as
+    ``_block_check``."""
+    from surgical_tpu_torch.kernels import mit_block as mb
+
+    depth, C = sw["wq"].shape[:2]
+    Cb, C4 = sw["lww"].shape[1:]
+    N = side * side
+    kw = dict(heads=heads, H=side, W=side, sr=1)
+    x, base = _rand(rng, (b, N, C)), _rand(rng, (b, N, Cb))
+    got = mb.fused_mit_stage(x, base, sw, **kw)
+    want = mb.fused_mit_stage_plain(x, base, sw, **kw)
+    torch.cuda.synchronize()
+    shape = f"{tag}stage4 [B={b}, N={N}, C={C}, heads={heads}, depth={depth}, base]"
+    rel, mx = _compare(shape, got, want, 4)
+    del got, want
+    ms = time_ms(lambda: mb.fused_mit_stage(x, base, sw, **kw))
+    plain_ms = time_ms(lambda: mb.fused_mit_stage_plain(x, base, sw, **kw)) if plain else None
+    nbytes, flops = stage_work(b, N, C, 4 * C, depth, Cb, C4)
+    bms, by = bound_ms(nbytes, flops / BF16_FLOPS)
+    print(f"time {tag}stage4 B={b}: kernel {ms:.4f} ms plain "
+          f"{'-' if plain_ms is None else f'{plain_ms:.4f}'} ms bound {bms:.4f} ms "
+          f"({by}: {nbytes / 1e6:.2f} MB, {flops / 1e9:.2f} GFLOP)")
+    return {"shape": shape, "B": b, "rel_l2": rel, "max_abs_err": mx, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by}
+
+
 def phase_kernel_checks() -> dict:
     """The serving kernels at B = CHECK_B (checked, timed, the plain version
     timed too) and at the main path's B = BATCH (checked and timed): the
@@ -592,29 +700,10 @@ def phase_kernel_checks() -> dict:
     block_rows, block_rows_main = [], []
     # (stage, C, heads, grid, sr): b3 at 224x224; Nkv = 49 at every stage
     for stage, C, heads, side, sr in ((1, 64, 1, 56, 8), (2, 128, 2, 28, 4), (3, 320, 5, 14, 2)):
-        N, Nkv, hidden = side * side, (side // sr) ** 2, 4 * C
-        w = _block_weights(rng, C, hidden)
-        kw = dict(heads=heads, H=side, W=side)
+        w = _block_weights(rng, C, 4 * C)
         for b, rows in ((B, block_rows), (BATCH, block_rows_main)):
-            x, k, v = _rand(rng, (b, N, C)), _rand(rng, (b, Nkv, C)), _rand(rng, (b, Nkv, C))
-            got = mb.fused_mit_block(x, k, v, w, **kw)
-            want = mb.fused_mit_block_plain(x, k, v, w, **kw)
-            torch.cuda.synchronize()
-            shape = f"stage{stage} [B={b}, N={N}, C={C}, heads={heads}]"
-            rel, mx = _compare(f"block {shape}", got, want, stage)
-            del got, want
-            ms = time_ms(lambda: mb.fused_mit_block(x, k, v, w, **kw))
             # the plain version repeats the kernel's arithmetic: timed at CHECK_B only
-            plain_ms = (time_ms(lambda: mb.fused_mit_block_plain(x, k, v, w, **kw))
-                        if b == B else None)
-            nbytes, flops = block_work(b, N, C, Nkv, hidden)
-            bms, by = bound_ms(nbytes, flops / BF16_FLOPS)
-            print(f"time block stage{stage} B={b}: kernel {ms:.4f} ms plain "
-                  f"{'-' if plain_ms is None else f'{plain_ms:.4f}'} ms bound {bms:.4f} ms "
-                  f"({by}: {nbytes / 1e6:.2f} MB, {flops / 1e9:.2f} GFLOP)")
-            rows.append({"shape": shape, "rel_l2": rel, "max_abs_err": mx, "ms": ms,
-                         "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by})
-            del x, k, v
+            rows.append(_block_check(rng, w, stage, heads, side, sr, b, plain=b == B))
     res["block"], res["block_main"] = block_rows, block_rows_main
 
     # packed2 at b3 stage 1: image pairs in 128-wide rows, the packed
@@ -658,37 +747,9 @@ def phase_kernel_checks() -> dict:
     res["packed2"] = packed_rows
 
     C, heads, side, depth, Cb, C4 = 512, 8, 7, 3, 128, 128
-    N = side * side
-    sw = _block_weights(rng, C, 4 * C, lead=(depth,))
-    sw = {k: (t.reshape(depth, 1, -1) if t.dim() == 2 else t) for k, t in sw.items()}
-    sw["ln1"] = torch.stack([sw.pop("ln1_scale")[:, 0], sw.pop("ln1_bias")[:, 0]], 1)
-    sw["ln2"] = torch.stack([sw.pop("ln2_scale")[:, 0], sw.pop("ln2_bias")[:, 0]], 1)
-    sw["wkv"] = _rand(rng, (depth, C, 2 * C), C ** -0.5)
-    sw["bkv"] = _rand(rng, (depth, 1, 2 * C), 0.1)
-    sw["lww"] = _rand(rng, (depth, Cb, C4), Cb ** -0.5)
-    sw["lwb"] = _rand(rng, (depth, 1, C4), 0.1)
-    sw["sharedw"] = _rand(rng, (C4, C), C4 ** -0.5)
-    sw["sharedb"] = _rand(rng, (1, C), 0.1)
-    sw = {k: t.contiguous() for k, t in sw.items()}
-    kw = dict(heads=heads, H=side, W=side, sr=1)
-    for b in (B, BATCH):
-        x, base = _rand(rng, (b, N, C)), _rand(rng, (b, N, Cb))
-        got = mb.fused_mit_stage(x, base, sw, **kw)
-        want = mb.fused_mit_stage_plain(x, base, sw, **kw)
-        torch.cuda.synchronize()
-        shape = f"stage4 [B={b}, N={N}, C={C}, heads={heads}, depth={depth}, base]"
-        rel, mx = _compare(shape, got, want, 4)
-        ms = time_ms(lambda: mb.fused_mit_stage(x, base, sw, **kw))
-        plain_ms = time_ms(lambda: mb.fused_mit_stage_plain(x, base, sw, **kw)) if b == B else None
-        nbytes, flops = stage_work(b, N, C, 4 * C, depth, Cb, C4)
-        bms, by = bound_ms(nbytes, flops / BF16_FLOPS)
-        print(f"time stage4 B={b}: kernel {ms:.4f} ms plain "
-              f"{'-' if plain_ms is None else f'{plain_ms:.4f}'} ms bound {bms:.4f} ms "
-              f"({by}: {nbytes / 1e6:.2f} MB, {flops / 1e9:.2f} GFLOP)")
-        res["stage" if b == B else "stage_main"] = {
-            "shape": shape, "rel_l2": rel, "max_abs_err": mx, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bms, "bound_by": by}
-        del x, base, got, want
+    sw = _stage_weights(rng, C, depth, Cb, C4)
+    res["stage"], res["stage_main"] = (_stage_check(rng, sw, heads, side, b, plain=b == B)
+                                       for b in (B, BATCH))
 
     # the streaming session's shapes (phase_online_session): the block at
     # B = 1 on every b3 stage, stage 4 block by block (49 rows: under one
@@ -698,27 +759,10 @@ def phase_kernel_checks() -> dict:
     # 3's bounds (BOUNDS[4] is the stage kernel's); both versions timed.
     session_rows = []
     for stage, C, heads, side, sr in TRAIN_STAGES:
-        N, Nkv, hidden = side * side, (side // sr) ** 2, 4 * C
-        w = _block_weights(rng, C, hidden)
-        kw = dict(heads=heads, H=side, W=side)
+        w = _block_weights(rng, C, 4 * C)
         for b in ((1, B) if stage == 4 else (1,)):
-            x, k, v = _rand(rng, (b, N, C)), _rand(rng, (b, Nkv, C)), _rand(rng, (b, Nkv, C))
-            got = mb.fused_mit_block(x, k, v, w, **kw)
-            want = mb.fused_mit_block_plain(x, k, v, w, **kw)
-            torch.cuda.synchronize()
-            shape = f"stage{stage} [B={b}, N={N}, C={C}, heads={heads}, Nkv={Nkv}]"
-            rel, mx = _compare(f"block {shape}", got, want, min(stage, 3))
-            del got, want
-            ms = time_ms(lambda: mb.fused_mit_block(x, k, v, w, **kw))
-            plain_ms = time_ms(lambda: mb.fused_mit_block_plain(x, k, v, w, **kw))
-            nbytes, flops = block_work(b, N, C, Nkv, hidden)
-            bms, by = bound_ms(nbytes, flops / BF16_FLOPS)
-            print(f"time block stage{stage} B={b}: kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
-                  f"bound {bms:.4f} ms ({by}: {nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP)")
-            session_rows.append({"shape": shape, "B": b, "rel_l2": rel, "max_abs_err": mx,
-                                 "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
-                                 "bound_by": by})
-            del x, k, v
+            session_rows.append(_block_check(rng, w, stage, heads, side, sr, b, plain=True,
+                                             bound_stage=min(stage, 3)))
     res["block_session"] = session_rows
     return res
 
@@ -1225,7 +1269,8 @@ def phase_slice(workdir: str) -> dict:
 
 
 def phase_online_session(device: str = "cuda", cfg=None, head_cfg=None, size: int = 224,
-                         frames: int = SESSION_FRAMES, batch: int = CHECK_B) -> dict:
+                         frames: int = SESSION_FRAMES, batch: int = CHECK_B,
+                         blocks: int = SESSION_BLOCKS) -> dict:
     """The frame-in / phase-out streaming session at b3 widths
     (``BackboneConfig()`` with flow, ``HeadConfig()``): seeded models, wire
     frames (u8 frames and segmaps, f16 flow) through ``OnlineSession.step``
@@ -1240,7 +1285,9 @@ def phase_online_session(device: str = "cuda", cfg=None, head_cfg=None, size: in
     at ``batch`` (the stage kernel's route) and the argmax agreement of the
     logits there; the device operations of each leg; then the refusal of a
     frame without flow. ``cfg``, ``head_cfg``, ``size`` and ``device`` size
-    it down for a rehearsal on the CPU, where nothing is timed or counted."""
+    it down for a rehearsal on the CPU, where nothing is timed or counted;
+    ``cfg`` and ``blocks`` (block launches per frame: the backbone's depth)
+    run it at another MiT size on the card."""
     from surgical_tpu_torch.core.config import (BackboneConfig, HeadConfig, MambaConfig,
                                                 MSTCNConfig, RefinerConfig)
     from surgical_tpu_torch.kernels import mit_block as mb
@@ -1276,8 +1323,8 @@ def phase_online_session(device: str = "cuda", cfg=None, head_cfg=None, size: in
     feats_b, _ = extract_features(feature_fn, (tuple(a[i:i + batch] for a in wire)
                                                for i in range(0, frames, batch)),
                                   frames, f_dim, batch)
-    print(f"session: b3 models + {frames} wire frames at {size} px, offline extraction at "
-          f"batch 1 and {batch}, in {time.perf_counter() - t0:.2f} s")
+    print(f"session: {cfg.variant} models + {frames} wire frames at {size} px, offline "
+          f"extraction at batch 1 and {batch}, in {time.perf_counter() - t0:.2f} s")
 
     res = {}
     for name, temporal, ref in (("mstcn+refiner", OnlineMSTCN(mstcn), OnlineRefiner(refiner)),
@@ -1294,7 +1341,7 @@ def phase_online_session(device: str = "cuda", cfg=None, head_cfg=None, size: in
             step_ms.append((time.perf_counter() - t1) * 1e3)
         launches = {"mit_block_forward": mb.fused_mit_block.launches,
                     "mit_stage_forward": mb.fused_mit_stage.launches}
-        want = {"mit_block_forward": SESSION_BLOCKS * frames, "mit_stage_forward": 0}
+        want = {"mit_block_forward": blocks * frames, "mit_stage_forward": 0}
         print(f"session {name}: launches over {frames} frames {launches} (expected {want})")
         if cuda and launches != want:
             raise AssertionError("the session did not launch the block kernel as expected")
@@ -3270,6 +3317,161 @@ def phase_completion(workdir: str, smi: str, device: str = "cuda", cfg=None, hea
     return res
 
 
+def _scan_width_check(rng, N, D, T) -> dict:
+    """The scan's forward and backward at (d_state N, d_inner D) against
+    their plain versions (SCAN_BOUNDS, SCAN_BWD_BOUNDS), each wrapper's
+    launches counted over one call of each; kernel, plain and bound times."""
+    from surgical_tpu_torch.kernels import selective_scan as ss
+
+    args = scan_inputs(rng, 1, T, D, N)
+    dy = torch.from_numpy(rng.standard_normal((1, T, D)).astype(np.float32)).cuda()
+    torch.cuda.synchronize()
+    ss.reset_launches()
+    y, states = ss.selective_scan_forward(*args, states=True)
+    grads = ss.selective_scan_backward(*args, dy, states)
+    torch.cuda.synchronize()
+    launches = {"forward": ss.selective_scan.launches,
+                "backward": ss.selective_scan_backward.launches}
+    want_launches = {"forward": 1, "backward": 2 if ss.kernel_state(N) == 128 else 1}
+    shape = f"[Bt=1, T={T}, D={D}, N={N}]"
+    width = ss.kernel_state(N)
+    print(f"widths scan {shape}: state width {width}, backward cluster layout "
+          f"{ss.backward_layout(-(-D // 4) * 4)} (CTAs per cluster, channel groups), launches "
+          f"{launches} (expected {want_launches})")
+    if launches != want_launches:
+        raise AssertionError(f"selective_scan {shape}: launches {launches}")
+    want = ss.selective_scan_plain(*args)
+    rel, mx, scale = _errors(f"scan {shape}", y, want)
+    ok = rel <= SCAN_BOUNDS[0] and mx <= SCAN_BOUNDS[1]
+    print(f"check scan {shape}: rel_l2 {rel:.3e} (bound {SCAN_BOUNDS[0]}) max_abs {mx:.3e} "
+          f"(bound {SCAN_BOUNDS[1]}) max|plain| {scale:.3e} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"selective_scan {shape}: kernel disagrees with its plain version")
+    worst_rel, worst_abs = 0.0, 0.0
+    for name, g, w in zip(SCAN_GRADS, grads, ss.selective_scan_plain_backward(*args, dy)):
+        rel_g, mx_g, scale_g = _errors(f"scan d{name} {shape}", g, w)
+        ok = rel_g <= SCAN_BWD_BOUNDS[0] and mx_g <= SCAN_BWD_BOUNDS[1] * scale_g
+        worst_rel, worst_abs = max(worst_rel, rel_g), max(worst_abs, mx_g)
+        print(f"check scan backward d{name} {shape} vs plain: rel_l2 {rel_g:.3e} (bound "
+              f"{SCAN_BWD_BOUNDS[0]}) max_abs {mx_g:.3e} (bound {SCAN_BWD_BOUNDS[1]} x "
+              f"{scale_g:.3e}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"selective_scan_backward d{name} {shape} disagrees")
+    del grads, want
+    ms = time_ms(lambda: ss.selective_scan(*args))
+    plain_ms = time_ms(lambda: ss.selective_scan_plain(*args), reps=3)
+    bwd_ms = time_ms(lambda: ss.selective_scan_backward(*args, dy, states))
+    bwd_plain_ms = time_ms(lambda: ss.selective_scan_plain_backward(*args, dy), reps=3)
+    nbytes, op_s = scan_work(1, T, D, N)
+    bms, by = bound_ms(nbytes, op_s)
+    nbytes_b, op_b = scan_bwd_work(1, T, D, N)
+    bms_b, by_b = bound_ms(nbytes_b, op_b)
+    print(f"time scan {shape}: kernel {ms:.4f} ms plain {plain_ms:.4f} ms bound {bms:.4f} ms "
+          f"({by}) | backward kernel {bwd_ms:.4f} ms plain {bwd_plain_ms:.4f} ms bound "
+          f"{bms_b:.4f} ms ({by_b})")
+    return {"shape": shape, "N": N, "D": D, "T": T, "state_width": width,
+            "launches": launches, "rel_l2": rel, "max_abs_err": mx, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+            "bwd": {"rel_l2": worst_rel, "max_abs_err": worst_abs, "ms": bwd_ms,
+                    "plain_ms": bwd_plain_ms, "bound_ms": bms_b, "bound_by": by_b}}
+
+
+def phase_widths(workdir: str) -> dict:
+    """Phase 17: the serving kernels at head width 32 (MiT-b0), b0 extraction
+    and the b0 session on them, the scan at WIDTH_SCAN, and a refiner with
+    LayerNorms and FFN biases away from identity (the constants above)."""
+    import surgical_tpu_torch.models.mit_fused as mf
+    from surgical_tpu_torch.core.config import BackboneConfig, HeadConfig, RefinerConfig
+    from surgical_tpu_torch.kernels import mit_block as mb
+    from surgical_tpu_torch.models.mit_evp import MiTEVP
+    from surgical_tpu_torch.models.transsv import RefinementTransformer
+    from surgical_tpu_torch.serving.online import OnlineRefiner
+    from surgical_tpu_torch.train.extract import extract_features, make_raw_feature_fn
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED + 40)
+    res = {"head_dims": list(mb.SERVING_HEAD_DIMS), "block": []}
+    for stage, C, heads, side, sr in B0_STAGES:
+        w = _block_weights(rng, C, 4 * C)
+        for b in (CHECK_B, BATCH):
+            res["block"].append(_block_check(rng, w, stage, heads, side, sr, b,
+                                             plain=b == CHECK_B, tag="b0 "))
+    C, heads, side, depth, Cb, C4 = B0_STAGE4
+    sw = _stage_weights(rng, C, depth, Cb, C4)
+    res["stage"] = [_stage_check(rng, sw, heads, side, b, plain=b == CHECK_B, tag="b0 ")
+                    for b in (CHECK_B, BATCH)]
+
+    # b0 extraction: one BATCH-frame wire batch on the kernels, then the same
+    # batch through the kernels' plain versions
+    cfg = BackboneConfig.preset("b0")
+    backbone = MiTEVP(cfg, HeadConfig(), seed=SEED + 41, device="cuda")
+    batch = (rng.integers(0, 256, (BATCH, 224, 224, 3), dtype=np.uint8),
+             rng.integers(0, 256, (BATCH, 224, 224, 1), dtype=np.uint8),
+             rng.standard_normal((BATCH, 224, 224, 2), dtype=np.float32).astype(np.float16))
+    feature_fn = make_raw_feature_fn(backbone)
+    feature_fn(*batch)  # warm-up
+    torch.cuda.synchronize()
+    mb.reset_launches()
+    feats, st = extract_features(feature_fn, iter([batch]), BATCH, HeadConfig().embedding_dim,
+                                 BATCH)
+    torch.cuda.synchronize()
+    launches = {"mit_block_forward": mb.fused_mit_block.launches,
+                "mit_stage_forward": mb.fused_mit_stage.launches}
+    print(f"widths b0 extraction: {BATCH} frames at {st['fps']:.1f} frames/s, launches per "
+          f"batch {launches} (expected {B0_BATCH_LAUNCHES})")
+    if launches != B0_BATCH_LAUNCHES:
+        raise AssertionError("b0 extraction did not launch the kernels as expected")
+    saved = (mf.fused_mit_block, mf.fused_mit_stage)
+    mf.fused_mit_block, mf.fused_mit_stage = mb.fused_mit_block_plain, mb.fused_mit_stage_plain
+    try:
+        plain = feature_fn(*batch).float()
+    finally:
+        mf.fused_mit_block, mf.fused_mit_stage = saved
+    cos = torch.nn.functional.cosine_similarity(torch.tensor(feats, device="cuda"), plain,
+                                                dim=-1)
+    print(f"widths b0 extraction: per-frame cosine kernel vs plain features min "
+          f"{cos.min().item():.6f} median {cos.median().item():.6f} (bound {COSINE_BOUND})")
+    if not np.isfinite(feats).all() or cos.min().item() < COSINE_BOUND:
+        raise AssertionError("b0 kernel-path features disagree with the plain path")
+    res["extraction"] = {"launches": launches, "fps": st["fps"], "cos_min": cos.min().item()}
+    del backbone, feature_fn, plain
+
+    session = phase_online_session(cfg=cfg, frames=B0_SESSION_FRAMES,
+                                   blocks=B0_SESSION_BLOCKS)
+    res["session"] = {name: {"launches_per_frame": {k: v // B0_SESSION_FRAMES
+                                                    for k, v in row["launches"].items()},
+                             "ms_per_frame": row["ms_per_frame"]}
+                      for name, row in session.items()}
+
+    res["scan"] = [_scan_width_check(rng, N, D, WIDTH_SCAN_T) for N, D in WIDTH_SCAN]
+
+    # the refiner with JAX's parameter set, away from its init
+    refiner = RefinementTransformer(RefinerConfig(f_dim=2048), seed=SEED + 42, device="cpu")
+    with torch.no_grad():
+        moved = [n for n, p in refiner.named_parameters() if n.endswith(REFINER_LN_BIAS)]
+        for n, p in refiner.named_parameters():
+            if n in moved:
+                p.add_(torch.from_numpy(0.2 * rng.standard_normal(p.shape).astype(np.float32)))
+    card = copy.deepcopy(refiner).to("cuda")
+    g = torch.from_numpy(rng.standard_normal((REFINER_T, 14)).astype(np.float32))
+    lfb = torch.from_numpy(rng.standard_normal((REFINER_T, 2048)).astype(np.float32))
+    with torch.no_grad():
+        want, got = refiner(g, lfb), card(g.cuda(), lfb.cuda())
+    stream = OnlineRefiner(card).run(g[:REFINER_STREAM_T].cuda(), lfb[:REFINER_STREAM_T].cuda())
+    err = (got.cpu() - want).abs().max().item()
+    err_stream = (stream - got[:REFINER_STREAM_T]).abs().max().item()
+    print(f"widths refiner: {len(moved)} LayerNorm / FFN-bias tensors moved from identity and "
+          f"zero; card vs CPU max abs {err:.3e}, streamed vs offline on the card "
+          f"({REFINER_STREAM_T} frames) {err_stream:.3e} (bound {SESSION_LOGIT_BOUND})")
+    if not torch.isfinite(got).all() or max(err, err_stream) > SESSION_LOGIT_BOUND:
+        raise AssertionError("the refiner with trained LayerNorms and biases disagrees")
+    res["refiner"] = {"moved_tensors": len(moved), "card_vs_cpu": err, "stream_vs_offline":
+                      err_stream}
+    res["seconds"] = time.perf_counter() - t0
+    print(f"widths: phase 17 in {res['seconds']:.2f} s")
+    return res
+
+
 def main() -> int:
     smi = phase_toolchain()
     phase_build()
@@ -3292,7 +3494,20 @@ def main() -> int:
         mr = phase_multirank(workdir, cl)
         # phase 16 reads phase 6's txts, so it runs before the work dir goes
         done = phase_completion(workdir, smi)
+        wd = phase_widths(workdir)
     blk, stg, pk = checks["block"], checks["stage"], checks["packed2"]
+
+    def widths_row(rows, name):  # a serving kernel's b0 numbers: CHECK_B and BATCH sums
+        at = lambda b: [r for r in rows if r["B"] == b]
+        return {"ms": summed(at(CHECK_B), "ms"), "plain_ms": summed(at(CHECK_B), "plain_ms"),
+                "bound_ms": summed(at(CHECK_B), "bound_ms"),
+                f"ms_b{BATCH}": summed(at(BATCH), "ms"),
+                f"bound_ms_b{BATCH}": summed(at(BATCH), "bound_ms"),
+                "max_abs_err": max(r["max_abs_err"] for r in rows),
+                "launches_per_batch": wd["extraction"]["launches"][name],
+                "launches_per_frame": wd["session"]["mstcn+refiner"]["launches_per_frame"][name],
+                "shapes": rows}
+
     blk_main, stg_main = checks["block_main"], checks["stage_main"]
     blk_b1 = [r for r in checks["block_session"] if r["B"] == 1]
     main_scan = [r for r in scan if r["shape"].startswith("[Bt=1,") and r["T"] in TEST_LENGTHS]
@@ -3320,6 +3535,7 @@ def main() -> int:
          "ms_b1": summed(blk_b1, "ms"), "plain_ms_b1": summed(blk_b1, "plain_ms"),
          "bound_ms_b1": summed(blk_b1, "bound_ms"),
          "max_abs_err_b1": max(r["max_abs_err"] for r in blk_b1),
+         "head_dims": wd["head_dims"], "b0": widths_row(wd["block"], "mit_block_forward"),
          "shapes": blk + blk_main + checks["block_session"]},
         {"name": "mit_block_packed2_forward", "route": "cuda", "source": SOURCE,
          "replaces": "surgical_tpu/kernels/mit_block.py:801",
@@ -3340,6 +3556,7 @@ def main() -> int:
          "bound_ms": stg["bound_ms"], "bound_by": stg["bound_by"], "library_ms": None,
          f"ms_b{BATCH}": stg_main["ms"], f"bound_ms_b{BATCH}": stg_main["bound_ms"],
          f"max_abs_err_b{BATCH}": stg_main["max_abs_err"], "hgmma": n_hgmma,
+         "head_dims": wd["head_dims"], "b0": widths_row(wd["stage"], "mit_stage_forward"),
          "shapes": [stg, stg_main]},
         {"name": "selective_scan_forward", "route": "cuda", "source": SCAN_SOURCE,
          "replaces": "surgical_tpu/kernels/selective_scan.py:130",
@@ -3349,6 +3566,11 @@ def main() -> int:
          "ms": summed(main_scan, "ms"), "plain_ms": summed(main_scan, "plain_ms"),
          "bound_ms": summed(main_scan, "bound_ms"), "bound_by": by(main_scan),
          "library_ms": None, "device_ops_per_call": max(r["device_ops"] for r in scan),
+         "d_states": [r["N"] for r in wd["scan"]], "d_inners": [r["D"] for r in wd["scan"]],
+         "widths": [{"launches": r["launches"]["forward"],
+                     **{k: r[k] for k in ("shape", "state_width", "max_abs_err", "ms",
+                                          "plain_ms", "bound_ms", "bound_by")}}
+                    for r in wd["scan"]],
          "shapes": scan},
     ]
     bwd_main = [r for r in scan_bwd["shapes"] if "ms" in r]
@@ -3362,6 +3584,8 @@ def main() -> int:
         "bound_ms": summed(bwd_main, "bound_ms"), "bound_by": by(bwd_main), "library_ms": None,
         "device_ops_per_call": max(r["device_ops"] for r in bwd_main),
         "step_ms": tt["step_ms"], "resources": scan_bwd["resources"],
+        "widths": [{"shape": r["shape"], "launches": r["launches"]["backward"], **r["bwd"]}
+                   for r in wd["scan"]],
         "shapes": scan_bwd["shapes"]})
     for name, line, key in (("mit_block_train_forward", 1645, "forward"),
                             ("mit_block_train_mlp_backward", 1695, "mlp_backward"),
@@ -3392,8 +3616,10 @@ def main() -> int:
                                "device_ops_per_pair")}
     multirank = {"backend": mr["backend"], "seconds": mr["seconds"],
                  "cli_launches_per_rank": mr["cli_launches"]}
+    widths = {"b0_extraction": wd["extraction"], "b0_session": wd["session"],
+              "refiner": wd["refiner"], "seconds": wd["seconds"]}
     print(json.dumps({"kernels": kernels, "online_session": session, "raft": raft,
-                      "multirank": multirank, "completion": done}))
+                      "multirank": multirank, "completion": done, "widths": widths}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -68,7 +68,12 @@
 namespace {
 
 constexpr int LN_MAX_K = 512;  // a LayerNorm row is held in registers
-constexpr int HD = 64, MAX_KV = 64;  // head width; keys per head at most
+constexpr int MAX_KV = 64;     // keys per head at most
+// The serving attention (attention_tc_kernel) takes the head width as a
+// template parameter, built at the two widths of the published MiT sizes:
+// 32 (b0) and 64 (b1-b5). packed2's images are 64 channels wide (one head),
+// and the training attention backward is built at head width 64 only.
+constexpr int PACK_C = 64, ABW_HD = 64;
 
 // A prologue on the A operand of wgmma_linear's resident panel: none,
 // LayerNorm, the row scale bf16(A * rowscale[row / mrows]), or LayerNorm
@@ -414,13 +419,13 @@ __device__ __forceinline__ float to_f32(bf16 v) { return bf2f(v); }
 // bf16(LayerNorm of each K/2-wide half) in place for panel rows row0 ..
 // row0 + 15, by one warp, with scale g [K] and bias b [K] (fp32 for packed2's
 // LN1, bf16 for its LN2): the lane-packed rows of packed2
-// (mit_block.py::_ln_packed2), K = 2 HD = 128. A row is held by 16 lanes
+// (mit_block.py::_ln_packed2), K = 2 PACK_C = 128. A row is held by 16 lanes
 // (one 16-byte chunk each), each half by 8 of them; values round to bf16
 // where the Pallas body's xln does.
 template <typename T>
 __device__ __forceinline__ void gln_panel_rows(unsigned char* panel, int row0, const T* g,
                                                const T* b, int lane) {
-  constexpr int K = 2 * HD, L = K / 8, G = L / 2, PER = 32 / L;
+  constexpr int K = 2 * PACK_C, L = K / 8, G = L / 2, PER = 32 / L;
   const int ch = lane % L;
 #pragma unroll
   for (int it = 0; it < 16 / PER; ++it) {
@@ -691,7 +696,7 @@ int wg_linear(cudaStream_t s, const int* plan, const bf16* A, const bf16* Bw, co
       (PRO != Pro::kPlain && !resident) || (PRO == Pro::kRowScale && rowscale == nullptr) ||
       plan[3] != (M + WG_BM - 1) / WG_BM || plan[4] != (ntiles + tpc - 1) / tpc ||
       smem != wg_smem_bytes(K, bn, resident) || smem > SMEM_LIMIT || K % 8 || N % 8 || mrows < 1 ||
-      (PRO == Pro::kGroupLN && (K != 2 * HD || (lnf == nullptr && (ln_g == nullptr ||
+      (PRO == Pro::kGroupLN && (K != 2 * PACK_C || (lnf == nullptr && (ln_g == nullptr ||
                                                                      ln_b == nullptr)))))
     return bad;
   CUtensorMap ta, tb;
@@ -714,18 +719,23 @@ int wg_linear(cudaStream_t s, const int* plan, const bf16* A, const bf16* Bw, co
 
 // ---------------------------------------------- attention_tc_kernel ----
 // Softmax attention of one (image, head) per blockIdx.y over its Nkv <= 64
-// keys, on the tensor cores (mma.sync m16n8k16, bf16 in, fp32 accumulate).
+// keys, on the tensor cores (mma.sync m16n8k16, bf16 in, fp32 accumulate),
+// at head width HD (32 or 64: the k-steps of S = q K^T and the column
+// blocks of ctx = P V follow it, the key blocks do not).
 // K_h and V_h are staged once per CTA in shared memory as bf16, zero-padded
 // to MAX_KV keys; the CTA then walks `tiles_per_cta` query tiles of 64 rows,
 // 16 rows per warp: S = q_h K_h^T in registers, the fp32 softmax with keys
 // past Nkv masked, P rounded to bf16 (mit_block.py:163) and fed from the
 // same registers as the A operand of ctx = P V_h, ctx rounded to bf16.
-constexpr int TC_THREADS = 128, TC_ROWS = 64, TC_LD = HD + 8;  // padded rows: no bank conflicts
+constexpr int TC_THREADS = 128, TC_ROWS = 64;
 
+template <int HD>
 __global__ void __launch_bounds__(TC_THREADS)
     attention_tc_kernel(const bf16* __restrict__ q, int ldq, const bf16* __restrict__ k,
                         const bf16* __restrict__ v, int ldkv, bf16* __restrict__ ctx, int ldc,
                         int N, int Nkv, int heads, int tiles_per_cta, float scale) {
+  static_assert(HD % 16 == 0 && HD <= 64, "k-steps and column blocks of 16");
+  constexpr int TC_LD = HD + 8;  // padded rows: no bank conflicts (80 or 144 bytes)
   __shared__ __align__(16) bf16 Ks[MAX_KV][TC_LD];
   __shared__ __align__(16) bf16 Vs[MAX_KV][TC_LD];
   __shared__ __align__(16) bf16 Qs[TC_THREADS / 32][16][TC_LD];  // q rows, then ctx rows
@@ -837,14 +847,23 @@ __global__ void __launch_bounds__(TC_THREADS)
   }
 }
 
-// plan = [tiles_per_cta, grid_x, grid_y] (kernels/mit_block.py::attention_plan)
+// plan = [tiles_per_cta, grid_x, grid_y] (kernels/mit_block.py::attention_plan);
+// the head width C / heads must be 32 or 64.
 int attention_tc(cudaStream_t s, const int* plan, const bf16* q, const bf16* k, const bf16* v,
                  int ldkv, bf16* ctx, int B, int N, int Nkv, int C, int heads) {
   const int tpc = plan[0], qtiles = (N + TC_ROWS - 1) / TC_ROWS;
-  if (tpc < 1 || Nkv > MAX_KV || plan[1] != (qtiles + tpc - 1) / tpc || plan[2] != B * heads)
+  const int hd = heads > 0 ? C / heads : 0;
+  if (tpc < 1 || Nkv > MAX_KV || plan[1] != (qtiles + tpc - 1) / tpc || plan[2] != B * heads ||
+      hd * heads != C || (hd != 32 && hd != 64))
     return (int)cudaErrorInvalidValue;
-  attention_tc_kernel<<<dim3(plan[1], plan[2]), TC_THREADS, 0, s>>>(
-      q, C, k, v, ldkv, ctx, C, N, Nkv, heads, tpc, 1.0f / sqrtf((float)HD));
+  const dim3 grid(plan[1], plan[2]);
+  const float scale = 1.0f / sqrtf((float)hd);
+  if (hd == 32)
+    attention_tc_kernel<32><<<grid, TC_THREADS, 0, s>>>(q, C, k, v, ldkv, ctx, C, N, Nkv, heads,
+                                                        tpc, scale);
+  else
+    attention_tc_kernel<64><<<grid, TC_THREADS, 0, s>>>(q, C, k, v, ldkv, ctx, C, N, Nkv, heads,
+                                                        tpc, scale);
   return (int)cudaGetLastError();
 }
 
@@ -870,7 +889,7 @@ int attention_tc(cudaStream_t s, const int* plan, const bf16* q, const bf16* k, 
 // part [gridDim.x][2][B*Nkv*C], which dkv_reduce_kernel sums in split order
 // and rounds. No atomics: dk and dv are the same from run to run. Operands
 // round where the Pallas body rounds them, so only summation order differs.
-constexpr int ABW_THREADS = 128, ABW_ROWS = 64, ABW_LD = HD + 8;  // padded rows
+constexpr int ABW_THREADS = 128, ABW_ROWS = 64, ABW_LD = ABW_HD + 8;  // padded rows
 constexpr int ABW_MIN_CTAS = 3;  // CTAs per SM the register budget keeps resident
 
 struct AbwSmem {
@@ -890,17 +909,17 @@ __global__ void __launch_bounds__(ABW_THREADS, ABW_MIN_CTAS)
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
   const int b = blockIdx.y / heads, h = blockIdx.y % heads;
   const uint4 zero8 = make_uint4(0, 0, 0, 0);
-  for (int idx = tid; idx < MAX_KV * HD / 8; idx += ABW_THREADS) {
-    const int j = idx / (HD / 8), d = (idx % (HD / 8)) * 8;
-    const size_t off = ((size_t)b * Nkv + j) * C + h * HD + d;
+  for (int idx = tid; idx < MAX_KV * ABW_HD / 8; idx += ABW_THREADS) {
+    const int j = idx / (ABW_HD / 8), d = (idx % (ABW_HD / 8)) * 8;
+    const size_t off = ((size_t)b * Nkv + j) * C + h * ABW_HD + d;
     store8(&sm.K[j][d], j < Nkv ? load8(k + off) : zero8);
     store8(&sm.V[j][d], j < Nkv ? load8(v + off) : zero8);
   }
 
   // dk and dv of keys 16 warp + g (+ 8), head dims 8 nb + 2 t (+ 1)
-  float adk[HD / 8][4], adv[HD / 8][4];
+  float adk[ABW_HD / 8][4], adv[ABW_HD / 8][4];
 #pragma unroll
-  for (int nb = 0; nb < HD / 8; ++nb)
+  for (int nb = 0; nb < ABW_HD / 8; ++nb)
 #pragma unroll
     for (int e = 0; e < 4; ++e) adk[nb][e] = adv[nb][e] = 0.f;
 
@@ -910,9 +929,9 @@ __global__ void __launch_bounds__(ABW_THREADS, ABW_MIN_CTAS)
   // one commit group per tile: its q and dctx rows into buffer `buf`, zeros
   // past N
   auto load_tile = [&](int tile, int buf) {
-    for (int idx = tid; idx < ABW_ROWS * HD / 8; idx += ABW_THREADS) {
-      const int r = idx / (HD / 8), d = (idx % (HD / 8)) * 8, row = tile * ABW_ROWS + r;
-      const size_t off = row < N ? ((size_t)b * N + row) * C + h * HD + d : 0;
+    for (int idx = tid; idx < ABW_ROWS * ABW_HD / 8; idx += ABW_THREADS) {
+      const int r = idx / (ABW_HD / 8), d = (idx % (ABW_HD / 8)) * 8, row = tile * ABW_ROWS + r;
+      const size_t off = row < N ? ((size_t)b * N + row) * C + h * ABW_HD + d : 0;
       cp_async16(smem_addr(&sm.Q[buf][r][d]), q + off, row < N);
       cp_async16(smem_addr(&sm.D[buf][r][d]), dctx + off, row < N);
     }
@@ -938,7 +957,7 @@ __global__ void __launch_bounds__(ABW_THREADS, ABW_MIN_CTAS)
 #pragma unroll
       for (int e = 0; e < 4; ++e) sc[nb][e] = dp[nb][e] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
+    for (int kk = 0; kk < ABW_HD / 16; ++kk) {
       uint32_t qa[4], da[4];
       ldmatrix_x4(qa, smem_addr(&Qs[wr + (lane & 15)][16 * kk + (lane >> 4) * 8]));
       ldmatrix_x4(da, smem_addr(&Ds[wr + (lane & 15)][16 * kk + (lane >> 4) * 8]));
@@ -1016,22 +1035,22 @@ __global__ void __launch_bounds__(ABW_THREADS, ABW_MIN_CTAS)
       *reinterpret_cast<uint32_t*>(&sm.P[wr + g + 8][key]) = pack_bf16x2(sc[nb][2], sc[nb][3]);
     }
 
-    float o[HD / 8][4];
+    float o[ABW_HD / 8][4];
 #pragma unroll
-    for (int nb = 0; nb < HD / 8; ++nb) o[nb][0] = o[nb][1] = o[nb][2] = o[nb][3] = 0.f;
+    for (int nb = 0; nb < ABW_HD / 8; ++nb) o[nb][0] = o[nb][1] = o[nb][2] = o[nb][3] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < MAX_KV / 16; ++kk)
 #pragma unroll
-      for (int nb2 = 0; nb2 < HD / 16; ++nb2) {
+      for (int nb2 = 0; nb2 < ABW_HD / 16; ++nb2) {
         uint32_t kb[4];
         ldmatrix_x4_trans(kb, smem_addr(&sm.K[16 * kk + (lane & 7) + (((lane >> 3) & 1) << 3)]
                                             [16 * nb2 + ((lane >> 4) << 3)]));
         mma_m16n8k16(o[2 * nb2], dsa[kk], kb[0], kb[1]);
         mma_m16n8k16(o[2 * nb2 + 1], dsa[kk], kb[2], kb[3]);
       }
-    const size_t dq0 = ((size_t)b * N + row0 + wr + g) * C + h * HD + 2 * t;
+    const size_t dq0 = ((size_t)b * N + row0 + wr + g) * C + h * ABW_HD + 2 * t;
 #pragma unroll
-    for (int nb = 0; nb < HD / 8; ++nb) {
+    for (int nb = 0; nb < ABW_HD / 8; ++nb) {
       if (row0 + wr + g < N)
         *reinterpret_cast<uint32_t*>(dq + dq0 + nb * 8) = pack_bf16x2(o[nb][0], o[nb][1]);
       if (row0 + wr + g + 8 < N)
@@ -1049,7 +1068,7 @@ __global__ void __launch_bounds__(ABW_THREADS, ABW_MIN_CTAS)
       ldmatrix_x4_trans(pa, smem_addr(&sm.P[prow][pcol]));
       ldmatrix_x4_trans(sa, smem_addr(&sm.S[prow][pcol]));
 #pragma unroll
-      for (int nb2 = 0; nb2 < HD / 16; ++nb2) {
+      for (int nb2 = 0; nb2 < ABW_HD / 16; ++nb2) {
         const int brow = 16 * kk + (lane & 7) + (((lane >> 3) & 1) << 3);
         const int bcol = 16 * nb2 + ((lane >> 4) << 3);
         uint32_t db[4], qb[4];
@@ -1068,9 +1087,9 @@ __global__ void __launch_bounds__(ABW_THREADS, ABW_MIN_CTAS)
   for (int half = 0; half < 2; ++half) {
     const int key = wr + g + 8 * half;
     if (key >= Nkv) continue;
-    const size_t row = ((size_t)b * Nkv + key) * C + h * HD + 2 * t;
+    const size_t row = ((size_t)b * Nkv + key) * C + h * ABW_HD + 2 * t;
 #pragma unroll
-    for (int nb = 0; nb < HD / 8; ++nb) {
+    for (int nb = 0; nb < ABW_HD / 8; ++nb) {
       const float k0 = adk[nb][2 * half], k1 = adk[nb][2 * half + 1];
       const float v0 = adv[nb][2 * half], v1 = adv[nb][2 * half + 1];
       if (part == nullptr) {
@@ -1114,8 +1133,8 @@ int attention_bwd_tc(cudaStream_t s, const int* plan, const bf16* q, const bf16*
                      const bf16* v, const bf16* dctx, bf16* dq, bf16* dk, bf16* dv, float* part,
                      int B, int N, int Nkv, int C, int heads) {
   const int tpc = plan[0], splits = plan[1], qtiles = (N + ABW_ROWS - 1) / ABW_ROWS;
-  if (tpc < 1 || Nkv < 1 || Nkv > MAX_KV || C != heads * HD || splits != (qtiles + tpc - 1) / tpc ||
-      plan[2] != B * heads || (splits > 1 && part == nullptr))
+  if (tpc < 1 || Nkv < 1 || Nkv > MAX_KV || C != heads * ABW_HD ||
+      splits != (qtiles + tpc - 1) / tpc || plan[2] != B * heads || (splits > 1 && part == nullptr))
     return (int)cudaErrorInvalidValue;
   static std::atomic<bool> attr_set[kMaxDevices];
   const cudaError_t attr =
@@ -1123,7 +1142,7 @@ int attention_bwd_tc(cudaStream_t s, const int* plan, const bf16* q, const bf16*
   if (attr != cudaSuccess) return (int)attr;
   attention_bwd_tc_kernel<<<dim3(splits, plan[2]), ABW_THREADS, sizeof(AbwSmem), s>>>(
       q, k, v, dctx, dq, dk, dv, splits > 1 ? part : nullptr, N, Nkv, C, heads, tpc,
-      1.0f / sqrtf((float)HD));
+      1.0f / sqrtf((float)ABW_HD));
   if (splits > 1) {
     const size_t nkv = (size_t)B * Nkv * C;
     dkv_reduce_kernel<<<grid_for(nkv / 2, 256), 256, 0, s>>>(part, dk, dv, nkv, splits);
@@ -1228,7 +1247,7 @@ int mit_block_packed2_forward(const void* x, const void* k, const void* v, const
                               void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   typedef const bf16* P;
-  constexpr int C = HD, C2 = 2 * HD;  // 64 channels per image, two images per row
+  constexpr int C = PACK_C, C2 = 2 * PACK_C;  // 64 channels per image, two images per row
   const int pairs = B / 2, N = H * W, M = pairs * N;
   const int* pl = (const int*)plan;
   const int pack_threads = 256;

@@ -7,8 +7,15 @@
 //   y_t[d]    = sum_n h_t[d, n] * C_t[n] + D[d] * x_t[d]
 //
 // x, dt, y [Bt, T, D]; A [D, N]; B, C [Bt, T, N]; D [D]; all fp32, state fp32
-// from zero. N is MambaConfig()'s d_state, 64: the one width the path runs
-// and the card checks.
+// from zero. N, the state width, is a template parameter: the forward is
+// built at 32, 64 (MambaConfig()'s d_state) and 128, the backward at 32 and
+// 64. A d_state n below the width runs as n states and N - n zero ones: the
+// forward reads its n-wide A, B and C rows and fills the rest with zeros as
+// it loads them; for the backward the wrapper (kernels/selective_scan.py)
+// pads A, B and C with zero columns. Both are exact: a padded state starts
+// at zero, is fed by B = 0 and read by C = 0, and its gradients are sliced
+// away. At 128 the wrapper runs the backward on each half of the states,
+// since the states of a channel evolve independently.
 //
 // Design. The Pallas kernel walks a sequential grid of 128-step chunks,
 // carrying the [D, N] state in VMEM; a CUDA grid has no order. Here time is
@@ -30,7 +37,7 @@
 // sub-chunk from there instead of scanning its chunk again.
 //
 // Within a chunk, one warp owns one (video, channel d): each lane holds
-// NS = N/32 = 2 states in registers and steps them in order. A block is
+// NS = N/32 states (1, 2 or 4) in registers and steps them in order. A block is
 // WARPS channels of one video, which share every B_t/C_t row: the block
 // stages each 32-step sub-chunk of B, C (and its channels' x, dt) in shared
 // memory with coalesced loads issued while the previous sub-chunk computes,
@@ -51,6 +58,8 @@
 
 #include <cooperative_groups.h>
 
+#include <algorithm>
+
 #include "common.cuh"
 #include "hopper.cuh"
 
@@ -60,8 +69,6 @@ namespace {
 
 constexpr int WARPS = 4;    // channels per block
 constexpr int TC = 32;      // time steps per sub-chunk: one per lane in the y reduction
-constexpr int N = 64;       // d_state
-constexpr int NS = N / 32;  // states per lane
 
 // One step of the butterfly reduce-scatter over part[S] (see below), with
 // offset O: a constant trip count, so part stays in registers. After the
@@ -78,18 +85,22 @@ __device__ __forceinline__ void butterfly_step(float (&part)[S], int lane) {
   }
 }
 
-// One chunk of one block's WARPS channels. OUT false: scan from zero and
+// One chunk of one block's WARPS channels. MASKED: n < N states read from A
+// [D, n], B, C [Bt, T, n], zeros past n; else n == N (the full-width
+// instance keeps the unmasked loads). OUT false: scan from zero and
 // write (Lambda_c, S_c) to `pairs`. OUT true: fold the earlier chunks'
 // pairs into h_in, rerun the chunk from it and write y, and where `states`
 // is not null each 32-step sub-chunk's start state h (for the backward).
-template <bool OUT>
+template <int N, bool OUT, bool MASKED>
 __global__ void __launch_bounds__(WARPS * 32)
 selective_scan_chunk_kernel(const float* __restrict__ x, const float* __restrict__ dt,
                             const float* __restrict__ A, const float* __restrict__ Bm,
                             const float* __restrict__ Cm, const float* __restrict__ Dv,
                             float* __restrict__ y, float* __restrict__ pairs,
-                            float* __restrict__ states, int T, int D, int L,
+                            float* __restrict__ states, int T, int D, int n, int L,
                             int blocks_per_video) {
+  static_assert(N % 32 == 0 && N <= 128, "whole states per lane; B, C rows in static smem");
+  constexpr int NS = N / 32;  // states per lane
   __shared__ float sB[TC * N];
   __shared__ float sC[OUT ? TC * N : 1];
   __shared__ float sx[TC * WARPS];
@@ -108,10 +119,11 @@ selective_scan_chunk_kernel(const float* __restrict__ x, const float* __restrict
     return ((size_t)video * (chunks - 1) + c) * D * N + (size_t)d * N;
   };
 
+  const int lda = MASKED ? n : N;  // A's row length
   float a_row[NS], h[NS], lam[NS];
 #pragma unroll
   for (int j = 0; j < NS; ++j) {
-    a_row[j] = live ? A[(size_t)d * N + lane + 32 * j] : 0.f;
+    a_row[j] = live && (!MASKED || lane + 32 * j < n) ? A[(size_t)d * lda + lane + 32 * j] : 0.f;
     h[j] = 0.f;
     lam[j] = 1.f;
   }
@@ -139,13 +151,15 @@ selective_scan_chunk_kernel(const float* __restrict__ x, const float* __restrict
   const int xw = threadIdx.x % WARPS, xt = threadIdx.x / WARPS;
   float rb[PER], rc[PER], rx, rdt;
   auto fetch = [&](int t0) {
-    const int valid = min(TC, t_end - t0) * N;
+    const int rows = min(TC, t_end - t0);
 #pragma unroll
     for (int r = 0; r < PER; ++r) {
-      const int i = threadIdx.x + r * THREADS;
-      const size_t g = (row0 + t0) * N + i;
-      rb[r] = i < valid ? Bm[g] : 0.f;
-      if constexpr (OUT) rc[r] = i < valid ? Cm[g] : 0.f;
+      const int i = threadIdx.x + r * THREADS, row = i / N, col = i % N;
+      // whole rows: one run of rows x N values; masked: n-wide rows, zeros past n
+      const bool in = MASKED ? row < rows && col < n : i < rows * N;
+      const size_t g = MASKED ? (row0 + t0 + row) * n + col : (row0 + t0) * N + i;
+      rb[r] = in ? Bm[g] : 0.f;
+      if constexpr (OUT) rc[r] = in ? Cm[g] : 0.f;
     }
     const bool ok = t0 + xt < t_end && d0 + xw < D;
     const size_t g = (row0 + t0 + xt) * D + d0 + xw;
@@ -251,10 +265,12 @@ selective_scan_chunk_kernel(const float* __restrict__ x, const float* __restrict
 //       chunk, one per CTA row, from g = 0, backwards, into its (decay,
 //       Q = a_s lambda_s) pair;
 //   B2. selective_scan_bwd_kernel: one thread-block cluster per (video,
-//       chunk), its CTAs the channel blocks of 16 channels (one warp each).
+//       channel group, chunk), its CTAs the channel blocks of 16 channels
+//       (one warp each), at most 8 CTAs (128 channels) per cluster; a wider
+//       D is cut into groups of equal cluster size.
 //       Each warp folds B1's pairs of the sub-chunks after its chunk, last
 //       first, into g, then walks its sub-chunks backwards: reruns one
-//       forwards from its start state, keeping a_t (32 steps x 2 states per
+//       forwards from its start state, keeping a_t (32 steps x N/32 states per
 //       lane, registers) and h_t (a shared-memory tile), then steps lambda
 //       back with the same a_t: one exp per (t, d, n). The next sub-chunk's
 //       rows and states arrive by cp.async meanwhile. dx and ddt reduce over
@@ -266,9 +282,13 @@ selective_scan_chunk_kernel(const float* __restrict__ x, const float* __restrict
 //       once its tiles are written and waits on it after the next
 //       sub-chunk's rerun; then it sums its share of the tiles' elements
 //       over the cluster's tiles (distributed shared memory), in rank
-//       order, and writes dB and dC.
+//       order, and writes dB and dC (with more than one channel group, the
+//       group's partial sums);
 //   B3. selective_scan_bwd_reduce_kernel: sums dA and dD over the videos
-//       and chunks, in a fixed order.
+//       and chunks, in a fixed order;
+//   B4. with more than one channel group only,
+//       selective_scan_bwd_bc_reduce_kernel: sums the groups' dB and dC in
+//       group order.
 // No atomics and no memset: the same inputs give the same bits every run.
 //
 // Bound on this card: per (t, d, n) an exp (B1 and B2 one each) and ~16
@@ -282,23 +302,28 @@ constexpr int BWD_WARPS = 8;  // B1: channels per block
 constexpr int BWD_THREADS = BWD_WARPS * 32;
 constexpr int CL_WARPS = 16;  // B2: channels per CTA of a cluster
 constexpr int CL_THREADS = CL_WARPS * 32;
-constexpr int CL_MAX = 8;     // CTAs per cluster at most (the portable size): D <= 128
+constexpr int CL_MAX = 8;     // CTAs per cluster at most (the portable size): 128 channels
 constexpr int RQ = 8;         // steps per butterfly of dx, ddt
-static_assert(TC * CL_WARPS == CL_THREADS, "one (step, 4 states) of a tile per thread");
+static_assert(TC * CL_WARPS == CL_THREADS, "one (step, channel) per thread");
 static_assert(TC % RQ == 0 && RQ <= 32, "butterfly groups tile the sub-chunk");
 
-// B2's dynamic shared memory, in floats: two stage buffers (the sub-chunk
-// being computed and the next one in flight by cp.async), each rows of B
-// and C [TC][N], the channels' x, dt, dy [TC][CL_WARPS] and start states
-// [CL_WARPS][N]; x, dt, dy again per channel [3][CL_WARPS][CL_TP], so that
-// a warp reads four steps' values in one broadcast; one [TC][N] tile per
-// warp (h_t, then lambda_t); dx and ddt [TC][CL_WARPS]; and the dB, dC
-// tiles [2 buffers][2][TC][N] that the cluster reads.
-constexpr int CL_RED = TC * N;
-constexpr int CL_STAGE = 2 * TC * N + 3 * TC * CL_WARPS + CL_WARPS * N;
+// B2's dynamic shared memory at N states, in floats: two stage buffers (the
+// sub-chunk being computed and the next one in flight by cp.async), each
+// rows of B and C [TC][N], the channels' x, dt, dy [TC][CL_WARPS] and start
+// states [CL_WARPS][N]; x, dt, dy again per channel [3][CL_WARPS][CL_TP], so
+// that a warp reads four steps' values in one broadcast; one [TC][N] tile
+// per warp (h_t, then lambda_t); dx and ddt [TC][CL_WARPS]; and the dB, dC
+// tiles [2 buffers][2][TC][N] that the cluster reads. 228,096 bytes at N =
+// 64, 125,696 at 32: a wider N does not fit one CTA.
 constexpr int CL_TP = TC + 4;  // row of a channel's step scalars: 16-byte rows, 2-way banks
-constexpr int CL_SMEM_FLOATS = 2 * CL_STAGE + 3 * CL_WARPS * CL_TP + CL_WARPS * TC * N +
-                               2 * TC * CL_WARPS + 4 * CL_RED;
+template <int N>
+struct ClLayout {
+  static constexpr int RED = TC * N;
+  static constexpr int STAGE = 2 * TC * N + 3 * TC * CL_WARPS + CL_WARPS * N;
+  static constexpr int FLOATS = 2 * STAGE + 3 * CL_WARPS * CL_TP + CL_WARPS * TC * N +
+                                2 * TC * CL_WARPS + 4 * RED;
+  static constexpr int BYTES = FLOATS * (int)sizeof(float);
+};
 
 __device__ __forceinline__ void cluster_arrive() {
   asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
@@ -310,12 +335,14 @@ __device__ __forceinline__ void cluster_wait() {
 // B1: the adjoint pair (Lambda_s, Q_s) of sub-chunk s = blockIdx.y + first,
 // from g = 0, into bpairs [2][Bt][subs - first][D][N] at index s - first:
 // every sub-chunk after B2's first chunk, one per CTA row.
+template <int N>
 __global__ void __launch_bounds__(BWD_THREADS)
 selective_scan_bwd_chunk_kernel(const float* __restrict__ dt, const float* __restrict__ A,
                                 const float* __restrict__ Cm, const float* __restrict__ dy,
                                 float* __restrict__ bpairs, int T, int D, int first,
                                 int blocks_per_video) {
-  constexpr int PER = TC * N / BWD_THREADS;
+  constexpr int NS = N / 32, PER = TC * N / BWD_THREADS;
+  static_assert(PER * BWD_THREADS == TC * N, "every thread loads the same share of C");
   static_assert(TC * BWD_WARPS == BWD_THREADS, "one dt and one dy value per thread");
   __shared__ float sC[TC * N];
   __shared__ float sdt[TC * BWD_WARPS];
@@ -384,6 +411,7 @@ __device__ __forceinline__ float reduce_scatter8(float (&part)[RQ], int lane) {
 
 // acc[0..3] += c[w] * tile row w (4 floats at `off` of warp w's tile), for
 // w = 0 .. CL_WARPS - 1 in order: one CTA's channel sum of a [TC][N] tile.
+template <int N>
 __device__ __forceinline__ float4 channel_sum(const float (&c)[CL_WARPS], const float* tiles,
                                               int off) {
   float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -413,10 +441,13 @@ __device__ __forceinline__ float pick(const float4& v, int i) {
 }
 
 // B2: one chunk (blockIdx.y) of K2 sub-chunks of CL_WARPS channels of one
-// video; the cluster's CTAs (ranks 0 .. cl - 1 along blockIdx.x) hold the
-// video's channel blocks in order. D is a multiple of 4 (16-byte rows of x,
+// video; the cluster's CTAs (ranks 0 .. cl - 1 along blockIdx.x) hold
+// channel blocks of one group of the video's channels, in order (group g's
+// blocks g cl .. g cl + cl - 1). D is a multiple of 4 (16-byte rows of x,
 // dt, dy). Warps past D compute on zeros (their tiles stay zero) and write
-// nothing.
+// nothing. With groups > 1 a cluster writes its group's dB, dC sums to
+// part_bc [groups][2][Bt * T * N] and B4 adds them.
+template <int N>
 __global__ void __launch_bounds__(CL_THREADS, 1)
 selective_scan_bwd_kernel(const float* __restrict__ x, const float* __restrict__ dt,
                           const float* __restrict__ A, const float* __restrict__ Bm,
@@ -425,8 +456,12 @@ selective_scan_bwd_kernel(const float* __restrict__ x, const float* __restrict__
                           const float* __restrict__ bpairs, float* __restrict__ dx,
                           float* __restrict__ ddt, float* __restrict__ dB,
                           float* __restrict__ dC, float* __restrict__ part_dA,
-                          float* __restrict__ part_dD, int Bt, int T, int D, int K2) {
-  constexpr int W = CL_WARPS;
+                          float* __restrict__ part_dD, float* __restrict__ part_bc, int Bt,
+                          int T, int D, int K2, int groups) {
+  constexpr int W = CL_WARPS, NS = N / 32;
+  constexpr int CL_STAGE = ClLayout<N>::STAGE, CL_RED = ClLayout<N>::RED;
+  constexpr int TILE_THREADS = TC * N / 4;  // one (step, 4 states) of a [TC][N] tile each
+  static_assert(TILE_THREADS <= CL_THREADS, "a [TC][N] tile in one pass");
   extern __shared__ __align__(16) float smem[];
   float* const tT = smem + 2 * CL_STAGE;       // x, dt, dy [3][W][CL_TP]
   float* const hs_all = tT + 3 * W * CL_TP;    // [W][TC][N]
@@ -437,8 +472,11 @@ selective_scan_bwd_kernel(const float* __restrict__ x, const float* __restrict__
   cg::cluster_group cluster = cg::this_cluster();
   const int cl = (int)cluster.num_blocks();
   const int rank = (int)cluster.block_rank();
-  const int video = blockIdx.x / cl;
-  const int d0 = rank * W;
+  const int video = blockIdx.x / cl / groups, group = blockIdx.x / cl % groups;
+  const int d0 = (group * cl + rank) * W;
+  const size_t n_bc = (size_t)Bt * T * N;
+  float* const dB_out = groups == 1 ? dB : part_bc + (size_t)group * 2 * n_bc;
+  float* const dC_out = groups == 1 ? dC : dB_out + n_bc;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int d = d0 + warp;
   const bool live = d < D;
@@ -457,7 +495,7 @@ selective_scan_bwd_kernel(const float* __restrict__ x, const float* __restrict__
   // and past D; one commit group per sub-chunk
   auto prefetch = [&](float* st, int t0) {
     const int rows = min(TC, T - t0);
-    {  // B and C rows: one 16-byte piece of each per thread
+    if (tid < TILE_THREADS) {  // B and C rows: one 16-byte piece of each per thread
       const bool ok = tid / (N / 4) < rows;
       const size_t g = (row0 + t0) * N + 4 * tid;
       cp_async16(smem_addr(st + 4 * tid), ok ? Bm + g : Bm, ok);
@@ -520,8 +558,8 @@ selective_scan_bwd_kernel(const float* __restrict__ x, const float* __restrict__
       for (int r = 0; r < CL_MAX; ++r)
         if (r < cl) b += rb_[r], c += rc_[r];
       const size_t o = (row0 + s0) * N + i;
-      dB[o] = b;
-      dC[o] = c;
+      dB_out[o] = b;
+      dC_out[o] = c;
     }
   };
 
@@ -576,10 +614,10 @@ selective_scan_bwd_kernel(const float* __restrict__ x, const float* __restrict__
     float* const tile_dB = red + rb * 2 * CL_RED;
     float* const tile_dC = tile_dB + CL_RED;
     const int ct = tid / (N / 4), off = ct * N + 4 * (tid % (N / 4));  // (step, 4 states)
-    {  // dC_t = sum_d dy_t h_t over the CTA's channels, in channel order
+    if (tid < TILE_THREADS) {  // dC_t = sum_d dy_t h_t over the CTA's channels, in channel order
       float c[W];
       load_row(c, sdy + ct * W);
-      *reinterpret_cast<float4*>(tile_dC + off) = channel_sum(c, hs_all, off);
+      *reinterpret_cast<float4*>(tile_dC + off) = channel_sum<N>(c, hs_all, off);
     }
     __syncthreads();  // dC has read h_t: the tiles now take lambda_t
 #pragma unroll
@@ -628,13 +666,13 @@ selective_scan_bwd_kernel(const float* __restrict__ x, const float* __restrict__
         ddt[o] = sddt[tid];
       }
     }
-    {  // dB_t = sum_d lambda_t dt_t x_t over the CTA's channels, in channel order
+    if (tid < TILE_THREADS) {  // dB_t = sum_d lambda_t dt_t x_t over the CTA's channels
       float c[W], cx[W];
       load_row(c, sdt + ct * W);
       load_row(cx, sx + ct * W);
 #pragma unroll
       for (int w = 0; w < W; ++w) c[w] *= cx[w];
-      *reinterpret_cast<float4*>(tile_dB + off) = channel_sum(c, hs_all, off);
+      *reinterpret_cast<float4*>(tile_dB + off) = channel_sum<N>(c, hs_all, off);
     }
     cluster_arrive();  // this CTA's tiles of the sub-chunk are written
     prev_t0 = t0;
@@ -658,7 +696,7 @@ selective_scan_bwd_kernel(const float* __restrict__ x, const float* __restrict__
 __global__ void selective_scan_bwd_reduce_kernel(const float* __restrict__ part_dA,
                                                  const float* __restrict__ part_dD,
                                                  float* __restrict__ dA, float* __restrict__ dD,
-                                                 int D, int parts) {
+                                                 int D, int N, int parts) {
   const size_t n_a = (size_t)D * N;
   const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i < n_a) {
@@ -673,79 +711,79 @@ __global__ void selective_scan_bwd_reduce_kernel(const float* __restrict__ part_
   }
 }
 
-}  // namespace
+// B4: dB and dC [n] each (n = Bt * T * N, a multiple of 4), summing the
+// channel groups' partials part [groups][2][n] in group order, 4 values per
+// thread.
+__global__ void selective_scan_bwd_bc_reduce_kernel(const float* __restrict__ part,
+                                                    float* __restrict__ dB,
+                                                    float* __restrict__ dC, size_t n,
+                                                    int groups) {
+  const size_t n4 = n / 4;
+  for (size_t t = blockIdx.x * (size_t)blockDim.x + threadIdx.x; t < 2 * n4;
+       t += (size_t)gridDim.x * blockDim.x) {
+    const int which = t >= n4;
+    const size_t i = 4 * (t - which * n4);
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int g = 0; g < groups; ++g) {
+      const float4 p = *reinterpret_cast<const float4*>(part + ((size_t)g * 2 + which) * n + i);
+      acc.x += p.x, acc.y += p.y, acc.z += p.z, acc.w += p.w;
+    }
+    *reinterpret_cast<float4*>((which ? dC : dB) + i) = acc;
+  }
+}
 
-extern "C" {
+// Channel blocks of CL_WARPS per B2 cluster and channel groups at D: the
+// fewest groups of at most CL_MAX blocks, blocks spread evenly over them.
+inline void bwd_layout(int D, int& cl, int& groups) {
+  const int blocks = (D + CL_WARPS - 1) / CL_WARPS;
+  groups = (blocks + CL_MAX - 1) / CL_MAX;
+  cl = (blocks + groups - 1) / groups;
+}
 
-// x, dt, y [Bt, T, D]; A [D, N]; B, C [Bt, T, N]; D [D]; fp32, contiguous.
-// `chunk` (L) is the chunk length, a positive multiple of 32
-// (kernels/selective_scan.py::scan_chunk); `pairs` is fp32 scratch of
-// 2 * Bt * (ceil(T / L) - 1) * D * N values, null when T <= L. `states`,
-// null or [Bt, ceil(T / 32), D, N] fp32, receives each 32-step sub-chunk's
-// start state for the backward. Returns cudaGetLastError() after the
-// launches (cudaErrorInvalidValue for an N other than 64, a bad chunk
-// length or missing scratch).
-int selective_scan_forward(const void* x, const void* dt, const void* A, const void* B,
-                           const void* C, const void* Dv, void* y, void* pairs, void* states,
-                           int Bt, int T, int D, int n_state, int chunk, void* stream) {
-  auto f = [](const void* p) { return (const float*)p; };
-  if (n_state != N || chunk < TC || chunk % TC) return (int)cudaErrorInvalidValue;
-  if (Bt == 0 || T == 0 || D == 0) return (int)cudaGetLastError();
+template <int N, bool MASKED>
+int forward_launch(const float* x, const float* dt, const float* A, const float* B,
+                   const float* C, const float* Dv, float* y, float* pairs, float* states,
+                   int Bt, int T, int D, int n, int chunk, cudaStream_t s) {
   const int chunks = (T + chunk - 1) / chunk;
-  if (chunks > 65535 || (chunks > 1 && pairs == nullptr)) return (int)cudaErrorInvalidValue;
   const int bpv = (D + WARPS - 1) / WARPS;
-  cudaStream_t s = (cudaStream_t)stream;
   if (chunks > 1)
-    selective_scan_chunk_kernel<false><<<dim3(Bt * bpv, chunks - 1), WARPS * 32, 0, s>>>(
-        f(x), f(dt), f(A), f(B), f(C), f(Dv), (float*)y, (float*)pairs, nullptr, T, D, chunk,
-        bpv);
-  selective_scan_chunk_kernel<true><<<dim3(Bt * bpv, chunks), WARPS * 32, 0, s>>>(
-      f(x), f(dt), f(A), f(B), f(C), f(Dv), (float*)y, (float*)pairs, (float*)states, T, D,
-      chunk, bpv);
+    selective_scan_chunk_kernel<N, false, MASKED>
+        <<<dim3(Bt * bpv, chunks - 1), WARPS * 32, 0, s>>>(x, dt, A, B, C, Dv, y, pairs,
+                                                            nullptr, T, D, n, chunk, bpv);
+  selective_scan_chunk_kernel<N, true, MASKED><<<dim3(Bt * bpv, chunks), WARPS * 32, 0, s>>>(
+      x, dt, A, B, C, Dv, y, pairs, states, T, D, n, chunk, bpv);
   return (int)cudaGetLastError();
 }
 
-// The gradient of selective_scan_forward at dy [Bt, T, D]: dx, ddt [Bt, T, D],
-// dA [D, N], dB, dC [Bt, T, N], dD [D], fp32, contiguous; `states` is the
-// forward's sub-chunk start states for the same inputs, `sub_chunks` (K2)
-// the 32-step sub-chunks per chunk of the cluster launch
-// (kernels/selective_scan.py::backward_chunk), `scratch` n_scratch fp32
-// values laid out as kernels/selective_scan.py::backward_scratch_floats
-// says. D is at most 16 x 8 (one cluster of channel blocks) and a multiple
-// of 4. Returns cudaGetLastError() after the launches (cudaErrorInvalidValue
-// for an N other than 64, a D the cluster cannot take, a bad chunk, missing
-// states or too little scratch).
-int selective_scan_backward(const void* x, const void* dt, const void* A, const void* B,
-                            const void* C, const void* Dv, const void* dy, const void* states,
-                            void* dx, void* ddt, void* dA, void* dB, void* dC, void* dD,
-                            void* scratch, int Bt, int T, int D, int n_state, int sub_chunks,
-                            int n_scratch, void* stream) {
-  auto f = [](const void* p) { return (const float*)p; };
-  if (n_state != N || sub_chunks < 1 || D > CL_WARPS * CL_MAX || D % 4)
-    return (int)cudaErrorInvalidValue;
-  if (Bt == 0 || T == 0 || D == 0) return (int)cudaGetLastError();
-  const int subs = (T + TC - 1) / TC, K2 = sub_chunks;
+template <int N>
+int backward_launch(const float* x, const float* dt, const float* A, const float* B,
+                    const float* C, const float* Dv, const float* dy, const float* states,
+                    float* dx, float* ddt, float* dA, float* dB, float* dC, float* dD,
+                    float* scratch, int Bt, int T, int D, int K2, size_t n_scratch,
+                    cudaStream_t s) {
+  const int subs = (T + TC - 1) / TC;
   const int chunks = (subs + K2 - 1) / K2, n_b1 = subs > K2 ? subs - K2 : 0;
-  if (chunks > 65535 || n_b1 > 65535 || states == nullptr) return (int)cudaErrorInvalidValue;
+  if (chunks > 65535 || n_b1 > 65535) return (int)cudaErrorInvalidValue;
+  int cl, groups;
+  bwd_layout(D, cl, groups);
   const int bpv = (D + BWD_WARPS - 1) / BWD_WARPS;
-  const int cl = (D + CL_WARPS - 1) / CL_WARPS;
   const size_t n_pairs = 2ull * Bt * n_b1 * D * N;
-  const size_t n_dA = (size_t)Bt * chunks * D * N;
-  if (n_pairs + n_dA + (size_t)Bt * chunks * D > (size_t)n_scratch)
-    return (int)cudaErrorInvalidValue;
-  float* bpairs = (float*)scratch;
+  const size_t n_dA = (size_t)Bt * chunks * D * N, n_dD = (size_t)Bt * chunks * D;
+  const size_t n_bc = groups > 1 ? 2ull * groups * Bt * T * N : 0;
+  if (n_pairs + n_dA + n_dD + n_bc > n_scratch) return (int)cudaErrorInvalidValue;
+  float* bpairs = scratch;
   float* part_dA = bpairs + n_pairs;
   float* part_dD = part_dA + n_dA;
-  cudaStream_t s = (cudaStream_t)stream;
-  constexpr int smem = CL_SMEM_FLOATS * (int)sizeof(float);
+  float* part_bc = groups > 1 ? part_dD + n_dD : nullptr;
+  constexpr int smem = ClLayout<N>::BYTES;
   static std::atomic<bool> attr_set[kMaxDevices];
-  const cudaError_t attr = smem_limit_once(selective_scan_bwd_kernel, smem, attr_set);
+  const cudaError_t attr = smem_limit_once(selective_scan_bwd_kernel<N>, smem, attr_set);
   if (attr != cudaSuccess) return (int)attr;
   if (n_b1 > 0)
-    selective_scan_bwd_chunk_kernel<<<dim3(Bt * bpv, n_b1), BWD_THREADS, 0, s>>>(
-        f(dt), f(A), f(C), f(dy), bpairs, T, D, K2, bpv);
+    selective_scan_bwd_chunk_kernel<N><<<dim3(Bt * bpv, n_b1), BWD_THREADS, 0, s>>>(
+        dt, A, C, dy, bpairs, T, D, K2, bpv);
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(Bt * cl, chunks);
+  cfg.gridDim = dim3(Bt * groups * cl, chunks);
   cfg.blockDim = dim3(CL_THREADS);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = s;
@@ -756,32 +794,32 @@ int selective_scan_backward(const void* x, const void* dt, const void* A, const 
   la[0].val.clusterDim.z = 1;
   cfg.attrs = la;
   cfg.numAttrs = 1;
-  cudaError_t e = cudaLaunchKernelEx(&cfg, selective_scan_bwd_kernel, f(x), f(dt), f(A), f(B),
-                                     f(C), f(Dv), f(dy), f(states), (const float*)bpairs,
-                                     (float*)dx, (float*)ddt, (float*)dB, (float*)dC, part_dA,
-                                     part_dD, Bt, T, D, K2);
+  cudaError_t e = cudaLaunchKernelEx(&cfg, selective_scan_bwd_kernel<N>, x, dt, A, B, C, Dv, dy,
+                                     states, (const float*)bpairs, dx, ddt, dB, dC, part_dA,
+                                     part_dD, part_bc, Bt, T, D, K2, groups);
   if (e != cudaSuccess) return (int)e;
   const int total = D * N + D, threads = 256;
   selective_scan_bwd_reduce_kernel<<<(total + threads - 1) / threads, threads, 0, s>>>(
-      part_dA, part_dD, (float*)dA, (float*)dD, D, Bt * chunks);
+      part_dA, part_dD, dA, dD, D, N, Bt * chunks);
+  if (groups > 1) {
+    const size_t n = (size_t)Bt * T * N, work = n / 2;  // 2 n / 4 float4s
+    const int grid = (int)std::min<size_t>((work + threads - 1) / threads, 65535 * 16);
+    selective_scan_bwd_bc_reduce_kernel<<<grid, threads, 0, s>>>(part_bc, dB, dC, n, groups);
+  }
   return (int)cudaGetLastError();
 }
 
-// What the backward's cluster kernel (B2) holds on this card, for the
-// record: out = [registers per thread, static shared bytes, dynamic shared
-// bytes, local (spill) bytes per thread, CTAs per SM, clusters of `cl`
-// CTAs active at once]. Returns a cudaError_t.
-int selective_scan_backward_resources(int* out, int cl) {
+template <int N>
+int backward_resources(int* out, int cl) {
+  auto kern = selective_scan_bwd_kernel<N>;
+  constexpr int smem = ClLayout<N>::BYTES;
   cudaFuncAttributes fa;
-  cudaError_t e = cudaFuncGetAttributes(&fa, selective_scan_bwd_kernel);
+  cudaError_t e = cudaFuncGetAttributes(&fa, kern);
   if (e != cudaSuccess) return (int)e;
-  constexpr int smem = CL_SMEM_FLOATS * (int)sizeof(float);
-  e = cudaFuncSetAttribute(selective_scan_bwd_kernel,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
   int per_sm = 0, clusters = 0;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, selective_scan_bwd_kernel,
-                                                    CL_THREADS, smem);
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, CL_THREADS, smem);
   if (e != cudaSuccess) return (int)e;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(cl, 1);
@@ -794,7 +832,7 @@ int selective_scan_backward_resources(int* out, int cl) {
   la[0].val.clusterDim.z = 1;
   cfg.attrs = la;
   cfg.numAttrs = 1;
-  e = cudaOccupancyMaxActiveClusters(&clusters, selective_scan_bwd_kernel, &cfg);
+  e = cudaOccupancyMaxActiveClusters(&clusters, kern, &cfg);
   if (e != cudaSuccess) return (int)e;
   out[0] = fa.numRegs;
   out[1] = (int)fa.sharedSizeBytes;
@@ -803,6 +841,76 @@ int selective_scan_backward_resources(int* out, int cl) {
   out[4] = per_sm;
   out[5] = clusters;
   return 0;
+}
+
+}  // namespace
+
+extern "C" {
+
+// x, dt, y [Bt, T, D]; A [D, n]; B, C [Bt, T, n]; D [D]; fp32, contiguous;
+// the kernel's state width N (n_state) 32, 64 or 128, n (n_in) 1 to N.
+// `chunk` (L) is the chunk length, a positive multiple of 32
+// (kernels/selective_scan.py::scan_chunk); `pairs` is fp32 scratch of
+// 2 * Bt * (ceil(T / L) - 1) * D * N values, null when T <= L. `states`,
+// null or [Bt, ceil(T / 32), D, N] fp32, receives each 32-step sub-chunk's
+// start state for the backward (N wide: zeros past n). Returns
+// cudaGetLastError() after the launches (cudaErrorInvalidValue for another
+// N, an n outside 1 .. N, a bad chunk length or missing scratch).
+int selective_scan_forward(const void* x, const void* dt, const void* A, const void* B,
+                           const void* C, const void* Dv, void* y, void* pairs, void* states,
+                           int Bt, int T, int D, int n_state, int n_in, int chunk,
+                           void* stream) {
+  auto f = [](const void* p) { return (const float*)p; };
+  if ((n_state != 32 && n_state != 64 && n_state != 128) || n_in < 1 || n_in > n_state ||
+      chunk < TC || chunk % TC)
+    return (int)cudaErrorInvalidValue;
+  if (Bt == 0 || T == 0 || D == 0) return (int)cudaGetLastError();
+  const int chunks = (T + chunk - 1) / chunk;
+  if (chunks > 65535 || (chunks > 1 && pairs == nullptr)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const bool full = n_in == n_state;
+  auto launch = n_state == 32  ? (full ? forward_launch<32, false> : forward_launch<32, true>)
+                : n_state == 64 ? (full ? forward_launch<64, false> : forward_launch<64, true>)
+                                : (full ? forward_launch<128, false> : forward_launch<128, true>);
+  return launch(f(x), f(dt), f(A), f(B), f(C), f(Dv), (float*)y, (float*)pairs,
+                (float*)states, Bt, T, D, n_in, chunk, s);
+}
+
+// The gradient of selective_scan_forward at dy [Bt, T, D]: dx, ddt [Bt, T, D],
+// dA [D, N], dB, dC [Bt, T, N], dD [D], fp32, contiguous, N (n_state) 32 or
+// 64; `states` is the forward's sub-chunk start states for the same inputs,
+// `sub_chunks` (K2) the 32-step sub-chunks per chunk of the cluster launch
+// (kernels/selective_scan.py::backward_chunk), `scratch` n_scratch fp32
+// values laid out as kernels/selective_scan.py::backward_scratch_floats
+// says. D is a multiple of 4; above 128 channels the cluster launch runs one
+// cluster per (video, channel group, chunk) and a fourth launch adds the
+// groups' dB and dC. Returns cudaGetLastError() after the launches
+// (cudaErrorInvalidValue for another N, a D not a multiple of 4, a bad
+// chunk, missing states or too little scratch).
+int selective_scan_backward(const void* x, const void* dt, const void* A, const void* B,
+                            const void* C, const void* Dv, const void* dy, const void* states,
+                            void* dx, void* ddt, void* dA, void* dB, void* dC, void* dD,
+                            void* scratch, int Bt, int T, int D, int n_state, int sub_chunks,
+                            int n_scratch, void* stream) {
+  auto f = [](const void* p) { return (const float*)p; };
+  if ((n_state != 32 && n_state != 64) || sub_chunks < 1 || D % 4 || n_scratch < 0)
+    return (int)cudaErrorInvalidValue;
+  if (Bt == 0 || T == 0 || D == 0) return (int)cudaGetLastError();
+  if (states == nullptr) return (int)cudaErrorInvalidValue;
+  auto launch = n_state == 32 ? backward_launch<32> : backward_launch<64>;
+  return launch(f(x), f(dt), f(A), f(B), f(C), f(Dv), f(dy), f(states), (float*)dx,
+                (float*)ddt, (float*)dA, (float*)dB, (float*)dC, (float*)dD, (float*)scratch, Bt,
+                T, D, sub_chunks, (size_t)n_scratch, (cudaStream_t)stream);
+}
+
+// What the backward's cluster kernel (B2) at N states (32 or 64) holds on
+// this card, for the record: out = [registers per thread, static shared
+// bytes, dynamic shared bytes, local (spill) bytes per thread, CTAs per SM,
+// clusters of `cl` CTAs active at once]. Returns a cudaError_t.
+int selective_scan_backward_resources(int* out, int cl, int n_state) {
+  if (n_state == 32) return backward_resources<32>(out, cl);
+  if (n_state == 64) return backward_resources<64>(out, cl);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

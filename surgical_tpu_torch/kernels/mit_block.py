@@ -45,7 +45,11 @@ import torch.nn.functional as F
 
 from surgical_tpu_torch.kernels import _build
 
-HEAD_DIM = 64  # every MiT variant
+# Head widths the serving attention is built for: those of the published MiT
+# sizes, 32 at b0 (widths 32 / 64 / 160 / 256 over 1 / 2 / 5 / 8 heads) and
+# 64 at b1-b5.
+SERVING_HEAD_DIMS = (32, 64)
+HEAD_DIM = 64  # packed2's image width, and the one head width of the train kernels
 MAX_KV = 64    # keys per head the attention kernel holds in shared memory
 LN_MAX_C = 512  # widest row the LayerNorm stages hold in registers
 
@@ -599,9 +603,10 @@ def _plan_arg(plan):
     return (ctypes.c_int * len(plan))(*plan)
 
 
-def _check_dims(C, heads, Nkv, hidden, H, W, x):
-    if C != heads * HEAD_DIM:
-        raise ValueError(f"kernel takes head_dim {HEAD_DIM}: C={C}, heads={heads}")
+def _check_dims(C, heads, Nkv, hidden, H, W, x, head_dims=SERVING_HEAD_DIMS):
+    if C % heads or C // heads not in head_dims:
+        widths = " or ".join(map(str, head_dims))
+        raise ValueError(f"kernel takes head_dim {widths}: C={C}, heads={heads}")
     if Nkv > MAX_KV:
         raise ValueError(f"kernel takes at most {MAX_KV} keys per head, got {Nkv}")
     if C > LN_MAX_C or hidden % 8:
@@ -797,7 +802,7 @@ def block_train_forward(x, xln, k, v, weights, m1, m2, *, heads: int, H: int, W:
     B, N, C = x.shape
     Nkv = k.shape[1]
     hidden = weights["w1"].shape[1]
-    _check_dims(C, heads, Nkv, hidden, H, W, x)
+    _check_dims(C, heads, Nkv, hidden, H, W, x, head_dims=(HEAD_DIM,))
     w = weights
     plan = _plan_arg(train_forward_plan(B, H, W, C, heads, Nkv, hidden))
     y, x1 = torch.empty_like(x), torch.empty_like(x)

@@ -28,6 +28,14 @@ kernel has none) runs the adjoint backwards in time, with a_t = exp(dt_t A):
 it, on the card from the states the forward kernel writes at the start of
 every SUB_CHUNK steps, which the autograd function asks for and keeps.
 
+The kernels are built at state widths 32, 64 and 128 (the backward at 32
+and 64); a ``d_state`` runs at the next of them (``kernel_state``) with
+zero states past it: the forward kernel fills the zeros as it loads A, B
+and C, the backward's wrapper pads them with zero columns and the channels
+to a multiple of 4, all exact. The backward runs a 128-wide state as two
+launches on its halves, and above 128 channels one thread-block cluster per
+group of channels. A ``d_state`` above 128 raises.
+
 Each wrapper runs its plain version only for tensors that lie on the CPU;
 for CUDA tensors it launches its kernel or raises. ``selective_scan`` is
 differentiable on both: under grad it goes through ``SelectiveScan``, an
@@ -42,16 +50,19 @@ import ctypes
 import functools
 
 import torch
+import torch.nn.functional as F
 
 from surgical_tpu_torch.kernels import _build
 
-STATE = 64  # the one d_state the kernel takes: MambaConfig()'s
+STATE_WIDTHS = (32, 64, 128)  # the forward kernel's builds; a d_state pads up to the next
+BWD_STATE_WIDTHS = (32, 64)   # the backward's: 128 runs as two halves of 64
+MAX_STATE = STATE_WIDTHS[-1]
 SUB_CHUNK = 32   # steps the kernel stages and reduces at once; a chunk is a multiple
 MAX_CHUNKS = 32  # chunks per video at most: the carry fold reads at most 31 pairs
 BWD_WARPS = 8    # channels per block of the backward's chunk-pair launch
 CLUSTER_WARPS = 16  # channels per CTA of the backward's main launch (one warp each)
 CLUSTER_MAX = 8     # CTAs per thread-block cluster at most, the portable size
-MAX_BWD_D = CLUSTER_WARPS * CLUSTER_MAX  # widest D the backward kernel takes: one cluster
+CLUSTER_D = CLUSTER_WARPS * CLUSTER_MAX  # most channels one cluster holds
 
 
 def scan_chunk(T: int) -> int:
@@ -144,40 +155,98 @@ def backward_chunk(Bt: int, T: int, active: int) -> int:
     return best[1]
 
 
+def backward_layout(D: int) -> tuple[int, int]:
+    """(CTAs per cluster, channel groups) of the backward's cluster launch
+    at D channels (a multiple of 4): blocks of CLUSTER_WARPS channels, the
+    fewest groups of at most CLUSTER_MAX blocks, the blocks spread evenly
+    over them. One group up to CLUSTER_D = 128 channels."""
+    blocks = -(-D // CLUSTER_WARPS)
+    groups = -(-blocks // CLUSTER_MAX)
+    return -(-blocks // groups), groups
+
+
 def backward_scratch_floats(Bt: int, T: int, D: int, N: int, sub_chunks: int) -> int:
     """fp32 scratch of the backward kernel at ``sub_chunks`` (K2) per chunk, in
     the order ``csrc/selective_scan.cu`` lays it out: the adjoint pairs of the
     sub-chunks after the first chunk [2, Bt, subs - K2, D, N], then the
-    per-chunk partials of dA [Bt, chunks, D, N] and of dD [Bt, chunks, D]. dB
-    and dC are summed on chip, across a thread-block cluster."""
+    per-chunk partials of dA [Bt, chunks, D, N] and of dD [Bt, chunks, D],
+    then with more than one channel group (D > CLUSTER_D) the groups' dB and
+    dC [groups, 2, Bt, T, N]. With one group dB and dC are summed on chip,
+    across the thread-block cluster."""
     subs = -(-T // SUB_CHUNK)
     chunks = -(-subs // sub_chunks)
+    groups = backward_layout(D)[1]
     return (2 * Bt * max(0, subs - sub_chunks) * D * N + Bt * chunks * D * N
-            + Bt * chunks * D)
+            + Bt * chunks * D + (2 * groups * Bt * T * N if groups > 1 else 0))
 
 
-def _check_state(N: int) -> None:
-    if N != STATE:
-        raise ValueError(f"kernel takes d_state == {STATE}, got {N}")
+def kernel_state(N: int) -> int:
+    """The state width the forward kernel runs a ``d_state`` of N at: the
+    smallest of STATE_WIDTHS that holds it. Raises ValueError above
+    MAX_STATE."""
+    for width in STATE_WIDTHS:
+        if 1 <= N <= width:
+            return width
+    raise ValueError(f"the scan kernels take d_state 1 to {MAX_STATE}, got {N}")
 
 
-def _check_bwd_channels(D: int) -> None:
-    if D > MAX_BWD_D or D % 4:
-        raise ValueError(f"backward kernel takes D <= {MAX_BWD_D} (one cluster of "
-                         f"{CLUSTER_MAX} CTAs of {CLUSTER_WARPS} channels) and a multiple of 4 "
-                         f"(16-byte rows), got {D}")
+def _pad(t: torch.Tensor, last: int = 0, second: int = 0) -> torch.Tensor:
+    """t with ``last`` zeros appended on its last axis and ``second`` on the
+    one before (a new tensor only where something is added)."""
+    if not (last or second):
+        return t
+    return F.pad(t, (0, last, 0, second) if second else (0, last))
+
+
+def pad_state(A, B, C, width: int):
+    """A [D, N], B, C [Bt, T, N] with zero columns up to ``width`` states:
+    the padded states start at zero, take no input (B = 0) and are not read
+    (C = 0), so y and every other state are unchanged."""
+    extra = width - A.shape[1]
+    return _pad(A, extra), _pad(B, extra), _pad(C, extra)
+
+
+def padded_backward(launch, x, dt, A, B, C, D, dy, states):
+    """The backward through the kernel layout: d_state padded to
+    ``kernel_state`` (the forward's ``states`` already are), the channels to
+    a multiple of 4 with zeros (x = dt = dy = 0 and A = D = 0: a padded
+    channel's state and adjoint stay zero), and a 128-wide state run as two
+    launches on its halves (the states of a channel evolve independently: dx
+    and ddt are the halves' sums, the skip term D dy in the first half only;
+    dA, dB, dC their concatenation). ``launch(x, dt, A, B, C, D, dy, states)``
+    computes the gradient at a width of BWD_STATE_WIDTHS. Returns the six
+    gradients in the inputs' shapes."""
+    Dch, N = A.shape
+    width, extra_d = kernel_state(N), -Dch % 4
+    if width == N and width in BWD_STATE_WIDTHS and not extra_d:  # the kernel's layout
+        return launch(x, dt, A, B, C, D, dy, states)
+    A, B, C = pad_state(_pad(A, 0, extra_d), B, C, width)
+    x, dt, dy, Dp = (_pad(t, extra_d) for t in (x, dt, dy, D))
+    states = _pad(states, 0, extra_d)
+    if width in BWD_STATE_WIDTHS:
+        dx, ddt, dA, dB, dC, dD = launch(x, dt, A, B, C, Dp, dy, states)
+    else:
+        h = width // 2
+        lo, hi = (launch(x, dt, A[:, s].contiguous(), B[..., s].contiguous(),
+                         C[..., s].contiguous(), Dp if s.start == 0 else torch.zeros_like(Dp),
+                         dy, states[..., s].contiguous())
+                  for s in (slice(0, h), slice(h, width)))
+        dx, ddt, dD = lo[0] + hi[0], lo[1] + hi[1], lo[5]
+        dA, dB, dC = (torch.cat([a, b], -1) for a, b in zip(lo[2:5], hi[2:5]))
+    return (dx[..., :Dch].contiguous(), ddt[..., :Dch].contiguous(),
+            dA[:Dch, :N].contiguous(), dB[..., :N].contiguous(), dC[..., :N].contiguous(),
+            dD[:Dch].contiguous())
 
 
 def selective_scan_forward(x, dt, A, B, C, D, states: bool = False):
     """The forward kernel on CUDA tensors: (y, states). With ``states`` the
     kernel also writes the state at the start of every SUB_CHUNK steps
-    (``states_shape``), which the backward kernel reruns from; else states
-    is None and the launches write only y and their chunk pairs."""
+    (``states_shape`` at the kernel's width, ``kernel_state(d_state)``),
+    which the backward kernel reruns from; else states is None and the
+    launches write only y and their chunk pairs."""
     Bt, T, Dch = x.shape
-    N = A.shape[1]
-    _check_state(N)
-    if states:
-        _check_bwd_channels(Dch)
+    n = A.shape[1]
+    N = kernel_state(n)  # the kernel's width: zero states past n, filled as it loads
     y = torch.empty_like(x)
     chunk, chunks = _chunks(T)
     f32 = dict(dtype=torch.float32, device=x.device)
@@ -185,10 +254,10 @@ def selective_scan_forward(x, dt, A, B, C, D, states: bool = False):
     hs = torch.empty(states_shape(Bt, T, Dch, N), **f32) if states else None
     with torch.cuda.device(x.device):  # the launch's current device
         err = _build.load().selective_scan_forward(
-            _ptr(x, (Bt, T, Dch), "x"), _ptr(dt, (Bt, T, Dch), "dt"), _ptr(A, (Dch, N), "A"),
-            _ptr(B, (Bt, T, N), "B"), _ptr(C, (Bt, T, N), "C"), _ptr(D, (Dch,), "D"),
+            _ptr(x, (Bt, T, Dch), "x"), _ptr(dt, (Bt, T, Dch), "dt"), _ptr(A, (Dch, n), "A"),
+            _ptr(B, (Bt, T, n), "B"), _ptr(C, (Bt, T, n), "C"), _ptr(D, (Dch,), "D"),
             y.data_ptr(), None if pairs is None else pairs.data_ptr(),
-            None if hs is None else hs.data_ptr(), Bt, T, Dch, N, chunk,
+            None if hs is None else hs.data_ptr(), Bt, T, Dch, N, n, chunk,
             torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "selective_scan_forward")
     selective_scan.launches += 1
@@ -198,27 +267,37 @@ def selective_scan_forward(x, dt, A, B, C, D, states: bool = False):
 def selective_scan_backward(x, dt, A, B, C, D, dy, states=None):
     """(dx, ddt, dA, dB, dC, dD) of the scan at the output gradient ``dy``.
     CPU tensors take ``selective_scan_plain_backward``; CUDA tensors the
-    backward kernel, which needs the forward's sub-chunk start ``states``
-    (``selective_scan_forward(..., states=True)``) and takes D <= MAX_BWD_D,
-    a multiple of 4."""
+    backward kernel through ``padded_backward``, which needs the forward's
+    sub-chunk start ``states`` (``selective_scan_forward(..., states=True)``,
+    at the kernel's state width)."""
     if x.device.type == "cpu":
         return selective_scan_plain_backward(x, dt, A, B, C, D, dy)
     if not x.is_cuda:
         raise ValueError(f"selective_scan_backward: no kernel for device {x.device}")
     Bt, T, Dch = x.shape
-    N = A.shape[1]
-    _check_state(N)
-    _check_bwd_channels(Dch)
+    width = kernel_state(A.shape[1])
     if states is None:
         raise ValueError("selective_scan_backward: the kernel needs the forward's sub-chunk "
                          "states (selective_scan_forward(..., states=True))")
+    if tuple(states.shape) != states_shape(Bt, T, Dch, width):
+        raise ValueError(f"selective_scan_backward: states {tuple(states.shape)} != "
+                         f"{states_shape(Bt, T, Dch, width)}")
+    return padded_backward(_backward_launch, x, dt, A, B, C, D, dy, states)
+
+
+def _backward_launch(x, dt, A, B, C, D, dy, states):
+    """The backward kernel's launches at a state width of BWD_STATE_WIDTHS and
+    a multiple of 4 channels, counted in ``selective_scan_backward.launches``
+    (twice per call at a 128-wide state)."""
+    Bt, T, Dch = x.shape
+    N = A.shape[1]
     f32 = dict(dtype=torch.float32, device=x.device)
     dx, ddt = torch.empty_like(x), torch.empty_like(x)
     dA, dB, dC, dD = (torch.empty(Dch, N, **f32), torch.empty(Bt, T, N, **f32),
                       torch.empty(Bt, T, N, **f32), torch.empty(Dch, **f32))
     # scratch: the adjoint's sub-chunk pairs and the partials of dA and dD
     # that the last launch sums in a fixed order
-    k2 = backward_chunk(Bt, T, _active_clusters(x.device, Dch))
+    k2 = backward_chunk(Bt * backward_layout(Dch)[1], T, _active_clusters(x.device, Dch, N))
     n_scratch = backward_scratch_floats(Bt, T, Dch, N, k2)
     if n_scratch >= 2 ** 31:
         raise ValueError(f"selective_scan_backward: {n_scratch} floats of scratch at "
@@ -270,25 +349,28 @@ def selective_scan(x, dt, A, B, C, D):
 
 
 @functools.lru_cache(maxsize=16)
-def _active_clusters(device: torch.device, D: int) -> int:
+def _active_clusters(device: torch.device, D: int, N: int) -> int:
     """Clusters of the backward's main launch that fit on ``device`` at once."""
     with torch.cuda.device(device):
-        active = backward_resources(D)["active_clusters"]
+        active = backward_resources(D, N)["active_clusters"]
     if active < 1:
         raise RuntimeError(f"selective_scan_backward: no cluster of its launch fits on {device}")
     return active
 
 
-def backward_resources(D: int = 128) -> dict:
-    """What the backward's cluster launch holds on the card at D channels:
-    registers per thread, static and dynamic shared memory per CTA, spill
-    bytes per thread, CTAs per SM and clusters active at once (CUDA's own
-    attribute and occupancy queries)."""
-    _check_bwd_channels(D)
+def backward_resources(D: int = 128, N: int = 64) -> dict:
+    """What the backward's cluster launch holds on the card at D channels and
+    a state width N of BWD_STATE_WIDTHS: registers per thread, static and
+    dynamic shared memory per CTA, spill bytes per thread, CTAs per SM and
+    clusters active at once (CUDA's own attribute and occupancy queries)."""
+    if N not in BWD_STATE_WIDTHS:
+        raise ValueError(f"the backward kernel is built at state widths {BWD_STATE_WIDTHS}, "
+                         f"got {N}")
     fn = _build.load().selective_scan_backward_resources
-    fn.argtypes, fn.restype = [ctypes.c_void_p, ctypes.c_int], ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
+    fn.restype = ctypes.c_int
     out = (ctypes.c_int * 6)()
-    _build.check(fn(ctypes.addressof(out), -(-D // CLUSTER_WARPS)),
+    _build.check(fn(ctypes.addressof(out), backward_layout(D)[0], N),
                  "selective_scan_backward_resources")
     keys = ("registers", "static_smem", "dynamic_smem", "local_bytes", "ctas_per_sm",
             "active_clusters")

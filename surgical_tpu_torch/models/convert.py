@@ -11,7 +11,10 @@ here are their inverses. ``export_dual_tower_mstcn_state_dict`` and
 (``DualTowerMSTCN``, ``Adaptor``); ``HiddenFeatureMSTCN`` shares
 ``MultiStageTCN``'s parameter tree, so ``export_mstcn_state_dict`` carries
 it. The ``load_*_params`` functions load
-JAX weights into a port module with ``strict=True``.
+JAX weights into a port module with ``strict=True``. ``refiner_state_dict``
+carries every parameter of a JAX refiner, its LayerNorms and FFN biases
+included, which the reference-layout exporter refuses unless they are at
+their init (``load_trained_refiner_params``).
 ``infer_mstcn_dims`` and ``infer_refiner_dims`` are copies of the JAX
 module's, which read a reference checkpoint's model dims off its state dict.
 """
@@ -205,6 +208,39 @@ def export_refiner_state_dict(params: Mapping, n_layers: int = 1) -> dict:
     return sd
 
 
+def refiner_state_dict(params: Mapping, n_layers: int = 1) -> dict:
+    """JAX ``RefinementTransformer`` params -> the port refiner's state dict,
+    every parameter: the reference-layout keys of ``export_refiner_state_dict``
+    plus each attention block's and FFN's ``layernorm.weight`` / ``.bias``
+    (the key JAX's importer reads) and the FFN's ``fc.0.bias`` /
+    ``fc.2.bias``, at whatever values JAX's training left them."""
+    sd = {"fc.weight": np.asarray(params["fc"]["kernel"]).T}
+
+    def put_ln(pre, p):
+        sd[f"{pre}.layernorm.weight"] = np.asarray(p["ln"]["scale"])
+        sd[f"{pre}.layernorm.bias"] = np.asarray(p["ln"]["bias"])
+
+    def put_attn(pre, p):
+        for ours, theirs in (("W_Q", "w_q"), ("W_K", "w_k"), ("W_V", "w_v"), ("fc", "w_o")):
+            sd[f"{pre}.{ours}.weight"] = np.asarray(p[theirs]["kernel"]).T
+        put_ln(pre, p)
+
+    def put_ffn(pre, p):
+        _put_dense(sd, f"{pre}.fc.0", p["fc1"])
+        _put_dense(sd, f"{pre}.fc.2", p["fc2"])
+        put_ln(pre, p)
+
+    t = params["transformer"]
+    for i in range(n_layers):
+        enc, dec = f"transformer.encoder.layers.{i}", f"transformer.decoder.layers.{i}"
+        put_attn(f"{enc}.enc_self_attn", t[f"enc_{i}"]["self_attn"])
+        put_ffn(f"{enc}.pos_ffn", t[f"enc_{i}"]["ffn"])
+        put_attn(f"{dec}.dec_self_attn", t[f"dec_{i}"]["self_attn"])
+        put_attn(f"{dec}.dec_enc_attn", t[f"dec_{i}"]["cross_attn"])
+        put_ffn(f"{dec}.pos_ffn", t[f"dec_{i}"]["ffn"])
+    return sd
+
+
 def export_mamba_state_dict(params: Mapping, layers: int) -> dict:
     """CausalMambaModel params -> reference torch layout (round-trip)."""
     sd = {
@@ -342,9 +378,19 @@ def load_dual_tower_mstcn(model, sd: Mapping) -> list[str]:
 
 
 def load_refiner_params(model, params: Mapping) -> None:
-    """Load JAX ``RefinementTransformer`` params into the port's."""
+    """Load JAX ``RefinementTransformer`` params into the port's through the
+    reference layout (``export_refiner_state_dict``), which asserts that the
+    LayerNorms are identity and the FFN biases zero: JAX's init.
+    ``load_trained_refiner_params`` takes any params."""
     sd = export_refiner_state_dict(params, model.cfg.n_layers)
     model.load_state_dict(to_torch(sd), strict=True)
+
+
+def load_trained_refiner_params(model, params: Mapping) -> None:
+    """Load JAX ``RefinementTransformer`` params into the port's, every
+    parameter as it is (``refiner_state_dict``): a refiner that JAX's
+    ``train-refiner`` has trained."""
+    model.load_state_dict(to_torch(refiner_state_dict(params, model.cfg.n_layers)), strict=True)
 
 
 def load_mamba_params(model, params: Mapping) -> None:

@@ -1,15 +1,25 @@
 """Trans-SVNet-style refinement transformer, and the prompt ``Adaptor``.
 
-Port of ``surgical_tpu/models/transsv.py`` in the key names that the JAX
-package's ``export_refiner_state_dict`` writes (the public Trans-SVNet
-layout): ``fc``, ``transformer.encoder.layers.{i}.enc_self_attn`` /
-``pos_ffn``, ``transformer.decoder.layers.{i}.dec_self_attn`` /
-``dec_enc_attn`` / ``pos_ffn``; attention projections ``W_Q/W_K/W_V/fc`` and
-FFN linears without bias, LayerNorms inline (no parameters, eps 1e-6).
+Port of ``surgical_tpu/models/transsv.py`` with JAX's parameter set, in the
+key names of the public Trans-SVNet layout that the JAX package's
+``export_refiner_state_dict`` writes: ``fc``,
+``transformer.encoder.layers.{i}.enc_self_attn`` / ``pos_ffn``,
+``transformer.decoder.layers.{i}.dec_self_attn`` / ``dec_enc_attn`` /
+``pos_ffn``; attention projections ``W_Q/W_K/W_V/fc`` without bias. As in
+JAX (``nn.Dense`` with bias, ``nn.LayerNorm``), the FFN's linears carry a
+bias (``pos_ffn.fc.0.bias``, ``pos_ffn.fc.2.bias``) and every attention
+block and FFN ends in a LayerNorm with scale and bias (``layernorm``, eps
+1e-6), the key JAX's importer reads (``surgical_tpu/models/convert.py``,
+``_attn_import`` / ``_ffn_import``). The reference's own layout has inline
+LayerNorms and bias-free linears: loading such a state dict (or a port
+checkpoint written before these parameters) fills identity scales and zero
+biases where the keys are missing, logs which, and is strict about every
+other key.
 """
 
 from __future__ import annotations
 
+import logging
 import math
 
 import torch
@@ -21,6 +31,8 @@ from surgical_tpu_torch.core.device import DEFAULT_DEVICE, resolve_device
 from surgical_tpu_torch.models.mstcn import torch_like_uniform_
 
 LN_EPS = 1e-6
+
+logger = logging.getLogger(__name__)
 
 
 def causal_windows(x, len_q: int):
@@ -41,6 +53,7 @@ class MultiHeadAttention(nn.Module):
         self.W_K = nn.Linear(d_model, n_heads * d_k, bias=False)
         self.W_V = nn.Linear(d_model, n_heads * d_v, bias=False)
         self.fc = nn.Linear(n_heads * d_v, d_model, bias=False)
+        self.layernorm = nn.LayerNorm(d_model, eps=LN_EPS)
 
     def forward(self, q_in, k_in, v_in):  # [B, Lq, d], [B, Lk, d], [B, Lk, d]
         B, Lq, d = q_in.shape
@@ -51,17 +64,44 @@ class MultiHeadAttention(nn.Module):
         v = self.W_V(v_in).reshape(B, Lk, H, self.d_v).transpose(1, 2)
         scores = q @ k.transpose(-1, -2) / math.sqrt(self.d_k)
         ctx = (torch.softmax(scores, dim=-1) @ v).transpose(1, 2).reshape(B, Lq, -1)
-        return F.layer_norm(q_in + self.fc(ctx), (d,), eps=LN_EPS)
+        return self.layernorm(q_in + self.fc(ctx))
 
 
 class PoswiseFeedForwardNet(nn.Module):
     def __init__(self, d_model: int, d_ff: int):
         super().__init__()
-        self.fc = nn.Sequential(nn.Linear(d_model, d_ff, bias=False), nn.ReLU(),
-                                nn.Linear(d_ff, d_model, bias=False))
+        self.fc = nn.Sequential(nn.Linear(d_model, d_ff), nn.ReLU(), nn.Linear(d_ff, d_model))
+        self.layernorm = nn.LayerNorm(d_model, eps=LN_EPS)
 
     def forward(self, x):
-        return F.layer_norm(x + self.fc(x), (x.shape[-1],), eps=LN_EPS)
+        return self.layernorm(x + self.fc(x))
+
+
+def _fill_reference_layout(module, state_dict, prefix, *_):
+    """Load pre-hook of ``RefinementTransformer``: a state dict in the
+    reference's layout (no ``layernorm`` keys, bias-free FFN linears) gets
+    identity LayerNorms and zero FFN biases, as JAX's importer fills them;
+    the filled keys are logged. Keys present are left as they are, and a
+    block whose weights are absent is left to the strict load to report."""
+    filled = []
+    for name, m in module.named_modules():
+        if not isinstance(m, (MultiHeadAttention, PoswiseFeedForwardNet)):
+            continue
+        pre = f"{prefix}{name}."
+        anchor = "W_Q.weight" if isinstance(m, MultiHeadAttention) else "fc.0.weight"
+        if pre + anchor not in state_dict:
+            continue
+        defaults = {"layernorm.weight": m.layernorm.weight, "layernorm.bias": m.layernorm.bias}
+        if isinstance(m, PoswiseFeedForwardNet):
+            defaults.update({"fc.0.bias": m.fc[0].bias, "fc.2.bias": m.fc[2].bias})
+        for key, param in defaults.items():
+            if pre + key not in state_dict:
+                fill = torch.ones_like if key == "layernorm.weight" else torch.zeros_like
+                state_dict[pre + key] = fill(param.detach())
+                filled.append(pre + key)
+    if filled:
+        logger.info("RefinementTransformer: filled %d keys absent from the state dict with "
+                    "identity LayerNorms and zero FFN biases: %s", len(filled), ", ".join(filled))
 
 
 class EncoderLayer(nn.Module):
@@ -144,6 +184,23 @@ class Adaptor(nn.Module):
             T, self.len_q, self.num_classes)
 
 
+def _init_like_flax_(module: nn.Module, g: torch.Generator) -> None:
+    """The JAX refiner's init: every linear weight U(-1/sqrt(fan_in),
+    1/sqrt(fan_in)) from ``g`` (``torch_like_uniform``), biases zero and
+    LayerNorms identity (flax's defaults). The weights take the draws the
+    reference layout's bias-free linears took."""
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, nn.Linear):
+                bound = m.weight.shape[1] ** -0.5
+                m.weight.uniform_(-bound, bound, generator=g)
+                if m.bias is not None:
+                    m.bias.zero_()
+            elif isinstance(m, nn.LayerNorm):
+                nn.init.ones_(m.weight)
+                nn.init.zeros_(m.bias)
+
+
 class RefinementTransformer(nn.Module):
     """forward(temporal_logits [T, out_features], lfb [T, f_dim])
     -> refined logits [T, out_features]."""
@@ -156,7 +213,8 @@ class RefinementTransformer(nn.Module):
         self.fc = nn.Linear(cfg.f_dim, cfg.out_features, bias=False)
         self.transformer = Transformer231(cfg.out_features, cfg.f_maps, cfg.d_k, cfg.d_k,
                                           cfg.n_layers, cfg.n_heads)
-        torch_like_uniform_(self, torch.Generator().manual_seed(seed))
+        _init_like_flax_(self, torch.Generator().manual_seed(seed))
+        self.register_load_state_dict_pre_hook(_fill_reference_layout)
         self.eval()
         self.to(device)
 

@@ -368,8 +368,8 @@ DRYRUN_SIZE = 64
 def dryrun_legs(n: int, device: str) -> list:
     """The dry run's legs at its dims: the batch-sharded step (B = 2n frames
     at 64 px), MS-TCN (2 x 4 layers, f_maps 8, f_dim 32) and Mamba (1 layer,
-    d_model 16, f_dim 32, d_state 64, the kernel's one width) over T = 32n,
-    and extraction of 5n frames in batches of 2n (a ragged tail)."""
+    d_model 16, f_dim 32, d_state 8, as the JAX package's dry run) over
+    T = 32n, and extraction of 5n frames in batches of 2n (a ragged tail)."""
     from surgical_tpu_torch.core.config import (BackboneConfig, HeadConfig, MambaConfig,
                                                 MSTCNConfig)
 
@@ -382,10 +382,12 @@ def dryrun_legs(n: int, device: str) -> list:
         (temporal_leg, dict(kind="mstcn", cfg=MSTCNConfig(stages=2, layers=4, f_maps=8,
                                                           f_dim=32), T=T, seed=2)),
         (temporal_leg, dict(kind="mamba", cfg=MambaConfig(layers=1, d_model=16, f_dim=32,
-                                                          out_features=7, dropout=0.0),
+                                                          d_state=8, out_features=7,
+                                                          dropout=0.0),
                             T=T, seed=3, scale=0.1)),
-        # the kernels take head_dim 64: on the card the dry run's widths
-        # extract on the flax graph, on the CPU on the serving graph
+        # the serving kernels take head widths 32 and 64, and the dry run's are
+        # 16 / 16 / 10 / 8: on the card it extracts on the flax graph, on the
+        # CPU on the serving graph
         (extract_leg, dict(cfg=cfg, head_cfg=head, frames=5 * n, batch=2 * n,
                            size=DRYRUN_SIZE, use_fused=None if device == "cpu" else False)),
     ]

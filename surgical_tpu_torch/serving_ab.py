@@ -25,9 +25,10 @@ training batch 88, the same way; and the untraced training step of
 ``BackboneTrainer(use_fused=True)`` (b3, batch 88, 250-px wire frames
 cropped to 224, SGD): 5 steps after 2 warm-ups; then ``selective_scan`` on
 one video of T = 200, 2000 and 6000 frames at ``MambaConfig()``'s widths
-(D = 128, N = 64, fp32), the same way, ``selective_scan_backward`` at T =
-2000 and 6000 (fed what that tree's forward keeps for it; with the device
-time of each of its launches from torch.profiler), and the latency per
+(D = 128, N = 64, fp32), the same way (with the device time of each of its
+launches from torch.profiler), ``selective_scan_backward`` at T = 2000 and
+6000 (fed what that tree's forward keeps for it; with the device time of
+each of its launches), and the latency per
 video of
 ``predict_video`` with a seeded ``CausalMambaModel(MambaConfig())`` and
 ``RefinementTransformer(RefinerConfig())`` at the same T (host clock
@@ -288,7 +289,10 @@ def _measure_temporal(res: dict, time_ms) -> None:
         dt = torch.nn.functional.softplus(f(1, T, SCAN_D) - 3.0)
         ms = time_ms(lambda: ss.selective_scan(x, dt, A, B, C, Dv))
         res["kernels"][f"selective_scan_forward T={T}"] = ms
-        print(f"  {res['root']}: selective_scan_forward T={T}: {ms:.4f} ms", flush=True)
+        per_op = _device_op_us(lambda: ss.selective_scan(x, dt, A, B, C, Dv))
+        res.setdefault("scan_forward_ops_us", {})[str(T)] = per_op
+        print(f"  {res['root']}: selective_scan_forward T={T}: {ms:.4f} ms; device us per call "
+              f"by kernel: {per_op}", flush=True)
         if T not in SCAN_BWD_T:
             continue
         dy = f(1, T, SCAN_D)

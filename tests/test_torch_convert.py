@@ -17,6 +17,8 @@ from surgical_tpu_torch.models.mit_evp import MiTEVP
 from surgical_tpu_torch.models.mstcn import MultiStageTCN
 from surgical_tpu_torch.models.transsv import RefinementTransformer
 
+torch.set_num_threads(1)  # one intra-op thread per test process: xdist workers share the CPUs
+
 CFG = BackboneConfig(variant="tiny", embed_dims=(16, 32, 40, 64), num_heads=(1, 2, 4, 8),
                      depths=(2, 1, 2, 1), drop_path_rate=0.0, img_size=64)
 HEAD = HeadConfig(embedding_dim=32, hidden=16)

@@ -25,6 +25,8 @@ from surgical_tpu_torch.models.mit_evp import MiTEVP
 from surgical_tpu_torch.parallel import dryrun, mesh
 from surgical_tpu_torch.train.extract import make_raw_feature_fn
 
+torch.set_num_threads(1)  # one intra-op thread per test process: xdist workers share the CPUs
+
 TINY = BackboneConfig.preset("tiny")
 TINY_HEAD = HeadConfig(embedding_dim=32, hidden=16)
 EXTRACT = dict(frames=21, batch=8, size=64)  # 2 batches of 8 and a ragged tail of 5

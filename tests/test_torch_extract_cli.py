@@ -50,6 +50,8 @@ import test_convert as tc
 import test_convert_evp as tce
 import test_convert_refiner as tcr
 
+torch.set_num_threads(1)  # one intra-op thread per test process: xdist workers share the CPUs
+
 NUM_VIDEOS, FRAMES, BATCH = 4, 8, 8
 DIMS = ["--variant", "tiny", "--depths", ",".join(map(str, tce.DEPTHS)),
         "--head-dim", str(tce.E), "--head-hidden", str(tce.HID)]

@@ -27,6 +27,8 @@ from surgical_tpu_torch.kernels.selective_scan import (MAX_CHUNKS, SUB_CHUNK, sc
 from surgical_tpu_torch.models import convert
 from surgical_tpu_torch.models.mamba import CausalMambaModel
 
+torch.set_num_threads(1)  # one intra-op thread per test process: xdist workers share the CPUs
+
 TINY = dict(layers=2, d_model=16, d_state=8, f_dim=32)
 ATOL_SCAN, ATOL_MODEL = 1e-5, 1e-4
 

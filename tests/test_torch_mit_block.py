@@ -16,6 +16,8 @@ from surgical_tpu.kernels import mit_block as jmb
 from surgical_tpu.models.mit_evp import MiTBlock
 from surgical_tpu_torch.kernels import mit_block as tmb
 
+torch.set_num_threads(1)  # one intra-op thread per test process: xdist workers share the CPUs
+
 TOL = dict(atol=1e-4, rtol=1e-4)
 B, H, W, C, NKV = 2, 8, 8, 16, 16
 N = H * W

@@ -23,6 +23,8 @@ from surgical_tpu_torch.models.convert import load_evp_params
 from surgical_tpu_torch.models.mit_evp import MiTEVP
 from surgical_tpu_torch.models.mit_fused import fused_forward, kernel_weights
 
+torch.set_num_threads(1)  # one intra-op thread per test process: xdist workers share the CPUs
+
 CFG = BackboneConfig(variant="tiny", embed_dims=(16, 32, 40, 64), num_heads=(1, 2, 4, 8),
                      depths=(1, 1, 2, 1), sr_ratios=(8, 4, 2, 1), qkv_bias=True,
                      drop_path_rate=0.0, img_size=64)

@@ -35,6 +35,8 @@ from surgical_tpu_torch.models.convert import export_evp_state_dict, load_evp_pa
 from surgical_tpu_torch.models.mit_evp import MiTEVP
 from surgical_tpu_torch.train.backbone import freeze_trunk
 
+torch.set_num_threads(1)  # one intra-op thread per test process: xdist workers share the CPUs
+
 HEAD = HeadConfig(embedding_dim=32, hidden=16)
 B = 2
 

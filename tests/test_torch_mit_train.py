@@ -27,6 +27,8 @@ from surgical_tpu_torch.models.mit_evp import MiTEVP, _init_weights
 from surgical_tpu_torch.models.mit_train import draw_masks, fused_train_forward, write_bn_stats
 from surgical_tpu_torch.train.backbone import freeze_trunk
 
+torch.set_num_threads(1)  # one intra-op thread per test process: xdist workers share the CPUs
+
 CFG = BackboneConfig.preset("tiny", drop_path_rate=0.1, img_size=64)
 HEAD = HeadConfig(embedding_dim=64, hidden=32, dropout=0.1)
 B, KEY = 4, 7

@@ -18,6 +18,7 @@ import shutil
 
 import numpy as np
 import pytest
+import torch
 from PIL import Image
 
 from surgical_tpu import native as jnative
@@ -27,6 +28,8 @@ from surgical_tpu.data.datasets import FrameCache as JaxFrameCache
 from surgical_tpu_torch import cli
 from surgical_tpu_torch import native
 from surgical_tpu_torch.data import datasets as pds
+
+torch.set_num_threads(1)  # one intra-op thread per test process: xdist workers share the CPUs
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOOLCHAIN = shutil.which("g++") is not None and any(

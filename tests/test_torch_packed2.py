@@ -26,6 +26,8 @@ from surgical_tpu_torch.models.convert import load_evp_params
 from surgical_tpu_torch.models.mit_evp import MiTEVP
 from test_torch_mit_fused import seeded_evp
 
+torch.set_num_threads(1)  # one intra-op thread per test process: xdist workers share the CPUs
+
 B, H, W, C, NKV = 4, 8, 12, 64, 6
 HIDDEN = 4 * C
 

@@ -32,6 +32,8 @@ from surgical_tpu_torch.models.mamba import CausalMambaModel
 from surgical_tpu_torch.models.mstcn import MultiStageTCN
 from surgical_tpu_torch.parallel import dryrun, mesh, sequence
 
+torch.set_num_threads(1)  # one intra-op thread per test process: xdist workers share the CPUs
+
 RANKS = 4
 # (JAX config, T, ranks, input scale, bound) of tests/test_sequence_parallel.py's cases,
 # with T cut to the rank counts here: the two-rank MS-TCN's halos fit in a chunk; the
@@ -46,6 +48,9 @@ MAMBA_CASES = {
                                   dropout=0.0), 256, 4, 1.0, 2e-4),
     "long_decay": (JaxMambaConfig(layers=1, d_model=8, f_dim=8, d_state=4, d_conv=2,
                                   dropout=0.0), 1024, 4, 2.0, 5e-4),
+    # the dry runs' Mamba leg (__graft_entry__.py:192, parallel/dryrun.py::dryrun_legs)
+    "dryrun": (JaxMambaConfig(layers=1, d_model=16, f_dim=32, d_state=8, out_features=7,
+                              dropout=0.0), 32 * RANKS, 4, 0.1, 2e-4),
 }
 SEQ_T, SEQ_D, SEQ_HALO = 256, 16, 5
 
@@ -169,6 +174,17 @@ def test_sp_mamba_matches_jax(spawned, case):
     np.testing.assert_allclose(res["out"], want, rtol=bound, atol=bound)
     # the plain scan on the CPU: no kernel launched
     assert res["scan_launches"] == 0
+
+
+def test_dryrun_mamba_leg_is_the_jax_dry_runs():
+    """The port's dry run runs its Mamba leg at the JAX dry run's config
+    (d_state 8, not a kernel width), T and input scale; the spawned case
+    above holds that leg to JAX's model.apply."""
+    leg = next(kw for fn, kw in dryrun.dryrun_legs(RANKS, "cpu")
+               if fn is dryrun.temporal_leg and kw["kind"] == "mamba")
+    jcfg, T, _, scale, _ = MAMBA_CASES["dryrun"]
+    assert leg["cfg"] == _port_config(jcfg) and leg["cfg"].d_state == 8
+    assert (leg["T"], leg["scale"]) == (T, scale)
 
 
 def test_sequence_parallel_infer_tuple(spawned):

@@ -26,6 +26,8 @@ from surgical_tpu_torch.data.datasets import load_image
 from surgical_tpu_torch.models.convert import load_torch_pth
 from surgical_tpu_torch.models.raft import RAFT, make_flow_fn
 
+torch.set_num_threads(1)  # one intra-op thread per test process: xdist workers share the CPUs
+
 FRAMES = (0, 25, 50, 75)
 
 

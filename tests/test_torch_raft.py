@@ -28,6 +28,8 @@ from surgical_tpu_torch.models import raft as traft
 from surgical_tpu_torch.models.convert import export_raft_state_dict, load_raft_params
 from test_convert_raft import TRaft
 
+torch.set_num_threads(1)  # one intra-op thread per test process: xdist workers share the CPUs
+
 S, ITERS = 64, 3
 TOL = 1e-5
 

@@ -39,6 +39,8 @@ from surgical_tpu_torch.train.extract import extract_features, make_raw_feature_
 from test_torch_mit_fused import CFG, HEAD, jax_fused_interpret
 from test_torch_mit_train import seeded_variables
 
+torch.set_num_threads(1)  # one intra-op thread per test process: xdist workers share the CPUs
+
 ODD_B = 6                    # not a multiple of _FUSE_BT[4] = 8
 FRAMES, BATCH = 14, 8        # a full batch and a ragged tail of 6
 C4 = CFG.embed_dims[3]

@@ -16,7 +16,8 @@ chunks. Here, on the CPU:
   against the forward's, folded last first, dB and dC summed per channel
   block and then over the cluster in rank order) held to ``jax.grad`` at the
   chunk edges;
-- the wrappers' CPU routes, the kernel's scratch layout and its limit on D.
+- the wrappers' CPU routes, the kernel's scratch layout and its limit on
+  d_state.
 
 CUDA cases (marker ``cuda``) hold the backward kernel to the plain backward
 on the card and check that two runs give the same bits.
@@ -35,6 +36,8 @@ import torch
 
 from surgical_tpu.kernels.selective_scan import selective_scan_ref, selective_scan_xla
 from surgical_tpu_torch.kernels import selective_scan as ss
+
+torch.set_num_threads(1)  # one intra-op thread per test process: xdist workers share the CPUs
 
 REL_JAX, REL_AUTOGRAD = 1e-5, 1e-6
 NAMES = ("x", "dt", "A", "B", "C", "D")
@@ -250,15 +253,21 @@ def test_backward_chunk_fills_whole_waves(Bt, T, active, want):
 
 
 def test_backward_refuses_a_d_over_one_cluster():
-    """D above one cluster of channel blocks, or not a multiple of 4, raises
-    before any launch."""
-    assert ss.MAX_BWD_D == 128
-    x, dt, A, B, C, D, _ = (torch.from_numpy(a) for a in scan_inputs(1, 4, D=129, seed=2))
-    with pytest.raises(ValueError, match="D <= 128"):
-        ss.selective_scan_forward(x, dt, A, B, C, D, states=True)
-    x, dt, A, B, C, D, _ = (torch.from_numpy(a) for a in scan_inputs(1, 4, D=30, seed=2))
-    with pytest.raises(ValueError, match="multiple of 4"):
-        ss.selective_scan_forward(x, dt, A, B, C, D, states=True)
+    """D above one cluster of channel blocks (129) and D not a multiple of 4
+    (30) are no longer refused: the cluster launch takes one cluster per
+    group of channels and the wrapper pads the channels with zeros. What the
+    wrappers refuse before any launch now is a d_state above the widest
+    build, 128; below it they reach the launch (here torch refuses a CPU
+    tensor's device as the launch's current device)."""
+    assert ss.CLUSTER_D == 128
+    assert ss.backward_layout(129) == (5, 2) and ss.backward_layout(128) == (8, 1)
+    for D in (129, 30):
+        x, dt, A, B, C, Dv, _ = (torch.from_numpy(a) for a in scan_inputs(1, 4, D=D, seed=2))
+        with pytest.raises(ValueError, match="Expected a cuda device"):
+            ss.selective_scan_forward(x, dt, A, B, C, Dv, states=True)
+    x, dt, A, B, C, Dv, _ = (torch.from_numpy(a) for a in scan_inputs(1, 4, D=8, N=129, seed=2))
+    with pytest.raises(ValueError, match="d_state 1 to 128"):
+        ss.selective_scan_forward(x, dt, A, B, C, Dv, states=True)
 
 
 @pytest.mark.cuda

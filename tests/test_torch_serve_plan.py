@@ -6,8 +6,11 @@ checked on the CPU: the grids cover the rows, columns and query tiles
 exactly once, the shared memory fits one CTA, and the limits raise."""
 
 import pytest
+import torch
 
 from surgical_tpu_torch.kernels import mit_block as mb
+
+torch.set_num_threads(1)  # one intra-op thread per test process: xdist workers share the CPUs
 
 # b3: (C, heads, sr) per stage; grid sides at 224 and 250 px
 B3 = ((64, 1, 8), (128, 2, 4), (320, 5, 2), (512, 8, 1))

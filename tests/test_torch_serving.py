@@ -40,6 +40,8 @@ from surgical_tpu_torch.serving.online import (OnlineMamba, OnlineMSTCN, OnlineR
 from surgical_tpu_torch.train.extract import wire_dequant
 from surgical_tpu_torch.train.refiner import predict_video
 
+torch.set_num_threads(1)  # one intra-op thread per test process: xdist workers share the CPUs
+
 F_DIM = 32
 LENGTHS, IDS = [37, 52], [41, 42]
 ATOL_ONLINE, ATOL_LOGITS = 1e-5, 1e-4

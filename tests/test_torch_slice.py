@@ -31,6 +31,8 @@ from surgical_tpu_torch.train.refiner import predict_and_write
 from surgical_tpu_torch.train.temporal import VideoDataset
 from test_torch_mit_fused import CFG, HEAD, jax_fused_interpret, seeded_evp
 
+torch.set_num_threads(1)  # one intra-op thread per test process: xdist workers share the CPUs
+
 PORT = Path(__file__).resolve().parents[1] / "surgical_tpu_torch"
 LENGTHS = [6, 10]
 BATCH = 8

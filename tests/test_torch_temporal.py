@@ -23,6 +23,8 @@ from surgical_tpu_torch.models.transsv import RefinementTransformer, causal_wind
 from surgical_tpu_torch.train.refiner import predict_and_write
 from surgical_tpu_torch.train.temporal import VideoDataset
 
+torch.set_num_threads(1)  # one intra-op thread per test process: xdist workers share the CPUs
+
 F_DIM = 32
 MSTCN = MSTCNConfig(stages=2, layers=4, f_maps=16, f_dim=F_DIM)
 REFINER = RefinerConfig(f_maps=16, f_dim=F_DIM, len_q=6)

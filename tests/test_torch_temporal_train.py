@@ -49,6 +49,8 @@ from surgical_tpu_torch.train.refiner import RefinerTrainer
 from surgical_tpu_torch.train.temporal import (TemporalTrainer, VideoDataset, collate,
                                                dropout_masks, make_batches)
 
+torch.set_num_threads(1)  # one intra-op thread per test process: xdist workers share the CPUs
+
 F_DIM = 16
 MSTCN = dict(stages=2, layers=3, f_maps=8, f_dim=F_DIM)
 MAMBA = dict(layers=2, d_model=16, d_state=64, f_dim=F_DIM)
@@ -276,27 +278,11 @@ def test_plateau_and_lr_follow_jax():
 
 # -- one refiner step ----------------------------------------------------------------
 
-def _reference_slots_only(tree):
-    """JAX's refiner also holds LayerNorm affines and FFN biases, which the
-    reference's layout (and the port's) has not: its LayerNorms are inline and
-    its FFN has no bias. JAX's optimizer moves them from identity and zero
-    (a known difference); the exporter takes them at those values."""
-    if not isinstance(tree, dict):
-        return tree
-    out = {k: _reference_slots_only(v) for k, v in tree.items()}
-    if "ln" in out:
-        out["ln"] = {"scale": np.ones_like(out["ln"]["scale"]),
-                     "bias": np.zeros_like(out["ln"]["bias"])}
-    for k in ("fc1", "fc2"):
-        if k in out and "bias" in out[k]:
-            out[k] = {**out[k], "bias": np.zeros_like(out[k]["bias"])}
-    return out
-
-
 def test_refiner_step_matches_jax():
     """One Adam step of the refiner on a 64-frame video (its bucket) over the
-    frozen MS-TCN: loss, its parts, correct frames and every parameter of the
-    reference layout; the temporal parameters do not move."""
+    frozen MS-TCN: loss, its parts, correct frames and every parameter, the
+    LayerNorm affines and FFN biases included; the temporal parameters do not
+    move."""
     cfg = TrainConfig(bucket_sizes=BUCKETS,
                       optim=OptimConfig(name="adam", lr=5e-4, weight_decay=0.0))
     jtemporal = _jax_model("mstcn")
@@ -319,8 +305,8 @@ def test_refiner_step_matches_jax():
     np.testing.assert_allclose([float(v) for v in port_out[:3]],
                                [float(v) for v in jax_out[:3]], rtol=0, atol=EXACT)
     assert int(port_out[3]) == int(jax_out[3])
-    new_rparams = _reference_slots_only(jax.tree.map(np.asarray, new_rparams))
-    want = convert.export_refiner_state_dict(new_rparams, REFINER.get("n_layers", 1))
+    want = convert.refiner_state_dict(jax.tree.map(np.asarray, new_rparams),
+                                      REFINER.get("n_layers", 1))
     _assert_state_close(refiner, want, EXACT)
     assert all(torch.equal(v, before[k]) for k, v in temporal.state_dict().items())
 

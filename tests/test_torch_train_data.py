@@ -33,6 +33,8 @@ from surgical_tpu_torch.train import losses as plosses
 from surgical_tpu_torch.train import optim as poptim
 from surgical_tpu_torch.utils.logging import MetricsLogger
 
+torch.set_num_threads(1)  # one intra-op thread per test process: xdist workers share the CPUs
+
 CFG = jtf.AugConfig(resize=40, crop=32, degrees=5.0)
 PCFG = ptf.AugConfig(resize=40, crop=32, degrees=5.0)
 B = 6

@@ -17,6 +17,8 @@ import torch
 from surgical_tpu.kernels.mit_block import fused_mit_block_train as jax_block_train
 from surgical_tpu_torch.kernels import mit_block as mb
 
+torch.set_num_threads(1)  # one intra-op thread per test process: xdist workers share the CPUs
+
 B, H, W, C, HEADS, NKV, HIDDEN = 2, 4, 6, 16, 2, 6, 32
 N = H * W
 KEEP = 0.8

@@ -10,9 +10,12 @@ tiles once, the shared memory fits one CTA, a K wider than the resident
 panel streams through the ring, and the limits raise."""
 
 import pytest
+import torch
 
 from surgical_tpu_torch.kernels import mit_block as mb
 from test_torch_serve_plan import B3, SIDES, _check_attention, _check_gemm, _check_mlp, _kv_side
+
+torch.set_num_threads(1)  # one intra-op thread per test process: xdist workers share the CPUs
 
 BATCHES = (1, 7, 8, 88)
 STAGES = tuple(zip(B3, SIDES[224]))

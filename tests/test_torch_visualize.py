@@ -27,6 +27,8 @@ from surgical_tpu_torch import cli
 from surgical_tpu_torch.eval import visualize as pvis
 from test_torch_mit_graph import HEAD, inputs, jax_variables, port_model, tiny
 
+torch.set_num_threads(1)  # one intra-op thread per test process: xdist workers share the CPUs
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
