@@ -160,7 +160,30 @@ nonzero without printing a result:
    versions, with their launches; a refiner whose LayerNorms and FFN biases
    are away from identity and zero, card against CPU and streamed against
    offline. The kernel line's serving rows gain ``head_dims`` and a ``b0``
-   block, the scan's rows ``widths``.
+   block, the scan's rows ``widths``;
+18. limits (``phase_limits``), the configurations beyond phase 17 that the
+   JAX package's kernels take: the three train kernels at head width 32
+   (MiT-b0's four stages at 224 px) at B=8 and 88 against their plain
+   versions, then a b0 ``BackboneTrainer(use_fused=True)`` for 3 steps (8
+   launches of each train kernel per step, one batch's gradients against
+   the plain train kernels); the attention past 64 keys per head at b0 and
+   b3 stage shapes of 288 / 320 / 384 / 512-px frames (81 / 100 / 144 / 256
+   keys): the block kernel at B=8 and 200, packed2 at B=8, the stage kernel
+   at B=8 and 200, the train kernels at B=8 and 88, each against its plain
+   version (the attention backward at most 6 device operations past 64
+   keys, its outputs equal bit for bit over two runs); ``cli export-serving
+   --fused --variant b0 --size 288`` and ``--size 320`` at B=8, each
+   artifact loaded and held to the plain graph per frame (6 block and 1
+   stage launch per call), and the b0 session at 288 px over 4 frames; the
+   scan at (d_state, d_inner) = (192, 128) and (256, 64), 2000 frames,
+   forward and backward against the plain versions with their launches
+   and device operations per call. Phase 18 runs right after phase 3 (and
+   the grad guard): its device-operation counts need torch.profiler's
+   traces, which a long process has lost (phase 17's scan checks). The
+   kernel line's rows gain a
+   ``past_64_keys`` block (the train rows a ``b0`` block and the b0
+   trainer's launches too), the scan's ``widths`` these two, and a
+   ``limits`` block the trainer, export and session.
 """
 
 from __future__ import annotations
@@ -400,6 +423,43 @@ WIDTH_SCAN_T = 2000
 # fp32 within SESSION_LOGIT_BOUND.
 REFINER_T, REFINER_STREAM_T = 2000, 300
 REFINER_LN_BIAS = ("layernorm.weight", "layernorm.bias", "fc.0.bias", "fc.2.bias")
+
+# Phase 18 (phase_limits): the configurations the JAX package's kernels take
+# beyond those of phase 17. The train kernels at head width 32: MiT-b0's four
+# stages at 224 px (49 keys; (stage, C, heads, grid side, sr)), checked and
+# timed at CHECK_B and TRAIN_B; then a b0 BackboneTrainer(use_fused=True)
+# for LIMIT_TRAIN_STEPS steps of TRAIN_B synthetic wire frames, each step 8
+# launches of each train kernel (depth 2 x 4 stages).
+B0_TRAIN_STAGES = B0_STAGES + ((4, 256, 8, 7, 1),)
+LIMIT_TRAIN_STEPS, B0_TRAIN_LAUNCHES = 3, 8
+# The attention past mb.MAX_KV = 64 keys per head. Every stage of a frame of
+# 288 / 320 / 384 / 512 px holds 81 / 100 / 144 / 256 keys per head (patch
+# embeds of stride 4, then 2; SR ratios 8 / 4 / 2 / 1). At b0 (head width 32)
+# and b3 (64) stage shapes, (model, stage, C, heads, grid side, sr, px): the
+# block kernel (rows 1 and 2) at stages 1-3, two shapes per key count, at
+# CHECK_B and BATCH; packed2 (row 3) at b3's stage 1 at 288 px, CHECK_B; the
+# stage kernel (row 4) at stage 4 ((model, C, heads, side, depth, Cb, C4,
+# px), depth cut to 2), at CHECK_B and BATCH; the train kernels (rows
+# 5a-c) at one shape per key count, at CHECK_B and TRAIN_B. Bounds as the
+# 224-px checks': BOUNDS by stage, TRAIN_BOUNDS.
+LIMIT_BLOCKS = (("b0", 1, 32, 1, 72, 8, 288), ("b3", 2, 128, 2, 36, 4, 288),
+                ("b3", 1, 64, 1, 80, 8, 320), ("b0", 3, 160, 5, 20, 2, 320),
+                ("b0", 2, 64, 2, 48, 4, 384), ("b3", 3, 320, 5, 24, 2, 384),
+                ("b3", 1, 64, 1, 128, 8, 512), ("b0", 1, 32, 1, 128, 8, 512))
+LIMIT_PACKED2 = (64, 72, 8, 288)  # (C, grid side, sr, px): b3 stage 1, 81 keys
+LIMIT_STAGES = (("b3", 512, 8, 9, 2, 128, 128, 288), ("b0", 256, 8, 10, 2, 64, 64, 320),
+                ("b3", 512, 8, 12, 2, 128, 128, 384), ("b0", 256, 8, 16, 2, 64, 64, 512))
+LIMIT_TRAIN = (("b0", 1, 32, 1, 72, 8, 288), ("b3", 2, 128, 2, 40, 4, 320),
+               ("b0", 3, 160, 5, 24, 2, 384), ("b3", 4, 512, 8, 16, 1, 512))
+# ``cli export-serving --fused --variant b0 --size S`` at CHECK_B for these S,
+# each artifact loaded and held to the plain serving graph per frame
+# (COSINE_BOUND), 6 block and 1 stage launch per call; the b0 session at the
+# first S over LIMIT_SESSION_FRAMES frames.
+LIMIT_EXPORT_SIZES, LIMIT_SESSION_FRAMES = (288, 320), 4
+# The scan past 128 states, (d_state, d_inner), WIDTH_SCAN_T frames: the
+# forward as one launch per slice of at most 128 states, the backward one
+# per 64-wide slice.
+LIMIT_SCAN = ((192, 128), (256, 64))
 
 # Peak rates of one H100 SXM (NVIDIA's data sheet, dense, at 700 W): HBM
 # bytes/s, bf16 tensor-core FLOP/s, fp32 CUDA-core FLOP/s; SFU results/s
@@ -945,104 +1005,123 @@ def phase_scan_checks() -> tuple[list, list]:
     return rows, {"shapes": bwd_rows, "resources": usage}
 
 
+TRAIN_KERNELS = ("forward", "mlp_backward", "attn_backward")
+
+
+def _train_check(rng, stage, C, heads, side, sr, B, plain: bool, tag: str = "",
+                 w=None) -> tuple[dict, list]:
+    """The three train kernels at one shape (random inputs of batch ``B``,
+    DropPath factors with zeros) against their plain versions within
+    TRAIN_BOUNDS: the forward's y and x1, and the backward's dx, dxln, dk, dv
+    (both kernels and the plain LayerNorm-2 backward between them, against
+    the whole plain backward, from the kernel's x1); the attention backward
+    run twice for dk, dv equal bit for bit, and its device operations per
+    call (at most ATTN_BWD_MAX_OPS, one more past mb.MAX_KV keys, where the
+    dq kernel runs first; no memset). Each kernel timed, its plain version
+    too with ``plain``. Returns ({kernel: row}, failures)."""
+    from surgical_tpu_torch.kernels import mit_block as mb
+
+    N, Nkv, hidden = side * side, (side // sr) ** 2, 4 * C
+    w = w or _block_weights(rng, C, hidden)
+    kw = dict(heads=heads, H=side, W=side)
+    failed = []
+    x, xln = _rand(rng, (B, N, C)), _rand(rng, (B, N, C))
+    k, v, dy = _rand(rng, (B, Nkv, C)), _rand(rng, (B, Nkv, C)), _rand(rng, (B, N, C))
+    # DropPath factors at keep 0.9: some images dropped (0), the rest 1/keep
+    keep = 0.9
+    m1, m2 = (torch.from_numpy((rng.uniform(size=B) < keep) / keep).float().cuda()
+              for _ in range(2))
+    m1[0], m2[1] = 0.0, 0.0
+    y, x1 = mb.block_train_forward(x, xln, k, v, w, m1, m2, **kw)
+    want_y, want_x1 = mb.fused_mit_block_train_fwd_plain(x, xln, k, v, w, m1, m2, **kw)
+    grads = mb._block_train_bwd(x1, xln, k, v, w, m1, m2, dy, **kw,
+                                mlp_bwd=mb.block_train_mlp_backward,
+                                attn_bwd=mb.block_train_attn_backward)
+    want_grads = mb.fused_mit_block_train_bwd_plain(x1, xln, k, v, w, m1, m2, dy, **kw)
+    torch.cuda.synchronize()
+    shape = f"{tag}stage{stage} [B={B}, N={N}, C={C}, heads={heads}, Nkv={Nkv}]"
+    errs = {}
+    for name, got, want in zip(("y", "x1", "dx", "dxln", "dk", "dv"),
+                               (y, x1, *grads), (want_y, want_x1, *want_grads)):
+        rel, mx, scale = _errors(f"train {name} {shape}", got, want)
+        bound = TRAIN_BOUNDS[name]
+        ok = rel <= bound[0] and mx <= bound[1] * scale
+        errs[name] = (rel, mx)
+        print(f"check train {name} {shape}: rel_l2 {rel:.3e} (bound {bound[0]}) max_abs "
+              f"{mx:.3e} (bound {bound[1]} x max|plain| {scale:.3e}) "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failed.append(f"{name} {shape}")
+    del want_y, want_x1, want_grads
+
+    # the MLP backward's inputs as the backward forms them
+    h2ln = mb.layer_norm(x1, w["ln2_scale"], w["ln2_bias"])
+    dmlp = (dy.float() * m2[:, None, None]).to(x.dtype)
+    dx1 = grads[0]
+    timed = {
+        "forward": (lambda: mb.block_train_forward(x, xln, k, v, w, m1, m2, **kw),
+                    lambda: mb.fused_mit_block_train_fwd_plain(x, xln, k, v, w, m1, m2, **kw),
+                    ("y", "x1")),
+        "mlp_backward": (
+            lambda: mb.block_train_mlp_backward(h2ln, dmlp, w, H=side, W=side),
+            lambda: mb._mlp_bwd_plain(h2ln, dmlp, w, H=side, W=side), ("dx",)),
+        "attn_backward": (lambda: mb.block_train_attn_backward(xln, k, v, dx1, m1, w,
+                                                               heads=heads),
+                          lambda: mb._attn_bwd_plain(xln, k, v, dx1, m1, w, heads=heads),
+                          ("dxln", "dk", "dv")),
+    }
+    # the attention backward sums dk and dv in a fixed order, and issues at
+    # most ATTN_BWD_MAX_OPS device operations (+1 past MAX_KV keys), no memset
+    runs = [mb.block_train_attn_backward(xln, k, v, dx1, m1, w, heads=heads) for _ in range(2)]
+    bits = lambda t: t.view(torch.int16)
+    same = all(torch.equal(bits(a), bits(b)) for a, b in zip(runs[0], runs[1]))
+    ops = device_ops(timed["attn_backward"][0])
+    memsets = [n for n in ops if "memset" in n.lower()]
+    max_ops = ATTN_BWD_MAX_OPS + (Nkv > mb.MAX_KV)
+    print(f"check train attn_backward {shape}: dxln, dk, dv equal bit for bit over two runs: "
+          f"{same}; {len(ops)} device ops per call (at most {max_ops}, "
+          f"memsets {len(memsets)}): {', '.join(map(_op_name, ops))}")
+    if not same:
+        failed.append(f"attn_backward determinism {shape}")
+    if len(ops) > max_ops or memsets:
+        failed.append(f"attn_backward device ops {shape}: {ops}")
+    del runs
+    work = block_train_work(B, N, C, Nkv, hidden)
+    rows = {}
+    for kname, (kern, plain_fn, outs) in timed.items():
+        ms = time_ms(kern)
+        plain_ms = time_ms(plain_fn) if plain else None
+        nbytes, flops = work[kname]
+        bms, by = bound_ms(nbytes, flops / BF16_FLOPS)
+        print(f"time train {kname} {tag}stage{stage} B={B}: kernel {ms:.4f} ms plain "
+              f"{'-' if plain_ms is None else f'{plain_ms:.4f}'} ms bound {bms:.4f} ms "
+              f"({by}: {nbytes / 1e6:.2f} MB, {flops / 1e9:.2f} GFLOP)")
+        rows[kname] = {"shape": shape, "max_abs_err": max(errs[o][1] for o in outs),
+                       "rel_l2": max(errs[o][0] for o in outs), "ms": ms, "plain_ms": plain_ms,
+                       "bound_ms": bms, "bound_by": by}
+    rows["attn_backward"]["device_ops"] = len(ops)
+    return rows, failed
+
+
 def phase_train_kernel_checks() -> dict:
     """The three kernels of fused_mit_block_train at the b3 training shapes
     (224x224, B = CHECK_B and the training batch TRAIN_B), each against its
-    plain version on the same inputs: the forward's y and x1, and the
-    backward's dx, dxln, dk, dv (the backward through both kernels and the
-    plain LayerNorm-2 backward between them, against the whole plain
-    backward, from the kernel's x1). Kernels timed at both batches, the plain
-    versions at CHECK_B."""
+    plain version on the same inputs (``_train_check``). Kernels timed at
+    both batches, the plain versions at CHECK_B."""
     from surgical_tpu_torch.kernels import mit_block as mb
 
     rng = np.random.default_rng(SEED + 7)
-    names = ("forward", "mlp_backward", "attn_backward")
-    rows = {b: {k: [] for k in names} for b in (CHECK_B, TRAIN_B)}
+    rows = {b: {k: [] for k in TRAIN_KERNELS} for b in (CHECK_B, TRAIN_B)}
     failed = []
     mb.reset_launches()
     for stage, C, heads, side, sr in TRAIN_STAGES:
-        N, Nkv, hidden = side * side, (side // sr) ** 2, 4 * C
-        w = _block_weights(rng, C, hidden)
-        kw = dict(heads=heads, H=side, W=side)
+        w = _block_weights(rng, C, 4 * C)
         for B in (CHECK_B, TRAIN_B):
-            x, xln = _rand(rng, (B, N, C)), _rand(rng, (B, N, C))
-            k, v, dy = _rand(rng, (B, Nkv, C)), _rand(rng, (B, Nkv, C)), _rand(rng, (B, N, C))
-            # DropPath factors at keep 0.9: some images dropped (0), the rest 1/keep
-            keep = 0.9
-            m1, m2 = (torch.from_numpy((rng.uniform(size=B) < keep) / keep).float().cuda()
-                      for _ in range(2))
-            m1[0], m2[1] = 0.0, 0.0
-            y, x1 = mb.block_train_forward(x, xln, k, v, w, m1, m2, **kw)
-            want_y, want_x1 = mb.fused_mit_block_train_fwd_plain(x, xln, k, v, w, m1, m2, **kw)
-            grads = mb._block_train_bwd(x1, xln, k, v, w, m1, m2, dy, **kw,
-                                        mlp_bwd=mb.block_train_mlp_backward,
-                                        attn_bwd=mb.block_train_attn_backward)
-            want_grads = mb.fused_mit_block_train_bwd_plain(x1, xln, k, v, w, m1, m2, dy, **kw)
-            torch.cuda.synchronize()
-            shape = f"stage{stage} [B={B}, N={N}, C={C}, heads={heads}, Nkv={Nkv}]"
-            errs = {}
-            for name, got, want in zip(("y", "x1", "dx", "dxln", "dk", "dv"),
-                                       (y, x1, *grads), (want_y, want_x1, *want_grads)):
-                rel, mx, scale = _errors(f"train {name} {shape}", got, want)
-                bound = TRAIN_BOUNDS[name]
-                ok = rel <= bound[0] and mx <= bound[1] * scale
-                errs[name] = (rel, mx)
-                print(f"check train {name} {shape}: rel_l2 {rel:.3e} (bound {bound[0]}) max_abs "
-                      f"{mx:.3e} (bound {bound[1]} x max|plain| {scale:.3e}) "
-                      f"{'ok' if ok else 'FAIL'}")
-                if not ok:
-                    failed.append(f"{name} {shape}")
-            del want_y, want_x1, want_grads
-
-            # the MLP backward's inputs as the backward forms them
-            h2ln = mb.layer_norm(x1, w["ln2_scale"], w["ln2_bias"])
-            dmlp = (dy.float() * m2[:, None, None]).to(x.dtype)
-            dx1 = grads[0]
-            timed = {
-                "forward": (lambda: mb.block_train_forward(x, xln, k, v, w, m1, m2, **kw),
-                            lambda: mb.fused_mit_block_train_fwd_plain(x, xln, k, v, w, m1, m2,
-                                                                       **kw),
-                            ("y", "x1")),
-                "mlp_backward": (
-                    lambda: mb.block_train_mlp_backward(h2ln, dmlp, w, H=side, W=side),
-                    lambda: mb._mlp_bwd_plain(h2ln, dmlp, w, H=side, W=side), ("dx",)),
-                "attn_backward": (lambda: mb.block_train_attn_backward(xln, k, v, dx1, m1, w,
-                                                                       heads=heads),
-                                  lambda: mb._attn_bwd_plain(xln, k, v, dx1, m1, w, heads=heads),
-                                  ("dxln", "dk", "dv")),
-            }
-            # the attention backward sums dk and dv in a fixed order, and
-            # issues at most ATTN_BWD_MAX_OPS device operations, no memset
-            runs = [mb.block_train_attn_backward(xln, k, v, dx1, m1, w, heads=heads)
-                    for _ in range(2)]
-            bits = lambda t: t.view(torch.int16)
-            same = all(torch.equal(bits(a), bits(b)) for a, b in zip(runs[0][1:], runs[1][1:]))
-            ops = device_ops(timed["attn_backward"][0])
-            memsets = [n for n in ops if "memset" in n.lower()]
-            print(f"check train attn_backward {shape}: dk, dv equal bit for bit over two runs: "
-                  f"{same}; {len(ops)} device ops per call (at most {ATTN_BWD_MAX_OPS}, "
-                  f"memsets {len(memsets)}): {', '.join(map(_op_name, ops))}")
-            if not same:
-                failed.append(f"attn_backward determinism {shape}")
-            if len(ops) > ATTN_BWD_MAX_OPS or memsets:
-                failed.append(f"attn_backward device ops {shape}: {ops}")
-            del runs
-            work = block_train_work(B, N, C, Nkv, hidden)
-            for kname, (kern, plain, outs) in timed.items():
-                ms = time_ms(kern)
-                # the plain versions repeat the kernels' arithmetic: timed at CHECK_B only
-                plain_ms = time_ms(plain) if B == CHECK_B else None
-                nbytes, flops = work[kname]
-                bms, by = bound_ms(nbytes, flops / BF16_FLOPS)
-                print(f"time train {kname} stage{stage} B={B}: kernel {ms:.4f} ms plain "
-                      f"{'-' if plain_ms is None else f'{plain_ms:.4f}'} ms bound {bms:.4f} ms "
-                      f"({by}: {nbytes / 1e6:.2f} MB, {flops / 1e9:.2f} GFLOP)")
-                rows[B][kname].append({
-                    "shape": shape, "max_abs_err": max(errs[o][1] for o in outs),
-                    "rel_l2": max(errs[o][0] for o in outs), "ms": ms, "plain_ms": plain_ms,
-                    "bound_ms": bms, "bound_by": by})
-            rows[B]["attn_backward"][-1]["device_ops"] = len(ops)
-            del x, xln, k, v, dy, y, x1, grads, h2ln, dmlp, dx1, timed
+            # the plain versions repeat the kernels' arithmetic: timed at CHECK_B only
+            got, bad = _train_check(rng, stage, C, heads, side, sr, B, plain=B == CHECK_B, w=w)
+            failed += bad
+            for kname in TRAIN_KERNELS:
+                rows[B][kname].append(got[kname])
     print(f"train kernel checks: launches block_train_forward {mb.block_train_forward.launches}, "
           f"block_train_mlp_backward {mb.block_train_mlp_backward.launches}, "
           f"block_train_attn_backward {mb.block_train_attn_backward.launches} "
@@ -1440,13 +1519,10 @@ def phase_train(workdir: str) -> dict:
     step's gradients against the plain versions of the train kernels."""
     from surgical_tpu_torch.core.checkpoint import CheckpointStore
     from surgical_tpu_torch.core.config import BackboneConfig, HeadConfig, OptimConfig, TrainConfig
-    from surgical_tpu_torch.core.rng import generator
     from surgical_tpu_torch.data.datasets import (ClipSampler, FrameCache, clip_start_indices,
                                                   prefetch_batches)
-    from surgical_tpu_torch.data.transforms import draw_params
     from surgical_tpu_torch.kernels import mit_block as mb
     from surgical_tpu_torch.models.mit_evp import MiTEVP
-    from surgical_tpu_torch.models.mit_train import draw_masks
     from surgical_tpu_torch.train.backbone import BackboneTrainer, is_trainable
 
     t0 = time.perf_counter()
@@ -1547,11 +1623,28 @@ def phase_train(workdir: str) -> dict:
         raise AssertionError("the backbone checkpoint does not round-trip")
     del model2, trainer2, opt2
 
-    # one batch, the same augmentation and masks, through the train kernels
-    # and through their plain versions: loss and trainable gradients
-    img, seg, flow, labels, ant = caches["train"].frames(np.arange(TRAIN_B))
-    ap = draw_params(generator(SEED, 0, purpose="augment", device=dev), trainer.aug_cfg, TRAIN_B)
-    masks = draw_masks(cfg, head_cfg, TRAIN_B, generator(SEED, 0, purpose="droppath", device=dev))
+    loss_rel, cos = _kernel_vs_plain_grads(trainer, caches["train"].frames(np.arange(TRAIN_B)),
+                                           "train")
+    return {"launches": launches, "step_ms": med, "fps": TRAIN_B / med * 1e3,
+            "peak_gib": peak_gib, "grad_cos": cos, "loss_rel": loss_rel, "caches": caches}
+
+
+def _kernel_vs_plain_grads(trainer, batch, tag: str) -> tuple[float, dict]:
+    """One wire batch with the same augmentation and masks through a fused
+    trainer's train kernels and through their plain versions: the loss's
+    relative difference and the trainable gradients' cosine per parameter
+    group, held to LOSS_REL_BOUND and GRAD_COS_BOUND."""
+    from surgical_tpu_torch.core.rng import generator
+    from surgical_tpu_torch.data.transforms import draw_params
+    from surgical_tpu_torch.kernels import mit_block as mb
+    from surgical_tpu_torch.models.mit_train import draw_masks
+
+    model, dev = trainer.model, torch.device("cuda")
+    img, seg, flow, labels, ant = batch
+    B = len(img)
+    ap = draw_params(generator(SEED, 0, purpose="augment", device=dev), trainer.aug_cfg, B)
+    masks = draw_masks(model.cfg, model.head_cfg, B,
+                       generator(SEED, 0, purpose="droppath", device=dev))
 
     def grads():
         out, _ = trainer.loss_and_grad(img, seg, flow, labels, ant, aug_params=ap, masks=masks)
@@ -1573,13 +1666,13 @@ def phase_train(workdir: str) -> dict:
     model.zero_grad(set_to_none=True)
     cos = {g: torch.nn.functional.cosine_similarity(g_k[g], g_p[g], dim=0).item() for g in g_k}
     loss_rel = abs(loss_k - loss_p) / abs(loss_p)
-    print(f"train: kernel vs plain path on one batch: loss {loss_k:.5f} vs {loss_p:.5f} "
+    print(f"{tag}: kernel vs plain path on one batch: loss {loss_k:.5f} vs {loss_p:.5f} "
           f"(rel {loss_rel:.2e}, bound {LOSS_REL_BOUND}); gradient cosine per group "
           + ", ".join(f"{g} {c:.6f}" for g, c in cos.items()) + f" (bound {GRAD_COS_BOUND})")
     if loss_rel > LOSS_REL_BOUND or min(cos.values()) < GRAD_COS_BOUND:
-        raise AssertionError("the training path's kernels disagree with their plain versions")
-    return {"launches": launches, "step_ms": med, "fps": TRAIN_B / med * 1e3,
-            "peak_gib": peak_gib, "grad_cos": cos, "loss_rel": loss_rel, "caches": caches}
+        raise AssertionError(f"{tag}: the training path's kernels disagree with their plain "
+                             "versions")
+    return loss_rel, cos
 
 
 def _rel_l2(got, want) -> float:
@@ -3317,10 +3410,11 @@ def phase_completion(workdir: str, smi: str, device: str = "cuda", cfg=None, hea
     return res
 
 
-def _scan_width_check(rng, N, D, T) -> dict:
+def _scan_width_check(rng, N, D, T, count_ops: bool = False) -> dict:
     """The scan's forward and backward at (d_state N, d_inner D) against
     their plain versions (SCAN_BOUNDS, SCAN_BWD_BOUNDS), each wrapper's
-    launches counted over one call of each; kernel, plain and bound times."""
+    launches counted over one call of each; kernel, plain and bound times;
+    with ``count_ops`` each call's device operations (torch.profiler)."""
     from surgical_tpu_torch.kernels import selective_scan as ss
 
     args = scan_inputs(rng, 1, T, D, N)
@@ -3332,14 +3426,22 @@ def _scan_width_check(rng, N, D, T) -> dict:
     torch.cuda.synchronize()
     launches = {"forward": ss.selective_scan.launches,
                 "backward": ss.selective_scan_backward.launches}
-    want_launches = {"forward": 1, "backward": 2 if ss.kernel_state(N) == 128 else 1}
-    shape = f"[Bt=1, T={T}, D={D}, N={N}]"
     width = ss.kernel_state(N)
+    # a launch per slice: forward slices of at most 128 states, backward of 64
+    step = ss.BWD_STATE_WIDTHS[-1]
+    want_launches = {"forward": len(ss.state_slices(N)),
+                     "backward": 1 if width in ss.BWD_STATE_WIDTHS else -(-width // step)}
+    shape = f"[Bt=1, T={T}, D={D}, N={N}]"
     print(f"widths scan {shape}: state width {width}, backward cluster layout "
           f"{ss.backward_layout(-(-D // 4) * 4)} (CTAs per cluster, channel groups), launches "
           f"{launches} (expected {want_launches})")
     if launches != want_launches:
         raise AssertionError(f"selective_scan {shape}: launches {launches}")
+    ops = {}
+    if count_ops:
+        ops = {"forward": len(device_ops(lambda: ss.selective_scan(*args))),
+               "backward": len(device_ops(lambda: ss.selective_scan_backward(*args, dy, states)))}
+        print(f"widths scan {shape}: device operations per call {ops}")
     want = ss.selective_scan_plain(*args)
     rel, mx, scale = _errors(f"scan {shape}", y, want)
     ok = rel <= SCAN_BOUNDS[0] and mx <= SCAN_BOUNDS[1]
@@ -3369,11 +3471,14 @@ def _scan_width_check(rng, N, D, T) -> dict:
     print(f"time scan {shape}: kernel {ms:.4f} ms plain {plain_ms:.4f} ms bound {bms:.4f} ms "
           f"({by}) | backward kernel {bwd_ms:.4f} ms plain {bwd_plain_ms:.4f} ms bound "
           f"{bms_b:.4f} ms ({by_b})")
-    return {"shape": shape, "N": N, "D": D, "T": T, "state_width": width,
-            "launches": launches, "rel_l2": rel, "max_abs_err": mx, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-            "bwd": {"rel_l2": worst_rel, "max_abs_err": worst_abs, "ms": bwd_ms,
-                    "plain_ms": bwd_plain_ms, "bound_ms": bms_b, "bound_by": by_b}}
+    row = {"shape": shape, "N": N, "D": D, "T": T, "state_width": width,
+           "launches": launches, "rel_l2": rel, "max_abs_err": mx, "ms": ms,
+           "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+           "bwd": {"rel_l2": worst_rel, "max_abs_err": worst_abs, "ms": bwd_ms,
+                   "plain_ms": bwd_plain_ms, "bound_ms": bms_b, "bound_by": by_b}}
+    if ops:
+        row["device_ops"], row["bwd"]["device_ops"] = ops["forward"], ops["backward"]
+    return row
 
 
 def phase_widths(workdir: str) -> dict:
@@ -3472,6 +3577,185 @@ def phase_widths(workdir: str) -> dict:
     return res
 
 
+def _b0_trainer() -> dict:
+    """A b0 ``BackboneTrainer(use_fused=True)`` (224 crop, SGD) for
+    LIMIT_TRAIN_STEPS steps of TRAIN_B synthetic wire frames: B0_TRAIN_LAUNCHES
+    launches of each train kernel per step, finite losses, step times; then
+    one batch's loss and trainable gradients against the plain train kernels
+    (``_kernel_vs_plain_grads``, phase_train's bounds)."""
+    from surgical_tpu_torch.core.config import BackboneConfig, HeadConfig, OptimConfig, TrainConfig
+    from surgical_tpu_torch.kernels import mit_block as mb
+    from surgical_tpu_torch.models.mit_evp import MiTEVP
+    from surgical_tpu_torch.train.backbone import BackboneTrainer
+
+    rng = np.random.default_rng(SEED + 51)
+    model = MiTEVP(BackboneConfig.preset("b0"), HeadConfig(), seed=SEED + 51, device="cuda")
+    tcfg = TrainConfig(optim=OptimConfig(name="sgd", lr=1e-3, weight_decay=0.0,
+                                         grad_clip_norm=None))
+    trainer = BackboneTrainer(model, tcfg, use_fused=True)
+    trainer.init()
+    data = _WireFrames((LIMIT_TRAIN_STEPS + 1) * TRAIN_B, rng)
+    batch = lambda i: data.frames(np.arange(i * TRAIN_B, (i + 1) * TRAIN_B))
+    trainer.train_step(*batch(LIMIT_TRAIN_STEPS), step=LIMIT_TRAIN_STEPS)  # warm-up
+    losses, step_ms, per_step = [], [], []
+    for step in range(LIMIT_TRAIN_STEPS):
+        torch.cuda.synchronize()
+        mb.reset_launches()
+        t = time.perf_counter()
+        out = trainer.train_step(*batch(step), step=step)
+        losses.append(out["loss"].item())
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        per_step.append({k: v for k, v in mb.launch_counts().items() if "train" in k})
+    want = {k: B0_TRAIN_LAUNCHES for k in per_step[0]}
+    print(f"limits b0 trainer: {LIMIT_TRAIN_STEPS} steps of {TRAIN_B} frames, losses "
+          + ", ".join(f"{v:.4f}" for v in losses) + "; step ms "
+          + ", ".join(f"{v:.2f}" for v in step_ms) + f"; launches per step {per_step} "
+          f"(expected {want} each)")
+    if any(p != want for p in per_step):
+        raise AssertionError("the b0 training step did not launch every train kernel 8 times")
+    if not np.isfinite(losses).all():
+        raise AssertionError("the b0 train loss is not finite")
+    loss_rel, cos = _kernel_vs_plain_grads(trainer, batch(0), "limits b0 trainer")
+    return {"losses": losses, "step_ms": step_ms, "launches_per_step": per_step[0],
+            "loss_rel": loss_rel, "grad_cos_min": min(cos.values())}
+
+
+def _limits_export(workdir: str) -> dict:
+    """``cli export-serving --fused --variant b0 --size S`` at CHECK_B for each
+    of LIMIT_EXPORT_SIZES: the artifact loaded (``load_artifact``) and run on
+    CHECK_B wire frames of S px, 6 block and 1 stage launch per call, each
+    frame's features within COSINE_BOUND of the plain serving graph on the
+    same weights (``WireForward`` with the kernels' plain versions)."""
+    import surgical_tpu_torch.models.mit_fused as mf
+    from surgical_tpu_torch import cli
+    from surgical_tpu_torch.core.config import BackboneConfig, HeadConfig
+    from surgical_tpu_torch.kernels import mit_block as mb
+    from surgical_tpu_torch.models.mit_evp import MiTEVP
+    from surgical_tpu_torch.serving.export import load_artifact
+    from surgical_tpu_torch.train.extract import WireForward
+
+    root = os.path.join(workdir, "limits_export")
+    os.makedirs(root)
+    model = MiTEVP(BackboneConfig.preset("b0"), HeadConfig(), seed=SEED + 52, device="cuda")
+    pth = os.path.join(root, "evp.pth")
+    torch.save({k: v.cpu() for k, v in model.state_dict().items()}, pth)
+    rng = np.random.default_rng(SEED + 52)
+    res = {}
+    for px in LIMIT_EXPORT_SIZES:
+        out = os.path.join(root, f"fused_b0_{px}")
+        t = time.perf_counter()
+        if cli.main(["export-serving", "--out", out, "--pretrained-evp", pth, "--variant", "b0",
+                     "--batch-size", str(CHECK_B), "--size", str(px), "--fused",
+                     "--device", "cuda"]) != 0:
+            raise AssertionError(f"cli export-serving --size {px} failed")
+        export_s = time.perf_counter() - t
+        fn = load_artifact(out)
+        wire = [torch.from_numpy(a).cuda() for a in (
+            rng.integers(0, 256, (CHECK_B, px, px, 3), dtype=np.uint8),
+            rng.integers(0, 256, (CHECK_B, px, px, 1), dtype=np.uint8),
+            rng.standard_normal((CHECK_B, px, px, 2), dtype=np.float32).astype(np.float16))]
+        fn(*wire)
+        torch.cuda.synchronize()
+        mb.reset_launches()
+        got = fn(*wire).float()
+        torch.cuda.synchronize()
+        launches = {"mit_block_forward": mb.fused_mit_block.launches,
+                    "mit_stage_forward": mb.fused_mit_stage.launches}
+        saved = (mf.fused_mit_block, mf.fused_mit_stage)
+        mf.fused_mit_block, mf.fused_mit_stage = mb.fused_mit_block_plain, mb.fused_mit_stage_plain
+        try:
+            with torch.no_grad():
+                want = WireForward(model, True, out_dtype=torch.float32)(*wire).float()
+        finally:
+            mf.fused_mit_block, mf.fused_mit_stage = saved
+        cos = torch.nn.functional.cosine_similarity(got, want, dim=-1)
+        print(f"limits export b0 --size {px} ({((px - 1) // 32 + 1) ** 2} keys per head): "
+              f"export {export_s:.2f} s; launches per call {launches} (expected "
+              f"{B0_BATCH_LAUNCHES}); per-frame cosine against the plain graph min "
+              f"{cos.min().item():.6f} (bound {COSINE_BOUND})")
+        if launches != B0_BATCH_LAUNCHES:
+            raise AssertionError(f"export --size {px}: launches {launches}")
+        if not torch.isfinite(got).all() or cos.min().item() < COSINE_BOUND:
+            raise AssertionError(f"export --size {px}: the artifact disagrees with the plain graph")
+        res[px] = {"export_s": export_s, "launches": launches, "cos_min": cos.min().item()}
+        del fn, wire
+    return res
+
+
+def phase_limits(workdir: str) -> dict:
+    """Phase 18: the train kernels at head width 32 (b0) and the b0 fused
+    trainer; the serving and train kernels past 64 keys per head at b0 and
+    b3 stage shapes of 288-512 px frames; the b0 fused export at 288 and 320
+    px and the b0 session at 288 px; the scan past 128 states (the
+    constants above). Every kernel held to its plain version; no fallback."""
+    from surgical_tpu_torch.core.config import BackboneConfig
+    from surgical_tpu_torch.kernels import mit_block as mb
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED + 50)
+    failed = []
+    res = {"train_hd32": {b: {k: [] for k in TRAIN_KERNELS} for b in (CHECK_B, TRAIN_B)},
+           "train_kv": {b: {k: [] for k in TRAIN_KERNELS} for b in (CHECK_B, TRAIN_B)}}
+    shapes = [(res["train_hd32"], "b0 224px ", s) for s in B0_TRAIN_STAGES]
+    shapes += [(res["train_kv"], f"{m} {px}px ", (st, C, h, side, sr))
+               for m, st, C, h, side, sr, px in LIMIT_TRAIN]
+    for rows, tag, (stage, C, heads, side, sr) in shapes:
+        w = _block_weights(rng, C, 4 * C)
+        for B in (CHECK_B, TRAIN_B):
+            got, bad = _train_check(rng, stage, C, heads, side, sr, B, plain=B == CHECK_B,
+                                    tag=tag, w=w)
+            failed += bad
+            for kname in TRAIN_KERNELS:
+                rows[B][kname].append(got[kname])
+    if failed:
+        raise AssertionError(f"train kernels disagree with their plain versions: {failed}")
+    res["trainer"] = _b0_trainer()
+
+    res["block"] = []
+    for m, stage, C, heads, side, sr, px in LIMIT_BLOCKS:
+        w = _block_weights(rng, C, 4 * C)
+        for b in (CHECK_B, BATCH):
+            res["block"].append(_block_check(rng, w, stage, heads, side, sr, b,
+                                             plain=b == CHECK_B, tag=f"{m} {px}px "))
+    C, side, sr, px = LIMIT_PACKED2
+    N, Nkv = side * side, (side // sr) ** 2
+    w = _block_weights(rng, C, 4 * C)
+    x, k, v = (_rand(rng, (CHECK_B, n, C)) for n in (N, Nkv, Nkv))
+    kw = dict(H=side, W=side, row_chunks=2)
+    shape = f"b3 {px}px stage1 [B={CHECK_B}, N={N}, C={C}, Nkv={Nkv}, row_chunks=2]"
+    packed = mb.pack_weights2(w)
+    rel, mx = _compare(f"packed2 {shape}", mb.fused_mit_block_packed2(x, k, v, packed, **kw),
+                       mb.fused_mit_block_packed2_plain(x, k, v, packed, **kw), 1)
+    nbytes, flops = block_work(CHECK_B, N, C, Nkv, 4 * C)
+    bms, by = bound_ms(nbytes, flops / BF16_FLOPS)
+    ms = time_ms(lambda: mb.fused_mit_block_packed2(x, k, v, packed, **kw))
+    plain_ms = time_ms(lambda: mb.fused_mit_block_packed2_plain(x, k, v, packed, **kw))
+    print(f"time packed2 {shape}: kernel {ms:.4f} ms plain {plain_ms:.4f} ms bound {bms:.4f} ms "
+          f"({by})")
+    res["packed2"] = {"shape": shape, "B": CHECK_B, "rel_l2": rel, "max_abs_err": mx, "ms": ms,
+                      "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by}
+    del x, k, v
+    res["stage"] = []
+    for m, C, heads, side, depth, Cb, C4, px in LIMIT_STAGES:
+        sw = _stage_weights(rng, C, depth, Cb, C4)
+        for b in (CHECK_B, BATCH):
+            res["stage"].append(_stage_check(rng, sw, heads, side, b, plain=b == CHECK_B,
+                                             tag=f"{m} {px}px "))
+
+    res["export"] = _limits_export(workdir)
+    session = phase_online_session(cfg=BackboneConfig.preset("b0"), size=LIMIT_EXPORT_SIZES[0],
+                                   frames=LIMIT_SESSION_FRAMES, blocks=B0_SESSION_BLOCKS)
+    res["session"] = {name: {"launches_per_frame": {
+        k: v // LIMIT_SESSION_FRAMES for k, v in row["launches"].items()},
+        "ms_per_frame": row["ms_per_frame"]} for name, row in session.items()}
+
+    res["scan"] = [_scan_width_check(rng, N, D, WIDTH_SCAN_T, count_ops=True)
+                   for N, D in LIMIT_SCAN]
+    res["seconds"] = time.perf_counter() - t0
+    print(f"limits: phase 18 in {res['seconds']:.2f} s")
+    return res
+
+
 def main() -> int:
     smi = phase_toolchain()
     phase_build()
@@ -3481,6 +3765,9 @@ def main() -> int:
     train_checks = phase_train_kernel_checks()
     phase_grad_guard()
     with tempfile.TemporaryDirectory() as workdir:
+        # phase 18 runs first: it counts device operations with torch.profiler,
+        # whose traces a long process has lost (phase 17's scan checks)
+        lim = phase_limits(workdir)
         sl = phase_slice(workdir)
         ses = phase_online_session()
         tp = phase_temporal(workdir, sl)
@@ -3507,6 +3794,18 @@ def main() -> int:
                 "launches_per_batch": wd["extraction"]["launches"][name],
                 "launches_per_frame": wd["session"]["mstcn+refiner"]["launches_per_frame"][name],
                 "shapes": rows}
+
+    def limits_row(check, main, big):  # phase 18's rows: CHECK_B sums and the big batch's
+        return {"ms": summed(check, "ms"), "plain_ms": summed(check, "plain_ms"),
+                "bound_ms": summed(check, "bound_ms"), f"ms_b{big}": summed(main, "ms"),
+                f"bound_ms_b{big}": summed(main, "bound_ms"),
+                "max_abs_err": max(r["max_abs_err"] for r in check + main),
+                "shapes": check + main}
+
+    def serving_limits(rows, name):
+        at = lambda b: [r for r in rows if r["B"] == b]
+        return {**limits_row(at(CHECK_B), at(BATCH), BATCH), "launches_export": sum(
+            e["launches"][name] for e in lim["export"].values())}
 
     blk_main, stg_main = checks["block_main"], checks["stage_main"]
     blk_b1 = [r for r in checks["block_session"] if r["B"] == 1]
@@ -3536,6 +3835,7 @@ def main() -> int:
          "bound_ms_b1": summed(blk_b1, "bound_ms"),
          "max_abs_err_b1": max(r["max_abs_err"] for r in blk_b1),
          "head_dims": wd["head_dims"], "b0": widths_row(wd["block"], "mit_block_forward"),
+         "past_64_keys": serving_limits(lim["block"], "mit_block_forward"),
          "shapes": blk + blk_main + checks["block_session"]},
         {"name": "mit_block_packed2_forward", "route": "cuda", "source": SOURCE,
          "replaces": "surgical_tpu/kernels/mit_block.py:801",
@@ -3545,7 +3845,8 @@ def main() -> int:
          "ms": pk[1]["ms"], "plain_ms": pk[1]["plain_ms"], "bound_ms": pk[1]["bound_ms"],
          "bound_by": pk[1]["bound_by"], "library_ms": None,
          f"ms_b{BATCH}": pk[-1]["ms"], f"bound_ms_b{BATCH}": pk[-1]["bound_ms"],
-         f"block_ms_b{BATCH}": pk[-1]["block_ms"], "block_ms": pk[1]["block_ms"], "shapes": pk},
+         f"block_ms_b{BATCH}": pk[-1]["block_ms"], "block_ms": pk[1]["block_ms"],
+         "past_64_keys": lim["packed2"], "shapes": pk},
         {"name": "mit_stage_forward", "route": "cuda", "source": SOURCE,
          "replaces": "surgical_tpu/kernels/mit_block.py:1202",
          "launches": sl["launches"]["mit_stage_forward"],
@@ -3557,6 +3858,7 @@ def main() -> int:
          f"ms_b{BATCH}": stg_main["ms"], f"bound_ms_b{BATCH}": stg_main["bound_ms"],
          f"max_abs_err_b{BATCH}": stg_main["max_abs_err"], "hgmma": n_hgmma,
          "head_dims": wd["head_dims"], "b0": widths_row(wd["stage"], "mit_stage_forward"),
+         "past_64_keys": serving_limits(lim["stage"], "mit_stage_forward"),
          "shapes": [stg, stg_main]},
         {"name": "selective_scan_forward", "route": "cuda", "source": SCAN_SOURCE,
          "replaces": "surgical_tpu/kernels/selective_scan.py:130",
@@ -3569,8 +3871,9 @@ def main() -> int:
          "d_states": [r["N"] for r in wd["scan"]], "d_inners": [r["D"] for r in wd["scan"]],
          "widths": [{"launches": r["launches"]["forward"],
                      **{k: r[k] for k in ("shape", "state_width", "max_abs_err", "ms",
-                                          "plain_ms", "bound_ms", "bound_by")}}
-                    for r in wd["scan"]],
+                                          "plain_ms", "bound_ms", "bound_by", "device_ops")
+                        if k in r}}
+                    for r in wd["scan"] + lim["scan"]],
          "shapes": scan},
     ]
     bwd_main = [r for r in scan_bwd["shapes"] if "ms" in r]
@@ -3585,7 +3888,7 @@ def main() -> int:
         "device_ops_per_call": max(r["device_ops"] for r in bwd_main),
         "step_ms": tt["step_ms"], "resources": scan_bwd["resources"],
         "widths": [{"shape": r["shape"], "launches": r["launches"]["backward"], **r["bwd"]}
-                   for r in wd["scan"]],
+                   for r in wd["scan"] + lim["scan"]],
         "shapes": scan_bwd["shapes"]})
     for name, line, key in (("mit_block_train_forward", 1645, "forward"),
                             ("mit_block_train_mlp_backward", 1695, "mlp_backward"),
@@ -3602,6 +3905,11 @@ def main() -> int:
             f"ms_b{TRAIN_B}": summed(rows_main, "ms"),
             f"bound_ms_b{TRAIN_B}": summed(rows_main, "bound_ms"),
             f"max_abs_err_b{TRAIN_B}": max(r["max_abs_err"] for r in rows_main),
+            "launches_b0_trainer": lim["trainer"]["launches_per_step"][name] * LIMIT_TRAIN_STEPS,
+            "b0": limits_row(lim["train_hd32"][CHECK_B][key], lim["train_hd32"][TRAIN_B][key],
+                             TRAIN_B),
+            "past_64_keys": limits_row(lim["train_kv"][CHECK_B][key],
+                                       lim["train_kv"][TRAIN_B][key], TRAIN_B),
             "shapes": rows + rows_main})
         if key == "attn_backward":
             kernels[-1]["device_ops_per_call"] = max(r["device_ops"] for r in rows + rows_main)
@@ -3618,8 +3926,11 @@ def main() -> int:
                  "cli_launches_per_rank": mr["cli_launches"]}
     widths = {"b0_extraction": wd["extraction"], "b0_session": wd["session"],
               "refiner": wd["refiner"], "seconds": wd["seconds"]}
+    limits = {"b0_trainer": lim["trainer"], "export": lim["export"],
+              "session_288px": lim["session"], "seconds": lim["seconds"]}
     print(json.dumps({"kernels": kernels, "online_session": session, "raft": raft,
-                      "multirank": multirank, "completion": done, "widths": widths}))
+                      "multirank": multirank, "completion": done, "widths": widths,
+                      "limits": limits}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

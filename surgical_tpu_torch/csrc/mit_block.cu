@@ -26,9 +26,11 @@
 // and move the [B*N, C] activation (and the 4x wider MLP hidden) through
 // device memory for a few hundred FLOPs per byte at most, so they are bound
 // by bytes, not by the tensor cores; stage 3-4 GEMMs are closer to the
-// ridge. The attention over the 49 spatially-reduced keys is small work
-// that the TPU spread over MXU dots; here every forward and the training
-// attention backward run it on the tensor cores (mma.sync).
+// ridge. The attention over the spatially-reduced keys (49 per head at 224
+// px, 64 at 256, 81 to 256 from 288 to 512 px) is small work that the TPU
+// spread over MXU dots; here every forward and the training attention
+// backward run it on the tensor cores (mma.sync), with the keys of a head
+// staged at once up to 64 of them and streamed in tiles of 64 past that.
 //
 // Each entry point is a short chain of hand-written kernels on the caller's
 // stream --
@@ -45,9 +47,11 @@
 // resident in shared memory (LayerNorm'd, per-half LayerNorm'd or
 // row-scaled in place there, and for the backward the weights read K-major
 // as their transposes); attention_tc_kernel, the attention on the tensor
-// cores with K and V staged once per CTA; and attention_bwd_tc_kernel, the
-// training attention backward on the same mma.sync fragments. Their launch
-// plans come from the Python wrapper.
+// cores with K and V staged once per CTA (attention_tc_tiled_kernel past 64
+// keys per head, the keys streamed); and attention_bwd_tc_kernel, the
+// training attention backward on the same mma.sync fragments (past 64 keys
+// after attention_bwd_dq_kernel, which computes dq and the row statistics).
+// Their launch plans come from the Python wrapper.
 // The MLP tail fused on chip (the Pallas body's mlp_chunk
 // form, hid and act kept out of device memory) was built and measured
 // slower than this chain at every b3 stage (PERF.md, Findings), so it is not
@@ -68,12 +72,14 @@
 namespace {
 
 constexpr int LN_MAX_K = 512;  // a LayerNorm row is held in registers
-constexpr int MAX_KV = 64;     // keys per head at most
-// The serving attention (attention_tc_kernel) takes the head width as a
+// Keys per tile of the attention kernels: up to MAX_KV keys per head an
+// (image, head) stages its keys once (the one-tile instances); more keys
+// stream through shared memory in tiles of MAX_KV (the tiled instances).
+constexpr int MAX_KV = 64;
+// The attention kernels, forward and backward, take the head width as a
 // template parameter, built at the two widths of the published MiT sizes:
-// 32 (b0) and 64 (b1-b5). packed2's images are 64 channels wide (one head),
-// and the training attention backward is built at head width 64 only.
-constexpr int PACK_C = 64, ABW_HD = 64;
+// 32 (b0) and 64 (b1-b5). packed2's images are 64 channels wide (one head).
+constexpr int PACK_C = 64;
 
 // A prologue on the A operand of wgmma_linear's resident panel: none,
 // LayerNorm, the row scale bf16(A * rowscale[row / mrows]), or LayerNorm
@@ -847,23 +853,238 @@ __global__ void __launch_bounds__(TC_THREADS)
   }
 }
 
+// ------------------------------------------------ key tiles, streamed ----
+// The tiled instances walk the keys of one (image, head) in tiles of MAX_KV
+// keys through two shared-memory buffers: step s of a CTA loads its tile
+// into buffer s & 1 by cp.async while the products of step s - 1 run, keys
+// past Nkv zero-filled.
+template <int HD>
+struct KvRing {
+  bf16 K[2][MAX_KV][HD + 8], V[2][MAX_KV][HD + 8];  // [buffer][key][d]
+};
+
+// One commit group: keys k0 .. k0 + MAX_KV - 1 of K (and of V with `with_v`)
+// into buffer `buf`; row `key` of head h at ((b * Nkv + key) * ld + h * HD).
+template <int HD, int THREADS>
+__device__ __forceinline__ void load_kv_tile(KvRing<HD>& r, int buf, const bf16* k, const bf16* v,
+                                             int ld, int b, int h, int Nkv, int k0, bool with_v,
+                                             int tid) {
+  for (int idx = tid; idx < MAX_KV * HD / 8; idx += THREADS) {
+    const int j = idx / (HD / 8), d = (idx % (HD / 8)) * 8, key = k0 + j;
+    const size_t off = key < Nkv ? ((size_t)b * Nkv + key) * ld + h * HD + d : 0;
+    cp_async16(smem_addr(&r.K[buf][j][d]), k + off, key < Nkv);
+    if (with_v) cp_async16(smem_addr(&r.V[buf][j][d]), v + off, key < Nkv);
+  }
+  cp_async_commit();
+}
+
+// acc = a X^T over one tile of MAX_KV rows X [key][d] (pitch HD + 8): a warp's
+// 16 rows against every key, acc[nb] holding keys 8 nb .. 8 nb + 7 (S = q K^T
+// and dP = dctx V^T).
+template <int HD>
+__device__ __forceinline__ void tile_products(float (&acc)[MAX_KV / 8][4],
+                                              const uint32_t (&a)[HD / 16][4],
+                                              const bf16 (*X)[HD + 8], int lane) {
+#pragma unroll
+  for (int nb = 0; nb < MAX_KV / 8; ++nb) acc[nb][0] = acc[nb][1] = acc[nb][2] = acc[nb][3] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk)
+#pragma unroll
+    for (int nb2 = 0; nb2 < MAX_KV / 16; ++nb2) {
+      uint32_t xb[4];
+      ldmatrix_x4(xb, smem_addr(&X[16 * nb2 + (lane & 7) + ((lane >> 4) << 3)]
+                                  [16 * kk + ((lane >> 3) & 1) * 8]));
+      mma_m16n8k16(acc[2 * nb2], a[kk], xb[0], xb[1]);
+      mma_m16n8k16(acc[2 * nb2 + 1], a[kk], xb[2], xb[3]);
+    }
+}
+
+// A warp's 16 rows of a [rows][HD + 8] shared tile as A fragments.
+template <int HD>
+__device__ __forceinline__ void a_fragments(uint32_t (&a)[HD / 16][4], const bf16 (*X)[HD + 8],
+                                            int lane) {
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk)
+    ldmatrix_x4(a[kk], smem_addr(&X[lane & 15][16 * kk + (lane >> 4) * 8]));
+}
+
+// rows g (elements 0, 1) and g + 8 (elements 2, 3) of a fragment: the four
+// lanes of a quad hold one row between them
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(FULL_MASK, v, 1));
+  return fmaxf(v, __shfl_xor_sync(FULL_MASK, v, 2));
+}
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(FULL_MASK, v, 1);
+  return v + __shfl_xor_sync(FULL_MASK, v, 2);
+}
+
+// The softmax statistics of a row over all keys, one key tile at a time:
+// scores scaled, keys at or past kmax (the keys left in this tile) masked,
+// the running max mx and the sum of exp(score - mx), the sum rescaled when
+// the max grows. sc holds the scaled scores afterwards.
+__device__ __forceinline__ void online_stats(float (&sc)[MAX_KV / 8][4], int kmax, float scale,
+                                             int t, float (&mx)[2], float (&sum)[2]) {
+  float tm[2] = {-CUDART_INF_F, -CUDART_INF_F}, ts[2] = {0.f, 0.f};
+#pragma unroll
+  for (int nb = 0; nb < MAX_KV / 8; ++nb)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      sc[nb][e] = nb * 8 + 2 * t + (e & 1) < kmax ? sc[nb][e] * scale : -CUDART_INF_F;
+      tm[e >> 1] = fmaxf(tm[e >> 1], sc[nb][e]);
+    }
+  float m[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) m[i] = fmaxf(mx[i], quad_max(tm[i]));  // finite: a tile has a key
+#pragma unroll
+  for (int nb = 0; nb < MAX_KV / 8; ++nb)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) ts[e >> 1] += expf(sc[nb][e] - m[e >> 1]);  // masked: exp(-inf) = 0
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    sum[i] = sum[i] * expf(mx[i] - m[i]) + quad_sum(ts[i]);
+    mx[i] = m[i];
+  }
+}
+
+// P = exp(score * scale - mx) * inv in fp32 over one key tile (inv the
+// reciprocal of the row's sum), 0 for keys at or past kmax.
+__device__ __forceinline__ void tile_probs(float (&sc)[MAX_KV / 8][4], int kmax, float scale, int t,
+                                           const float (&mx)[2], const float (&inv)[2]) {
+#pragma unroll
+  for (int nb = 0; nb < MAX_KV / 8; ++nb)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      sc[nb][e] = nb * 8 + 2 * t + (e & 1) < kmax
+                      ? expf(sc[nb][e] * scale - mx[e >> 1]) * inv[e >> 1] : 0.f;
+}
+
+// ----------------------------------------- attention_tc_tiled_kernel ----
+// attention_tc_kernel past MAX_KV keys per head, with no key limit but the
+// grid's. Each query tile of 64 rows (16 per warp) walks the key tiles of
+// its (image, head) twice, K and V streamed through a KvRing:
+//   pass 1 (K): S = q K^T per tile, the row max and sum over all keys
+//     (online_stats);
+//   pass 2 (K, V): S again, P = exp(S - max) / sum in fp32 and rounded to
+//     bf16 (mit_block.py:163, the Pallas body's rounding point: the softmax
+//     is normalized before the rounding, as in the one-tile kernel), then
+//     ctx += bf16(P) V; ctx rounded to bf16 after the last tile.
+// A one-pass online softmax would round unnormalized probabilities, which
+// is another rounding than the Pallas body's.
+template <int HD>
+__global__ void __launch_bounds__(TC_THREADS)
+    attention_tc_tiled_kernel(const bf16* __restrict__ q, int ldq, const bf16* __restrict__ k,
+                              const bf16* __restrict__ v, int ldkv, bf16* __restrict__ ctx,
+                              int ldc, int N, int Nkv, int heads, int tiles_per_cta, float scale) {
+  static_assert(HD % 16 == 0 && HD <= 64, "k-steps and column blocks of 16");
+  constexpr int LD = HD + 8;
+  __shared__ __align__(16) KvRing<HD> kv;
+  __shared__ __align__(16) bf16 Qs[TC_THREADS / 32][16][LD];  // q rows, then ctx rows
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int b = blockIdx.y / heads, h = blockIdx.y % heads;
+  const int nt = (Nkv + MAX_KV - 1) / MAX_KV, steps = 2 * nt;  // per query tile
+  const int qtiles = (N + TC_ROWS - 1) / TC_ROWS;
+  const int t0 = blockIdx.x * tiles_per_cta, t1 = min(t0 + tiles_per_cta, qtiles);
+  const int total = max(t1 - t0, 0) * steps;
+  auto issue = [&](int s) {
+    const int j = s % steps;
+    load_kv_tile<HD, TC_THREADS>(kv, s & 1, k, v, ldkv, b, h, Nkv, (j % nt) * MAX_KV, j >= nt, tid);
+  };
+  bf16(*Qw)[LD] = Qs[warp];
+  const uint4 zero8 = make_uint4(0, 0, 0, 0);
+  uint32_t qa[HD / 16][4];
+  float mx[2], sum[2], inv[2], o[HD / 8][4];
+  int r0 = 0;
+  if (total > 0) issue(0);
+  for (int s = 0; s < total; ++s) {
+    cp_async_wait<0>();
+    __syncthreads();  // step s's keys are in shared memory; every warp is done with step s - 1
+    if (s + 1 < total) issue(s + 1);
+    const int j = s % steps, buf = s & 1, kmax = Nkv - (j % nt) * MAX_KV;
+    if (j == 0) {  // a new query tile: its q rows, the statistics reset
+      r0 = (t0 + s / steps) * TC_ROWS + warp * 16;
+      for (int c = lane; c < 16 * HD / 8; c += 32) {
+        const int rr = c / (HD / 8), d = (c % (HD / 8)) * 8, row = r0 + rr;
+        store8(&Qw[rr][d], row < N ? load8(q + ((size_t)b * N + row) * ldq + h * HD + d) : zero8);
+      }
+      __syncwarp();
+      a_fragments<HD>(qa, Qw, lane);
+      mx[0] = mx[1] = -CUDART_INF_F;
+      sum[0] = sum[1] = 0.f;
+    }
+    float sc[MAX_KV / 8][4];
+    tile_products<HD>(sc, qa, kv.K[buf], lane);
+    if (j < nt) {
+      online_stats(sc, kmax, scale, t, mx, sum);
+      continue;
+    }
+    if (j == nt) {
+      inv[0] = 1.f / sum[0], inv[1] = 1.f / sum[1];
+#pragma unroll
+      for (int nb = 0; nb < HD / 8; ++nb) o[nb][0] = o[nb][1] = o[nb][2] = o[nb][3] = 0.f;
+    }
+    tile_probs(sc, kmax, scale, t, mx, inv);
+#pragma unroll
+    for (int kk = 0; kk < MAX_KV / 16; ++kk) {
+      uint32_t pa[4];  // bf16(P) of keys 16 kk .. 16 kk + 15 as the A operand of P V
+      pa[0] = pack_bf16x2(sc[2 * kk][0], sc[2 * kk][1]);
+      pa[1] = pack_bf16x2(sc[2 * kk][2], sc[2 * kk][3]);
+      pa[2] = pack_bf16x2(sc[2 * kk + 1][0], sc[2 * kk + 1][1]);
+      pa[3] = pack_bf16x2(sc[2 * kk + 1][2], sc[2 * kk + 1][3]);
+#pragma unroll
+      for (int nb2 = 0; nb2 < HD / 16; ++nb2) {
+        uint32_t vb[4];
+        ldmatrix_x4_trans(vb, smem_addr(&kv.V[buf][16 * kk + (lane & 7) + (((lane >> 3) & 1) << 3)]
+                                               [16 * nb2 + ((lane >> 4) << 3)]));
+        mma_m16n8k16(o[2 * nb2], pa, vb[0], vb[1]);
+        mma_m16n8k16(o[2 * nb2 + 1], pa, vb[2], vb[3]);
+      }
+    }
+    if (j + 1 < steps) continue;
+    __syncwarp();  // every lane's q fragments are loaded: the buffer takes ctx
+#pragma unroll
+    for (int nb = 0; nb < HD / 8; ++nb) {
+      *reinterpret_cast<uint32_t*>(&Qw[g][nb * 8 + 2 * t]) = pack_bf16x2(o[nb][0], o[nb][1]);
+      *reinterpret_cast<uint32_t*>(&Qw[g + 8][nb * 8 + 2 * t]) = pack_bf16x2(o[nb][2], o[nb][3]);
+    }
+    __syncwarp();
+    for (int c = lane; c < 16 * HD / 8; c += 32) {
+      const int rr = c / (HD / 8), d = (c % (HD / 8)) * 8, row = r0 + rr;
+      if (row < N) store8(ctx + ((size_t)b * N + row) * ldc + h * HD + d, load8(&Qw[rr][d]));
+    }
+    __syncwarp();
+  }
+}
+
 // plan = [tiles_per_cta, grid_x, grid_y] (kernels/mit_block.py::attention_plan);
-// the head width C / heads must be 32 or 64.
+// the head width C / heads must be 32 or 64. Up to MAX_KV keys per head the
+// one-tile kernel runs, past it the tiled one (chosen per call, each built
+// at both head widths).
+template <int HD>
+void attention_tc_launch(cudaStream_t s, dim3 grid, const bf16* q, int ldq, const bf16* k,
+                         const bf16* v, int ldkv, bf16* ctx, int N, int Nkv, int heads, int tpc) {
+  const float scale = 1.0f / sqrtf((float)HD);
+  if (Nkv <= MAX_KV)
+    attention_tc_kernel<HD><<<grid, TC_THREADS, 0, s>>>(q, ldq, k, v, ldkv, ctx, ldq, N, Nkv,
+                                                        heads, tpc, scale);
+  else
+    attention_tc_tiled_kernel<HD><<<grid, TC_THREADS, 0, s>>>(q, ldq, k, v, ldkv, ctx, ldq, N,
+                                                              Nkv, heads, tpc, scale);
+}
+
 int attention_tc(cudaStream_t s, const int* plan, const bf16* q, const bf16* k, const bf16* v,
                  int ldkv, bf16* ctx, int B, int N, int Nkv, int C, int heads) {
   const int tpc = plan[0], qtiles = (N + TC_ROWS - 1) / TC_ROWS;
   const int hd = heads > 0 ? C / heads : 0;
-  if (tpc < 1 || Nkv > MAX_KV || plan[1] != (qtiles + tpc - 1) / tpc || plan[2] != B * heads ||
+  if (tpc < 1 || Nkv < 1 || plan[1] != (qtiles + tpc - 1) / tpc || plan[2] != B * heads ||
       hd * heads != C || (hd != 32 && hd != 64))
     return (int)cudaErrorInvalidValue;
   const dim3 grid(plan[1], plan[2]);
-  const float scale = 1.0f / sqrtf((float)hd);
   if (hd == 32)
-    attention_tc_kernel<32><<<grid, TC_THREADS, 0, s>>>(q, C, k, v, ldkv, ctx, C, N, Nkv, heads,
-                                                        tpc, scale);
+    attention_tc_launch<32>(s, grid, q, C, k, v, ldkv, ctx, N, Nkv, heads, tpc);
   else
-    attention_tc_kernel<64><<<grid, TC_THREADS, 0, s>>>(q, C, k, v, ldkv, ctx, C, N, Nkv, heads,
-                                                        tpc, scale);
+    attention_tc_launch<64>(s, grid, q, C, k, v, ldkv, ctx, N, Nkv, heads, tpc);
   return (int)cudaGetLastError();
 }
 
@@ -871,8 +1092,10 @@ int attention_tc(cudaStream_t s, const int* plan, const bf16* q, const bf16* k, 
 // The softmax and context backward of mit_block.py::_attn_bwd_kernel for one
 // (image, head) per blockIdx.y and `tiles_per_cta` tiles of 64 query rows
 // per blockIdx.x, on the tensor cores (mma.sync m16n8k16, bf16 in, fp32
-// accumulate). K and V of the head are staged once per CTA (keys zero-padded
-// to MAX_KV). The q and dctx rows of each tile come to shared memory by
+// accumulate), at head width HD (32 or 64: the k-steps of S = q K^T and
+// dP = dctx V^T and the column blocks of dq, dk and dv follow it, the key
+// blocks do not). K and V of the CTA's keys are staged once per CTA (zero
+// past Nkv). The q and dctx rows of each tile come to shared memory by
 // cp.async, double-buffered: the next tile's load runs under this one's
 // products. Each warp takes 16 rows of a tile:
 //   S = q K^T and dP = dctx V^T in accumulator fragments; the fp32 softmax
@@ -889,37 +1112,48 @@ int attention_tc(cudaStream_t s, const int* plan, const bf16* q, const bf16* k, 
 // part [gridDim.x][2][B*Nkv*C], which dkv_reduce_kernel sums in split order
 // and rounds. No atomics: dk and dv are the same from run to run. Operands
 // round where the Pallas body rounds them, so only summation order differs.
-constexpr int ABW_THREADS = 128, ABW_ROWS = 64, ABW_LD = ABW_HD + 8;  // padded rows
+//
+// With TILED (past MAX_KV keys per head) blockIdx.z picks the CTA's tile of
+// MAX_KV keys, whose dk and dv it owns. The row statistics over all keys,
+// max, 1 / sum and rowsum(dP * P), come from attention_bwd_dq_kernel (in
+// `stats`), which computes dq too; this kernel then forms P and dS of its
+// key tile from them and computes no dq.
+constexpr int ABW_THREADS = 128, ABW_ROWS = 64;
 constexpr int ABW_MIN_CTAS = 3;  // CTAs per SM the register budget keeps resident
 
+template <int HD>
 struct AbwSmem {
-  bf16 K[MAX_KV][ABW_LD], V[MAX_KV][ABW_LD];              // [key][d]
-  bf16 Q[2][ABW_ROWS][ABW_LD], D[2][ABW_ROWS][ABW_LD];    // [buffer][row][d]: q and dctx
-  bf16 P[ABW_ROWS][ABW_LD], S[ABW_ROWS][ABW_LD];          // [row][key]: bf16(P) and dS
+  static constexpr int LD = HD + 8, PLD = MAX_KV + 8;   // padded rows
+  bf16 K[MAX_KV][LD], V[MAX_KV][LD];                    // [key][d]
+  bf16 Q[2][ABW_ROWS][LD], D[2][ABW_ROWS][LD];          // [buffer][row][d]: q and dctx
+  bf16 P[ABW_ROWS][PLD], S[ABW_ROWS][PLD];              // [row][key]: bf16(P) and dS
 };
 
+template <int HD, bool TILED>
 __global__ void __launch_bounds__(ABW_THREADS, ABW_MIN_CTAS)
     attention_bwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                             const bf16* __restrict__ v, const bf16* __restrict__ dctx,
                             bf16* __restrict__ dq, bf16* __restrict__ dk, bf16* __restrict__ dv,
-                            float* __restrict__ part, int N, int Nkv, int C, int heads,
-                            int tiles_per_cta, float scale) {
+                            float* __restrict__ part, const float* __restrict__ stats, int N,
+                            int Nkv, int C, int heads, int tiles_per_cta, float scale) {
+  static_assert(HD % 16 == 0 && HD <= 64, "k-steps and column blocks of 16");
   extern __shared__ __align__(16) unsigned char abw_smem[];
-  AbwSmem& sm = *reinterpret_cast<AbwSmem*>(abw_smem);
+  AbwSmem<HD>& sm = *reinterpret_cast<AbwSmem<HD>*>(abw_smem);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
   const int b = blockIdx.y / heads, h = blockIdx.y % heads;
+  const int k0 = TILED ? blockIdx.z * MAX_KV : 0, kmax = Nkv - k0;  // this CTA's keys
   const uint4 zero8 = make_uint4(0, 0, 0, 0);
-  for (int idx = tid; idx < MAX_KV * ABW_HD / 8; idx += ABW_THREADS) {
-    const int j = idx / (ABW_HD / 8), d = (idx % (ABW_HD / 8)) * 8;
-    const size_t off = ((size_t)b * Nkv + j) * C + h * ABW_HD + d;
-    store8(&sm.K[j][d], j < Nkv ? load8(k + off) : zero8);
-    store8(&sm.V[j][d], j < Nkv ? load8(v + off) : zero8);
+  for (int idx = tid; idx < MAX_KV * HD / 8; idx += ABW_THREADS) {
+    const int j = idx / (HD / 8), d = (idx % (HD / 8)) * 8;
+    const size_t off = ((size_t)b * Nkv + k0 + j) * C + h * HD + d;
+    store8(&sm.K[j][d], j < kmax ? load8(k + off) : zero8);
+    store8(&sm.V[j][d], j < kmax ? load8(v + off) : zero8);
   }
 
   // dk and dv of keys 16 warp + g (+ 8), head dims 8 nb + 2 t (+ 1)
-  float adk[ABW_HD / 8][4], adv[ABW_HD / 8][4];
+  float adk[HD / 8][4], adv[HD / 8][4];
 #pragma unroll
-  for (int nb = 0; nb < ABW_HD / 8; ++nb)
+  for (int nb = 0; nb < HD / 8; ++nb)
 #pragma unroll
     for (int e = 0; e < 4; ++e) adk[nb][e] = adv[nb][e] = 0.f;
 
@@ -929,9 +1163,9 @@ __global__ void __launch_bounds__(ABW_THREADS, ABW_MIN_CTAS)
   // one commit group per tile: its q and dctx rows into buffer `buf`, zeros
   // past N
   auto load_tile = [&](int tile, int buf) {
-    for (int idx = tid; idx < ABW_ROWS * ABW_HD / 8; idx += ABW_THREADS) {
-      const int r = idx / (ABW_HD / 8), d = (idx % (ABW_HD / 8)) * 8, row = tile * ABW_ROWS + r;
-      const size_t off = row < N ? ((size_t)b * N + row) * C + h * ABW_HD + d : 0;
+    for (int idx = tid; idx < ABW_ROWS * HD / 8; idx += ABW_THREADS) {
+      const int r = idx / (HD / 8), d = (idx % (HD / 8)) * 8, row = tile * ABW_ROWS + r;
+      const size_t off = row < N ? ((size_t)b * N + row) * C + h * HD + d : 0;
       cp_async16(smem_addr(&sm.Q[buf][r][d]), q + off, row < N);
       cp_async16(smem_addr(&sm.D[buf][r][d]), dctx + off, row < N);
     }
@@ -948,8 +1182,8 @@ __global__ void __launch_bounds__(ABW_THREADS, ABW_MIN_CTAS)
       cp_async_wait<0>();
     }
     __syncthreads();  // this tile's q and dctx rows are in shared memory
-    bf16(*Qs)[ABW_LD] = sm.Q[buf];
-    bf16(*Ds)[ABW_LD] = sm.D[buf];
+    bf16(*Qs)[AbwSmem<HD>::LD] = sm.Q[buf];
+    bf16(*Ds)[AbwSmem<HD>::LD] = sm.D[buf];
 
     float sc[MAX_KV / 8][4], dp[MAX_KV / 8][4];
 #pragma unroll
@@ -957,7 +1191,7 @@ __global__ void __launch_bounds__(ABW_THREADS, ABW_MIN_CTAS)
 #pragma unroll
       for (int e = 0; e < 4; ++e) sc[nb][e] = dp[nb][e] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < ABW_HD / 16; ++kk) {
+    for (int kk = 0; kk < HD / 16; ++kk) {
       uint32_t qa[4], da[4];
       ldmatrix_x4(qa, smem_addr(&Qs[wr + (lane & 15)][16 * kk + (lane >> 4) * 8]));
       ldmatrix_x4(da, smem_addr(&Ds[wr + (lane & 15)][16 * kk + (lane >> 4) * 8]));
@@ -976,47 +1210,62 @@ __global__ void __launch_bounds__(ABW_THREADS, ABW_MIN_CTAS)
     }
 
     // rows g (elements 0, 1) and g + 8 (elements 2, 3); a quad holds a row
-    float mx[2] = {-CUDART_INF_F, -CUDART_INF_F}, sum[2] = {0.f, 0.f}, rs[2] = {0.f, 0.f};
+    float rs[2] = {0.f, 0.f};
+    if constexpr (TILED) {
+      // P from the statistics over all keys; rows past N read none (P = 0)
+      const size_t pn = (size_t)gridDim.y * N, base = (size_t)blockIdx.y * N;
+      float mx[2], inv[2];
 #pragma unroll
-    for (int nb = 0; nb < MAX_KV / 8; ++nb)
+      for (int i = 0; i < 2; ++i) {
+        const int row = row0 + wr + g + 8 * i;
+        mx[i] = row < N ? stats[base + row] : 0.f;
+        inv[i] = row < N ? stats[pn + base + row] : 0.f;
+        rs[i] = row < N ? stats[2 * pn + base + row] : 0.f;
+      }
+      tile_probs(sc, kmax, scale, t, mx, inv);
+    } else {
+      float mx[2] = {-CUDART_INF_F, -CUDART_INF_F}, sum[2] = {0.f, 0.f};
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = nb * 8 + 2 * t + (e & 1);
-        sc[nb][e] = key < Nkv ? sc[nb][e] * scale : -CUDART_INF_F;
-        mx[e >> 1] = fmaxf(mx[e >> 1], sc[nb][e]);
+      for (int nb = 0; nb < MAX_KV / 8; ++nb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = nb * 8 + 2 * t + (e & 1);
+          sc[nb][e] = key < Nkv ? sc[nb][e] * scale : -CUDART_INF_F;
+          mx[e >> 1] = fmaxf(mx[e >> 1], sc[nb][e]);
+        }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(FULL_MASK, mx[i], 1));
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(FULL_MASK, mx[i], 2));
       }
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(FULL_MASK, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(FULL_MASK, mx[i], 2));
-    }
+      for (int nb = 0; nb < MAX_KV / 8; ++nb)
 #pragma unroll
-    for (int nb = 0; nb < MAX_KV / 8; ++nb)
+        for (int e = 0; e < 4; ++e) {
+          const int key = nb * 8 + 2 * t + (e & 1);
+          sc[nb][e] = key < Nkv ? expf(sc[nb][e] - mx[e >> 1]) : 0.f;
+          sum[e >> 1] += sc[nb][e];
+        }
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = nb * 8 + 2 * t + (e & 1);
-        sc[nb][e] = key < Nkv ? expf(sc[nb][e] - mx[e >> 1]) : 0.f;
-        sum[e >> 1] += sc[nb][e];
+      for (int i = 0; i < 2; ++i) {
+        sum[i] += __shfl_xor_sync(FULL_MASK, sum[i], 1);
+        sum[i] += __shfl_xor_sync(FULL_MASK, sum[i], 2);
       }
+      // P in fp32 (by the reciprocal of the row sum; zero on rows past N)
+      const float inv[2] = {row0 + wr + g < N ? 1.f / sum[0] : 0.f,
+                            row0 + wr + g + 8 < N ? 1.f / sum[1] : 0.f};
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      sum[i] += __shfl_xor_sync(FULL_MASK, sum[i], 1);
-      sum[i] += __shfl_xor_sync(FULL_MASK, sum[i], 2);
-    }
-    // P in fp32 (by the reciprocal of the row sum; zero on rows past N)
-    const float inv[2] = {row0 + wr + g < N ? 1.f / sum[0] : 0.f,
-                          row0 + wr + g + 8 < N ? 1.f / sum[1] : 0.f};
+      for (int nb = 0; nb < MAX_KV / 8; ++nb)
 #pragma unroll
-    for (int nb = 0; nb < MAX_KV / 8; ++nb)
+        for (int e = 0; e < 4; ++e) {
+          sc[nb][e] *= inv[e >> 1];
+          rs[e >> 1] += dp[nb][e] * sc[nb][e];
+        }
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        sc[nb][e] *= inv[e >> 1];
-        rs[e >> 1] += dp[nb][e] * sc[nb][e];
+      for (int i = 0; i < 2; ++i) {
+        rs[i] += __shfl_xor_sync(FULL_MASK, rs[i], 1);
+        rs[i] += __shfl_xor_sync(FULL_MASK, rs[i], 2);
       }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      rs[i] += __shfl_xor_sync(FULL_MASK, rs[i], 1);
-      rs[i] += __shfl_xor_sync(FULL_MASK, rs[i], 2);
     }
     // bf16(P) and dS to shared memory; dS also as the A operand of dq = dS K
     uint32_t dsa[MAX_KV / 16][4];
@@ -1035,27 +1284,29 @@ __global__ void __launch_bounds__(ABW_THREADS, ABW_MIN_CTAS)
       *reinterpret_cast<uint32_t*>(&sm.P[wr + g + 8][key]) = pack_bf16x2(sc[nb][2], sc[nb][3]);
     }
 
-    float o[ABW_HD / 8][4];
+    if constexpr (!TILED) {
+      float o[HD / 8][4];
 #pragma unroll
-    for (int nb = 0; nb < ABW_HD / 8; ++nb) o[nb][0] = o[nb][1] = o[nb][2] = o[nb][3] = 0.f;
+      for (int nb = 0; nb < HD / 8; ++nb) o[nb][0] = o[nb][1] = o[nb][2] = o[nb][3] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < MAX_KV / 16; ++kk)
+      for (int kk = 0; kk < MAX_KV / 16; ++kk)
 #pragma unroll
-      for (int nb2 = 0; nb2 < ABW_HD / 16; ++nb2) {
-        uint32_t kb[4];
-        ldmatrix_x4_trans(kb, smem_addr(&sm.K[16 * kk + (lane & 7) + (((lane >> 3) & 1) << 3)]
-                                            [16 * nb2 + ((lane >> 4) << 3)]));
-        mma_m16n8k16(o[2 * nb2], dsa[kk], kb[0], kb[1]);
-        mma_m16n8k16(o[2 * nb2 + 1], dsa[kk], kb[2], kb[3]);
+        for (int nb2 = 0; nb2 < HD / 16; ++nb2) {
+          uint32_t kb[4];
+          ldmatrix_x4_trans(kb, smem_addr(&sm.K[16 * kk + (lane & 7) + (((lane >> 3) & 1) << 3)]
+                                              [16 * nb2 + ((lane >> 4) << 3)]));
+          mma_m16n8k16(o[2 * nb2], dsa[kk], kb[0], kb[1]);
+          mma_m16n8k16(o[2 * nb2 + 1], dsa[kk], kb[2], kb[3]);
+        }
+      const size_t dq0 = ((size_t)b * N + row0 + wr + g) * C + h * HD + 2 * t;
+#pragma unroll
+      for (int nb = 0; nb < HD / 8; ++nb) {
+        if (row0 + wr + g < N)
+          *reinterpret_cast<uint32_t*>(dq + dq0 + nb * 8) = pack_bf16x2(o[nb][0], o[nb][1]);
+        if (row0 + wr + g + 8 < N)
+          *reinterpret_cast<uint32_t*>(dq + dq0 + (size_t)8 * C + nb * 8) =
+              pack_bf16x2(o[nb][2], o[nb][3]);
       }
-    const size_t dq0 = ((size_t)b * N + row0 + wr + g) * C + h * ABW_HD + 2 * t;
-#pragma unroll
-    for (int nb = 0; nb < ABW_HD / 8; ++nb) {
-      if (row0 + wr + g < N)
-        *reinterpret_cast<uint32_t*>(dq + dq0 + nb * 8) = pack_bf16x2(o[nb][0], o[nb][1]);
-      if (row0 + wr + g + 8 < N)
-        *reinterpret_cast<uint32_t*>(dq + dq0 + (size_t)8 * C + nb * 8) =
-            pack_bf16x2(o[nb][2], o[nb][3]);
     }
     __syncthreads();  // every warp's P and dS rows are in shared memory
 
@@ -1068,7 +1319,7 @@ __global__ void __launch_bounds__(ABW_THREADS, ABW_MIN_CTAS)
       ldmatrix_x4_trans(pa, smem_addr(&sm.P[prow][pcol]));
       ldmatrix_x4_trans(sa, smem_addr(&sm.S[prow][pcol]));
 #pragma unroll
-      for (int nb2 = 0; nb2 < ABW_HD / 16; ++nb2) {
+      for (int nb2 = 0; nb2 < HD / 16; ++nb2) {
         const int brow = 16 * kk + (lane & 7) + (((lane >> 3) & 1) << 3);
         const int bcol = 16 * nb2 + ((lane >> 4) << 3);
         uint32_t db[4], qb[4];
@@ -1086,19 +1337,148 @@ __global__ void __launch_bounds__(ABW_THREADS, ABW_MIN_CTAS)
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int key = wr + g + 8 * half;
-    if (key >= Nkv) continue;
-    const size_t row = ((size_t)b * Nkv + key) * C + h * ABW_HD + 2 * t;
+    if (key >= kmax) continue;
+    const size_t row = ((size_t)b * Nkv + k0 + key) * C + h * HD + 2 * t;
 #pragma unroll
-    for (int nb = 0; nb < ABW_HD / 8; ++nb) {
-      const float k0 = adk[nb][2 * half], k1 = adk[nb][2 * half + 1];
+    for (int nb = 0; nb < HD / 8; ++nb) {
+      const float k0v = adk[nb][2 * half], k1v = adk[nb][2 * half + 1];
       const float v0 = adv[nb][2 * half], v1 = adv[nb][2 * half + 1];
       if (part == nullptr) {
-        *reinterpret_cast<uint32_t*>(dk + row + nb * 8) = pack_bf16x2(k0, k1);
+        *reinterpret_cast<uint32_t*>(dk + row + nb * 8) = pack_bf16x2(k0v, k1v);
         *reinterpret_cast<uint32_t*>(dv + row + nb * 8) = pack_bf16x2(v0, v1);
       } else {
         float* pk = part + (size_t)blockIdx.x * 2 * nkv + row + nb * 8;
-        *reinterpret_cast<float2*>(pk) = make_float2(k0, k1);
+        *reinterpret_cast<float2*>(pk) = make_float2(k0v, k1v);
         *reinterpret_cast<float2*>(pk + nkv) = make_float2(v0, v1);
+      }
+    }
+  }
+}
+
+// -------------------------------------------- attention_bwd_dq_kernel ----
+// The tiled backward's first launch, past MAX_KV keys per head: for each
+// query tile of 64 rows (16 per warp), on the grid of attention_plan, the
+// key tiles of its (image, head) stream through a KvRing three times:
+//   pass 1 (K): the row max and sum over all keys (online_stats);
+//   pass 2 (K, V): S and dP = dctx V^T again, P = exp(S - max) / sum in fp32
+//     (tile_probs), rowsum(dP * P);
+//   pass 3 (K, V): S and dP again, dS = bf16(P * (dP - rowsum) * scale),
+//     dq += dS K.
+// dq is rounded to bf16 once after the last tile (the one-tile kernel's
+// rounding point, its fp32 sum over every key), and each row's max, 1 / sum
+// and rowsum go to stats [3][B * heads * N] for the key-tile CTAs of
+// attention_bwd_tc_kernel<HD, true>. P and dS round where the one-tile
+// kernel rounds them.
+template <int HD>
+struct AbwDqSmem {
+  KvRing<HD> kv;
+  bf16 Q[ABW_THREADS / 32][16][HD + 8], D[ABW_THREADS / 32][16][HD + 8];  // per warp
+};
+
+template <int HD>
+__global__ void __launch_bounds__(ABW_THREADS)
+    attention_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                            const bf16* __restrict__ v, const bf16* __restrict__ dctx,
+                            bf16* __restrict__ dq, float* __restrict__ stats, int N, int Nkv,
+                            int C, int heads, int tiles_per_cta, float scale) {
+  extern __shared__ __align__(16) unsigned char dq_smem[];
+  AbwDqSmem<HD>& sm = *reinterpret_cast<AbwDqSmem<HD>*>(dq_smem);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int b = blockIdx.y / heads, h = blockIdx.y % heads;
+  const int nt = (Nkv + MAX_KV - 1) / MAX_KV, steps = 3 * nt;  // per query tile
+  const int qtiles = (N + ABW_ROWS - 1) / ABW_ROWS;
+  const int t0 = blockIdx.x * tiles_per_cta, t1 = min(t0 + tiles_per_cta, qtiles);
+  const int total = max(t1 - t0, 0) * steps;
+  auto issue = [&](int s) {
+    const int j = s % steps;
+    load_kv_tile<HD, ABW_THREADS>(sm.kv, s & 1, k, v, C, b, h, Nkv, (j % nt) * MAX_KV, j >= nt,
+                                  tid);
+  };
+  bf16(*Qw)[HD + 8] = sm.Q[warp];
+  bf16(*Dw)[HD + 8] = sm.D[warp];
+  const uint4 zero8 = make_uint4(0, 0, 0, 0);
+  uint32_t qa[HD / 16][4], da[HD / 16][4];
+  float mx[2], sum[2], inv[2], rs[2], o[HD / 8][4];
+  int r0 = 0;
+  if (total > 0) issue(0);
+  for (int s = 0; s < total; ++s) {
+    cp_async_wait<0>();
+    __syncthreads();  // step s's keys are in shared memory; every warp is done with step s - 1
+    if (s + 1 < total) issue(s + 1);
+    const int j = s % steps, buf = s & 1, kmax = Nkv - (j % nt) * MAX_KV;
+    if (j == 0) {  // a new query tile: its q and dctx rows, the statistics reset
+      r0 = (t0 + s / steps) * ABW_ROWS + warp * 16;
+      for (int c = lane; c < 16 * HD / 8; c += 32) {
+        const int rr = c / (HD / 8), d = (c % (HD / 8)) * 8, row = r0 + rr;
+        const size_t off = ((size_t)b * N + row) * C + h * HD + d;
+        store8(&Qw[rr][d], row < N ? load8(q + off) : zero8);
+        store8(&Dw[rr][d], row < N ? load8(dctx + off) : zero8);
+      }
+      __syncwarp();
+      a_fragments<HD>(qa, Qw, lane);
+      a_fragments<HD>(da, Dw, lane);
+      mx[0] = mx[1] = -CUDART_INF_F;
+      sum[0] = sum[1] = rs[0] = rs[1] = 0.f;
+    }
+    float sc[MAX_KV / 8][4];
+    tile_products<HD>(sc, qa, sm.kv.K[buf], lane);
+    if (j < nt) {
+      online_stats(sc, kmax, scale, t, mx, sum);
+      continue;
+    }
+    if (j == nt) inv[0] = 1.f / sum[0], inv[1] = 1.f / sum[1];
+    float dp[MAX_KV / 8][4];
+    tile_products<HD>(dp, da, sm.kv.V[buf], lane);
+    tile_probs(sc, kmax, scale, t, mx, inv);
+    if (j < 2 * nt) {  // pass 2: this thread's part of rowsum(dP * P)
+#pragma unroll
+      for (int nb = 0; nb < MAX_KV / 8; ++nb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) rs[e >> 1] += dp[nb][e] * sc[nb][e];
+      if (j == 2 * nt - 1) {
+        rs[0] = quad_sum(rs[0]), rs[1] = quad_sum(rs[1]);
+#pragma unroll
+        for (int nb = 0; nb < HD / 8; ++nb) o[nb][0] = o[nb][1] = o[nb][2] = o[nb][3] = 0.f;
+      }
+      continue;
+    }
+    // pass 3: dq += dS K over this key tile
+#pragma unroll
+    for (int kk = 0; kk < MAX_KV / 16; ++kk) {
+      uint32_t dsa[4];
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const float(&p)[4] = sc[2 * kk + half];
+        const float(&d)[4] = dp[2 * kk + half];
+        dsa[2 * half] = pack_bf16x2(p[0] * (d[0] - rs[0]) * scale, p[1] * (d[1] - rs[0]) * scale);
+        dsa[2 * half + 1] =
+            pack_bf16x2(p[2] * (d[2] - rs[1]) * scale, p[3] * (d[3] - rs[1]) * scale);
+      }
+#pragma unroll
+      for (int nb2 = 0; nb2 < HD / 16; ++nb2) {
+        uint32_t kb[4];
+        ldmatrix_x4_trans(kb, smem_addr(&sm.kv.K[buf][16 * kk + (lane & 7) +
+                                                      (((lane >> 3) & 1) << 3)]
+                                                     [16 * nb2 + ((lane >> 4) << 3)]));
+        mma_m16n8k16(o[2 * nb2], dsa, kb[0], kb[1]);
+        mma_m16n8k16(o[2 * nb2 + 1], dsa, kb[2], kb[3]);
+      }
+    }
+    if (j + 1 < steps) continue;
+    const size_t pn = (size_t)gridDim.y * N, base = (size_t)blockIdx.y * N;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = r0 + g + 8 * i;
+      if (row >= N) continue;
+      const size_t dq0 = ((size_t)b * N + row) * C + h * HD + 2 * t;
+#pragma unroll
+      for (int nb = 0; nb < HD / 8; ++nb)
+        *reinterpret_cast<uint32_t*>(dq + dq0 + nb * 8) =
+            pack_bf16x2(o[nb][2 * i], o[nb][2 * i + 1]);
+      if (t == 0) {
+        stats[base + row] = mx[i];
+        stats[pn + base + row] = inv[i];
+        stats[2 * pn + base + row] = rs[i];
       }
     }
   }
@@ -1125,29 +1505,67 @@ __global__ void dkv_reduce_kernel(const float* __restrict__ part, bf16* __restri
   }
 }
 
-// plan = [tiles_per_cta, grid_x, grid_y] (kernels/mit_block.py::
-// attn_backward_plan): grid_x CTAs split the query tiles of each (image,
-// head); above 1, their partial sums go to part and one reduce launch
-// follows.
-int attention_bwd_tc(cudaStream_t s, const int* plan, const bf16* q, const bf16* k,
-                     const bf16* v, const bf16* dctx, bf16* dq, bf16* dk, bf16* dv, float* part,
-                     int B, int N, int Nkv, int C, int heads) {
+// plan = [tiles_per_cta, grid_x, grid_y, dq_tiles_per_cta, dq_grid_x,
+// dq_grid_y] (kernels/mit_block.py::attn_backward_plan): grid_x CTAs split
+// the query tiles of each (image, head); above 1, their partial sums go to
+// part and one reduce launch follows. Up to MAX_KV keys the one-tile kernel
+// computes dq, dk and dv (the dq record is zeros); past it
+// attention_bwd_dq_kernel (on the dq record's grid) computes dq and the row
+// statistics into stats [3][B * heads * N], then one CTA per (split, image
+// and head, key tile) the key tile's dk and dv.
+template <int HD>
+int attention_bwd_tc_hd(cudaStream_t s, const int* plan, const bf16* q, const bf16* k,
+                        const bf16* v, const bf16* dctx, bf16* dq, bf16* dk, bf16* dv,
+                        float* part, float* stats, int B, int N, int Nkv, int C, int heads) {
   const int tpc = plan[0], splits = plan[1], qtiles = (N + ABW_ROWS - 1) / ABW_ROWS;
-  if (tpc < 1 || Nkv < 1 || Nkv > MAX_KV || C != heads * ABW_HD ||
-      splits != (qtiles + tpc - 1) / tpc || plan[2] != B * heads || (splits > 1 && part == nullptr))
-    return (int)cudaErrorInvalidValue;
-  static std::atomic<bool> attr_set[kMaxDevices];
-  const cudaError_t attr =
-      smem_limit_once(attention_bwd_tc_kernel, (int)sizeof(AbwSmem), attr_set);
-  if (attr != cudaSuccess) return (int)attr;
-  attention_bwd_tc_kernel<<<dim3(splits, plan[2]), ABW_THREADS, sizeof(AbwSmem), s>>>(
-      q, k, v, dctx, dq, dk, dv, splits > 1 ? part : nullptr, N, Nkv, C, heads, tpc,
-      1.0f / sqrtf((float)ABW_HD));
+  const int ktiles = (Nkv + MAX_KV - 1) / MAX_KV;
+  const int bad = (int)cudaErrorInvalidValue;
+  if (tpc < 1 || Nkv < 1 || C != heads * HD || splits != (qtiles + tpc - 1) / tpc ||
+      plan[2] != B * heads || (splits > 1 && part == nullptr))
+    return bad;
+  const float scale = 1.0f / sqrtf((float)HD);
+  const int smem = (int)sizeof(AbwSmem<HD>);
+  float* parts = splits > 1 ? part : nullptr;
+  if (ktiles == 1) {
+    static std::atomic<bool> attr_set[kMaxDevices];
+    const cudaError_t attr = smem_limit_once(attention_bwd_tc_kernel<HD, false>, smem, attr_set);
+    if (attr != cudaSuccess) return (int)attr;
+    attention_bwd_tc_kernel<HD, false><<<dim3(splits, plan[2]), ABW_THREADS, smem, s>>>(
+        q, k, v, dctx, dq, dk, dv, parts, nullptr, N, Nkv, C, heads, tpc, scale);
+  } else {
+    const int dq_tpc = plan[3];
+    if (dq_tpc < 1 || plan[4] != (qtiles + dq_tpc - 1) / dq_tpc || plan[5] != B * heads ||
+        stats == nullptr)
+      return bad;
+    static std::atomic<bool> dq_set[kMaxDevices], tiled_set[kMaxDevices];
+    const int dq_smem = (int)sizeof(AbwDqSmem<HD>);
+    cudaError_t attr = smem_limit_once(attention_bwd_dq_kernel<HD>, dq_smem, dq_set);
+    if (attr == cudaSuccess)
+      attr = smem_limit_once(attention_bwd_tc_kernel<HD, true>, smem, tiled_set);
+    if (attr != cudaSuccess) return (int)attr;
+    attention_bwd_dq_kernel<HD><<<dim3(plan[4], plan[5]), ABW_THREADS, dq_smem, s>>>(
+        q, k, v, dctx, dq, stats, N, Nkv, C, heads, dq_tpc, scale);
+    attention_bwd_tc_kernel<HD, true><<<dim3(splits, plan[2], ktiles), ABW_THREADS, smem, s>>>(
+        q, k, v, dctx, dq, dk, dv, parts, stats, N, Nkv, C, heads, tpc, scale);
+  }
   if (splits > 1) {
     const size_t nkv = (size_t)B * Nkv * C;
     dkv_reduce_kernel<<<grid_for(nkv / 2, 256), 256, 0, s>>>(part, dk, dv, nkv, splits);
   }
   return (int)cudaGetLastError();
+}
+
+int attention_bwd_tc(cudaStream_t s, const int* plan, const bf16* q, const bf16* k,
+                     const bf16* v, const bf16* dctx, bf16* dq, bf16* dk, bf16* dv, float* part,
+                     float* stats, int B, int N, int Nkv, int C, int heads) {
+  const int hd = heads > 0 ? C / heads : 0;
+  if (hd == 32)
+    return attention_bwd_tc_hd<32>(s, plan, q, k, v, dctx, dq, dk, dv, part, stats, B, N, Nkv,
+                                   C, heads);
+  if (hd == 64)
+    return attention_bwd_tc_hd<64>(s, plan, q, k, v, dctx, dq, dk, dv, part, stats, B, N, Nkv,
+                                   C, heads);
+  return (int)cudaErrorInvalidValue;
 }
 
 #define TRY(call)                  \
@@ -1406,25 +1824,28 @@ int mit_block_train_mlp_backward(const void* h2ln, const void* dmlp, const void*
   return (int)cudaGetLastError();
 }
 
-// Attention backward (_attn_bwd_kernel, mit_block.py:1472) in four or five
+// Attention backward (_attn_bwd_kernel, mit_block.py:1472) in four to six
 // launches, with no memset and no atomics:
 //   q = bf16(xln wq + bq)                        (wgmma, resident panel)
 //   dctx = bf16(bf16(dx1 * m1[row / N]) wo^T)    (wgmma: the row scale in
 //                                                 place on the resident panel,
 //                                                 wo read K-major)
-//   dq, and dk, dv or their partial sums         (attention_bwd_tc_kernel;
+//   dq, and dk, dv or their partial sums         (attention_bwd_tc_kernel,
+//                                                 past MAX_KV keys after
+//                                                 attention_bwd_dq_kernel;
 //                                                 then dkv_reduce_kernel when
 //                                                 the rows of an image split)
 //   dxln = bf16(dq wq^T)                         (wgmma, wq read K-major)
 // `plan` (host memory, kernels/mit_block.py::attn_backward_plan) holds the
 // plans of the q, dctx and dxln products and of the attention. Scratch: q,
 // dctx, dq [B*N, C]; part [splits][2][B*Nkv*C] fp32 when the plan splits
-// (null otherwise).
+// (null otherwise); stats [3][B*heads*N] fp32 past MAX_KV keys (null
+// otherwise).
 int mit_block_train_attn_backward(const void* xln, const void* k, const void* v,
                                   const void* dx1, const void* m1, const void* wq,
                                   const void* bq, const void* wo, const void* plan, void* q,
-                                  void* dctx, void* dq, void* part, void* dxln, void* dk,
-                                  void* dv, int B, int N, int C, int heads, int Nkv,
+                                  void* dctx, void* dq, void* part, void* stats, void* dxln,
+                                  void* dk, void* dv, int B, int N, int C, int heads, int Nkv,
                                   void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   typedef const bf16* P;
@@ -1436,7 +1857,7 @@ int mit_block_train_attn_backward(const void* xln, const void* k, const void* v,
                                                     nullptr, nullptr, nullptr, 0, dctx, C, M, C, C,
                                                     (const float*)m1, N)));
   TRY(attention_bwd_tc(s, pl + 3 * GEMM_PLAN, (P)q, (P)k, (P)v, (P)dctx, (bf16*)dq, (bf16*)dk,
-                       (bf16*)dv, (float*)part, B, N, Nkv, C, heads));
+                       (bf16*)dv, (float*)part, (float*)stats, B, N, Nkv, C, heads));
   TRY((wg_linear<Pro::kPlain, Epi::kPlain, true>(s, pl + 2 * GEMM_PLAN, (P)dq, (P)wq, nullptr,
                                                  nullptr, nullptr, nullptr, 0, dxln, C, M, C, C)));
   return (int)cudaGetLastError();

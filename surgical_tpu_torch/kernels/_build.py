@@ -39,7 +39,7 @@ _ENTRY_POINTS = {
     "mit_stage_forward": (35, 10),
     "mit_block_train_forward": (25, 7),
     "mit_block_train_mlp_backward": (11, 5),
-    "mit_block_train_attn_backward": (16, 5),
+    "mit_block_train_attn_backward": (17, 5),
     "selective_scan_forward": (9, 6),
     "selective_scan_backward": (15, 6),
 }

@@ -45,12 +45,16 @@ import torch.nn.functional as F
 
 from surgical_tpu_torch.kernels import _build
 
-# Head widths the serving attention is built for: those of the published MiT
-# sizes, 32 at b0 (widths 32 / 64 / 160 / 256 over 1 / 2 / 5 / 8 heads) and
-# 64 at b1-b5.
+# Head widths the attention kernels (serving and training) are built for:
+# those of the published MiT sizes, 32 at b0 (widths 32 / 64 / 160 / 256 over
+# 1 / 2 / 5 / 8 heads) and 64 at b1-b5.
 SERVING_HEAD_DIMS = (32, 64)
-HEAD_DIM = 64  # packed2's image width, and the one head width of the train kernels
-MAX_KV = 64    # keys per head the attention kernel holds in shared memory
+HEAD_DIM = 64  # packed2's image width
+# Keys per tile of the attention kernels: up to MAX_KV keys per head (49 at
+# 224 px, 64 at 256) the one-tile instances stage a head's keys at once;
+# more keys (81 at 288 px, 256 at 512) stream through the tiled instances in
+# tiles of MAX_KV, with no key limit but the grid's.
+MAX_KV = 64
 LN_MAX_C = 512  # widest row the LayerNorm stages hold in registers
 
 
@@ -420,6 +424,7 @@ def _ptr(t: torch.Tensor, shape, name: str, dtype=torch.bfloat16) -> int:
 
 NUM_SMS = 132          # streaming multiprocessors of an H100 SXM
 SMEM_LIMIT = 232_448   # dynamic shared memory one CTA can have (sm_90)
+STATIC_SMEM_LIMIT = 49_152  # static shared memory of one CTA (the forward attention's)
 GEMM_BM, GEMM_BK, GEMM_STAGES = 128, 64, 4  # rows per CTA, K per tile, ring depth
 PANEL_MAX_K = 512      # widest A panel kept resident (and LayerNorm'd) in shared memory
 ATTN_ROWS = 64         # query rows per attention tile
@@ -485,13 +490,41 @@ def _streamed_plan(M: int, N: int, K: int) -> tuple:
     return (64, 0, 1, _cdiv(M, GEMM_BM), grid_y, gemm_smem_bytes(K, 64, False))
 
 
-def attention_plan(B: int, N: int, heads: int, Nkv: int) -> tuple:
+def _key_tiles(Nkv: int) -> int:
+    if Nkv < 1:
+        raise ValueError(f"attention takes at least one key per head, got {Nkv}")
+    return _cdiv(Nkv, MAX_KV)
+
+
+def attention_smem_bytes(head_dim: int, Nkv: int) -> int:
+    """Static shared memory of one forward attention CTA: K and V of the
+    head (one tile up to MAX_KV keys, two buffers of a tile past it) and
+    each warp's 16 q rows, rows padded to head_dim + 8."""
+    row = 2 * (head_dim + 8)
+    kv_tiles = 1 if _key_tiles(Nkv) == 1 else 2
+    return 2 * kv_tiles * MAX_KV * row + 4 * 16 * row
+
+
+def attn_backward_smem_bytes(head_dim: int, Nkv: int) -> tuple[int, int]:
+    """Dynamic shared memory of one CTA of the attention backward's kernels:
+    (attention_bwd_tc_kernel: K and V of its key tile, two buffers of q and
+    dctx rows, bf16(P) and dS of a 64-row tile; attention_bwd_dq_kernel past
+    MAX_KV keys: two buffers of K and V tiles and each warp's q and dctx
+    rows, else 0)."""
+    row, prow = 2 * (head_dim + 8), 2 * (MAX_KV + 8)
+    main = 2 * MAX_KV * row + 4 * ATTN_ROWS * row + 2 * ATTN_ROWS * prow
+    dq = 4 * MAX_KV * row + 2 * 4 * 16 * row if _key_tiles(Nkv) > 1 else 0
+    return main, dq
+
+
+def attention_plan(B: int, N: int, heads: int, Nkv: int, head_dim: int = HEAD_DIM) -> tuple:
     """(tiles_per_cta, grid_x, grid_y) of the attention kernel: one CTA row
-    per (image, head) with its keys staged once, each CTA walking
-    ``tiles_per_cta`` query tiles of 64 rows; enough CTAs per (image, head)
-    that the grid holds about four per SM."""
-    if Nkv < 1 or Nkv > MAX_KV:
-        raise ValueError(f"attention takes 1 to {MAX_KV} keys per head, got {Nkv}")
+    per (image, head), each CTA walking ``tiles_per_cta`` query tiles of 64
+    rows (up to MAX_KV keys with its keys staged once, past it streaming
+    them per query tile); enough CTAs per (image, head) that the grid holds
+    about four per SM."""
+    if attention_smem_bytes(head_dim, Nkv) > STATIC_SMEM_LIMIT:
+        raise ValueError(f"attention at head width {head_dim} does not fit one CTA")
     pairs, qtiles = B * heads, _cdiv(N, ATTN_ROWS)
     if pairs > 65535:
         raise ValueError(f"attention takes at most 65535 (image, head) pairs, got {pairs}")
@@ -512,7 +545,7 @@ def block_plan(B: int, H: int, W: int, C: int, heads: int, Nkv: int, hidden: int
     """The plans of mit_block_forward's launches, flat: the q product (LN1
     prologue), the attention, the out product, fc1 (LN2 prologue), fc2."""
     N = H * W
-    return (*gemm_plan(B * N, C, C, ln=True), *attention_plan(B, N, heads, Nkv),
+    return (*gemm_plan(B * N, C, C, ln=True), *attention_plan(B, N, heads, Nkv, C // heads),
             *_mlp_plans(B * N, C, hidden))
 
 
@@ -536,7 +569,7 @@ def train_forward_plan(B: int, H: int, W: int, C: int, heads: int, Nkv: int,
     (xln given, no prologue), the attention, the out product, fc1 (LN2
     prologue), fc2."""
     N = H * W
-    return (*gemm_plan(B * N, C, C), *attention_plan(B, N, heads, Nkv),
+    return (*gemm_plan(B * N, C, C), *attention_plan(B, N, heads, Nkv, C // heads),
             *_mlp_plans(B * N, C, hidden))
 
 
@@ -553,19 +586,25 @@ def attn_backward_plan(B: int, N: int, C: int, heads: int, Nkv: int) -> tuple:
     """The plans of mit_block_train_attn_backward's launches, flat: the q
     product (K = C), dctx (the row-scale prologue on the resident panel, wo
     read K-major), dxln (wq read K-major), then the attention (tiles_per_cta,
-    grid_x, grid_y). From C = ABW_STREAM_MIN_K the q and dxln products stream
+    grid_x, grid_y) and, past MAX_KV keys, the dq kernel's ``attention_plan``
+    (zeros up to MAX_KV). From C = ABW_STREAM_MIN_K the q and dxln products stream
     A through the ring with 64 columns per CTA (two CTAs per SM, where the
     148-198 KB resident panel holds one; faster on an H100 at b3's stages 3
     and 4, slower at stage 1). grid_y is B * heads; grid_x CTAs split the
-    64-row query tiles of each (image, head). With grid_x 1 a CTA holds every row of its
-    image and writes dk and dv itself (4 launches); above 1 each writes fp32
-    partial sums that one reduce launch adds in order (5 launches). The split
-    minimizes the estimated time: waves of ABW_CTAS_PER_SM CTAs per SM times
-    the tiles per CTA, plus the partial sums' traffic."""
-    if Nkv < 1 or Nkv > MAX_KV:
-        raise ValueError(f"attention takes 1 to {MAX_KV} keys per head, got {Nkv}")
-    if C != heads * HEAD_DIM:
-        raise ValueError(f"kernel takes head_dim {HEAD_DIM}: C={C}, heads={heads}")
+    64-row query tiles of each (image, head), and past MAX_KV keys a third
+    grid axis gives each key tile of MAX_KV keys its own CTAs. With grid_x 1
+    a CTA holds every row of its image and writes dk and dv itself (4
+    launches; 5 past MAX_KV keys, where the dq kernel runs first); above 1
+    each writes fp32 partial sums that one reduce launch adds in order (5;
+    6). The split minimizes the estimated time: waves of ABW_CTAS_PER_SM
+    CTAs per SM times the tiles per CTA, plus the partial sums' traffic."""
+    if C % heads or C // heads not in SERVING_HEAD_DIMS:
+        widths = " or ".join(map(str, SERVING_HEAD_DIMS))
+        raise ValueError(f"kernel takes head_dim {widths}: C={C}, heads={heads}")
+    ktiles = _key_tiles(Nkv)
+    main_smem, dq_smem = attn_backward_smem_bytes(C // heads, Nkv)
+    if max(main_smem, dq_smem) > SMEM_LIMIT:
+        raise ValueError(f"attention backward at head width {C // heads} does not fit one CTA")
     pairs, qtiles = B * heads, _cdiv(N, ATTN_ROWS)
     if pairs < 1 or pairs > 65535:
         raise ValueError(f"attention takes 1 to 65535 (image, head) pairs, got {pairs}")
@@ -575,13 +614,14 @@ def attn_backward_plan(B: int, N: int, C: int, heads: int, Nkv: int) -> tuple:
     for split in range(1, min(qtiles, ABW_MAX_SPLITS) + 1):
         tpc = _cdiv(qtiles, split)
         grid_x = _cdiv(qtiles, tpc)
-        cost = (_cdiv(grid_x * pairs, slots) * tpc * _ABW_TILE_US
+        cost = (_cdiv(grid_x * pairs * ktiles, slots) * tpc * _ABW_TILE_US
                 + (grid_x * split_us if grid_x > 1 else 0.0))
         if best is None or cost < best[0]:
             best = (cost, tpc, grid_x)
+    dq = attention_plan(B, N, heads, Nkv, C // heads) if ktiles > 1 else (0, 0, 0)
     dctx = gemm_plan(M, C, C, ln=True)  # resident: the row scale's panel
     product = (_streamed_plan(M, C, C) if C >= ABW_STREAM_MIN_K else gemm_plan(M, C, C))
-    return (*product, *dctx, *product, best[1], best[2], pairs)
+    return (*product, *dctx, *product, best[1], best[2], pairs, *dq)
 
 
 def stage_plan(B: int, H: int, W: int, C: int, heads: int, sr: int, hidden: int,
@@ -594,7 +634,7 @@ def stage_plan(B: int, H: int, W: int, C: int, heads: int, sr: int, hidden: int,
     prompt = ((*gemm_plan(M, C4, Cb), *gemm_plan(M, C, C4)) if Cb else _NO_PLAN * 2)
     srp = gemm_plan(Mkv, C, sr * sr * C) if sr > 1 else _NO_PLAN
     return (*prompt, *srp, *gemm_plan(Mkv, 2 * C, C), *gemm_plan(M, C, C),
-            *attention_plan(B, N, heads, Nkv), *_mlp_plans(M, C, hidden))
+            *attention_plan(B, N, heads, Nkv, C // heads), *_mlp_plans(M, C, hidden))
 
 
 def _plan_arg(plan):
@@ -603,12 +643,12 @@ def _plan_arg(plan):
     return (ctypes.c_int * len(plan))(*plan)
 
 
-def _check_dims(C, heads, Nkv, hidden, H, W, x, head_dims=SERVING_HEAD_DIMS):
-    if C % heads or C // heads not in head_dims:
-        widths = " or ".join(map(str, head_dims))
+def _check_dims(C, heads, Nkv, hidden, H, W, x):
+    if C % heads or C // heads not in SERVING_HEAD_DIMS:
+        widths = " or ".join(map(str, SERVING_HEAD_DIMS))
         raise ValueError(f"kernel takes head_dim {widths}: C={C}, heads={heads}")
-    if Nkv > MAX_KV:
-        raise ValueError(f"kernel takes at most {MAX_KV} keys per head, got {Nkv}")
+    if Nkv < 1:
+        raise ValueError(f"kernel takes at least one key per head, got {Nkv}")
     if C > LN_MAX_C or hidden % 8:
         raise ValueError(f"kernel takes C <= {LN_MAX_C} and hidden % 8 == 0: {C}, {hidden}")
     if x.shape[1] != H * W:
@@ -802,7 +842,7 @@ def block_train_forward(x, xln, k, v, weights, m1, m2, *, heads: int, H: int, W:
     B, N, C = x.shape
     Nkv = k.shape[1]
     hidden = weights["w1"].shape[1]
-    _check_dims(C, heads, Nkv, hidden, H, W, x, head_dims=(HEAD_DIM,))
+    _check_dims(C, heads, Nkv, hidden, H, W, x)
     w = weights
     plan = _plan_arg(train_forward_plan(B, H, W, C, heads, Nkv, hidden))
     y, x1 = torch.empty_like(x), torch.empty_like(x)
@@ -875,16 +915,15 @@ def block_train_attn_backward(xln, k, v, dx1, m1, weights, *, heads: int):
     _build.refuse_grad("block_train_attn_backward", xln, k, v, dx1, m1, *weights.values())
     B, N, C = xln.shape
     Nkv = k.shape[1]
-    if C != heads * HEAD_DIM or Nkv > MAX_KV or C % 8:
-        raise ValueError(f"kernel takes head_dim {HEAD_DIM}, at most {MAX_KV} keys and "
-                         f"C % 8 == 0: C={C}, heads={heads}, Nkv={Nkv}")
     w = weights
     plan = attn_backward_plan(B, N, C, heads, Nkv)
-    splits = plan[-2]
+    splits = plan[19]
     q, dctx, dq, dxln = (torch.empty_like(xln) for _ in range(4))
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    part = (torch.empty(splits, 2, B * Nkv * C, dtype=torch.float32, device=xln.device)
-            if splits > 1 else None)
+    f32 = dict(dtype=torch.float32, device=xln.device)
+    part = torch.empty(splits, 2, B * Nkv * C, **f32) if splits > 1 else None
+    # each row's softmax max, 1 / sum and rowsum(dP * P) past MAX_KV keys
+    stats = torch.empty(3, B * heads * N, **f32) if Nkv > MAX_KV else None
     plan = _plan_arg(plan)
     with torch.cuda.device(xln.device):  # the launch's current device
         err = _build.load().mit_block_train_attn_backward(
@@ -892,7 +931,8 @@ def block_train_attn_backward(xln, k, v, dx1, m1, weights, *, heads: int):
             _ptr(dx1, (B, N, C), "dx1"), _ptr(m1, (B,), "m1", torch.float32),
             _ptr(w["wq"], (C, C), "wq"), _ptr(w["bq"], (C,), "bq"), _ptr(w["wo"], (C, C), "wo"),
             ctypes.addressof(plan), q.data_ptr(), dctx.data_ptr(), dq.data_ptr(),
-            None if part is None else part.data_ptr(), dxln.data_ptr(), dk.data_ptr(),
+            None if part is None else part.data_ptr(),
+            None if stats is None else stats.data_ptr(), dxln.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), B, N, C, heads, Nkv, torch.cuda.current_stream(xln.device).cuda_stream)
     _build.check(err, "mit_block_train_attn_backward")
     block_train_attn_backward.launches += 1

@@ -32,9 +32,15 @@ The kernels are built at state widths 32, 64 and 128 (the backward at 32
 and 64); a ``d_state`` runs at the next of them (``kernel_state``) with
 zero states past it: the forward kernel fills the zeros as it loads A, B
 and C, the backward's wrapper pads them with zero columns and the channels
-to a multiple of 4, all exact. The backward runs a 128-wide state as two
-launches on its halves, and above 128 channels one thread-block cluster per
-group of channels. A ``d_state`` above 128 raises.
+to a multiple of 4, all exact. The states of a channel evolve independently,
+so a wider state is cut into slices: the forward runs a ``d_state`` above
+128 as one launch per slice of at most 128 states (``state_slices``), each
+at its own width, y the sum of the slices' outputs and D in the first slice
+only; the backward runs the (padded) state as one launch per 64-wide slice
+(a last slice of 32 at its own width), dx and ddt the slices' sums, dA, dB,
+dC their concatenation. Above 128 channels the backward takes one
+thread-block cluster per group of channels. Any ``d_state`` of at least 1
+runs.
 
 Each wrapper runs its plain version only for tensors that lie on the CPU;
 for CUDA tensors it launches its kernel or raises. ``selective_scan`` is
@@ -55,8 +61,8 @@ import torch.nn.functional as F
 from surgical_tpu_torch.kernels import _build
 
 STATE_WIDTHS = (32, 64, 128)  # the forward kernel's builds; a d_state pads up to the next
-BWD_STATE_WIDTHS = (32, 64)   # the backward's: 128 runs as two halves of 64
-MAX_STATE = STATE_WIDTHS[-1]
+BWD_STATE_WIDTHS = (32, 64)   # the backward's: a wider state runs in slices of 64
+MAX_STATE = STATE_WIDTHS[-1]  # the widest slice of one forward launch
 SUB_CHUNK = 32   # steps the kernel stages and reduces at once; a chunk is a multiple
 MAX_CHUNKS = 32  # chunks per video at most: the carry fold reads at most 31 pairs
 BWD_WARPS = 8    # channels per block of the backward's chunk-pair launch
@@ -181,13 +187,20 @@ def backward_scratch_floats(Bt: int, T: int, D: int, N: int, sub_chunks: int) ->
 
 
 def kernel_state(N: int) -> int:
-    """The state width the forward kernel runs a ``d_state`` of N at: the
-    smallest of STATE_WIDTHS that holds it. Raises ValueError above
-    MAX_STATE."""
-    for width in STATE_WIDTHS:
-        if 1 <= N <= width:
-            return width
-    raise ValueError(f"the scan kernels take d_state 1 to {MAX_STATE}, got {N}")
+    """The state width the kernels run a ``d_state`` of N at: up to MAX_STATE
+    the smallest of STATE_WIDTHS that holds it; above, whole slices of
+    MAX_STATE and the smallest width that holds the rest (192 at 192, 256 at
+    200). Raises ValueError below 1."""
+    if N < 1:
+        raise ValueError(f"the scan kernels take a d_state of at least 1, got {N}")
+    full, rest = divmod(N, MAX_STATE)
+    return full * MAX_STATE + (min(w for w in STATE_WIDTHS if w >= rest) if rest else 0)
+
+
+def state_slices(N: int) -> list[slice]:
+    """The forward's launches at a ``d_state`` of N: slices of at most
+    MAX_STATE states, each run at ``kernel_state`` of its own size."""
+    return [slice(lo, min(lo + MAX_STATE, N)) for lo in range(0, N, MAX_STATE)]
 
 
 def _pad(t: torch.Tensor, last: int = 0, second: int = 0) -> torch.Tensor:
@@ -210,10 +223,11 @@ def padded_backward(launch, x, dt, A, B, C, D, dy, states):
     """The backward through the kernel layout: d_state padded to
     ``kernel_state`` (the forward's ``states`` already are), the channels to
     a multiple of 4 with zeros (x = dt = dy = 0 and A = D = 0: a padded
-    channel's state and adjoint stay zero), and a 128-wide state run as two
-    launches on its halves (the states of a channel evolve independently: dx
-    and ddt are the halves' sums, the skip term D dy in the first half only;
-    dA, dB, dC their concatenation). ``launch(x, dt, A, B, C, D, dy, states)``
+    channel's state and adjoint stay zero), and a state wider than 64 run as
+    one launch per 64-wide slice, a last slice of 32 at its own width (the
+    states of a channel evolve independently: dx and ddt are the slices'
+    sums in slice order, the skip term D dy in the first slice only; dA, dB,
+    dC their concatenation). ``launch(x, dt, A, B, C, D, dy, states)``
     computes the gradient at a width of BWD_STATE_WIDTHS. Returns the six
     gradients in the inputs' shapes."""
     Dch, N = A.shape
@@ -226,13 +240,15 @@ def padded_backward(launch, x, dt, A, B, C, D, dy, states):
     if width in BWD_STATE_WIDTHS:
         dx, ddt, dA, dB, dC, dD = launch(x, dt, A, B, C, Dp, dy, states)
     else:
-        h = width // 2
-        lo, hi = (launch(x, dt, A[:, s].contiguous(), B[..., s].contiguous(),
-                         C[..., s].contiguous(), Dp if s.start == 0 else torch.zeros_like(Dp),
-                         dy, states[..., s].contiguous())
-                  for s in (slice(0, h), slice(h, width)))
-        dx, ddt, dD = lo[0] + hi[0], lo[1] + hi[1], lo[5]
-        dA, dB, dC = (torch.cat([a, b], -1) for a, b in zip(lo[2:5], hi[2:5]))
+        step = BWD_STATE_WIDTHS[-1]
+        parts = [launch(x, dt, A[:, s].contiguous(), B[..., s].contiguous(),
+                        C[..., s].contiguous(), Dp if s.start == 0 else torch.zeros_like(Dp),
+                        dy, states[..., s].contiguous())
+                 for s in (slice(lo, min(lo + step, width)) for lo in range(0, width, step))]
+        dx, ddt, dD = parts[0][0], parts[0][1], parts[0][5]
+        for part in parts[1:]:
+            dx, ddt = dx + part[0], ddt + part[1]
+        dA, dB, dC = (torch.cat([p[i] for p in parts], -1) for i in (2, 3, 4))
     return (dx[..., :Dch].contiguous(), ddt[..., :Dch].contiguous(),
             dA[:Dch, :N].contiguous(), dB[..., :N].contiguous(), dC[..., :N].contiguous(),
             dD[:Dch].contiguous())
@@ -243,7 +259,26 @@ def selective_scan_forward(x, dt, A, B, C, D, states: bool = False):
     kernel also writes the state at the start of every SUB_CHUNK steps
     (``states_shape`` at the kernel's width, ``kernel_state(d_state)``),
     which the backward kernel reruns from; else states is None and the
-    launches write only y and their chunk pairs."""
+    launches write only y and their chunk pairs. Above MAX_STATE states one
+    launch per ``state_slices`` slice: y is the slices' sum in slice order,
+    D taken by the first slice, and the slices' states lie side by side on
+    the last axis (each padded to its own width)."""
+    n = A.shape[1]
+    if kernel_state(n) <= MAX_STATE:
+        return _forward_launch(x, dt, A, B, C, D, states)
+    zero_d = torch.zeros_like(D)
+    y, hs = None, []
+    for s in state_slices(n):
+        ys, h = _forward_launch(x, dt, A[:, s].contiguous(), B[..., s].contiguous(),
+                                C[..., s].contiguous(), D if s.start == 0 else zero_d, states)
+        y = ys if y is None else y.add_(ys)
+        hs.append(h)
+    return y, torch.cat(hs, -1) if states else None
+
+
+def _forward_launch(x, dt, A, B, C, D, states: bool):
+    """The forward kernel's launches at a ``d_state`` of at most MAX_STATE,
+    counted in ``selective_scan.launches``."""
     Bt, T, Dch = x.shape
     n = A.shape[1]
     N = kernel_state(n)  # the kernel's width: zero states past n, filled as it loads
@@ -288,7 +323,7 @@ def selective_scan_backward(x, dt, A, B, C, D, dy, states=None):
 def _backward_launch(x, dt, A, B, C, D, dy, states):
     """The backward kernel's launches at a state width of BWD_STATE_WIDTHS and
     a multiple of 4 channels, counted in ``selective_scan_backward.launches``
-    (twice per call at a 128-wide state)."""
+    (once per 64-wide slice of a wider state)."""
     Bt, T, Dch = x.shape
     N = A.shape[1]
     f32 = dict(dtype=torch.float32, device=x.device)

@@ -13,7 +13,8 @@ the order of the ``--tree`` options, then this tree twice, then the
 measurement times with CUDA events (20 launches after 3 warm-ups)
 ``fused_mit_block`` at MiT-b3 stages 1-3 and ``fused_mit_stage`` at stage 4
 (with a prompt base), at B = 8 and B = 200, 224x224, bf16, on seeded inputs
-that are the same in every tree, and ``fused_mit_block_packed2`` on the
+that are the same in every tree (at B = 200 also the device time per
+call, torch.profiler), and ``fused_mit_block_packed2`` on the
 stage-1 inputs (weights from ``pack_weights2``, row_chunks 2; with the
 device time of each of its launches); then the extraction rate of the b3 EVP
 (``make_raw_feature_fn`` + ``extract_features``, random seeded weights,
@@ -21,7 +22,8 @@ batches of 200 wire-format frames, the packed2 route off) in 3 runs of 12
 batches; the three kernels of ``fused_mit_block_train``
 (``block_train_forward``, ``block_train_mlp_backward``,
 ``block_train_attn_backward``) at the four b3 stages at B = 8 and the
-training batch 88, the same way; and the untraced training step of
+training batch 88, the same way (at 88 also the device time per call);
+and the untraced training step of
 ``BackboneTrainer(use_fused=True)`` (b3, batch 88, 250-px wire frames
 cropped to 224, SGD): 5 steps after 2 warm-ups; then ``selective_scan`` on
 one video of T = 200, 2000 and 6000 frames at ``MambaConfig()``'s widths
@@ -34,7 +36,7 @@ video of
 ``RefinementTransformer(RefinerConfig())`` at the same T (host clock
 around synchronized calls, median of 5 after a warm-up). Each tree also
 records ``cuobjdump -res-usage`` of its scan kernels (registers, shared
-memory). It prints one line per measurement and a summary with the card's
+memory) and a digest of each attention kernel's SASS (``_sass_digests``). It prints one line per measurement and a summary with the card's
 name and power limit, and writes the JSON to FILE (default
 ``chiprun_out/serving_ab.json``).
 """
@@ -107,9 +109,11 @@ def _measure(root: str) -> dict:
     cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     usage = subprocess.run([cuobjdump, "-res-usage", str(_build.build())], capture_output=True,
                            text=True, check=True).stdout.splitlines()
+    sass = subprocess.run([cuobjdump, "-sass", str(_build.build())], capture_output=True,
+                          text=True, check=True).stdout
     res = {"root": root, "kernels": {}, "scan_res_usage": [
         f"{ln.strip()} {usage[i + 1].strip()}" for i, ln in enumerate(usage[:-1])
-        if "selective_scan" in ln]}
+        if "selective_scan" in ln], "attention_sass": _sass_digests(sass, "attention_")}
     for stage, C, heads, side, sr in STAGES:
         rng = np.random.default_rng(SEED + stage)
         N, Nkv, hidden = side * side, (side // sr) ** 2, 4 * C
@@ -140,6 +144,8 @@ def _measure(root: str) -> dict:
                 name = "mit_stage_forward"
             ms = time_ms(fn)
             res["kernels"][f"{name} stage{stage} B={B}"] = ms
+            if B == BATCHES[-1]:
+                _device_us(res, f"{name} stage{stage} B={B}", fn)
             print(f"  {root}: {name} stage{stage} B={B}: {ms:.4f} ms", flush=True)
             if stage == 1:
                 packed = mb.pack_weights2(w)
@@ -235,6 +241,8 @@ def _measure_train(res: dict, rand, weights, time_ms) -> None:
             for name, fn in fns.items():
                 ms = time_ms(fn)
                 res["kernels"][f"{name} stage{stage} B={B}"] = ms
+                if B == TRAIN_BATCHES[-1]:
+                    _device_us(res, f"{name} stage{stage} B={B}", fn)
                 print(f"  {res['root']}: {name} stage{stage} B={B}: {ms:.4f} ms", flush=True)
             del x, xln, dy, k, v, x1, h2ln, dmlp, fns
 
@@ -265,6 +273,46 @@ def _device_op_us(fn, calls: int = 10) -> dict:
             key = name.split("<")[0].split("(")[0]
             per[key] = per.get(key, 0.0) + e.device_time_total / calls
     return {k: round(v, 3) for k, v in per.items()}
+
+
+def _sass_digests(sass: str, prefix: str) -> dict:
+    """{function: [instructions, sha256]} of the SASS of every kernel whose
+    demangled name starts with ``prefix``: the instructions with their
+    addresses, encodings and kernel-parameter offsets (c[0x0][...]) left
+    out, so two builds of the same code with other parameter lists compare
+    equal."""
+    import hashlib
+    import re
+
+    out, name, body = {}, None, []
+
+    def close():
+        if name is not None:
+            out[name] = [len(body), hashlib.sha256("\n".join(body).encode()).hexdigest()[:16]]
+
+    for line in sass.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            close()
+            demangled = subprocess.run(["c++filt", m.group(1)], capture_output=True,
+                                       text=True).stdout.strip()
+            short = (demangled.replace("(anonymous namespace)::", "").removeprefix("void ")
+                     .split("(")[0])
+            name, body = (short if short.startswith(prefix) else None), []
+            continue
+        if name is None:
+            continue
+        ins = re.sub(r"/\*.*?\*/", "", line).strip()
+        if ins and not ins.startswith("."):
+            body.append(re.sub(r"c\[0x0\]\[0x[0-9a-f]+\]", "c[0x0][param]", ins))
+    close()
+    return out
+
+
+def _device_us(res: dict, key: str, fn) -> None:
+    """Record the device time (us) per call of ``fn``, all its kernels
+    together (torch.profiler), under ``res["device_us"][key]``."""
+    res.setdefault("device_us", {})[key] = round(sum(_device_op_us(fn).values()), 3)
 
 
 def _measure_temporal(res: dict, time_ms) -> None:
@@ -360,9 +408,14 @@ def main(argv=None) -> int:
     print(f"serving_ab on {smi} (order {', '.join(order)})")
     for r in runs[:2]:
         print(f"  {r['tree']} scan kernels: " + " | ".join(r["scan_res_usage"]))
+        print(f"  {r['tree']} attention kernels' SASS [instructions, digest]: "
+              + json.dumps(r["attention_sass"]))
     for key in runs[0]["kernels"]:
         vals = " / ".join(f"{r['tree']} {r['kernels'][key]:.4f}" for r in runs)
         print(f"  {key} ms: {vals}")
+    for key in runs[0]["device_us"]:
+        vals = " / ".join(f"{r['tree']} {r['device_us'][key]:.3f}" for r in runs)
+        print(f"  {key} device us per call: {vals}")
     med = lambda v: sorted(v)[len(v) // 2]
     print("  extraction frames/s (median of 3 runs each): " + " / ".join(
         f"{r['tree']} {med(r['extract_fps']):.1f}" for r in runs))

@@ -256,9 +256,10 @@ def test_backward_refuses_a_d_over_one_cluster():
     """D above one cluster of channel blocks (129) and D not a multiple of 4
     (30) are no longer refused: the cluster launch takes one cluster per
     group of channels and the wrapper pads the channels with zeros. What the
-    wrappers refuse before any launch now is a d_state above the widest
-    build, 128; below it they reach the launch (here torch refuses a CPU
-    tensor's device as the launch's current device)."""
+    wrappers refuse before any launch now is a d_state below 1; above the
+    widest build, 128, the state runs in slices, and like every other
+    d_state reaches the launch (here torch refuses a CPU tensor's device as
+    the launch's current device)."""
     assert ss.CLUSTER_D == 128
     assert ss.backward_layout(129) == (5, 2) and ss.backward_layout(128) == (8, 1)
     for D in (129, 30):
@@ -266,7 +267,10 @@ def test_backward_refuses_a_d_over_one_cluster():
         with pytest.raises(ValueError, match="Expected a cuda device"):
             ss.selective_scan_forward(x, dt, A, B, C, Dv, states=True)
     x, dt, A, B, C, Dv, _ = (torch.from_numpy(a) for a in scan_inputs(1, 4, D=8, N=129, seed=2))
-    with pytest.raises(ValueError, match="d_state 1 to 128"):
+    with pytest.raises(ValueError, match="Expected a cuda device"):
+        ss.selective_scan_forward(x, dt, A, B, C, Dv, states=True)
+    x, dt, A, B, C, Dv, _ = (torch.from_numpy(a) for a in scan_inputs(1, 4, D=8, N=0, seed=2))
+    with pytest.raises(ValueError, match="d_state of at least 1"):
         ss.selective_scan_forward(x, dt, A, B, C, Dv, states=True)
 
 

@@ -130,7 +130,7 @@ def test_packed2_plans_cover_b3_stage1(px, B):
     lambda: mb.gemm_plan(1000, 100, 64),              # N not a multiple of 8
     lambda: mb.gemm_plan(1000, 64, 60),               # K not a multiple of 8
     lambda: mb.gemm_plan(0, 64, 64),                  # no rows
-    lambda: mb.attention_plan(8, 196, 5, 65),          # more keys than MAX_KV
+    lambda: mb.attention_plan(8, 196, 5, 0),           # no key (past MAX_KV keys stream)
     lambda: mb.attention_plan(8192, 49, 8, 49),       # more (image, head) pairs than a grid row
 ])
 def test_plan_limits_raise(call):

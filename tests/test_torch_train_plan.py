@@ -52,7 +52,7 @@ def test_attn_backward_plans_cover_b3(B, stage):
     (C, heads, sr), side = STAGES[stage]
     N, Nkv = side * side, _kv_side(side, sr) ** 2
     plan = mb.attn_backward_plan(B, N, C, heads, Nkv)
-    assert len(plan) == 3 * 6 + 3
+    assert len(plan) == 3 * 6 + 6 and plan[21:24] == (0, 0, 0)  # 49 keys: no dq kernel
     _check_gemm(plan[6:12], B * N, C, C, ln=True)   # dctx: row scale on the resident panel
     assert plan[7] == 1  # K = C <= PANEL_MAX_K: the panel the row scale rewrites
     for rec in (plan[0:6], plan[12:18]):  # q = xln wq + bq, dxln = dq wq^T
@@ -98,9 +98,9 @@ def test_kmajor_products_stream_wide_k(hidden):
     lambda: mb.mlp_backward_plan(8, 7, 7, 516, 2048),          # C not a multiple of 8
     lambda: mb.mlp_backward_plan(0, 7, 7, 512, 2048),          # no rows
     lambda: mb.train_forward_plan(8, 7, 7, 576, 9, 49, 2304),  # LN2 panel wider than 512
-    lambda: mb.train_forward_plan(8, 14, 14, 320, 5, 65, 1280),  # more keys than MAX_KV
-    lambda: mb.attn_backward_plan(8, 196, 320, 5, 65),          # more keys than MAX_KV
-    lambda: mb.attn_backward_plan(8, 196, 320, 4, 49),          # head dim not 64
+    lambda: mb.train_forward_plan(8, 14, 14, 320, 5, 0, 1280),  # no key
+    lambda: mb.attn_backward_plan(8, 196, 320, 20, 49),         # head dim 16
+    lambda: mb.attn_backward_plan(8, 196, 320, 4, 49),          # head dim not 32 or 64
     lambda: mb.attn_backward_plan(0, 196, 320, 5, 49),          # no images
     lambda: mb.attn_backward_plan(8, 49, 576, 9, 49),           # panel wider than 512
 ])

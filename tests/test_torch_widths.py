@@ -81,7 +81,8 @@ def test_serving_check_takes_head_widths_32_and_64(C, heads):
 def test_serving_wrappers_refuse_head_width_16_without_launching():
     """Head width 16 (the dry run's stage 1) is refused before any launch, in
     the block and in the stage entry, with both built widths named; the
-    training forward keeps head width 64 only."""
+    training kernels take the same two widths and refuse 16 alike (their
+    attention backward's plan)."""
     mb.reset_launches()
     C, heads, H = 32, 2, 4
     rng = np.random.default_rng(0)
@@ -95,8 +96,8 @@ def test_serving_wrappers_refuse_head_width_16_without_launching():
     sw = {k: v[None] if v.dim() == 2 else v.reshape(1, 1, -1) for k, v in w.items()}
     with pytest.raises(ValueError, match="head_dim 32 or 64"):
         mb.mit_stage_forward_cuda(x, None, sw, heads=heads, H=H, W=H, sr=1)
-    with pytest.raises(ValueError, match="head_dim 64: C=32, heads=1"):
-        mb._check_dims(32, 1, 4, 128, H, H, x, head_dims=(mb.HEAD_DIM,))
+    with pytest.raises(ValueError, match="head_dim 32 or 64: C=32, heads=2"):
+        mb.attn_backward_plan(1, H * H, C, heads, 4)
     assert all(v == 0 for v in mb.launch_counts().values())
 
 
@@ -123,17 +124,26 @@ def test_scan_matches_jax_pallas_at_other_widths(N, D):
 
 
 @pytest.mark.parametrize("N, width", [(1, 32), (4, 32), (32, 32), (33, 64), (64, 64),
-                                      (65, 128), (128, 128)])
+                                      (65, 128), (128, 128), (129, 160), (192, 192),
+                                      (200, 256), (256, 256)])
 def test_kernel_state_pads_up_to_the_next_build(N, width):
     assert ss.kernel_state(N) == width
 
 
 def test_scan_refuses_a_d_state_over_128_before_any_launch():
+    """A d_state over 128 is no longer refused: it runs as slices of at most
+    128 states (tests/test_torch_limits.py), here reaching the launch, which
+    torch refuses for a CPU tensor. What the wrappers refuse before any
+    launch now is a d_state below 1."""
     ss.reset_launches()
-    with pytest.raises(ValueError, match="d_state 1 to 128, got 129"):
-        ss.kernel_state(129)
+    assert ss.kernel_state(129) == 160
     x, dt, A, B, C, Dv, _ = (torch.from_numpy(a) for a in _scan_inputs(1, 8, 4, 129, seed=1))
-    with pytest.raises(ValueError, match="d_state 1 to 128"):
+    with pytest.raises(ValueError, match="Expected a cuda device"):
+        ss.selective_scan_forward(x, dt, A, B, C, Dv)
+    with pytest.raises(ValueError, match="d_state of at least 1, got 0"):
+        ss.kernel_state(0)
+    x, dt, A, B, C, Dv, _ = (torch.from_numpy(a) for a in _scan_inputs(1, 8, 4, 0, seed=1))
+    with pytest.raises(ValueError, match="d_state of at least 1"):
         ss.selective_scan_forward(x, dt, A, B, C, Dv)
     assert ss.selective_scan.launches == 0 and ss.selective_scan_backward.launches == 0
 
