@@ -42,6 +42,7 @@ from surgical_tpu_torch.kernels.mit_block import (
     stage_weights_from_params,
 )
 from surgical_tpu_torch.models import _ops
+from surgical_tpu_torch.utils.trace import span
 
 # surgical_tpu/models/mit_fused.py:81-83
 _ROUTE_PACKED2 = False
@@ -109,48 +110,50 @@ def fused_forward(model, images, segmaps, flow, return_features: bool = True, we
     x = images.to(dt)
     B = x.shape[0]
     pg = model.prompt_generator
-    hand = pg.init_prompts(segmaps.to(dt))
+    with span("mit.prompts"):
+        hand = pg.init_prompts(segmaps.to(dt))
     kw = kernel_weights(model, dt) if weights is None else weights
 
     grids = []
     for si in range(4):
         stage = si + 1
-        x, H, W = getattr(model, f"patch_embed{stage}")(x)
-        C = x.shape[-1]
-        heads, sr = cfg.num_heads[si], cfg.sr_ratios[si]
-        base = hand[stage] + _ops.dense(x, getattr(pg, f"embedding_generator{stage}"))
-        if stage == 4 and B % _FUSE_BT[4] == 0:
-            # whole stage in one kernel call: in-kernel prompt adds (tanh
-            # GELU), LN1 and kv (surgical_tpu/models/mit_fused.py:198)
-            x = fused_mit_stage(x.contiguous(), base.contiguous(), kw[stage],
-                                heads=heads, H=H, W=W, sr=sr)
-        else:
-            shared = getattr(pg, f"shared_mlp{stage}")
-            blocks_w = kw[stage] if stage < 4 else kw["block4"]
-            for d, blk in enumerate(getattr(model, f"block{stage}")):
-                lw = getattr(pg, f"lightweight_mlp{stage}_{d}")[0]
-                feat = F.gelu(_ops.dense(base, lw).float()).to(dt)
-                x = x + _ops.dense(feat, shared)
-                xln = _ops.layernorm(x, blk.norm1)
-                kv_in = xln
-                if sr > 1:
-                    red = _ops.conv(xln.reshape(B, H, W, C), blk.attn.sr, sr, 0)
-                    kv_in = _ops.layernorm(red.reshape(B, -1, C), blk.attn.norm)
-                kv = _ops.dense(kv_in, blk.attn.kv)
-                k, v = kv[..., :C].contiguous(), kv[..., C:].contiguous()
-                if _ROUTE_PACKED2 and C == 64 and heads == 1 and B % 2 == 0:
-                    # the JAX module's condition and row-chunk rule (:283-289)
-                    N = H * W
-                    rc = (_PACKED2_ROW_CHUNKS if N >= _PACKED2_MIN_N_FOR_CHUNKING
-                          and H % _PACKED2_ROW_CHUNKS == 0 else 1)
-                    x = fused_mit_block_packed2(x.contiguous(), k, v, kw["packed2"][stage][d],
-                                                H=H, W=W, row_chunks=rc)
-                else:
-                    x = fused_mit_block(x.contiguous(), k, v, blocks_w[d],
-                                        heads=heads, H=H, W=W)
-        x = _ops.layernorm(x, getattr(model, f"norm{stage}"))
-        grids.append(x.reshape(B, H, W, C))
-        x = grids[-1]
+        with span(f"mit.stage{stage}"):
+            x, H, W = getattr(model, f"patch_embed{stage}")(x)
+            C = x.shape[-1]
+            heads, sr = cfg.num_heads[si], cfg.sr_ratios[si]
+            base = hand[stage] + _ops.dense(x, getattr(pg, f"embedding_generator{stage}"))
+            if stage == 4 and B % _FUSE_BT[4] == 0:
+                # whole stage in one kernel call: in-kernel prompt adds (tanh
+                # GELU), LN1 and kv (surgical_tpu/models/mit_fused.py:198)
+                x = fused_mit_stage(x.contiguous(), base.contiguous(), kw[stage],
+                                    heads=heads, H=H, W=W, sr=sr)
+            else:
+                shared = getattr(pg, f"shared_mlp{stage}")
+                blocks_w = kw[stage] if stage < 4 else kw["block4"]
+                for d, blk in enumerate(getattr(model, f"block{stage}")):
+                    lw = getattr(pg, f"lightweight_mlp{stage}_{d}")[0]
+                    feat = F.gelu(_ops.dense(base, lw).float()).to(dt)
+                    x = x + _ops.dense(feat, shared)
+                    xln = _ops.layernorm(x, blk.norm1)
+                    kv_in = xln
+                    if sr > 1:
+                        red = _ops.conv(xln.reshape(B, H, W, C), blk.attn.sr, sr, 0)
+                        kv_in = _ops.layernorm(red.reshape(B, -1, C), blk.attn.norm)
+                    kv = _ops.dense(kv_in, blk.attn.kv)
+                    k, v = kv[..., :C].contiguous(), kv[..., C:].contiguous()
+                    if _ROUTE_PACKED2 and C == 64 and heads == 1 and B % 2 == 0:
+                        # the JAX module's condition and row-chunk rule (:283-289)
+                        N = H * W
+                        rc = (_PACKED2_ROW_CHUNKS if N >= _PACKED2_MIN_N_FOR_CHUNKING
+                              and H % _PACKED2_ROW_CHUNKS == 0 else 1)
+                        x = fused_mit_block_packed2(x.contiguous(), k, v, kw["packed2"][stage][d],
+                                                    H=H, W=W, row_chunks=rc)
+                    else:
+                        x = fused_mit_block(x.contiguous(), k, v, blocks_w[d],
+                                            heads=heads, H=H, W=W)
+            x = _ops.layernorm(x, getattr(model, f"norm{stage}"))
+            grids.append(x.reshape(B, H, W, C))
+            x = grids[-1]
 
     if cfg.with_flow and flow is not None:
         f3, f4 = model.flow_encoder(flow.to(dt))

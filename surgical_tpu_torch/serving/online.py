@@ -32,6 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from surgical_tpu_torch.train.extract import make_raw_feature_fn
+from surgical_tpu_torch.utils.trace import span
 
 
 def run_pipeline(temporal, refiner, feats: torch.Tensor) -> torch.Tensor:
@@ -247,18 +248,21 @@ class OnlineSession:
         # stride 0, for which the convolutions may take another memory-format
         # path and round differently from offline extraction
         one = lambda a: None if a is None else a.reshape((1, *a.shape))
-        return self._feature_fn(one(img_u8), one(seg_u8), one(flow_f16))[0].float()
+        with span("session.features"):
+            return self._feature_fn(one(img_u8), one(seg_u8), one(flow_f16))[0].float()
 
     def advance(self, feat: torch.Tensor) -> torch.Tensor:
         """One frame's feature [E] -> its logits (the temporal + refiner
         leg): the temporal step, then, with a refiner, the refiner step on
         the temporal model's final stage and the same feature."""
         self.frame_idx += 1
-        self.state, logits = self.temporal.step(self.state, feat)
+        with span("session.temporal"):
+            self.state, logits = self.temporal.step(self.state, feat)
         g = logits[-1] if logits.dim() == 2 else logits
         if self.refiner is None:
             return g
-        self.refiner_state, refined = self.refiner.step(self.refiner_state, g, feat)
+        with span("session.refiner"):
+            self.refiner_state, refined = self.refiner.step(self.refiner_state, g, feat)
         return refined
 
     def step(self, img_u8, seg_u8, flow_f16) -> np.ndarray:

@@ -31,6 +31,7 @@ from surgical_tpu_torch.data.transforms import (AugConfig, eval_preprocess_clip,
 from surgical_tpu_torch.models.mit_train import fused_train_forward, write_bn_stats
 from surgical_tpu_torch.train.losses import backbone_loss
 from surgical_tpu_torch.train.optim import build_optimizer
+from surgical_tpu_torch.utils.trace import span
 
 # Parameter-name parts that stay trainable (train_evp.py:379-382).
 TRAINABLE_KEYS = ("head", "prompt_generator", "flow_encoder", "cross_attn_s3", "cross_attn_s4")
@@ -126,22 +127,26 @@ class BackboneTrainer:
         generators. ``bn_group``: a process group whose ranks hold the other
         shards of the batch, over which BatchNorm takes its statistics
         (``parallel/dryrun.py::data_parallel_step``)."""
-        img, seg, flow = self._dequant(*map(self._to_device, (img_u8, seg_u8, flow_f16)))
-        img, seg, flow = train_preprocess_batch(
-            img, seg, flow, self._generator(epoch, step, "augment"), self.aug_cfg, aug_params)
-        labels, ant = self._to_device(labels).long(), self._to_device(ant).float()
-        gen = self._generator(epoch, step, "droppath")
-        if self.use_fused:
-            y, y_ant, stats = fused_train_forward(self.model, img, seg, flow, generator=gen,
-                                                  masks=masks, dtype=self.dtype, bn_group=bn_group)
-        else:
-            (y, y_ant), stats = self.model.graph_forward(img, seg, flow, train=True, generator=gen,
-                                                         masks=masks, dtype=self.dtype,
-                                                         bn_group=bn_group)
-        y = y.float()
-        loss, ce, reg = backbone_loss(y, y_ant.float(), labels, ant)
-        self.model.zero_grad(set_to_none=True)
-        loss.backward()
+        with span("train.input"):
+            img, seg, flow = self._dequant(*map(self._to_device, (img_u8, seg_u8, flow_f16)))
+            img, seg, flow = train_preprocess_batch(
+                img, seg, flow, self._generator(epoch, step, "augment"), self.aug_cfg, aug_params)
+            labels, ant = self._to_device(labels).long(), self._to_device(ant).float()
+        with span("train.forward"):
+            gen = self._generator(epoch, step, "droppath")
+            if self.use_fused:
+                y, y_ant, stats = fused_train_forward(self.model, img, seg, flow, generator=gen,
+                                                      masks=masks, dtype=self.dtype,
+                                                      bn_group=bn_group)
+            else:
+                (y, y_ant), stats = self.model.graph_forward(img, seg, flow, train=True,
+                                                             generator=gen, masks=masks,
+                                                             dtype=self.dtype, bn_group=bn_group)
+            y = y.float()
+            loss, ce, reg = backbone_loss(y, y_ant.float(), labels, ant)
+        with span("train.backward"):
+            self.model.zero_grad(set_to_none=True)
+            loss.backward()
         correct = (y.argmax(-1) == labels).sum()
         return {"loss": loss.detach(), "ce": ce.detach(), "reg": reg.detach(),
                 "correct": correct}, stats
@@ -152,8 +157,9 @@ class BackboneTrainer:
         statistics written); returns the step's loss, ce, reg and correct."""
         out, stats = self.loss_and_grad(img_u8, seg_u8, flow_f16, labels, ant, epoch, step,
                                         aug_params, masks)
-        self.optimizer.step()
-        write_bn_stats(self.model, stats)
+        with span("train.update"):
+            self.optimizer.step()
+            write_bn_stats(self.model, stats)
         return out
 
     @torch.no_grad()

@@ -47,6 +47,7 @@ from surgical_tpu_torch.data.feature_store import FeatureStore
 from surgical_tpu_torch.models.mit_fused import fused_forward, kernel_weights
 from surgical_tpu_torch.parallel import mesh
 from surgical_tpu_torch.serving.quant import dequantize_state, quantize_state
+from surgical_tpu_torch.utils.trace import span
 
 
 def wire_dequant(device=DEFAULT_DEVICE):
@@ -160,11 +161,13 @@ def make_raw_feature_fn(model, d2h_dtype=torch.float16, use_fused=None, weight_q
         batch = (img_u8, seg_u8, flow_f16)
         if world > 1:
             batch = mesh.shard_batch(batch, group)
-        args = tuple(map(to_dev, batch))
-        if held is None:
-            feats = serve(*args)
-        else:
-            feats = torch.func.functional_call(serve, dequantize_state(*held), args)
+        with span("extract.h2d"):
+            args = tuple(map(to_dev, batch))
+        with span("extract.forward"):
+            if held is None:
+                feats = serve(*args)
+            else:
+                feats = torch.func.functional_call(serve, dequantize_state(*held), args)
         return mesh.all_gather(feats, group) if world > 1 else feats
 
     feature_fn.use_fused = use_fused
@@ -205,9 +208,10 @@ def extract_features(
 
     def drain(p):
         host, done, at, n = p
-        if done is not None:
-            done.synchronize()
-        out[at:at + n] = host[:n].float().numpy()
+        with span("extract.drain"):
+            if done is not None:
+                done.synchronize()
+            out[at:at + n] = host[:n].float().numpy()
 
     t0 = time.perf_counter()
     for batch in batches:

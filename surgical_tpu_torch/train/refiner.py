@@ -29,6 +29,7 @@ from surgical_tpu_torch.eval.predictions import video_txt_name, write_phase_txt
 from surgical_tpu_torch.train.losses import refiner_loss
 from surgical_tpu_torch.train.optim import build_optimizer
 from surgical_tpu_torch.train.temporal import VideoDataset, epoch_metrics
+from surgical_tpu_torch.utils.trace import span
 
 
 @torch.no_grad()
@@ -36,8 +37,10 @@ def predict_video(temporal, refiner, lfb: torch.Tensor) -> torch.Tensor:
     """lfb [T, D] -> refined outputs [T, out_features] (phase logits, then
     anticipation). The temporal model's last stage feeds the refiner: MS-TCN
     gives [S, 1, T, out], Mamba [1, 1, T, out]."""
-    g = temporal(lfb[None])[-1, 0]
-    return refiner(g, lfb)
+    with span("predict.temporal"):
+        g = temporal(lfb[None])[-1, 0]
+    with span("predict.refiner"):
+        return refiner(g, lfb)
 
 
 def evaluate(temporal, refiner, ds: VideoDataset, horizon: float = TrainConfig.horizon,
