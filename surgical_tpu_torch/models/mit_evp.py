@@ -42,12 +42,40 @@ from surgical_tpu_torch.models.mit_train import draw_masks, droppath_rates
 from surgical_tpu_torch.models.segformer_head import SegFormerPoolHead
 
 
+# The fixed filters of the first eager call on each device, {(name, device):
+# tensor}, kept for the life of the process: a CUDA graph that reads one
+# holds its address.
+_FILTERS: dict = {}
+
+
+def _fixed_filter(name: str, x, build):
+    """The fixed filter ``build()`` makes on x's device. Eagerly it is made
+    anew at every call, from host data (the operations the graphs have
+    always issued), and the first is kept; under a CUDA graph capture, which
+    cannot copy from the host, the kept one is read (a capture comes after
+    an eager call: ``serving/feature_graph.py``)."""
+    key = (name, x.device)
+    if x.is_cuda and torch.cuda.is_current_stream_capturing():
+        if key not in _FILTERS:
+            raise RuntimeError(f"{name}: no eager call on {x.device} before this CUDA graph "
+                               "capture made the filter, and a capture cannot copy it from "
+                               "the host")
+        return _FILTERS[key]
+    w = build()
+    _FILTERS.setdefault(key, w)
+    return w
+
+
+def _binomial_5x5(device):
+    k1 = torch.tensor([1.0, 4.0, 6.0, 4.0, 1.0], device=device)
+    return torch.outer(k1, k1) / 256.0
+
+
 def gaussian_blur_5x5(x):
     """Fixed 5x5 binomial blur with reflect padding, depthwise over channels,
     computed in fp32 and rounded to x.dtype. x: [B, H, W, C]."""
-    k1 = torch.tensor([1.0, 4.0, 6.0, 4.0, 1.0], device=x.device)
     C = x.shape[-1]
-    kernel = (torch.outer(k1, k1) / 256.0).expand(C, 1, 5, 5)
+    kernel = _fixed_filter("binomial_5x5", x, lambda: _binomial_5x5(x.device)).expand(C, 1, 5, 5)
     xp = F.pad(x.permute(0, 3, 1, 2).float(), (2, 2, 2, 2), mode="reflect")
     return F.conv2d(xp, kernel, groups=C).permute(0, 2, 3, 1).to(x.dtype)
 
@@ -79,7 +107,8 @@ def srm_filter(x):
     """Fixed SRM noise-residual filters, zero 'SAME' padding, in fp32 and
     rounded to x.dtype: output channel k is SRM kernel k summed over the 3
     input channels. x: [B, H, W, 3]."""
-    w = torch.from_numpy(SRM_FILTERS).to(x.device)[:, None].expand(3, 3, 5, 5)
+    w = _fixed_filter("srm", x, lambda: torch.from_numpy(SRM_FILTERS).to(x.device))
+    w = w[:, None].expand(3, 3, 5, 5)
     y = F.conv2d(x.permute(0, 3, 1, 2).float(), w, padding=2)
     return y.permute(0, 2, 3, 1).to(x.dtype)
 

@@ -21,6 +21,20 @@ Each exposes ``init_state``, ``step(state, ...) -> (state, out)`` and
 modules; their weights are read in place. Dropout is off, as offline.
 ``OnlineSession`` puts the frozen backbone's feature extraction in front:
 frames in, phase logits out.
+
+On the card the session's feature leg runs as CUDA graphs of the glue
+between the MiT kernel calls (``serving/feature_graph.py``): the first
+frame of a key is run eagerly and captured, and every later frame replays
+the graphs and calls the kernels eagerly between them, through the entry
+points ``models/mit_fused.py`` holds, so that their launch counters, their
+error checks and any wrapper of the entries see every call. The key is the
+frame's shapes and dtypes, whether flow is present, and the address and
+in-place version of every backbone parameter and buffer: replacing or
+loading weights (``load_state_dict``) makes the next frame capture again;
+``reset`` touches only the temporal states and keeps the graphs. The
+session's device memory then holds one graph pool (one frame's glue
+activations). The temporal and refiner steps stay eager. On the CPU the
+feature leg is eager. Extraction (``train/extract.py``) never graphs.
 """
 
 from __future__ import annotations
@@ -31,7 +45,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from surgical_tpu_torch.train.extract import make_raw_feature_fn
+from surgical_tpu_torch.serving.feature_graph import FeatureGraph
+from surgical_tpu_torch.train.extract import WireForward, use_fused_default
 from surgical_tpu_torch.utils.trace import span
 
 
@@ -211,6 +226,14 @@ class OnlineSession:
     float16, on which the temporal models are trained) and enter the
     temporal step in fp32. The temporal and refiner models must sit on the
     backbone's device: the session moves nothing.
+
+    On the card the feature leg replays CUDA graphs of the glue between the
+    MiT kernel calls, which stay eager through their entry points (the
+    module docstring; ``serving/feature_graph.py``). A frame of new shapes,
+    a frame with flow after one without (or the reverse), and any replaced
+    or in-place written backbone parameter or buffer cause one new capture
+    (that frame runs eagerly); ``reset`` does not. The session holds one
+    graph pool in device memory.
     """
 
     def __init__(self, backbone, temporal, refiner: Optional[OnlineRefiner] = None,
@@ -225,8 +248,10 @@ class OnlineSession:
         # a flow-trained backbone gates its flow fusion on `flow is not None`:
         # serving it without flow would give other features, so step refuses
         self._needs_flow = backbone.cfg.with_flow
-        self._feature_fn = make_raw_feature_fn(backbone, d2h_dtype=feature_dtype,
-                                               use_fused=use_fused)
+        if use_fused is None:
+            use_fused = use_fused_default(backbone.cfg, device)
+        self._features = FeatureGraph(WireForward(backbone, use_fused, out_dtype=feature_dtype),
+                                      backbone)
         self.temporal, self.refiner = temporal, refiner
         self.reset()
 
@@ -249,7 +274,7 @@ class OnlineSession:
         # path and round differently from offline extraction
         one = lambda a: None if a is None else a.reshape((1, *a.shape))
         with span("session.features"):
-            return self._feature_fn(one(img_u8), one(seg_u8), one(flow_f16))[0].float()
+            return self._features(one(img_u8), one(seg_u8), one(flow_f16))[0].float()
 
     def advance(self, feat: torch.Tensor) -> torch.Tensor:
         """One frame's feature [E] -> its logits (the temporal + refiner

@@ -27,8 +27,10 @@ under ``torch.profiler.profile`` to see them:
 
 ``counters()`` is a snapshot for an operator: the collector's collections
 and pauses per generation (counted whether or not a profiler runs), the
-kernels' launch counts, and the CUDA caching allocator's retries, device
-allocations and frees.
+kernels' launch counts, the streaming session's feature-leg graphs
+(``serving/feature_graph.py``: captures made, frames replayed, frames run
+eagerly), and the CUDA caching allocator's retries, device allocations and
+frees.
 """
 
 from __future__ import annotations
@@ -94,15 +96,18 @@ gc.callbacks.append(GC)
 
 def counters() -> dict:
     """{"gc": per generation {collections, pause_ms, max_pause_ms},
-    "launches": each kernel wrapper's launch count, and with a card
+    "launches": each kernel wrapper's launch count, "feature_graph":
+    {captures, replays, eager} of the session's feature leg, and with a card
     "cuda_alloc": {num_alloc_retries, num_device_alloc, num_device_free}}."""
     from surgical_tpu_torch.kernels import mit_block, selective_scan
+    from surgical_tpu_torch.serving import feature_graph
 
     out = {"gc": GC.snapshot(),
            "launches": {**mit_block.launch_counts(),
                         "selective_scan": selective_scan.selective_scan.launches,
                         "selective_scan_backward":
-                            selective_scan.selective_scan_backward.launches}}
+                            selective_scan.selective_scan_backward.launches},
+           "feature_graph": dict(feature_graph.COUNTS)}
     if torch.cuda.is_available():
         stats = torch.cuda.memory_stats_as_nested_dict()  # memory_stats() also flattens and sorts
         out["cuda_alloc"] = {k: stats.get(k, 0) for k in

@@ -150,14 +150,11 @@ def test_session_spans():
     _, spans = profiled(run_session)
     names = Counter(s[0] for s in spans)
     per_frame = {"stt:session.features": 1, "stt:session.temporal": 1,
-                 "stt:session.refiner": 1, "stt:extract.h2d": 1, "stt:extract.forward": 1,
-                 "stt:mit.prompts": 1, **{s: 1 for s in STAGES}}
+                 "stt:session.refiner": 1, "stt:mit.prompts": 1, **{s: 1 for s in STAGES}}
     assert names == Counter({k: 2 * v for k, v in per_frame.items()})
     for feat in (s for s in spans if s[0] == "stt:session.features"):
-        assert len(inside(spans, feat, "stt:extract.h2d")) == 1
-        fwd, = inside(spans, feat, "stt:extract.forward")
-        assert len(inside(spans, fwd, "stt:mit.prompts")) == 1
-        assert all(len(inside(spans, fwd, s)) == 1 for s in STAGES)
+        assert len(inside(spans, feat, "stt:mit.prompts")) == 1
+        assert all(len(inside(spans, feat, s)) == 1 for s in STAGES)
 
 
 def test_train_spans():
@@ -187,8 +184,9 @@ def test_gc_counted_and_spanned():
 
 def test_counters_snapshot():
     c = trace.counters()
-    assert set(c) == {"gc", "launches"}  # no card here: no allocator counters
+    assert set(c) == {"gc", "launches", "feature_graph"}  # no card here: no allocator counters
     assert set(c["gc"]) == {"gen0", "gen1", "gen2"}
+    assert set(c["feature_graph"]) == {"captures", "replays", "eager"}
     assert {"mit_block_forward", "mit_stage_forward", "selective_scan",
             "selective_scan_backward"} <= set(c["launches"])
 
