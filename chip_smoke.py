@@ -84,8 +84,8 @@ nonzero without printing a result:
    frames padded to 256: the card's fp32 flow at 20 iterations against the
    CPU's, the dense lookup against the gather oracle on the card, pairs per
    second; then ``cli precompute-flow`` over 2 synthetic videos of 6 JPEGs:
-   each file against the flow_fn of its pair, a rerun that writes nothing, a
-   corrupt JPEG that fails one pair and no other;
+   each file against the batched flow_fn of its video's pairs, a rerun that
+   writes nothing, a corrupt JPEG that fails one pair and no other;
 11. extraction CLI at b3 widths through ``cli.main`` on 250-px frames: a
    synthetic Cholec80-layout corpus of 4 videos, ``prepare-data --scheme
    smoke``, a seeded ``FrameCache`` per split (where Pillow is importable,
@@ -2222,14 +2222,14 @@ def phase_raft(workdir: str, device: str = "cuda", size: int = RAFT_SIZE,
     the pair's feature grid, pairs per second and the device operations of
     one pair; then ``precompute-flow`` through ``cli.main`` over a
     Cholec80-layout corpus of 2 videos x ``video_frames`` JPEGs at stride
-    25: every file equal to the flow_fn of its pair, a rerun that writes
-    nothing, and a corrupt JPEG that fails its one pair (a logged
-    traceback) while every other pair is written."""
+    25: every file equal to the batched flow_fn of its video's pairs (the
+    CLI's batch), a rerun that writes nothing, and a corrupt JPEG that fails
+    its one pair (a logged traceback) while every other pair is written."""
     from PIL import Image
 
     from surgical_tpu_torch import cli
     from surgical_tpu_torch.data.datasets import load_image
-    from surgical_tpu_torch.flow.precompute import FlowPrecomputeDriver, pad_to_multiple_hw
+    from surgical_tpu_torch.flow.precompute import pad_to_multiple_hw
     from surgical_tpu_torch.models import raft as R
     from surgical_tpu_torch.models.convert import load_torch_pth
 
@@ -2323,14 +2323,21 @@ def phase_raft(workdir: str, device: str = "cuda", size: int = RAFT_SIZE,
 
     pairs = 2 * (video_frames - 1)
     files, (stats, _) = run("first", root)
-    driver = FlowPrecomputeDriver(flow_fn, os.path.join(d, "unused"))
-    for key, flow in files.items():
-        v, n = key[:-4].split("/")
-        load = lambda m: load_image(os.path.join(root, "cutMargin", v, f"{m}.jpg")).astype(
-            np.float32)
-        if flow.shape != (size, size, 2) or not np.array_equal(
-                flow, driver.compute_pair(load(int(n)), load(int(n) + 25))):
-            raise AssertionError(f"precompute-flow: {key} differs from its pair's flow_fn")
+
+    def batch_flows(at, keys):
+        """flow_fn on the pairs of ``keys`` of each video, stacked as the
+        CLI batches them (every pending pair of a video in one call)."""
+        out = {}
+        for v in sorted({k.split("/")[0] for k in keys}):
+            ns = [int(k[len(v) + 1:-4]) for k in keys if k.startswith(v + "/")]
+            load = lambda m: load_image(os.path.join(at, "cutMargin", v, f"{m}.jpg"))
+            flows = flow_fn(np.stack([load(n) for n in ns]), np.stack([load(n + 25) for n in ns]))
+            out.update({f"{v}/{n}.npy": f for n, f in zip(ns, flows)})
+        return out
+
+    for key, want in batch_flows(root, list(files)).items():
+        if files[key].shape != (size, size, 2) or not np.array_equal(files[key], want):
+            raise AssertionError(f"precompute-flow: {key} differs from its batch's flow_fn")
     if stats != {"done": pairs, "skipped": 0, "failed": 0} or len(files) != pairs:
         raise AssertionError(f"precompute-flow: {len(files)} files, stats {stats}")
     mtimes = {k: os.path.getmtime(os.path.join(root, "raft_flow_npy", k)) for k in files}
@@ -2344,14 +2351,16 @@ def phase_raft(workdir: str, device: str = "cuda", size: int = RAFT_SIZE,
     with open(os.path.join(bad, "cutMargin", "2", "0.jpg"), "wb") as f:
         f.write(b"not a jpeg")
     rest, (stats3, log) = run("corrupt", bad)
+    want = batch_flows(bad, list(rest))
     if (stats3 != {"done": pairs - 1, "skipped": 0, "failed": 1} or "2/0.npy" in rest
             or "video 2 frame 0 FAILED" not in log or "Traceback" not in log
-            or any(not np.array_equal(f, files[k]) for k, f in rest.items())
+            or any(not np.array_equal(f, want[k]) for k, f in rest.items())
             or len(rest) != pairs - 1):
         raise AssertionError(f"precompute-flow with a corrupt frame: stats {stats3}")
     print(f"raft: precompute-flow wrote {pairs} pairs of 2 videos x {video_frames} frames, each "
-          f"equal to its pair's flow_fn (last frames without a file); the rerun {stats2}; a "
-          f"corrupt JPEG {stats3}, its traceback in the log, the other pairs equal; seconds "
+          f"equal to its batch's flow_fn (last frames without a file); the rerun {stats2}; a "
+          f"corrupt JPEG {stats3}, its traceback in the log, the other pairs equal to their "
+          f"batch's flow_fn; seconds "
           + ", ".join(f"{k} {v:.3f}" for k, v in seconds.items()))
     return {**out, "seconds": seconds}
 

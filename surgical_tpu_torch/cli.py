@@ -19,7 +19,7 @@ work-dir layout.
     python -m surgical_tpu_torch.cli reference-parity --root data/cholec80 --work work/ \
         --evp evp.pth --temporal tecno.pth --refiner trans.pth --online
     python -m surgical_tpu_torch.cli precompute-flow --root data/cholec80 \
-        --torch-checkpoint raft-things.pth
+        --torch-checkpoint raft-things.pth [--batch-size 32]
     python -m surgical_tpu_torch.cli selfcheck
     python -m surgical_tpu_torch.cli selfcheck --full
 
@@ -45,7 +45,11 @@ on the CPU; with ``--weight-quant int8`` the weights are held as int8 and
 dequantized per batch. ``export-serving`` writes that backbone's serving
 graph as a ``torch.export`` artifact (``serving/export.py``). ``precompute-flow`` runs RAFT (``models/raft.py``) over a data
 root's 1-fps frames into ``raft_flow_npy/``, where ``ClipDataset`` and
-``cache-frames`` read flow. ``predict`` restores each
+``cache-frames`` read flow: ``--batch-size`` pairs of a video per call, the
+decoded uint8 frames on the wire, mapped and padded to multiples of 8 on the
+card, under the spans ``flow.load``, ``flow.h2d``, ``flow.forward`` (inside it
+``flow.encode``, per iteration ``flow.lookup`` and ``flow.update``,
+``flow.upsample``), ``flow.drain`` and ``flow.save``. ``predict`` restores each
 store's best step by ``val_acc`` and writes
 ``output/<Split>/video<NN>-phase.txt``. Every video runs at its true
 length. ``reference-parity`` goes from a data root and the reference's
@@ -728,7 +732,9 @@ def cmd_precompute_flow(args) -> int:
     ``<root>/flow_precompute_log.txt``). Weights: an upstream-layout
     ``--torch-checkpoint`` .pth (``raft-things.pth``), else the latest step of
     a port ``--checkpoint`` store, else the seeded initialization. RAFT runs
-    in fp32 with TF32 off (``models/raft.py``)."""
+    in fp32 with TF32 off (``models/raft.py``), ``--batch-size`` pairs of a
+    video per call: the decoded uint8 frames go to the card as they are and
+    are mapped and padded there."""
     from surgical_tpu_torch.core.checkpoint import CheckpointStore
     from surgical_tpu_torch.core.device import resolve_device
     from surgical_tpu_torch.data.datasets import load_image
@@ -751,16 +757,15 @@ def cmd_precompute_flow(args) -> int:
               file=sys.stderr)
     driver = FlowPrecomputeDriver(
         make_flow_fn(model), os.path.join(args.root, "raft_flow_npy"),
-        log_path=os.path.join(args.root, "flow_precompute_log.txt"))
+        log_path=os.path.join(args.root, "flow_precompute_log.txt"), batch_size=args.batch_size)
     img_root = os.path.join(args.root, "cutMargin")
     for video in sorted(os.listdir(img_root), key=lambda s: int(s) if s.isdigit() else 0):
         vdir = os.path.join(img_root, video)
         if not os.path.isdir(vdir):
             continue
         frames = sorted(int(f[:-4]) for f in os.listdir(vdir) if f.endswith(".jpg"))
-        driver.run_video(
-            video, frames,
-            lambda n, vdir=vdir: load_image(os.path.join(vdir, f"{n}.jpg")).astype(np.float32))
+        driver.run_video(video, frames,
+                         lambda n, vdir=vdir: load_image(os.path.join(vdir, f"{n}.jpg")))
         print(f"video {video}: {driver.stats}")
     return 0
 
@@ -1130,6 +1135,8 @@ def main(argv=None) -> int:
     sp = sub.add_parser("precompute-flow", help="RAFT optical flow over a data root's frames")
     sp.add_argument("--root", required=True, help="dataset root with cutMargin/")
     sp.add_argument("--iters", type=int, default=20)
+    sp.add_argument("--batch-size", type=int, default=32,
+                    help="frame pairs of a video per RAFT call")
     sp.add_argument("--checkpoint", default=None, help="RAFT checkpoint store dir (the port's)")
     sp.add_argument("--torch-checkpoint", default=None,
                     help="upstream raft-things.pth to load (RAFT.py:36)")

@@ -24,13 +24,25 @@ prefix; JAX parameter trees come through ``export_raft_state_dict``):
 
 Precision policy: RAFT runs in fp32 with TF32 off for cuDNN convolutions and
 for matmuls inside its forward (the flags are restored on exit), as upstream
-RAFT's default ``mixed_precision=False`` and the JAX model compute it.
+RAFT's default ``mixed_precision=False`` and the JAX model compute it. Its
+convolutions run in cuDNN's benchmark mode (``autotuned_convolutions``): the
+first call at each shape times the algorithms.
 
-One frame pair per call: ``RAFT()(image1, image2)`` takes [H, W, 3] tensors in
-[-1, 1] with H and W multiples of 8 and returns the flow [H, W, 2]. Where a
-pyramid level has an odd side, ``F.avg_pool2d`` floors it as upstream does
-(the JAX module reshapes by halves and runs only on even sides, where the
-two agree).
+A batch of frame pairs per call: ``RAFT()(image1, image2)`` takes [B, H, W, 3]
+tensors in [-1, 1] (or one [H, W, 3] pair) with H and W multiples of 8 and
+returns the flows [B, H, W, 2] (or [H, W, 2]). Both frames of every pair go
+through the feature encoder as one batch of 2B, the first frames through the
+context encoder as one of B; instance norm and the eval-mode BatchNorm act per
+sample, so a pair's flow does not depend on the batch around it beyond
+round-off. Where a pyramid level has an odd side, ``F.avg_pool2d`` floors it as
+upstream does (the JAX module reshapes by halves and runs only on even sides,
+where the two agree).
+
+Spans (``utils/trace.py``): ``flow.encode`` (both encoders, the volume and the
+pyramid), ``flow.lookup`` and ``flow.update`` once each per iteration,
+``flow.upsample``; ``make_flow_fn``'s ``flow.h2d``, ``flow.forward`` and
+``flow.drain``. ``COUNTS`` (``counters()["raft"]``): the forward's batches,
+pairs and iterations, and the largest batch.
 """
 
 from __future__ import annotations
@@ -43,6 +55,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from surgical_tpu_torch.core.device import DEFAULT_DEVICE, resolve_device
+from surgical_tpu_torch.utils.trace import span
+
+COUNTS = {"batches": 0, "pairs": 0, "iterations": 0, "largest_batch": 0}
 
 
 @contextlib.contextmanager
@@ -55,6 +70,22 @@ def fp32_precision():
         yield
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+@contextlib.contextmanager
+def autotuned_convolutions():
+    """cuDNN's benchmark mode inside the block, the previous flag restored
+    after it: each convolution shape's algorithm is timed at its first call
+    and reused. On the H100 at B = 32 and 256 px, cuDNN's heuristics alone
+    gave the motion encoder's 256 -> 126-channel 3x3 convolution an FFT
+    algorithm at ~35 ms per call, half of each 20-iteration batch, which took
+    390-700 ms against 207-218 ms autotuned."""
+    saved = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.benchmark = saved
 
 
 def _norm(kind: str, channels: int) -> nn.Module:
@@ -120,10 +151,12 @@ class Encoder(nn.Module):
 
 
 def all_pairs_correlation(f1: torch.Tensor, f2: torch.Tensor) -> torch.Tensor:
-    """f1, f2: [C, H, W] -> corr [H*W, H, W], normalized by sqrt(C)."""
-    C, H, W = f1.shape
-    corr = f1.reshape(C, H * W).t() @ f2.reshape(C, H * W) / np.sqrt(C)
-    return corr.reshape(H * W, H, W)
+    """f1, f2: [..., C, H, W] -> corr [..., H*W, H, W], normalized by
+    sqrt(C): one product per pair."""
+    *lead, C, H, W = f1.shape
+    a, b = f1.reshape(*lead, C, H * W), f2.reshape(*lead, C, H * W)
+    corr = a.transpose(-1, -2) @ b / np.sqrt(C)
+    return corr.reshape(*lead, H * W, H, W)
 
 
 def corr_pyramid(corr: torch.Tensor, levels: int = 4) -> list[torch.Tensor]:
@@ -132,7 +165,7 @@ def corr_pyramid(corr: torch.Tensor, levels: int = 4) -> list[torch.Tensor]:
     pyr = [corr]
     for _ in range(levels - 1):
         c = pyr[-1]
-        if c.shape[1] < 2 or c.shape[2] < 2:
+        if c.shape[-2] < 2 or c.shape[-1] < 2:
             break  # feature grid too small for more levels
         pyr.append(F.avg_pool2d(c, 2, stride=2))
     return pyr
@@ -155,12 +188,13 @@ def bilinear_sample(img: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
 
 
 def _centers(flow: torch.Tensor):
-    """flow [2, H, W] -> the sampling centers' x and y, each [H*W]."""
-    _, H, W = flow.shape
+    """flow [..., 2, H, W] -> the sampling centers' x and y, each [..., H*W]."""
+    *lead, _, H, W = flow.shape
     yy, xx = torch.meshgrid(torch.arange(H, dtype=flow.dtype, device=flow.device),
                             torch.arange(W, dtype=flow.dtype, device=flow.device),
                             indexing="ij")
-    return (xx + flow[0]).reshape(-1), (yy + flow[1]).reshape(-1)
+    return ((xx + flow[..., 0, :, :]).reshape(*lead, H * W),
+            (yy + flow[..., 1, :, :]).reshape(*lead, H * W))
 
 
 def lookup_pyramid(pyr: list[torch.Tensor], flow: torch.Tensor,
@@ -168,7 +202,8 @@ def lookup_pyramid(pyr: list[torch.Tensor], flow: torch.Tensor,
     """Sample a (2r+1)^2 window around (grid + flow) in every level, as two
     batched contractions against tent weights per level.
 
-    flow: [2, H, W] at 1/8 resolution. Returns [levels * (2r+1)^2, H, W].
+    flow: [..., 2, H, W] at 1/8 resolution, pyr's levels [..., H*W, h, w].
+    Returns [..., levels * (2r+1)^2, H, W].
 
     Bilinear sampling with zero padding at a fractional coordinate c is a
     contraction against the tent weights relu(1 - |i - c|) over the source
@@ -181,28 +216,28 @@ def lookup_pyramid(pyr: list[torch.Tensor], flow: torch.Tensor,
     Channel k = i*(2r+1) + j samples the offset (dx = i - r, dy = j - r):
     the x offset is the outer index (upstream's ``meshgrid(dy, dx)``).
     """
-    _, H, W = flow.shape
+    *lead, _, H, W = flow.shape
     N, K = H * W, 2 * radius + 1
     cx, cy = _centers(flow)
     d = torch.arange(-radius, radius + 1, dtype=flow.dtype, device=flow.device)
     out = []
     for lvl, corr in enumerate(pyr):
         scale = 2.0 ** lvl
-        h, w = corr.shape[1:]
-        ys = cy[:, None, None] / scale + d[None, :, None]  # [N, K, 1]
-        xs = cx[:, None, None] / scale + d[None, :, None]
+        h, w = corr.shape[-2:]
+        ys = cy[..., None, None] / scale + d[:, None]  # [..., N, K, 1]
+        xs = cx[..., None, None] / scale + d[:, None]
         wy = (1 - (torch.arange(h, dtype=flow.dtype, device=flow.device) - ys).abs()).clamp_min(0)
         wx = (1 - (torch.arange(w, dtype=flow.dtype, device=flow.device) - xs).abs()).clamp_min(0)
-        smp = torch.bmm(torch.bmm(wy, corr), wx.transpose(1, 2))  # [N, ky, kx]
-        out.append(smp.transpose(1, 2).reshape(N, K * K))          # x offset outer
-    return torch.cat(out, 1).t().reshape(-1, H, W)
+        smp = wy @ corr @ wx.transpose(-1, -2)                       # [..., N, ky, kx]
+        out.append(smp.transpose(-1, -2).reshape(*lead, N, K * K))  # x offset outer
+    return torch.cat(out, -1).transpose(-1, -2).reshape(*lead, -1, H, W)
 
 
 def lookup_pyramid_gather(pyr: list[torch.Tensor], flow: torch.Tensor,
                           radius: int = 4) -> torch.Tensor:
     """The four-corner bilinear gather lookup: the semantics oracle of
     ``lookup_pyramid`` (same arguments, same result)."""
-    _, H, W = flow.shape
+    *lead, _, H, W = flow.shape
     N = H * W
     cx, cy = _centers(flow)
     vals = torch.arange(-radius, radius + 1, dtype=flow.dtype, device=flow.device)
@@ -210,22 +245,22 @@ def lookup_pyramid_gather(pyr: list[torch.Tensor], flow: torch.Tensor,
     out = []
     for lvl, corr in enumerate(pyr):
         scale = 2.0 ** lvl
-        h, w = corr.shape[1:]
-        x = cx[:, None] / scale + dxs[None]  # [N, K^2], dx outer
-        y = cy[:, None] / scale + dys[None]
+        h, w = corr.shape[-2:]
+        x = cx[..., None] / scale + dxs  # [..., N, K^2], dx outer
+        y = cy[..., None] / scale + dys
         x0, y0 = x.floor(), y.floor()
         fx, fy = x - x0, y - y0
-        flat = corr.reshape(N, h * w)
+        flat = corr.reshape(*lead, N, h * w)
 
         def gather(xi, yi):
             valid = (xi >= 0) & (xi < w) & (yi >= 0) & (yi < h)
             idx = yi.clamp(0, h - 1).long() * w + xi.clamp(0, w - 1).long()
-            v = torch.gather(flat, 1, idx)
+            v = torch.gather(flat, -1, idx)
             return torch.where(valid, v, torch.zeros_like(v))
 
         out.append(gather(x0, y0) * (1 - fx) * (1 - fy) + gather(x0 + 1, y0) * fx * (1 - fy)
                    + gather(x0, y0 + 1) * (1 - fx) * fy + gather(x0 + 1, y0 + 1) * fx * fy)
-    return torch.cat(out, 1).t().reshape(-1, H, W)
+    return torch.cat(out, -1).transpose(-1, -2).reshape(*lead, -1, H, W)
 
 
 class SepConvGRU(nn.Module):
@@ -301,8 +336,9 @@ def convex_upsample(flow: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
 
 
 class RAFT(nn.Module):
-    """Two frames -> optical flow. Images [H, W, 3] in [-1, 1], H and W
-    multiples of 8; returns [H, W, 2] fp32. Seeded init: every conv's
+    """Frame pairs -> optical flow. Images [B, H, W, 3] (or one [H, W, 3]
+    pair) in [-1, 1], H and W multiples of 8; returns [B, H, W, 2] (or
+    [H, W, 2]) fp32. Seeded init: every conv's
     weight and bias U(-1/sqrt(fan_in), 1/sqrt(fan_in)) from ``seed``,
     BatchNorm at identity statistics; real weights come from
     ``load_state_dict``."""
@@ -335,35 +371,66 @@ class RAFT(nn.Module):
 
     @torch.no_grad()
     def forward(self, image1: torch.Tensor, image2: torch.Tensor) -> torch.Tensor:
-        H, W, _ = image1.shape
-        if H % 8 or W % 8 or image2.shape != image1.shape:
+        one = image1.dim() == 3
+        if one:
+            image1, image2 = image1[None], image2[None]
+        B, H, W, C = image1.shape
+        if H % 8 or W % 8 or C != 3 or image2.shape != image1.shape:
             raise ValueError(f"RAFT takes two [H, W, 3] frames with H, W multiples of 8: "
                              f"{tuple(image1.shape)}, {tuple(image2.shape)}")
-        with fp32_precision():
-            x = torch.stack([image1, image2]).float().permute(0, 3, 1, 2).contiguous()
-            f1, f2 = self.fnet(x)
-            ctx = self.cnet(x[:1])
-            net, inp = torch.tanh(ctx[:, :self.hidden]), F.relu(ctx[:, self.hidden:])
-            pyr = corr_pyramid(all_pairs_correlation(f1, f2), self.corr_levels)
-            flow = x.new_zeros(1, 2, H // 8, W // 8)
-            mask = x.new_zeros(1, 64 * 9, H // 8, W // 8)
+        with fp32_precision(), autotuned_convolutions():
+            with span("flow.encode"):
+                x = torch.cat([image1, image2]).float().permute(0, 3, 1, 2).contiguous()
+                fmap = self.fnet(x)
+                ctx = self.cnet(x[:B])
+                net, inp = torch.tanh(ctx[:, :self.hidden]), F.relu(ctx[:, self.hidden:])
+                pyr = corr_pyramid(all_pairs_correlation(fmap[:B], fmap[B:]), self.corr_levels)
+                flow = x.new_zeros(B, 2, H // 8, W // 8)
+                mask = x.new_zeros(B, 64 * 9, H // 8, W // 8)
             for _ in range(self.iters):
-                corr = lookup_pyramid(pyr, flow[0], self.corr_radius)[None]
-                net, delta, mask = self.update_block(net, inp, corr, flow)
-                flow = flow + delta
-            return convex_upsample(flow, mask)[0].permute(1, 2, 0)
+                with span("flow.lookup"):
+                    corr = lookup_pyramid(pyr, flow, self.corr_radius)
+                with span("flow.update"):
+                    net, delta, mask = self.update_block(net, inp, corr, flow)
+                    flow = flow + delta
+            with span("flow.upsample"):
+                up = convex_upsample(flow, mask).permute(0, 2, 3, 1)
+        COUNTS["batches"] += 1
+        COUNTS["pairs"] += B
+        COUNTS["iterations"] += self.iters
+        COUNTS["largest_batch"] = max(COUNTS["largest_batch"], B)
+        return up[0] if one else up
+
+
+def _edge_pad8(x: torch.Tensor) -> torch.Tensor:
+    """[..., H, W, C] -> padded at the bottom and right to multiples of 8 by
+    repeating the last row and column (``np.pad(mode="edge")``)."""
+    H, W = x.shape[-3:-1]
+    if not (H % 8 or W % 8):
+        return x
+    rows = torch.arange(H + (-H) % 8, device=x.device).clamp_max(H - 1)
+    cols = torch.arange(W + (-W) % 8, device=x.device).clamp_max(W - 1)
+    return x[..., rows[:, None], cols, :]
 
 
 def make_flow_fn(model: RAFT):
-    """The precompute driver's flow_fn for ``model``: frames [H, W, 3]
-    float32 in [0, 255] (numpy) go to the model's device, are mapped to
-    [-1, 1] there (x / 127.5 - 1) and give the flow [H, W, 2] float32
-    (numpy)."""
+    """The precompute driver's batched flow function for ``model``: frames
+    [B, H, W, 3] (or one [H, W, 3] pair), uint8 host arrays as decoded
+    (float32 in [0, 255] is taken too), go to the model's device as they
+    are, are mapped to [-1, 1] there (x / 127.5 - 1) and edge-padded at the
+    bottom and right to multiples of 8; the flows come back cropped to
+    [B, H, W, 2] (or [H, W, 2]) float32 numpy."""
     device = next(model.parameters()).device
 
-    def flow_fn(frame1: np.ndarray, frame2: np.ndarray) -> np.ndarray:
-        a, b = (torch.as_tensor(np.asarray(f, np.float32)).to(device) / 127.5 - 1.0
-                for f in (frame1, frame2))
-        return model(a, b).cpu().numpy()
+    def flow_fn(frames1, frames2) -> np.ndarray:
+        with span("flow.h2d"):
+            a, b = (torch.as_tensor(np.asarray(f)).to(device) for f in (frames1, frames2))
+        with span("flow.forward"):
+            H, W = a.shape[-3:-1]
+            flow = model(*(_edge_pad8(t.float() / 127.5 - 1.0) for t in (a, b)))
+            flow = flow[..., :H, :W, :]
+        with span("flow.drain"):
+            return flow.cpu().numpy()
 
+    flow_fn.batched = True
     return flow_fn

@@ -23,14 +23,23 @@ under ``torch.profiler.profile`` to see them:
   temporal step, the refiner step;
 - ``predict.temporal``, ``predict.refiner`` (``train/refiner.py``): the two
   models of ``predict_video``;
+- ``flow.h2d``, ``flow.forward``, ``flow.drain``
+  (``models/raft.py::make_flow_fn``): the frames' copy to the device; the
+  mapping, padding and RAFT's issue; the wait for the flows and their copy
+  to the host; inside ``flow.forward``, ``flow.encode`` (both encoders, the
+  correlation volume and its pyramid), per iteration ``flow.lookup`` and
+  ``flow.update``, and ``flow.upsample`` (``RAFT.forward``);
+  ``flow.load``, ``flow.save`` (``flow/precompute.py``): a pair's decode and
+  its file's atomic write;
 - ``gc.gen0`` .. ``gc.gen2``: a pause of Python's garbage collector.
 
 ``counters()`` is a snapshot for an operator: the collector's collections
 and pauses per generation (counted whether or not a profiler runs), the
 kernels' launch counts, the streaming session's feature-leg graphs
 (``serving/feature_graph.py``: captures made, frames replayed, frames run
-eagerly), and the CUDA caching allocator's retries, device allocations and
-frees.
+eagerly), RAFT's batches, pairs, iterations and largest batch
+(``models/raft.py``), and the CUDA caching allocator's retries, device
+allocations and frees.
 """
 
 from __future__ import annotations
@@ -97,9 +106,12 @@ gc.callbacks.append(GC)
 def counters() -> dict:
     """{"gc": per generation {collections, pause_ms, max_pause_ms},
     "launches": each kernel wrapper's launch count, "feature_graph":
-    {captures, replays, eager} of the session's feature leg, and with a card
-    "cuda_alloc": {num_alloc_retries, num_device_alloc, num_device_free}}."""
+    {captures, replays, eager} of the session's feature leg, "raft":
+    {batches, pairs, iterations, largest_batch} of RAFT's forward, and with
+    a card "cuda_alloc": {num_alloc_retries, num_device_alloc,
+    num_device_free}}."""
     from surgical_tpu_torch.kernels import mit_block, selective_scan
+    from surgical_tpu_torch.models import raft
     from surgical_tpu_torch.serving import feature_graph
 
     out = {"gc": GC.snapshot(),
@@ -107,7 +119,7 @@ def counters() -> dict:
                         "selective_scan": selective_scan.selective_scan.launches,
                         "selective_scan_backward":
                             selective_scan.selective_scan_backward.launches},
-           "feature_graph": dict(feature_graph.COUNTS)}
+           "feature_graph": dict(feature_graph.COUNTS), "raft": dict(raft.COUNTS)}
     if torch.cuda.is_available():
         stats = torch.cuda.memory_stats_as_nested_dict()  # memory_stats() also flattens and sorts
         out["cuda_alloc"] = {k: stats.get(k, 0) for k in

@@ -2,11 +2,15 @@
 copy of the JAX package's numpy module) against the JAX package's driver on
 the same flow_fn, and ``cli precompute-flow`` on the CPU: RAFT over a
 synthetic 2-video Cholec80-layout corpus from an upstream-layout ``.pth``
-(each file equal to a direct call of the driver's flow_fn on its pair), the
+(each file equal to a direct call of the driver's flow_fn on its batch), the
 rerun that skips every pair, and the port's checkpoint store as the weights'
 source. RAFT itself is held to the JAX model in tests/test_torch_raft.py.
-Every comparison here is exact. Plus chip_smoke.py's RAFT phase at a tiny
-size on the CPU.
+The batched driver over 10 pairs in batches of 4: files within the fp32
+bound of one-pair calls, the resume, a corrupt JPEG failing only the pairs
+that read it, a failed write leaving no ``.tmp.npy``, and ``--batch-size``
+through ``cli.main``. Comparisons of the same computation are exact; those
+across batch compositions hold 1e-5 of the largest flow. Plus
+chip_smoke.py's RAFT phase at a tiny size on the CPU.
 """
 
 import os
@@ -143,15 +147,22 @@ def test_cli_precompute_flow(tmp_path, pth, capsys):
         assert f.shape == (60, 60, 2) and f.dtype == np.float32 and np.isfinite(f).all()
     assert "video 2: {'done': 4, 'skipped': 0, 'failed': 0}" in capsys.readouterr().out
 
-    # each file is the flow_fn of its pair, padded to 64 and cropped back
+    # each file is the flow_fn of its video's batch (the default --batch-size
+    # takes both pending pairs of a video in one call), the uint8 frames
+    # padded to 64 on the device and cropped back; and within the fp32 bound
+    # of its pair alone (CPU reading 1.3e-7 px on flows up to 0.17 px)
     model = RAFT(iters=2, device="cpu")
     model.load_state_dict(load_torch_pth(pth), strict=True)
-    driver = tpre.FlowPrecomputeDriver(make_flow_fn(model), str(tmp_path / "unused"))
-    for k, f in flows.items():
-        v, n = k[:-4].split("/")
-        load = lambda m: load_image(os.path.join(root, "cutMargin", v, f"{m}.jpg")).astype(
-            np.float32)
-        np.testing.assert_array_equal(f, driver.compute_pair(load(int(n)), load(int(n) + 25)))
+    flow_fn = make_flow_fn(model)
+    driver = tpre.FlowPrecomputeDriver(flow_fn, str(tmp_path / "unused"))
+    for v in ("1", "2"):
+        load = lambda m: load_image(os.path.join(root, "cutMargin", v, f"{m}.jpg"))
+        batch = flow_fn(np.stack([load(0), load(25)]), np.stack([load(25), load(50)]))
+        for n, want in zip((0, 25), batch):
+            np.testing.assert_array_equal(flows[f"{v}/{n}.npy"], want)
+            one = driver.compute_pair(load(n).astype(np.float32), load(n + 25).astype(np.float32))
+            np.testing.assert_allclose(flows[f"{v}/{n}.npy"], one, rtol=0,
+                                       atol=1e-5 * np.abs(one).max())
 
     # the rerun skips every pair and writes nothing
     mtimes = {k: os.path.getmtime(os.path.join(root, "raft_flow_npy", k)) for k in flows}
@@ -180,3 +191,129 @@ def test_chip_smoke_raft_phase_on_cpu(tmp_path):
     res = chip_smoke.phase_raft(str(tmp_path), device="cpu", size=60, iters=2, video_frames=3)
     assert res["padded"] == [64, 64] and res["rel_l2"] == 0.0
     assert set(res["seconds"]) == {"first", "rerun", "corrupt"}
+
+
+# The batched driver: RAFT's flow function over 10 pairs (11 frames at
+# stride 25) of one video in batches of 4.
+
+N_FRAMES, BATCH = 11, 4
+
+
+def _batch_counter(flow_fn):
+    """flow_fn, counting the pairs of each call; still batched."""
+    sizes = []
+
+    def counted(a, b):
+        sizes.append(len(a))
+        return flow_fn(a, b)
+
+    counted.batched = True
+    return counted, sizes
+
+
+@pytest.fixture(scope="module")
+def raft_fn():
+    return make_flow_fn(RAFT(iters=2, seed=4, device="cpu"))
+
+
+@pytest.fixture
+def video(tmp_path):
+    """One video of N_FRAMES 60-px JPEGs; its directory and a loader."""
+    root = str(tmp_path / "cholec80")
+    _corpus(root, videos=(1,), frames=N_FRAMES, seed=5)
+    vdir = os.path.join(root, "cutMargin", "1")
+    return vdir, lambda n: load_image(os.path.join(vdir, f"{n}.jpg"))
+
+
+def _run(fn, out, load, **kw):
+    driver = tpre.FlowPrecomputeDriver(fn, str(out), log_path=str(out / "log.txt"), **kw)
+    driver.run_video(1, [25 * i for i in range(N_FRAMES)], load)
+    return driver.stats, {int(f[:-4]): np.load(out / "1" / f)
+                          for f in os.listdir(out / "1") if f.endswith(".npy")}
+
+
+def _no_tmp(out):
+    return not [f for _, _, fs in os.walk(out) for f in fs if f.endswith(".tmp.npy")]
+
+
+def test_batched_driver_equals_one_pair_path_and_resumes(raft_fn, video, tmp_path):
+    """Batches of 4, 4, 2; every file within the fp32 bound of the same
+    pair through a one-pair call (CPU reading 4.3e-7 of the largest flow);
+    the rerun skips all 10 pairs and calls nothing."""
+    _, load = video
+    fn, sizes = _batch_counter(raft_fn)
+    stats, files = _run(fn, tmp_path / "flow", load, batch_size=BATCH)
+    assert stats == {"done": 10, "skipped": 0, "failed": 0} and sizes == [4, 4, 2]
+    assert sorted(files) == [25 * i for i in range(10)]
+    for n, f in files.items():
+        one = raft_fn(load(n), load(n + 25))
+        assert f.shape == (60, 60, 2) and f.dtype == np.float32
+        np.testing.assert_allclose(f, one, rtol=0, atol=1e-5 * np.abs(one).max())
+    again, more = _batch_counter(raft_fn)
+    stats2, _ = _run(again, tmp_path / "flow", load, batch_size=BATCH)
+    assert stats2 == {"done": 0, "skipped": 10, "failed": 0} and more == []
+    assert _no_tmp(tmp_path / "flow")
+
+
+def test_corrupt_frame_fails_only_the_pairs_that_read_it(raft_fn, video, tmp_path):
+    """A corrupt JPEG in the middle of the second batch (frame 125) fails
+    exactly the two pairs that read it (100 and 125), each with its
+    traceback in the log; the 8 others are written, equal to their files
+    in a clean run's within the fp32 bound, as their batches differ (CPU
+    reading 0)."""
+    vdir, load = video
+    _, clean = _run(raft_fn, tmp_path / "clean", load, batch_size=BATCH)
+    with open(os.path.join(vdir, "125.jpg"), "wb") as f:
+        f.write(b"not a jpeg")
+    fn, sizes = _batch_counter(raft_fn)
+    stats, files = _run(fn, tmp_path / "flow", load, batch_size=BATCH)
+    assert stats == {"done": 8, "skipped": 0, "failed": 2} and sizes == [4, 4]
+    assert sorted(files) == [0, 25, 50, 75, 150, 175, 200, 225]
+    for n, f in files.items():
+        np.testing.assert_allclose(f, clean[n], rtol=0, atol=1e-5 * np.abs(clean[n]).max())
+    log = _log_lines(tmp_path / "flow" / "log.txt")
+    assert [ln for ln in log if "FAILED" in ln] == ["video 1 frame 100 FAILED:",
+                                                   "video 1 frame 125 FAILED:"]
+    assert log.count("Traceback (most recent call last):") == 2
+    assert sum("UnidentifiedImageError" in ln for ln in log) == 2
+    assert _no_tmp(tmp_path / "flow")
+
+
+def test_failed_write_leaves_no_tmp(raft_fn, video, tmp_path, monkeypatch):
+    """A write that fails after its ``.tmp.npy`` exists fails that pair
+    alone and removes the temporary file; the batch's other pairs publish."""
+    _, load = video
+    save = np.save
+
+    def failing(path, arr):
+        save(path, arr)
+        if os.path.basename(path) == "50.npy.tmp.npy":
+            raise OSError("disk full")
+
+    monkeypatch.setattr(tpre.np, "save", failing)
+    stats, files = _run(raft_fn, tmp_path / "flow", load, batch_size=BATCH)
+    assert stats == {"done": 9, "skipped": 0, "failed": 1} and 50 not in files
+    assert _no_tmp(tmp_path / "flow")
+    assert "OSError: disk full" in _log_lines(tmp_path / "flow" / "log.txt")
+
+
+def test_cli_precompute_flow_batch_size(tmp_path, pth):
+    """``precompute-flow --batch-size 3`` through ``cli.main``: 7 pairs of one
+    video in batches of 3, 3, 1, each file equal bit for bit to the driver's
+    with the same batches on the same weights."""
+    root = str(tmp_path / "cholec80")
+    _corpus(root, videos=(1,), frames=8)
+    assert cli.main(["precompute-flow", "--root", root, "--iters", "2", "--device", "cpu",
+                     "--torch-checkpoint", pth, "--batch-size", "3"]) == 0
+    got = _flows(root)
+    model = RAFT(iters=2, device="cpu")
+    model.load_state_dict(load_torch_pth(pth), strict=True)
+    fn, sizes = _batch_counter(make_flow_fn(model))
+    vdir = os.path.join(root, "cutMargin", "1")
+    driver = tpre.FlowPrecomputeDriver(fn, str(tmp_path / "direct"), batch_size=3)
+    driver.run_video(1, [25 * i for i in range(8)],
+                     lambda n: load_image(os.path.join(vdir, f"{n}.jpg")))
+    assert sizes == [3, 3, 1] and len(got) == 7
+    for n in range(7):
+        np.testing.assert_array_equal(got[f"1/{25 * n}.npy"],
+                                      np.load(tmp_path / "direct" / "1" / f"{25 * n}.npy"))

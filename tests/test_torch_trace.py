@@ -1,8 +1,9 @@
 """The program's spans and counters (``surgical_tpu_torch/utils/trace.py``)
 on the CPU at a tiny size:
 
-- with no profiler active, extraction, the session, a training step and
-  ``predict_video`` make no ``record_function`` call;
+- with no profiler active, extraction, the session, a training step,
+  ``predict_video`` and RAFT's batched flow function make no
+  ``record_function`` call;
 - under ``torch.profiler`` the same calls give exactly the named ``stt:``
   spans, nested as the hot paths nest them, and the same outputs bit for
   bit as without it;
@@ -21,8 +22,10 @@ import torch
 from surgical_tpu_torch.core.config import (BackboneConfig, HeadConfig, MambaConfig,
                                             OptimConfig, RefinerConfig, TrainConfig)
 from surgical_tpu_torch.data.transforms import AugConfig
+from surgical_tpu_torch.flow.precompute import FlowPrecomputeDriver
 from surgical_tpu_torch.models.mamba import CausalMambaModel
 from surgical_tpu_torch.models.mit_evp import MiTEVP
+from surgical_tpu_torch.models.raft import RAFT, make_flow_fn
 from surgical_tpu_torch.models.transsv import RefinementTransformer
 from surgical_tpu_torch.serving.export import export_feature_extractor
 from surgical_tpu_torch.serving.online import OnlineMamba, OnlineRefiner, OnlineSession
@@ -37,7 +40,8 @@ HEAD = HeadConfig(embedding_dim=E, hidden=8)
 MAMBA = MambaConfig(f_dim=E, d_model=16, d_state=8, layers=2)
 REFINER = RefinerConfig(f_maps=8, f_dim=E, len_q=4)
 STAGES = [f"stt:mit.stage{s}" for s in range(1, 5)]
-CALLS = ("extract", "session", "train", "predict")
+CALLS = ("extract", "session", "train", "predict", "flow")
+RAFT_ITERS = 2
 
 
 def wire(n, size=S, seed=0):
@@ -84,8 +88,17 @@ def run_predict():
                           RefinementTransformer(REFINER, seed=2, device="cpu"), lfb)]
 
 
+def run_flow():
+    """Two batches of RAFT's flow function: 2 pairs, then 1, of 60-px uint8
+    frames (padded to 64 on the device)."""
+    fn = make_flow_fn(RAFT(iters=RAFT_ITERS, seed=3, device="cpu"))
+    frames = np.random.default_rng(6).integers(0, 256, (4, 60, 60, 3), dtype=np.uint8)
+    return [torch.from_numpy(fn(frames[:2], frames[1:3])),
+            torch.from_numpy(fn(frames[2], frames[3]))]
+
+
 RUNS = {"extract": run_extract, "session": run_session, "train": run_train,
-        "predict": run_predict}
+        "predict": run_predict, "flow": run_flow}
 
 
 @pytest.fixture(autouse=True)
@@ -170,6 +183,33 @@ def test_predict_spans():
     assert [s[0] for s in spans] == ["stt:predict.temporal", "stt:predict.refiner"]
 
 
+def test_flow_spans():
+    _, spans = profiled(run_flow)
+    per_batch = ["stt:flow.h2d", "stt:flow.forward", "stt:flow.drain"]
+    inner = ["stt:flow.encode", "stt:flow.upsample"] + ["stt:flow.lookup",
+                                                        "stt:flow.update"] * RAFT_ITERS
+    assert Counter(s[0] for s in spans) == Counter(2 * (per_batch + inner))
+    tops = [s for s in spans if s[0] in per_batch]
+    assert [s[0] for s in tops] == per_batch * 2  # in order, none nested in another
+    for fwd in (s for s in spans if s[0] == "stt:flow.forward"):
+        got = [s[0] for s in spans if fwd[1] <= s[1] and s[2] <= fwd[2] and s is not fwd]
+        assert got == ["stt:flow.encode"] + ["stt:flow.lookup", "stt:flow.update"] * RAFT_ITERS \
+            + ["stt:flow.upsample"]
+
+
+def test_precompute_spans(tmp_path):
+    """The driver's ``flow.load`` per pair around its decode and ``flow.save``
+    per file; a batch of 2 then 1 through the flow function."""
+    frames = {25 * i: f for i, f in enumerate(
+        np.random.default_rng(7).integers(0, 256, (4, 60, 60, 3), dtype=np.uint8))}
+    driver = FlowPrecomputeDriver(make_flow_fn(RAFT(iters=1, seed=3, device="cpu")),
+                                  str(tmp_path), batch_size=2)
+    _, spans = profiled(lambda: driver.run_video(1, sorted(frames), frames.__getitem__))
+    names = Counter(s[0] for s in spans)
+    assert names["stt:flow.load"] == names["stt:flow.save"] == 3
+    assert names["stt:flow.forward"] == 2 and driver.stats["done"] == 3
+
+
 def test_gc_counted_and_spanned():
     before = trace.counters()["gc"]["gen2"]
     gc.collect()
@@ -184,9 +224,15 @@ def test_gc_counted_and_spanned():
 
 def test_counters_snapshot():
     c = trace.counters()
-    assert set(c) == {"gc", "launches", "feature_graph"}  # no card here: no allocator counters
+    assert set(c) == {"gc", "launches", "feature_graph", "raft"}  # no card: no allocator's
     assert set(c["gc"]) == {"gen0", "gen1", "gen2"}
     assert set(c["feature_graph"]) == {"captures", "replays", "eager"}
+    before = c["raft"]
+    run_flow()
+    after = trace.counters()["raft"]
+    assert {k: after[k] - before[k] for k in ("batches", "pairs", "iterations")} == {
+        "batches": 2, "pairs": 3, "iterations": 2 * RAFT_ITERS}
+    assert after["largest_batch"] >= 2
     assert {"mit_block_forward", "mit_stage_forward", "selective_scan",
             "selective_scan_backward"} <= set(c["launches"])
 
