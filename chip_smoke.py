@@ -44,7 +44,8 @@ nonzero without printing a result:
    1e-4 of the offline temporal (+ refiner) composition, the features'
    cosine against offline extraction at B=8 (the stage kernel), ms per
    frame split into the feature and temporal legs with each leg's device
-   operations, and the refusal of a frame without flow;
+   operations, the temporal leg's graphs replaying every frame, and the
+   refusal of a frame without flow;
 6. temporal serving slice: seeded random Mamba (``MambaConfig()``) and
    refiner weights saved through ``CheckpointStore`` into a work dir whose
    ``val`` split is the extraction slice's three videos and whose ``test``
@@ -1357,7 +1358,9 @@ def phase_online_session(device: str = "cuda", cfg=None, head_cfg=None, size: in
     then with ``MambaConfig()`` alone. Per session: the launches of the
     counted run (``SESSION_BLOCKS`` block launches, no stage launch per
     frame); a second pass that times the feature leg and the temporal (+
-    refiner) leg apart and gives the same logits; the features equal to
+    refiner) leg apart and gives the same logits; on the card the temporal
+    leg's graphs replay every frame of both passes
+    (``counters()["temporal_graph"]``); the features equal to
     offline extraction at batch 1 (``extract_features``) and the logits
     within ``SESSION_LOGIT_BOUND`` of the offline temporal (+ refiner)
     composition on them; the features' cosine against offline extraction
@@ -1378,6 +1381,7 @@ def phase_online_session(device: str = "cuda", cfg=None, head_cfg=None, size: in
                                                    OnlineSession)
     from surgical_tpu_torch.train.extract import extract_features, make_raw_feature_fn
     from surgical_tpu_torch.train.refiner import predict_video
+    from surgical_tpu_torch.utils.trace import counters
 
     cfg, head_cfg = cfg or BackboneConfig(), head_cfg or HeadConfig()
     cuda = device == "cuda"
@@ -1409,10 +1413,11 @@ def phase_online_session(device: str = "cuda", cfg=None, head_cfg=None, size: in
     for name, temporal, ref in (("mstcn+refiner", OnlineMSTCN(mstcn), OnlineRefiner(refiner)),
                                 ("mamba", OnlineMamba(mamba), None)):
         session = OnlineSession(backbone, temporal, refiner=ref)
-        session.step(*frame(0))  # warm-up of the temporal leg's shapes
+        session.step(*frame(0))  # warm-up of the temporal leg's shapes (its capture)
         session.reset()
         sync()
         mb.reset_launches()
+        graphs = counters()["temporal_graph"]
         outs, step_ms = [], []
         for t in range(frames):
             t1 = time.perf_counter()
@@ -1442,6 +1447,12 @@ def phase_online_session(device: str = "cuda", cfg=None, head_cfg=None, size: in
         feats = np.stack(feats)
         if not np.array_equal(np.stack(again), outs):
             raise AssertionError(f"session {name}: a second pass gave other logits")
+        graphs = {k: v - graphs[k] for k, v in counters()["temporal_graph"].items()}
+        want = {"captures": 0, "replays": 2 * frames, "eager": 0} if cuda else \
+            {"captures": 0, "replays": 0, "eager": 2 * frames}
+        print(f"session {name}: temporal-leg graphs over both passes {graphs} (expected {want})")
+        if graphs != want:
+            raise AssertionError(f"session {name}: the temporal leg did not replay every frame")
         if feats.shape != (frames, f_dim) or not np.array_equal(feats, feats1):
             raise AssertionError(f"session {name}: features differ from offline extraction at "
                                  f"batch 1 (max abs {np.abs(feats - feats1).max():.3e})")

@@ -33,8 +33,21 @@ in-place version of every backbone parameter and buffer: replacing or
 loading weights (``load_state_dict``) makes the next frame capture again;
 ``reset`` touches only the temporal states and keeps the graphs. The
 session's device memory then holds one graph pool (one frame's glue
-activations). The temporal and refiner steps stay eager. On the CPU the
-feature leg is eager. Extraction (``train/extract.py``) never graphs.
+activations).
+
+The temporal leg (``advance``: the temporal step, then the refiner step) is
+graphed on the card too (``serving/temporal_graph.py``): one CUDA graph per
+step, with the feature, the temporal state and the refiner's ring buffer in
+static device buffers, which each replay updates in place; ``session.state``
+and ``session.refiner_state`` point at them. A new key (the feature's and
+the states' shapes and dtypes, the address and in-place version of every
+temporal and refiner parameter and buffer, and the fp32 matmul precision)
+makes one new capture; ``reset`` does not, and a state that is not the
+static buffers is copied in before the next replay. That leg holds one more
+graph pool (one frame's activations of both steps). On the CPU both legs
+are eager. Extraction (``train/extract.py``), ``run_pipeline``, the CLI's
+``predict --online`` and the exports (``serving/export.py``) call the steps
+eagerly.
 """
 
 from __future__ import annotations
@@ -46,6 +59,7 @@ import torch
 import torch.nn.functional as F
 
 from surgical_tpu_torch.serving.feature_graph import FeatureGraph
+from surgical_tpu_torch.serving.temporal_graph import TemporalGraph
 from surgical_tpu_torch.train.extract import WireForward, use_fused_default
 from surgical_tpu_torch.utils.trace import span
 
@@ -232,8 +246,13 @@ class OnlineSession:
     module docstring; ``serving/feature_graph.py``). A frame of new shapes,
     a frame with flow after one without (or the reverse), and any replaced
     or in-place written backbone parameter or buffer cause one new capture
-    (that frame runs eagerly); ``reset`` does not. The session holds one
-    graph pool in device memory.
+    (that frame runs eagerly); ``reset`` does not. The temporal leg
+    (``advance``) replays one CUDA graph per step on static buffers
+    (``serving/temporal_graph.py``): there ``state`` and ``refiner_state``
+    are those buffers and are updated in place by every frame (assign a new
+    state to replace them: the next frame copies it in), and a replaced or
+    in-place written temporal or refiner parameter or buffer causes one new
+    capture. The session holds two graph pools in device memory.
     """
 
     def __init__(self, backbone, temporal, refiner: Optional[OnlineRefiner] = None,
@@ -253,6 +272,7 @@ class OnlineSession:
         self._features = FeatureGraph(WireForward(backbone, use_fused, out_dtype=feature_dtype),
                                       backbone)
         self.temporal, self.refiner = temporal, refiner
+        self._temporal_leg = TemporalGraph(temporal, refiner)
         self.reset()
 
     def reset(self) -> None:
@@ -279,16 +299,13 @@ class OnlineSession:
     def advance(self, feat: torch.Tensor) -> torch.Tensor:
         """One frame's feature [E] -> its logits (the temporal + refiner
         leg): the temporal step, then, with a refiner, the refiner step on
-        the temporal model's final stage and the same feature."""
+        the temporal model's final stage and the same feature. On the card
+        the steps replay as CUDA graphs that update ``state`` and
+        ``refiner_state`` in place, and the logits are a fresh tensor."""
         self.frame_idx += 1
-        with span("session.temporal"):
-            self.state, logits = self.temporal.step(self.state, feat)
-        g = logits[-1] if logits.dim() == 2 else logits
-        if self.refiner is None:
-            return g
-        with span("session.refiner"):
-            self.refiner_state, refined = self.refiner.step(self.refiner_state, g, feat)
-        return refined
+        self.state, self.refiner_state, out = self._temporal_leg(
+            self.state, self.refiner_state, feat)
+        return out
 
     def step(self, img_u8, seg_u8, flow_f16) -> np.ndarray:
         """One frame -> this frame's logits: refined when a refiner is
