@@ -33,6 +33,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from surgical_tpu_torch.core.state import cached, state_key
 from surgical_tpu_torch.kernels.mit_block import (
     block_weights_from_params,
     fused_mit_block,
@@ -79,21 +80,37 @@ def kernel_weights(model, dtype=torch.bfloat16) -> dict:
     weight dict}, {"block4": [block weight dict per block]} for stage 4's
     per-block route, and {"packed2": {stage: [pack_weights2 dict per
     block]}} for the stages of C = 64 and one head, in the kernels' layout.
-    Cached on ``model``; rebuilt when a parameter is replaced, moved or
-    written in place (load_state_dict)."""
-    key = (dtype, tuple((p.data_ptr(), p._version) for p in model.parameters()))
-    cached = model.__dict__.get("_kernel_weights")
-    if cached is None or cached[0] != key:
-        with torch.no_grad():
-            blocks = {s: [block_weights_from_params(b, dtype)
-                          for b in getattr(model, f"block{s}")] for s in (1, 2, 3, 4)}
-            weights = {1: blocks[1], 2: blocks[2], 3: blocks[3], "block4": blocks[4],
-                       4: stage_weights_from_params(model, 4, dtype)}
-            cfg = model.cfg
-            weights["packed2"] = {s: [pack_weights2(w) for w in blocks[s]] for s in blocks
-                                  if cfg.embed_dims[s - 1] == 64 and cfg.num_heads[s - 1] == 1}
-        cached = model.__dict__["_kernel_weights"] = (key, weights)
-    return cached[1]
+    Cached on ``model`` until a parameter or buffer is replaced, moved or
+    written in place (``core/state.py``; load_state_dict writes in place)."""
+    @torch.no_grad()
+    def build():
+        blocks = {s: [block_weights_from_params(b, dtype)
+                      for b in getattr(model, f"block{s}")] for s in (1, 2, 3, 4)}
+        weights = {1: blocks[1], 2: blocks[2], 3: blocks[3], "block4": blocks[4],
+                   4: stage_weights_from_params(model, 4, dtype)}
+        cfg = model.cfg
+        weights["packed2"] = {s: [pack_weights2(w) for w in blocks[s]] for s in blocks
+                              if cfg.embed_dims[s - 1] == 64 and cfg.num_heads[s - 1] == 1}
+        return weights
+    return cached(model, "_kernel_weights", (dtype, state_key(model)), build)
+
+
+def block_glue(pg, blk, stage: int, d: int, x, base, H: int, W: int, sr: int):
+    """The serving and training graphs' plain PyTorch ahead of block ``d`` of
+    ``stage``: x plus the prompt MLP (exact-erf GELU) of the stage's prompt
+    ``base``, LN1, the SR conv and its LayerNorm, the kv dense -> (x, LN1(x),
+    k, v), k and v contiguous."""
+    B, C = x.shape[0], x.shape[-1]
+    lw = getattr(pg, f"lightweight_mlp{stage}_{d}")[0]
+    feat = F.gelu(_ops.dense(base, lw).float()).to(x.dtype)
+    x = x + _ops.dense(feat, getattr(pg, f"shared_mlp{stage}"))
+    xln = _ops.layernorm(x, blk.norm1)
+    kv_in = xln
+    if sr > 1:
+        red = _ops.conv(xln.reshape(B, H, W, C), blk.attn.sr, sr, 0)
+        kv_in = _ops.layernorm(red.reshape(B, -1, C), blk.attn.norm)
+    kv = _ops.dense(kv_in, blk.attn.kv)
+    return x, xln, kv[..., :C].contiguous(), kv[..., C:].contiguous()
 
 
 @torch.no_grad()
@@ -128,19 +145,9 @@ def fused_forward(model, images, segmaps, flow, return_features: bool = True, we
                 x = fused_mit_stage(x.contiguous(), base.contiguous(), kw[stage],
                                     heads=heads, H=H, W=W, sr=sr)
             else:
-                shared = getattr(pg, f"shared_mlp{stage}")
                 blocks_w = kw[stage] if stage < 4 else kw["block4"]
                 for d, blk in enumerate(getattr(model, f"block{stage}")):
-                    lw = getattr(pg, f"lightweight_mlp{stage}_{d}")[0]
-                    feat = F.gelu(_ops.dense(base, lw).float()).to(dt)
-                    x = x + _ops.dense(feat, shared)
-                    xln = _ops.layernorm(x, blk.norm1)
-                    kv_in = xln
-                    if sr > 1:
-                        red = _ops.conv(xln.reshape(B, H, W, C), blk.attn.sr, sr, 0)
-                        kv_in = _ops.layernorm(red.reshape(B, -1, C), blk.attn.norm)
-                    kv = _ops.dense(kv_in, blk.attn.kv)
-                    k, v = kv[..., :C].contiguous(), kv[..., C:].contiguous()
+                    x, _, k, v = block_glue(pg, blk, stage, d, x, base, H, W, sr)
                     if _ROUTE_PACKED2 and C == 64 and heads == 1 and B % 2 == 0:
                         # the JAX module's condition and row-chunk rule (:283-289)
                         N = H * W

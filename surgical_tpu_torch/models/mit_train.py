@@ -30,11 +30,11 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
+from surgical_tpu_torch.core.state import cached, state_key
 from surgical_tpu_torch.kernels.mit_block import block_weights_from_params, fused_mit_block_train
 from surgical_tpu_torch.models import _ops
-from surgical_tpu_torch.models.mit_fused import _check_supported
+from surgical_tpu_torch.models.mit_fused import _check_supported, block_glue
 
 
 def droppath_rates(cfg) -> list[float]:
@@ -66,17 +66,15 @@ def draw_masks(cfg, head_cfg, batch: int, generator: torch.Generator) -> dict:
 
 def train_block_weights(model, dtype) -> dict:
     """{stage: [kernel weight dict per block]}, cached on ``model`` until a
-    trunk block parameter is replaced or written (the trainable parameters,
-    which change every step, are not part of the key)."""
+    trunk block's parameter or buffer is replaced or written
+    (``core/state.py``; the trainable parameters, which change every step,
+    are not part of the key)."""
+    @torch.no_grad()
+    def build():
+        return {s: [block_weights_from_params(b, dtype)
+                    for b in getattr(model, f"block{s}")] for s in range(1, 5)}
     blocks = [b for s in range(1, 5) for b in getattr(model, f"block{s}")]
-    key = (dtype, tuple((p.data_ptr(), p._version) for b in blocks for p in b.parameters()))
-    cached = model.__dict__.get("_train_block_weights")
-    if cached is None or cached[0] != key:
-        with torch.no_grad():
-            weights = {s: [block_weights_from_params(b, dtype)
-                           for b in getattr(model, f"block{s}")] for s in range(1, 5)}
-        cached = model.__dict__["_train_block_weights"] = (key, weights)
-    return cached[1]
+    return cached(model, "_train_block_weights", (dtype, state_key(*blocks)), build)
 
 
 def write_bn_stats(model, stats: dict) -> None:
@@ -128,21 +126,11 @@ def fused_train_forward(model, images, segmaps, flow, *, generator=None, masks=N
         C = x.shape[-1]
         heads, sr = cfg.num_heads[si], cfg.sr_ratios[si]
         base = hand[stage] + _ops.dense(x, getattr(pg, f"embedding_generator{stage}"))
-        shared = getattr(pg, f"shared_mlp{stage}")
         for d, blk in enumerate(getattr(model, f"block{stage}")):
-            lw = getattr(pg, f"lightweight_mlp{stage}_{d}")[0]
-            feat = F.gelu(_ops.dense(base, lw).float()).to(dt)  # exact-erf GELU
-            x = x + _ops.dense(feat, shared)
-            xln = _ops.layernorm(x, blk.norm1)
-            kv_in = xln
-            if sr > 1:
-                red = _ops.conv(xln.reshape(B, H, W, C), blk.attn.sr, sr, 0)
-                kv_in = _ops.layernorm(red.reshape(B, -1, C), blk.attn.norm)
-            kv = _ops.dense(kv_in, blk.attn.kv)
+            x, xln, k, v = block_glue(pg, blk, stage, d, x, base, H, W, sr)
             m1, m2 = dp[cur + d]
-            x = fused_mit_block_train(x.contiguous(), xln.contiguous(),
-                                      kv[..., :C].contiguous(), kv[..., C:].contiguous(),
-                                      kw[stage][d], m1, m2, heads=heads, H=H, W=W)
+            x = fused_mit_block_train(x.contiguous(), xln.contiguous(), k, v, kw[stage][d],
+                                      m1, m2, heads=heads, H=H, W=W)
         cur += cfg.depths[si]
         x = _ops.layernorm(x, getattr(model, f"norm{stage}"))
         grids.append(x.reshape(B, H, W, C))

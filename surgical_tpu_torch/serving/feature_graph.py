@@ -3,43 +3,30 @@ the MiT kernel calls.
 
 At B = 1 the serving graph (``train/extract.py::WireForward``) issues about
 900 small device operations per b0 frame, nearly all of them the plain
-PyTorch glue of ``models/mit_fused.py::fused_forward``; the card then
-waits on the host. Every frame has the same shapes, so ``FeatureGraph``
-captures the glue once and replays it:
+PyTorch glue of ``models/mit_fused.py::fused_forward``, and the card waits
+on the host. ``FeatureGraph`` captures the glue once per key (the frame's
+shapes and dtypes, flow or not, ``state_key`` of the backbone, whose flow
+encoder's BatchNorm statistics are buffers) and replays it
+(``serving/graphs.py``):
 
 - the leg is cut into segments at every call of a MiT kernel entry
-  (``fused_mit_block``, ``fused_mit_block_packed2``, ``fused_mit_stage``)
-  and at every boundary of the program's spans (``mit.prompts``,
-  ``mit.stage1`` .. ``mit.stage4``) where operations were issued since the
-  last cut. Each segment is one ``torch.cuda.CUDAGraph``; all share one
-  memory pool. b0 at B = 1 gives 15 segments around 8 kernel calls, b3
-  35 around 28, with flow or without; the flax graph (``use_fused=False``)
-  has no kernel call and no span, so it is one segment;
-- a replay copies the frame into the static input buffers, then walks the
-  segments in order: each graph is replayed, each kernel is called eagerly
-  through the entry that ``mit_fused`` holds at that moment, on the tensors
-  that the graphs wrote, and its output is copied into the buffer the next
-  segment reads; each span is entered and left where the eager leg enters
-  and leaves it.
+  (``ENTRIES``) and at every boundary of the program's spans
+  (``mit.prompts``, ``mit.stage1`` .. ``mit.stage4``) where operations were
+  issued since the last cut. Each segment is one ``torch.cuda.CUDAGraph``
+  of the capture's pool: b0 at B = 1 gives 15 around 8 kernel calls, b3 35
+  around 28, with flow or without; the flax graph (``use_fused=False``) is
+  one segment. A capture rebinds ``mit_fused``'s kernel entries and
+  ``span`` for its thread;
+- a replay copies the frame into the static inputs and walks the segments:
+  each graph is replayed, each kernel is called eagerly through the entry
+  that ``mit_fused`` holds then, on the tensors the graphs wrote, and its
+  output copied into the buffer the next segment reads; each span is
+  entered and left where the eager leg enters and leaves it.
 
 The kernels stay outside the graphs so that whatever wraps their entries
-sees every call: the launch counters (``.launches``), the launch's error
-check, and a benchmark's tracer that patches the entries. Every segment
-issues the operations ``fused_forward`` issues eagerly, in its order and
-dtypes: the same numbers, bit for bit.
-
-A capture depends on ``graph_key``: the frame's shapes and dtypes, whether
-flow is present, and the address and in-place version of every backbone
-parameter and buffer. A frame of another key is run eagerly (which loads
-the kernels, the cuDNN plans and the cuBLAS workspace of the capture's side
-stream) and then captured; the old graphs and their pool are released
-first. Capturing rebinds ``mit_fused``'s kernel entries and ``span`` for
-the capture's duration (calls from other threads pass straight through).
-
-Only CUDA tensors are captured; on the CPU the leg runs eagerly.
-``COUNTS`` (``utils/trace.py::counters()["feature_graph"]``) counts the
-captures made, the frames replayed and the frames run eagerly (on the CPU,
-or the frame of a capture).
+(``.launches``, the launch's error check, a benchmark's tracer) sees every
+call. Every segment issues the operations ``fused_forward`` issues eagerly,
+in its order and dtypes: the same numbers, bit for bit.
 """
 
 from __future__ import annotations
@@ -50,31 +37,14 @@ import threading
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
+from surgical_tpu_torch.core.state import state_key
 from surgical_tpu_torch.models import mit_fused
+from surgical_tpu_torch.serving.graphs import GraphedLeg, layout
 from surgical_tpu_torch.utils.trace import span
 
 ENTRIES = ("fused_mit_block", "fused_mit_block_packed2", "fused_mit_stage")
-COUNTS = {"captures": 0, "replays": 0, "eager": 0}
 
 _GRAPH, _KERNEL, _ENTER, _EXIT = range(4)
-
-
-def graph_key(model, frame) -> tuple:
-    """What a capture of ``model``'s leg on ``frame`` (tensors, flow None or
-    not) depends on: the frame's shapes and dtypes, and every parameter's
-    and buffer's address and in-place version (``load_state_dict`` writes in
-    place; the flow encoder's BatchNorm statistics are buffers). One walk of
-    the module tree's dicts, which is ~6x faster than ``parameters()`` and
-    ``buffers()``: the key is taken every frame."""
-    shapes = tuple(None if a is None else (tuple(a.shape), a.dtype) for a in frame)
-    tensors, modules = [], [model]
-    while modules:
-        m = modules.pop()
-        if m is not None:
-            tensors += m._parameters.values()
-            tensors += m._buffers.values()
-            modules += m._modules.values()
-    return shapes, tuple((t.data_ptr(), t._version) for t in tensors if t is not None)
 
 
 class _Recorder(TorchDispatchMode):
@@ -148,11 +118,10 @@ def _rebound(recorder):
 
 def record(forward, inputs, pool):
     """One pass of ``forward(*inputs)`` captured into graphs of the memory
-    pool ``pool``, cut at the kernel entries and spans: (the steps, in
-    order, and the pass's output, a tensor of the pool). A step is
-    ``(_GRAPH, graph)``, ``(_KERNEL, entry name, args, kwargs, output)``,
-    ``(_ENTER, span name)`` or ``(_EXIT,)``. The kernels run eagerly on the
-    tensors of the capture, whose graphs have not run yet."""
+    pool ``pool``, cut at the kernel entries and spans: (the steps in order,
+    the pass's output). A step is ``(_GRAPH, graph)``, ``(_KERNEL, entry
+    name, args, kwargs, output)``, ``(_ENTER, span name)`` or ``(_EXIT,)``.
+    The kernels run eagerly on the capture's tensors (the numbers unused)."""
     recorder = _Recorder(pool)
     with _rebound(recorder), recorder:
         recorder.begin()
@@ -164,53 +133,48 @@ def record(forward, inputs, pool):
     return recorder.steps, output
 
 
-class FeatureGraph:
-    """The feature leg ``forward`` (fn(img_u8, seg_u8, flow_f16 or None) ->
-    [B, E], a ``WireForward``) over ``model``'s weights, graphed when they
-    are on the card, as the module docstring says.
-
-    Calling it with one frame's wire tensors or arrays ([1, H, W, 3] u8,
-    [1, H, W, 1] u8, [1, H, W, 2] f16 or None) gives the features. A
-    replayed frame's are the graphs' static output, which the next call
-    overwrites. The memory holds one graph pool: the glue's activations of
-    one frame, plus the kernels' outputs between segments and the static
-    inputs."""
+class FeatureGraph(GraphedLeg):
+    """The feature leg ``forward`` (a ``WireForward``: img_u8, seg_u8,
+    flow_f16 or None -> [B, E]) over ``model``'s weights. Called with one
+    frame's wire tensors or arrays ([1, H, W, 3] u8, [1, H, W, 1] u8,
+    [1, H, W, 2] f16 or None) it gives the features; a replayed frame's are
+    the static output, which the next call overwrites."""
 
     def __init__(self, forward, model):
+        super().__init__(next(model.parameters()).device)
         self.forward, self.model = forward, model
-        self.device = next(model.parameters()).device
-        self._release()
-
-    def _release(self) -> None:
-        self._key = self._steps = self._inputs = self._output = None
 
     @property
     def segments(self) -> int:
         """The graphs of the current capture (0 before the first)."""
-        return sum(1 for s in self._steps or () if s[0] == _GRAPH)
+        steps = self.captured[0] if self.captured else ()
+        return sum(1 for s in steps if s[0] == _GRAPH)
 
-    @torch.no_grad()
     def __call__(self, img_u8, seg_u8, flow_f16):
-        frame = tuple(None if a is None else torch.as_tensor(a)
-                      for a in (img_u8, seg_u8, flow_f16))
-        if self.device.type != "cuda":
-            COUNTS["eager"] += 1
-            return self.forward(*(None if a is None else a.to(self.device) for a in frame))
-        key = graph_key(self.model, frame)
-        if key != self._key:
-            out = self._capture(frame)
-            self._key = key
-            return out
-        for buf, a in zip(self._inputs, frame):
+        return super().__call__(tuple(None if a is None else torch.as_tensor(a)
+                                      for a in (img_u8, seg_u8, flow_f16)))
+
+    def key(self, frame) -> tuple:
+        return layout(*frame), state_key(self.model)
+
+    def eager(self, frame):
+        return self.forward(*(None if a is None else a.to(self.device) for a in frame))
+
+    def capture(self, pool, buffers, frame):
+        inputs = tuple(None if a is None else
+                       torch.empty(a.shape, dtype=a.dtype, device=self.device).copy_(a)
+                       for a in frame)
+        out = self.forward(*inputs)
+        steps, output = record(self.forward, inputs, pool)
+        return out, (steps, inputs, output)
+
+    def replay(self, frame):
+        steps, inputs, output = self.captured
+        for buf, a in zip(inputs, frame):
             if buf is not None:
                 buf.copy_(a, non_blocking=True)
-        self._replay()
-        COUNTS["replays"] += 1
-        return self._output
-
-    def _replay(self) -> None:
         spans = []
-        for step in self._steps:
+        for step in steps:
             kind = step[0]
             if kind == _GRAPH:
                 step[1].replay()
@@ -222,24 +186,7 @@ class FeatureGraph:
                 spans[-1].__enter__()
             else:
                 spans.pop().__exit__(None, None, None)
+        return output
 
-    def _capture(self, frame):
-        """Runs ``frame`` eagerly on a side stream, captures the leg there,
-        and returns the eager features."""
-        self._release()
-        torch.cuda.synchronize(self.device)
-        current = torch.cuda.current_stream(self.device)
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(current)
-        with torch.cuda.stream(side):
-            inputs = tuple(None if a is None else
-                           torch.empty(a.shape, dtype=a.dtype, device=self.device).copy_(a)
-                           for a in frame)
-            out = self.forward(*inputs)
-            steps, output = record(self.forward, inputs, torch.cuda.graph_pool_handle())
-        current.wait_stream(side)
-        out.record_stream(current)
-        self._steps, self._inputs, self._output = steps, inputs, output
-        COUNTS["captures"] += 1
-        COUNTS["eager"] += 1
-        return out
+
+COUNTS = FeatureGraph.COUNTS

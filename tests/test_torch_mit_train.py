@@ -24,7 +24,8 @@ from surgical_tpu.models.convert import import_evp_state_dict
 from surgical_tpu.train.backbone import combine_params, partition_params
 from surgical_tpu_torch.models.convert import export_evp_state_dict, load_evp_params
 from surgical_tpu_torch.models.mit_evp import MiTEVP, _init_weights
-from surgical_tpu_torch.models.mit_train import draw_masks, fused_train_forward, write_bn_stats
+from surgical_tpu_torch.models.mit_train import (draw_masks, fused_train_forward,
+                                                 train_block_weights, write_bn_stats)
 from surgical_tpu_torch.train.backbone import freeze_trunk
 
 torch.set_num_threads(1)  # one intra-op thread per test process: xdist workers share the CPUs
@@ -177,3 +178,21 @@ def test_generator_draws_are_reproducible(setup):
     assert abs(m["dropout"].float().mean().item() - 0.9) < 0.01
     with pytest.raises(ValueError, match="generator or masks"):
         fused_train_forward(model, t(img), t(seg), t(flow), dtype=torch.float32)
+
+
+def test_train_block_weights_keyed_on_the_trunk_alone():
+    """Kept when a prompt-generator parameter is written in place (the
+    trainable parameters change every step), rebuilt with the new values
+    when a trunk block's is."""
+    model = MiTEVP(CFG, HEAD, seed=0, device="cpu")
+    first = train_block_weights(model, torch.bfloat16)
+    with torch.no_grad():
+        model.prompt_generator.shared_mlp1.weight.add_(1.0)
+    assert train_block_weights(model, torch.bfloat16) is first
+    with torch.no_grad():
+        model.block2[0].attn.q.weight.add_(1.0)
+    second = train_block_weights(model, torch.bfloat16)
+    assert second is not first
+    want = model.block2[0].attn.q.weight.t().to(torch.bfloat16)
+    torch.testing.assert_close(second[2][0]["wq"], want, rtol=0, atol=0)
+    assert train_block_weights(model, torch.float32) is not second  # the dtype is keyed too

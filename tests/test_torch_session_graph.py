@@ -5,9 +5,10 @@ On the CPU (tier 1):
 
 - the session stays eager there: ``counters()["feature_graph"]`` counts
   every frame as eager and no capture or replay;
-- ``graph_key`` changes on an in-place parameter write, a replaced
-  parameter, an in-place buffer write, a frame without flow and a frame of
-  another size, and not on ``reset``;
+- the leg's key (``FeatureGraph.key``: the frame's layout and
+  ``core/state.py::state_key`` of the backbone) changes on an in-place
+  parameter write, a replaced parameter, an in-place buffer write, a frame
+  without flow and a frame of another size, and not on ``reset``;
 - ``record`` (the capture pass) with a stand-in for ``torch.cuda.CUDAGraph``
   that captures nothing, so the operations run: it cuts the leg at each
   kernel entry and at each span boundary that follows issued operations,
@@ -127,26 +128,27 @@ CHANGES = {"param_inplace": _param_inplace, "param_replaced": _param_replaced,
 @pytest.mark.parametrize("change", [*CHANGES, "no_flow", "other_size"])
 def test_graph_key_changes(change):
     model = MiTEVP(TINY, HEAD, seed=0, device="cpu")
+    leg = fg.FeatureGraph(WireForward(model, True), model)
     frame = tuple(None if a is None else torch.from_numpy(a) for a in one(wire(1), 0))
-    key = fg.graph_key(model, frame)
-    assert fg.graph_key(model, frame) == key
+    key = leg.key(frame)
+    assert leg.key(frame) == key
     if change == "no_flow":
         frame = frame[:2] + (None,)
     elif change == "other_size":
         frame = tuple(torch.from_numpy(a) for a in one(wire(1, size=S + 32), 0))
     else:
         CHANGES[change](model)
-    assert fg.graph_key(model, frame) != key
+    assert leg.key(frame) != key
 
 
 def test_graph_key_kept_by_reset():
     session = cpu_session()
     frames = wire(2, seed=2)
     frame = tuple(torch.from_numpy(a) for a in one(frames, 0))
-    key = fg.graph_key(session._features.model, frame)
+    key = session._features.key(frame)
     session.step(*(a[0] for a in frames))
     session.reset()
-    assert fg.graph_key(session._features.model, frame) == key
+    assert session._features.key(frame) == key
 
 
 class StubGraph:

@@ -14,6 +14,11 @@ On the CPU (tier 1):
   ``reset`` between, it writes the new state into the static buffers and
   gives the eager steps' logits and states bit for bit, for Mamba + refiner,
   MS-TCN + refiner and Mamba alone;
+- ``serving/graphs.py::GraphedLeg`` on a toy leg of one linear layer on a
+  stand-in card: eager on the CPU; on the card the static buffers made
+  before the side stream, one capture, replays, and on a key change a new
+  capture after the old graphs are gone; the eager output recorded on the
+  replays' stream; the counts of exactly that, the leg's own;
 - the whole graphed leg on a stand-in card: a ``CUDAGraph`` whose capture
   runs and records the operations and whose replay runs them again into the
   tensors the capture gave (as a graph replays into its addresses), and
@@ -39,6 +44,7 @@ On the card (``cuda``; the file imports no JAX: ``python -m pytest
 """
 
 import contextlib
+import weakref
 
 import pytest
 import torch
@@ -51,7 +57,9 @@ from surgical_tpu_torch.models.mamba import CausalMambaModel
 from surgical_tpu_torch.models.mit_evp import MiTEVP
 from surgical_tpu_torch.models.mstcn import MultiStageTCN
 from surgical_tpu_torch.models.transsv import RefinementTransformer
+from surgical_tpu_torch.core.state import state_key
 from surgical_tpu_torch.serving import temporal_graph as tg
+from surgical_tpu_torch.serving.graphs import GraphedLeg, layout
 from surgical_tpu_torch.serving.online import (OnlineMamba, OnlineMSTCN, OnlineRefiner,
                                                OnlineSession)
 from surgical_tpu_torch.utils.trace import counters
@@ -144,7 +152,7 @@ def test_cpu_advance_stays_eager(kind):
         assert torch.equal(session.advance(f), eager.advance(f))
         assert_same_state(session, eager)
     assert delta(before) == {"captures": 0, "replays": 0, "eager": 5}
-    assert session._temporal_leg._graphs is None
+    assert session._temporal_leg.captured is None
 
 
 def _param_inplace(model):
@@ -170,8 +178,7 @@ CHANGES = {"param_inplace": _param_inplace, "param_replaced": _param_replaced,
 
 
 def _key(session, feat):
-    leg = session._temporal_leg
-    return leg._graph_key(feat, pytree.tree_leaves(session.state), session.refiner_state)
+    return session._temporal_leg.key(session.state, session.refiner_state, feat)
 
 
 @pytest.mark.parametrize("change", [*(f"{m}.{c}" for m in ("temporal", "refiner")
@@ -311,6 +318,68 @@ def stand_in_card(monkeypatch):
     return on_card
 
 
+class ToyLeg(GraphedLeg):
+    """One linear layer as a graphed leg: its static input from ``buffers``,
+    one graph per capture; the hooks log their calls."""
+
+    def __init__(self, model, log):
+        super().__init__(torch.device("cpu"))
+        self.model, self.log, self.made = model, log, []
+
+    def key(self, x):
+        return layout(x), state_key(self.model)
+
+    def eager(self, x):
+        self.log.append("eager")
+        return self.model(x)
+
+    def buffers(self, x):
+        self.log.append("buffers")
+        return torch.empty_like(x)
+
+    def capture(self, pool, buffers, x):
+        gone = self.captured is None and all(r() is None for r in self.made)
+        self.log.append(("capture", gone))
+        out = self.model(x)
+        graph = torch.cuda.CUDAGraph()
+        graph.capture_begin(pool=pool, capture_error_mode="thread_local")
+        y = self.model(buffers)
+        graph.capture_end()
+        self.made.append(weakref.ref(graph))
+        return out, (graph, buffers, y)
+
+    def replay(self, x):
+        graph, static, y = self.captured
+        static.copy_(x)
+        graph.replay()
+        return y.clone()
+
+
+def test_graphed_leg_captures_replays_and_recaptures(stand_in_card, monkeypatch):
+    log = []
+    monkeypatch.setattr(torch.cuda, "Stream", lambda device=None: log.append("side") or _Stream())
+    monkeypatch.setattr(torch.Tensor, "record_stream",
+                        lambda self, s: log.append(("record_stream", self.shape)), raising=False)
+    model = torch.nn.Linear(E, 3)
+    leg, xs = ToyLeg(model, log), feats(6, seed=6)
+    temporal_counts = dict(tg.COUNTS)
+    with torch.no_grad():
+        assert torch.equal(leg(xs[0]), model(xs[0]))
+        assert log == ["eager"] and leg.captured is None
+        leg.device = torch.device("cuda")
+        for t in range(1, 4):
+            assert torch.equal(leg(xs[t]), model(xs[t])), t
+        assert ToyLeg.COUNTS == {"captures": 1, "replays": 2, "eager": 2}
+        assert log == ["eager", "buffers", "side", ("capture", True),
+                       ("record_stream", torch.Size([3]))]
+        model.weight.add_(1.0)  # a key change
+        for t in range(4, 6):
+            assert torch.equal(leg(xs[t]), model(xs[t])), t
+    assert log[5:] == ["buffers", "side", ("capture", True), ("record_stream", torch.Size([3]))]
+    assert ToyLeg.COUNTS == {"captures": 2, "replays": 3, "eager": 3}
+    assert tg.COUNTS == temporal_counts and tg.COUNTS is tg.TemporalGraph.COUNTS
+
+
 @pytest.mark.parametrize("kind", KINDS)
 def test_replayed_session_equals_eager(stand_in_card, kind):
     session = stand_in_card(cpu_session(kind))
@@ -335,7 +404,7 @@ def test_replayed_session_equals_eager(stand_in_card, kind):
         assert ptrs is None or leaves == ptrs  # updated in place, after the capture's frame
         ptrs = leaves
     assert delta(before) == {"captures": 1, "replays": 15, "eager": 1}
-    assert len(session._temporal_leg._graphs) == (1 if kind == "mamba" else 2)
+    assert len(session._temporal_leg.captured.graphs) == (1 if kind == "mamba" else 2)
     for out, want in outs:  # each frame's tensor is the caller's
         assert torch.equal(out, want)
 
