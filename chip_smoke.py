@@ -64,8 +64,9 @@ nonzero without printing a result:
 8. backbone training: ``BackboneTrainer(use_fused=True)`` at b3, batch 88,
    224 crop, SGD, over a seeded ``FrameCache`` (3 train batches, one val and
    one test batch) for 2 epochs of ``train_epoch`` with mid-epoch
-   validation, then ``evaluate``: 28 launches of each train kernel per step,
-   step time, peak memory, a frozen trunk, moved trainable tensors and
+   validation, then ``evaluate``: the step replayed as CUDA graphs after one
+   capture (``counters()["train_graph"]``), 28 launches of each train kernel
+   per eager or captured step, step time, peak memory, a frozen trunk, moved trainable tensors and
    BatchNorm statistics, a checkpoint round trip with the optimizer state,
    and one step's loss and gradients against the plain train kernels;
 9. flax-graph backbone at b3 widths (``MiTEVP.graph_forward``, plain
@@ -165,9 +166,10 @@ nonzero without printing a result:
 18. limits (``phase_limits``), the configurations beyond phase 17 that the
    JAX package's kernels take: the three train kernels at head width 32
    (MiT-b0's four stages at 224 px) at B=8 and 88 against their plain
-   versions, then a b0 ``BackboneTrainer(use_fused=True)`` for 3 steps (8
-   launches of each train kernel per step, one batch's gradients against
-   the plain train kernels); the attention past 64 keys per head at b0 and
+   versions, then a b0 ``BackboneTrainer(use_fused=True)`` for 3 replayed
+   steps after its capture (8 launches of each train kernel in the eager
+   step and 8 more in the capture, none in a replay, one batch's gradients
+   against the plain train kernels); the attention past 64 keys per head at b0 and
    b3 stage shapes of 288 / 320 / 384 / 512-px frames (81 / 100 / 144 / 256
    keys): the block kernel at B=8 and 200, packed2 at B=8, the stage kernel
    at B=8 and 200, the train kernels at B=8 and 88, each against its plain
@@ -429,8 +431,9 @@ REFINER_LN_BIAS = ("layernorm.weight", "layernorm.bias", "fc.0.bias", "fc.2.bias
 # beyond those of phase 17. The train kernels at head width 32: MiT-b0's four
 # stages at 224 px (49 keys; (stage, C, heads, grid side, sr)), checked and
 # timed at CHECK_B and TRAIN_B; then a b0 BackboneTrainer(use_fused=True)
-# for LIMIT_TRAIN_STEPS steps of TRAIN_B synthetic wire frames, each step 8
-# launches of each train kernel (depth 2 x 4 stages).
+# for LIMIT_TRAIN_STEPS replayed steps of TRAIN_B synthetic wire frames after
+# its warm-up, which launches each train kernel 8 times (depth 2 x 4 stages)
+# eagerly and records it 8 times into the step's graphs.
 B0_TRAIN_STAGES = B0_STAGES + ((4, 256, 8, 7, 1),)
 LIMIT_TRAIN_STEPS, B0_TRAIN_LAUNCHES = 3, 8
 # The attention past mb.MAX_KV = 64 keys per head. Every stage of a frame of
@@ -1535,6 +1538,7 @@ def phase_train(workdir: str) -> dict:
     from surgical_tpu_torch.kernels import mit_block as mb
     from surgical_tpu_torch.models.mit_evp import MiTEVP
     from surgical_tpu_torch.train.backbone import BackboneTrainer, is_trainable
+    from surgical_tpu_torch.utils.trace import counters
 
     t0 = time.perf_counter()
     dev = torch.device("cuda")
@@ -1564,6 +1568,7 @@ def phase_train(workdir: str) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     mb.reset_launches()
+    graphs_before = counters()["train_graph"]
     epochs, step_ms = [], []
     for epoch in range(TRAIN_EPOCHS):
         idx = ClipSampler(1, clip_start_indices(1, [n_train])).indices(epoch=epoch, shuffle=True)
@@ -1572,13 +1577,16 @@ def phase_train(workdir: str) -> dict:
         epochs.append(tm)
         step_ms += trainer.step_ms
     torch.cuda.synchronize()
+    graphs = {k: v - graphs_before[k] for k, v in counters()["train_graph"].items()}
     launches = {"mit_block_train_forward": mb.block_train_forward.launches,
                 "mit_block_train_mlp_backward": mb.block_train_mlp_backward.launches,
                 "mit_block_train_attn_backward": mb.block_train_attn_backward.launches}
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     steps = TRAIN_EPOCHS * TRAIN_BATCHES
     blocks = sum(cfg.depths)
-    want = {k: blocks * steps for k in launches}
+    # the wrappers launch in an eager step and record into a capture; a
+    # replayed step runs the captured kernels without calling them
+    want = {k: blocks * (graphs["eager"] + graphs["captures"]) for k in launches}
     med = float(np.median(step_ms[1:]))  # the first step is the warm-up
     print("train: step ms " + ", ".join(f"{v:.2f}" for v in step_ms)
           + f"; median after warm-up {med:.3f} ms = {TRAIN_B / med * 1e3:.1f} frames/s; "
@@ -1586,10 +1594,12 @@ def phase_train(workdir: str) -> dict:
     for e, tm in enumerate(epochs):
         print(f"train: epoch {e}: loss {tm['train_loss']:.4f} acc {tm['train_acc']:.4f} "
               f"{tm['frames_per_s']:.1f} frames/s over the epoch (mid-epoch validation included)")
-    print(f"train: launches {launches} (expected {want}: {blocks} per kernel per step)")
-    if launches != want:
-        raise AssertionError("the training path did not launch every train kernel 28 times "
-                             "per step")
+    print(f"train: step graphs {graphs} over {steps} steps (expected 1 capture, every other "
+          f"step replayed); launches {launches} (expected {want}: {blocks} per kernel per eager "
+          "or captured step)")
+    if graphs != {"captures": 1, "replays": steps - 1, "eager": 1} or launches != want:
+        raise AssertionError("the training path was not captured once and replayed, or did not "
+                             "launch every train kernel 28 times per eager or captured step")
     if not all(np.isfinite(tm["train_loss"]) for tm in epochs):
         raise AssertionError("train loss is not finite")
 
@@ -1636,7 +1646,7 @@ def phase_train(workdir: str) -> dict:
 
     loss_rel, cos = _kernel_vs_plain_grads(trainer, caches["train"].frames(np.arange(TRAIN_B)),
                                            "train")
-    return {"launches": launches, "step_ms": med, "fps": TRAIN_B / med * 1e3,
+    return {"launches": launches, "graphs": graphs, "step_ms": med, "fps": TRAIN_B / med * 1e3,
             "peak_gib": peak_gib, "grad_cos": cos, "loss_rel": loss_rel, "caches": caches}
 
 
@@ -3599,14 +3609,17 @@ def phase_widths(workdir: str) -> dict:
 
 def _b0_trainer() -> dict:
     """A b0 ``BackboneTrainer(use_fused=True)`` (224 crop, SGD) for
-    LIMIT_TRAIN_STEPS steps of TRAIN_B synthetic wire frames: B0_TRAIN_LAUNCHES
-    launches of each train kernel per step, finite losses, step times; then
+    LIMIT_TRAIN_STEPS steps of TRAIN_B synthetic wire frames after a warm-up
+    step that runs eagerly and is captured (B0_TRAIN_LAUNCHES launches of
+    each train kernel in each), every later step replayed with no wrapper
+    call, finite losses, step times; then
     one batch's loss and trainable gradients against the plain train kernels
     (``_kernel_vs_plain_grads``, phase_train's bounds)."""
     from surgical_tpu_torch.core.config import BackboneConfig, HeadConfig, OptimConfig, TrainConfig
     from surgical_tpu_torch.kernels import mit_block as mb
     from surgical_tpu_torch.models.mit_evp import MiTEVP
     from surgical_tpu_torch.train.backbone import BackboneTrainer
+    from surgical_tpu_torch.utils.trace import counters
 
     rng = np.random.default_rng(SEED + 51)
     model = MiTEVP(BackboneConfig.preset("b0"), HeadConfig(), seed=SEED + 51, device="cuda")
@@ -3616,7 +3629,10 @@ def _b0_trainer() -> dict:
     trainer.init()
     data = _WireFrames((LIMIT_TRAIN_STEPS + 1) * TRAIN_B, rng)
     batch = lambda i: data.frames(np.arange(i * TRAIN_B, (i + 1) * TRAIN_B))
-    trainer.train_step(*batch(LIMIT_TRAIN_STEPS), step=LIMIT_TRAIN_STEPS)  # warm-up
+    mb.reset_launches()
+    graphs_before = counters()["train_graph"]
+    trainer.train_step(*batch(LIMIT_TRAIN_STEPS), step=LIMIT_TRAIN_STEPS)  # warm-up and capture
+    captured = {k: v for k, v in mb.launch_counts().items() if "train" in k}
     losses, step_ms, per_step = [], [], []
     for step in range(LIMIT_TRAIN_STEPS):
         torch.cuda.synchronize()
@@ -3626,18 +3642,22 @@ def _b0_trainer() -> dict:
         losses.append(out["loss"].item())
         step_ms.append((time.perf_counter() - t) * 1e3)
         per_step.append({k: v for k, v in mb.launch_counts().items() if "train" in k})
-    want = {k: B0_TRAIN_LAUNCHES for k in per_step[0]}
+    graphs = {k: v - graphs_before[k] for k, v in counters()["train_graph"].items()}
+    want = {k: 2 * B0_TRAIN_LAUNCHES for k in captured}  # the eager step's and the capture's
     print(f"limits b0 trainer: {LIMIT_TRAIN_STEPS} steps of {TRAIN_B} frames, losses "
           + ", ".join(f"{v:.4f}" for v in losses) + "; step ms "
-          + ", ".join(f"{v:.2f}" for v in step_ms) + f"; launches per step {per_step} "
-          f"(expected {want} each)")
-    if any(p != want for p in per_step):
-        raise AssertionError("the b0 training step did not launch every train kernel 8 times")
+          + ", ".join(f"{v:.2f}" for v in step_ms) + f"; launches in the warm-up {captured} "
+          f"(expected {want}), per replayed step {per_step} (expected none); step graphs "
+          f"{graphs}")
+    if (captured != want or any(any(p.values()) for p in per_step)
+            or graphs != {"captures": 1, "replays": LIMIT_TRAIN_STEPS, "eager": 1}):
+        raise AssertionError("the b0 training step did not capture every train kernel 8 times "
+                             "and replay them")
     if not np.isfinite(losses).all():
         raise AssertionError("the b0 train loss is not finite")
     loss_rel, cos = _kernel_vs_plain_grads(trainer, batch(0), "limits b0 trainer")
-    return {"losses": losses, "step_ms": step_ms, "launches_per_step": per_step[0],
-            "loss_rel": loss_rel, "grad_cos_min": min(cos.values())}
+    return {"losses": losses, "step_ms": step_ms, "launches_captured": captured,
+            "graphs": graphs, "loss_rel": loss_rel, "grad_cos_min": min(cos.values())}
 
 
 def _limits_export(workdir: str) -> dict:
@@ -3925,7 +3945,7 @@ def main() -> int:
             f"ms_b{TRAIN_B}": summed(rows_main, "ms"),
             f"bound_ms_b{TRAIN_B}": summed(rows_main, "bound_ms"),
             f"max_abs_err_b{TRAIN_B}": max(r["max_abs_err"] for r in rows_main),
-            "launches_b0_trainer": lim["trainer"]["launches_per_step"][name] * LIMIT_TRAIN_STEPS,
+            "launches_b0_trainer": lim["trainer"]["launches_captured"][name],
             "b0": limits_row(lim["train_hd32"][CHECK_B][key], lim["train_hd32"][TRAIN_B][key],
                              TRAIN_B),
             "past_64_keys": limits_row(lim["train_kv"][CHECK_B][key],

@@ -14,6 +14,8 @@ PyTorch, any ``BackboneConfig``); with ``use_fused=True`` the frozen MiT
 blocks on the fused train kernels in both directions
 (``models/mit_train.py``), which requires a frozen trunk. Evaluation runs
 the flax graph in eval mode for both, as JAX's ``_eval_step_impl`` does.
+On a card ``train_step`` replays the step after its input stage as CUDA
+graphs (``train/train_graph.py``).
 """
 
 from __future__ import annotations
@@ -28,9 +30,10 @@ from surgical_tpu_torch.core import rng as rnglib
 from surgical_tpu_torch.core.config import TrainConfig
 from surgical_tpu_torch.data.transforms import (AugConfig, eval_preprocess_clip,
                                                 train_preprocess_batch)
-from surgical_tpu_torch.models.mit_train import fused_train_forward, write_bn_stats
+from surgical_tpu_torch.models.mit_train import draw_masks, fused_train_forward, write_bn_stats
 from surgical_tpu_torch.train.losses import backbone_loss
 from surgical_tpu_torch.train.optim import build_optimizer
+from surgical_tpu_torch.train.train_graph import TrainGraph, copy_leaves
 from surgical_tpu_torch.utils.trace import span
 
 # Parameter-name parts that stay trainable (train_evp.py:379-382).
@@ -94,6 +97,7 @@ class BackboneTrainer:
         self.device = next(model.parameters()).device
         self.optimizer = None
         self.step_ms: list[float] = []
+        self.graph = TrainGraph(self)
 
     def init(self) -> torch.optim.Optimizer:
         """Freeze the trunk and build the optimizer over the trainable
@@ -118,22 +122,35 @@ class BackboneTrainer:
         return rnglib.generator(self.cfg.seed, epoch, step, purpose=purpose, device=self.device)
 
     # -- steps ----------------------------------------------------------------
-    def loss_and_grad(self, img_u8, seg_u8, flow_f16, labels, ant, epoch: int = 0,
-                      step: int = 0, aug_params=None, masks=None, bn_group=None):
-        """Forward and backward on a wire-format batch, leaving the
-        gradients in the trainable parameters' ``.grad``; returns ({loss, ce,
-        reg, correct} as device tensors, the new BatchNorm statistics).
-        ``aug_params`` / ``masks`` replace the draws of (epoch, step)'s
-        generators. ``bn_group``: a process group whose ranks hold the other
-        shards of the batch, over which BatchNorm takes its statistics
-        (``parallel/dryrun.py::data_parallel_step``)."""
+    def _input(self, img_u8, seg_u8, flow_f16, labels, ant, epoch: int = 0, step: int = 0,
+               aug_params=None, masks=None, draw: bool = False, into=None) -> tuple:
+        """The input stage: the wire batch's copies to the device, its
+        dequantization and augmentation, the targets; with ``draw`` the
+        DropPath and dropout masks when none are given, from the generator
+        and in the order the forward would draw them. ``into``: static
+        buffers of the batch's tree, which the batch is copied into and
+        which are then returned. (img, seg, flow, labels, ant, masks)."""
         with span("train.input"):
             img, seg, flow = self._dequant(*map(self._to_device, (img_u8, seg_u8, flow_f16)))
             img, seg, flow = train_preprocess_batch(
                 img, seg, flow, self._generator(epoch, step, "augment"), self.aug_cfg, aug_params)
             labels, ant = self._to_device(labels).long(), self._to_device(ant).float()
+            if draw and masks is None:
+                masks = draw_masks(self.model.cfg, self.model.head_cfg, img.shape[0],
+                                   self._generator(epoch, step, "droppath"))
+            batch = (img, seg, flow, labels, ant, masks)
+            if into is not None:
+                copy_leaves(into, batch)
+                batch = into
+        return batch
+
+    def _forward(self, img, seg, flow, labels, ant, masks, epoch: int = 0, step: int = 0,
+                 bn_group=None):
+        """The graph's forward in train mode and the loss: (loss, {loss, ce,
+        reg, correct}, the new BatchNorm statistics). Without ``masks`` they
+        are drawn from (epoch, step)'s generator."""
         with span("train.forward"):
-            gen = self._generator(epoch, step, "droppath")
+            gen = None if masks is not None else self._generator(epoch, step, "droppath")
             if self.use_fused:
                 y, y_ant, stats = fused_train_forward(self.model, img, seg, flow, generator=gen,
                                                       masks=masks, dtype=self.dtype,
@@ -144,23 +161,50 @@ class BackboneTrainer:
                                                              dtype=self.dtype, bn_group=bn_group)
             y = y.float()
             loss, ce, reg = backbone_loss(y, y_ant.float(), labels, ant)
+            correct = (y.argmax(-1) == labels).sum()
+        return loss, {"loss": loss.detach(), "ce": ce.detach(), "reg": reg.detach(),
+                      "correct": correct}, stats
+
+    def _backward(self, loss) -> None:
         with span("train.backward"):
             self.model.zero_grad(set_to_none=True)
             loss.backward()
-        correct = (y.argmax(-1) == labels).sum()
-        return {"loss": loss.detach(), "ce": ce.detach(), "reg": reg.detach(),
-                "correct": correct}, stats
 
-    def train_step(self, img_u8, seg_u8, flow_f16, labels, ant, epoch: int = 0, step: int = 0,
-                   aug_params=None, masks=None) -> dict:
-        """One optimizer step (``loss_and_grad``, the update, the BatchNorm
-        statistics written); returns the step's loss, ce, reg and correct."""
-        out, stats = self.loss_and_grad(img_u8, seg_u8, flow_f16, labels, ant, epoch, step,
-                                        aug_params, masks)
+    def _update(self, stats) -> None:
         with span("train.update"):
             self.optimizer.step()
             write_bn_stats(self.model, stats)
+
+    def loss_and_grad(self, img_u8, seg_u8, flow_f16, labels, ant, epoch: int = 0,
+                      step: int = 0, aug_params=None, masks=None, bn_group=None):
+        """Forward and backward on a wire-format batch, eagerly, leaving the
+        gradients in the trainable parameters' ``.grad``; returns ({loss, ce,
+        reg, correct} as device tensors, the new BatchNorm statistics).
+        ``aug_params`` / ``masks`` replace the draws of (epoch, step)'s
+        generators. ``bn_group``: a process group whose ranks hold the other
+        shards of the batch, over which BatchNorm takes its statistics
+        (``parallel/dryrun.py::data_parallel_step``)."""
+        batch = self._input(img_u8, seg_u8, flow_f16, labels, ant, epoch, step, aug_params,
+                            masks)
+        loss, out, stats = self._forward(*batch, epoch, step, bn_group)
+        self._backward(loss)
+        return out, stats
+
+    def eager_step(self, img_u8, seg_u8, flow_f16, labels, ant, epoch: int = 0, step: int = 0,
+                   aug_params=None, masks=None) -> dict:
+        """One optimizer step issued op by op: ``loss_and_grad``, the
+        update, the BatchNorm statistics written."""
+        out, stats = self.loss_and_grad(img_u8, seg_u8, flow_f16, labels, ant, epoch, step,
+                                        aug_params, masks)
+        self._update(stats)
         return out
+
+    def train_step(self, img_u8, seg_u8, flow_f16, labels, ant, epoch: int = 0, step: int = 0,
+                   aug_params=None, masks=None) -> dict:
+        """One optimizer step; returns the step's loss, ce, reg and correct.
+        On a card the step after the input stage is replayed as CUDA graphs
+        (``train/train_graph.py``), else it is ``eager_step``."""
+        return self.graph(img_u8, seg_u8, flow_f16, labels, ant, epoch, step, aug_params, masks)
 
     @torch.no_grad()
     def eval_step(self, img_u8, seg_u8, flow_f16):

@@ -38,7 +38,8 @@ and pauses per generation (counted whether or not a profiler runs), the
 kernels' launch counts, the streaming session's feature-leg graphs
 (``serving/feature_graph.py``: captures made, frames replayed, frames run
 eagerly) and temporal-leg graphs (``serving/temporal_graph.py``: the
-same three), RAFT's batches, pairs, iterations and largest batch
+same three), the backbone trainer's step graphs (``train/train_graph.py``:
+captures, replayed steps, eager steps), RAFT's batches, pairs, iterations and largest batch
 (``models/raft.py``), and the CUDA caching allocator's retries, device
 allocations and frees.
 """
@@ -108,13 +109,15 @@ def counters() -> dict:
     """{"gc": per generation {collections, pause_ms, max_pause_ms},
     "launches": each kernel wrapper's launch count, "feature_graph":
     {captures, replays, eager} of the session's feature leg,
-    "temporal_graph": the same of its temporal leg, "raft":
+    "temporal_graph": the same of its temporal leg, "train_graph": the same
+    of the backbone trainer's step, "raft":
     {batches, pairs, iterations, largest_batch} of RAFT's forward, and with
     a card "cuda_alloc": {num_alloc_retries, num_device_alloc,
     num_device_free}}."""
     from surgical_tpu_torch.kernels import mit_block, selective_scan
     from surgical_tpu_torch.models import raft
     from surgical_tpu_torch.serving import feature_graph, temporal_graph
+    from surgical_tpu_torch.train import train_graph
 
     out = {"gc": GC.snapshot(),
            "launches": {**mit_block.launch_counts(),
@@ -122,7 +125,8 @@ def counters() -> dict:
                         "selective_scan_backward":
                             selective_scan.selective_scan_backward.launches},
            "feature_graph": dict(feature_graph.COUNTS),
-           "temporal_graph": dict(temporal_graph.COUNTS), "raft": dict(raft.COUNTS)}
+           "temporal_graph": dict(temporal_graph.COUNTS),
+           "train_graph": dict(train_graph.COUNTS), "raft": dict(raft.COUNTS)}
     if torch.cuda.is_available():
         stats = torch.cuda.memory_stats_as_nested_dict()  # memory_stats() also flattens and sorts
         out["cuda_alloc"] = {k: stats.get(k, 0) for k in

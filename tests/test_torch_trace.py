@@ -224,10 +224,11 @@ def test_gc_counted_and_spanned():
 
 def test_counters_snapshot():
     c = trace.counters()
-    assert set(c) == {"gc", "launches", "feature_graph", "temporal_graph", "raft"}  # no card
+    assert set(c) == {"gc", "launches", "feature_graph", "temporal_graph", "train_graph",
+                      "raft"}  # no card
     assert set(c["gc"]) == {"gen0", "gen1", "gen2"}
-    assert set(c["feature_graph"]) == set(c["temporal_graph"]) == {"captures", "replays",
-                                                                   "eager"}
+    assert (set(c["feature_graph"]) == set(c["temporal_graph"]) == set(c["train_graph"])
+            == {"captures", "replays", "eager"})
     before = c["raft"]
     run_flow()
     after = trace.counters()["raft"]
