@@ -15,6 +15,7 @@ work-dir layout.
     python -m surgical_tpu_torch.cli train-refiner --work work/ --model mamba
     python -m surgical_tpu_torch.cli predict --work work/ --split test --model mamba
     python -m surgical_tpu_torch.cli predict --work work/ --split test --online
+    python -m surgical_tpu_torch.cli train-temporal --work work/ --model jamba
     python -m surgical_tpu_torch.cli evaluate --gt data/cholec80/gt-phase --pred work/output/Test
     python -m surgical_tpu_torch.cli reference-parity --root data/cholec80 --work work/ \
         --evp evp.pth --temporal tecno.pth --refiner trans.pth --online
@@ -37,7 +38,9 @@ statistics, and the optimizer state. ``train-temporal`` and ``train-refiner`` tr
 model (MS-TCN or Mamba, the Mamba's scan on its forward and backward
 kernels) and then the refiner on the frozen temporal model, one step per
 epoch with the JAX manifest's metrics and the optimizer state (and the
-plateau controller's) for ``--resume``. ``extract-features`` runs the backbone
+plateau controller's) for ``--resume``; ``--model jamba`` is AI21-Jamba2-3B's
+hybrid Mamba / attention stack (``models/jamba.py``) at its published widths.
+``extract-features`` runs the backbone
 of a reference ``.pth`` or of ``ckpt/backbone`` over every split: the serving
 graph on the kernels (``models/mit_fused.py``) for a preset size, the flax
 graph for ``--variant tiny`` on the card, the serving graph's plain versions
@@ -76,6 +79,7 @@ import argparse
 import json
 import os
 import sys
+from typing import NamedTuple
 
 import numpy as np
 
@@ -122,25 +126,52 @@ def _split_video_ids(work: str, split: str, num_videos: int) -> list[int]:
     return list(range(41, 41 + num_videos))
 
 
-def _temporal_model(kind: str, device, f_dim: int = 2048, seed: int = 0):
-    """The temporal model at the JAX CLI's default configuration."""
-    from surgical_tpu_torch.core.config import MambaConfig, MSTCNConfig
-    from surgical_tpu_torch.models.mamba import CausalMambaModel
-    from surgical_tpu_torch.models.mstcn import MultiStageTCN
+class TemporalKind(NamedTuple):
+    """A temporal model's classes, as "module:Name" under surgical_tpu_torch."""
 
-    if kind == "mamba":
-        return CausalMambaModel(MambaConfig(f_dim=f_dim), seed=seed, device=device)
-    return MultiStageTCN(MSTCNConfig(f_dim=f_dim), seed=seed, device=device)
+    model: str
+    config: str
+    online: str  # its streaming step (predict --online)
+
+
+# The temporal models: --model's choices.
+TEMPORAL_KINDS = {
+    "mstcn": TemporalKind("models.mstcn:MultiStageTCN", "core.config:MSTCNConfig",
+                          "serving.online:OnlineMSTCN"),
+    "mamba": TemporalKind("models.mamba:CausalMambaModel", "core.config:MambaConfig",
+                          "serving.online:OnlineMamba"),
+    "jamba": TemporalKind("models.jamba:JambaTemporalModel", "core.config:JambaConfig",
+                          "serving.online:OnlineJamba"),
+}
+
+
+def _temporal_part(kind: str, part: str):
+    """The class ``part`` ("model", "config" or "online") of ``kind``, imported."""
+    import importlib
+
+    mod, _, name = getattr(TEMPORAL_KINDS[kind], part).partition(":")
+    return getattr(importlib.import_module("surgical_tpu_torch." + mod), name)
+
+
+def _temporal_model(kind: str, device, f_dim: int = 2048, seed: int = 0):
+    """The temporal model at its configuration's defaults (the JAX CLI's for
+    MS-TCN and Mamba, AI21-Jamba2-3B's for Jamba)."""
+    cfg = _temporal_part(kind, "config")(f_dim=f_dim)
+    return _temporal_part(kind, "model")(cfg, seed=seed, device=device)
+
+
+def _best_step(store) -> int:
+    step = store.best_step("val_acc")
+    if step is None:
+        raise FileNotFoundError(f"no checkpoint with a val_acc metric in {store.directory}")
+    return step
 
 
 def _restore_best(directory: str, model, device):
     from surgical_tpu_torch.core.checkpoint import CheckpointStore
 
     store = CheckpointStore(directory)
-    step = store.best_step("val_acc")
-    if step is None:
-        raise FileNotFoundError(f"no checkpoint with a val_acc metric in {directory}")
-    return store.restore(step, model, device)
+    return store.restore(_best_step(store), model, device)
 
 
 def _clip_datasets(work: str, with_flow: bool) -> dict:
@@ -508,10 +539,7 @@ def cmd_train_refiner(args) -> int:
     train_ds, val_ds = _load_split(args.work, "train"), _load_split(args.work, "val")
     f_dim = train_ds.features.dim
     tstore = CheckpointStore(_work_paths(args.work)["ckpt_temporal"])
-    step = args.temporal_epoch if args.temporal_epoch >= 0 else tstore.best_step("val_acc")
-    if step is None:
-        raise FileNotFoundError(
-            f"no temporal checkpoint with a val_acc metric in {tstore.directory}")
+    step = args.temporal_epoch if args.temporal_epoch >= 0 else _best_step(tstore)
     temporal = tstore.restore(step, _temporal_model(args.model, device, f_dim), device)
     print(f"temporal model: epoch {step}")
     lr = args.lr if args.lr is not None else 5e-4
@@ -556,10 +584,9 @@ def cmd_predict(args) -> int:
     predict_fn = None
     if args.online:
         # the streaming pipeline (serving/online.py), one frame at a time
-        from surgical_tpu_torch.serving.online import (OnlineMamba, OnlineMSTCN,
-                                                       OnlineRefiner, run_pipeline)
+        from surgical_tpu_torch.serving.online import OnlineRefiner, run_pipeline
 
-        t_on = (OnlineMamba if args.model == "mamba" else OnlineMSTCN)(temporal)
+        t_on = _temporal_part(args.model, "online")(temporal)
         r_on = OnlineRefiner(refiner)
         predict_fn = lambda lfb: run_pipeline(t_on, r_on, lfb)
 
@@ -1088,7 +1115,7 @@ def main(argv=None) -> int:
 
     sp = sub.add_parser("train-temporal")
     sp.add_argument("--work", required=True)
-    sp.add_argument("--model", choices=["mstcn", "mamba"], default="mstcn")
+    sp.add_argument("--model", choices=sorted(TEMPORAL_KINDS), default="mstcn")
     sp.add_argument("--epochs", type=int, default=25)
     sp.add_argument("--lr", type=float, default=None,
                     help="override the optimizer lr (default: OptimConfig)")
@@ -1100,7 +1127,7 @@ def main(argv=None) -> int:
 
     sp = sub.add_parser("train-refiner")
     sp.add_argument("--work", required=True)
-    sp.add_argument("--model", choices=["mstcn", "mamba"], default="mstcn")
+    sp.add_argument("--model", choices=sorted(TEMPORAL_KINDS), default="mstcn")
     sp.add_argument("--epochs", type=int, default=10)
     sp.add_argument("--lr", type=float, default=None,
                     help="override the optimizer lr (default 5e-4, tecno_trans.py:198-205)")
@@ -1116,7 +1143,7 @@ def main(argv=None) -> int:
     sp = sub.add_parser("predict")
     sp.add_argument("--work", required=True)
     sp.add_argument("--split", choices=["val", "test"], default="test")
-    sp.add_argument("--model", choices=["mstcn", "mamba"], default="mstcn")
+    sp.add_argument("--model", choices=sorted(TEMPORAL_KINDS), default="mstcn")
     sp.add_argument("--online", action="store_true",
                     help="run the streaming pipeline (serving/online.py) frame by "
                          "frame instead of the offline composition")

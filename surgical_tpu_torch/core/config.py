@@ -86,6 +86,55 @@ class MambaConfig:
 
 
 @dataclass(frozen=True)
+class JambaConfig:
+    """Hybrid Mamba-1 / attention temporal model in the field names of HF
+    ``JambaConfig``; the defaults are AI21-Jamba2-3B's published
+    ``config.json`` (28 layers, hidden 2560, attention on layers 7 and 21,
+    20 query heads and 1 key/value head of width 128, SwiGLU 8192, Mamba-1
+    d_state 16, expand 2, dt_rank 160, one expert: no MoE). The token
+    embedding is a projection of the ``f_dim`` features and the LM head the
+    ``out_features`` outputs. ``dtype`` is the parameters' and activations'
+    (the published weights are bf16); "float32" for the CPU tests."""
+
+    hidden_size: int = 2560
+    num_hidden_layers: int = 28
+    intermediate_size: int = 8192
+    num_attention_heads: int = 20
+    num_key_value_heads: int = 1
+    attn_layer_offset: int = 7
+    attn_layer_period: int = 14
+    mamba_d_state: int = 16
+    mamba_d_conv: int = 4
+    mamba_expand: int = 2
+    mamba_dt_rank: int = 160
+    rms_norm_eps: float = 1e-6
+    f_dim: int = 2048
+    out_features: int = 14
+    dtype: str = "bfloat16"
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_attention_heads
+
+    @property
+    def layer_types(self) -> Tuple[str, ...]:
+        """HF ``JambaConfig.layers_block_type``: attention where
+        ``i % attn_layer_period == attn_layer_offset``, else Mamba."""
+        return tuple("attention" if i % self.attn_layer_period == self.attn_layer_offset
+                     else "mamba" for i in range(self.num_hidden_layers))
+
+    def mamba(self) -> MambaConfig:
+        """The Mamba mixers' block configuration. The published
+        ``mamba_conv_bias`` (true) and ``mamba_proj_bias`` (false) are
+        ``MambaBlock``'s fixed layout: a bias on the conv, none on the in/out
+        projections."""
+        return MambaConfig(layers=0, d_model=self.hidden_size, f_dim=self.f_dim,
+                           out_features=self.out_features, d_state=self.mamba_d_state,
+                           d_conv=self.mamba_d_conv, expand=self.mamba_expand, dropout=0.0,
+                           dt_rank=self.mamba_dt_rank)
+
+
+@dataclass(frozen=True)
 class RefinerConfig:
     """Trans-SVNet-style refinement transformer
     (reference adapter_transformer.py:290-352; missing transformer2_3_1

@@ -12,9 +12,19 @@ The block: in_proj -> [x, z]; depthwise causal conv over time (d_conv - 1
 frames of left zero padding) + SiLU on x; x_proj -> dt, B, C;
 dt = softplus(dt_proj(dt)); the selective scan in fp32 with A = -exp(A_log)
 (``kernels/selective_scan.py``, the Hopper kernels on CUDA, forward and,
-under grad, backward), cast back to the input dtype; gate by SiLU(z);
-out_proj. The final LayerNorm uses eps 1e-6 (flax's default), not torch's
-1e-5. Every step is causal, so a video runs at its true length.
+under grad, backward); gate by SiLU(z), cast back to the input dtype;
+out_proj. In a model of lower precision (Jamba's bf16) the conv and its
+SiLU, the softplus and the gate run in fp32, as ``mamba_ssm``'s kernels
+(``causal_conv1d``, ``selective_scan`` with ``delta_softplus`` and ``z``)
+compute them; in an fp32 model those casts are no-ops. The final LayerNorm
+uses eps 1e-6 (flax's default), not torch's 1e-5. Every step is causal, so
+a video runs at its true length.
+
+``MambaBlock(cfg, ssm_norm_eps=eps)`` is Jamba's mixer (HF
+``modeling_jamba.JambaMambaMixer``): RMSNorms on dt, B and C after x_proj
+(``dt_layernorm``, ``b_layernorm``, ``c_layernorm``), before dt_proj, the
+softplus and the scan. ``CausalMambaModel``'s blocks have none: their keys
+and numbers are those of the block without them.
 """
 
 from __future__ import annotations
@@ -49,14 +59,32 @@ def causal_depthwise_conv(x, weight, bias, left=None):
     return out + bias
 
 
+class RMSNorm(nn.Module):
+    """Jamba's RMSNorm (HF ``JambaRMSNorm``): x / sqrt(mean(x^2) + eps) *
+    weight, computed in fp32 and rounded once to the weight's dtype, as
+    ``mamba_ssm``'s fused add-norm does (HF rounds the normalised input,
+    then scales in that dtype). The input may be the fp32 residual."""
+
+    def __init__(self, dim: int, eps: float):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(dim))
+        self.eps = eps
+
+    def forward(self, x):
+        x32 = x.float()
+        y = x32 * torch.rsqrt(x32.pow(2).mean(-1, keepdim=True) + self.eps) * self.weight.float()
+        return y.to(self.weight.dtype)
+
+
 class MambaBlock(nn.Module):
     """u [B, T, d_model] -> [B, T, d_model] (the residual add is the
-    caller's)."""
+    caller's). ``ssm_norm_eps``: Jamba's RMSNorms on dt, B and C, at that
+    eps (None: none)."""
 
     # serving/online.py::OnlineMamba steps this block's math one frame at a
     # time; tests/test_torch_serving.py holds the two together.
 
-    def __init__(self, cfg: MambaConfig):
+    def __init__(self, cfg: MambaConfig, ssm_norm_eps: float | None = None):
         super().__init__()
         self.cfg = cfg
         d_in, n = cfg.d_inner, cfg.d_state
@@ -68,24 +96,32 @@ class MambaBlock(nn.Module):
                                             ).repeat(d_in, 1))
         self.D = nn.Parameter(torch.ones(d_in))
         self.out_proj = nn.Linear(d_in, cfg.d_model, bias=False)
+        self.ssm_norms = ssm_norm_eps is not None
+        if self.ssm_norms:
+            self.dt_layernorm = RMSNorm(cfg.resolved_dt_rank, ssm_norm_eps)
+            self.b_layernorm = RMSNorm(n, ssm_norm_eps)
+            self.c_layernorm = RMSNorm(n, ssm_norm_eps)
 
     def ssm_inputs(self, x):
-        """Post-conv activations x [..., d_in] -> (dt [..., d_in], B, C
-        [..., d_state]), dt through softplus."""
+        """Post-conv activations x [..., d_in] -> (dt [..., d_in] in fp32, B,
+        C [..., d_state]), dt through softplus."""
         cfg = self.cfg
         dt, B, C = self.x_proj(x).split(
             [cfg.resolved_dt_rank, cfg.d_state, cfg.d_state], dim=-1)
-        return F.softplus(self.dt_proj(dt)), B, C
+        if self.ssm_norms:
+            dt, B, C = self.dt_layernorm(dt), self.b_layernorm(B), self.c_layernorm(C)
+        return F.softplus(self.dt_proj(dt).float()), B, C
 
     def forward(self, u):
         x, z = self.in_proj(u).chunk(2, dim=-1)
-        x = F.silu(causal_depthwise_conv(x, self.conv1d.weight, self.conv1d.bias))
-        dt, B, C = self.ssm_inputs(x)
+        x = F.silu(causal_depthwise_conv(x.float(), self.conv1d.weight.float(),
+                                         self.conv1d.bias.float()))
+        dt, B, C = self.ssm_inputs(x.to(u.dtype))
         A = -torch.exp(self.A_log.float())
         f32 = lambda t: t.float().contiguous()
         y = scan_kernel.selective_scan(f32(x), f32(dt), A.contiguous(), f32(B), f32(C),
-                                       f32(self.D)).to(u.dtype)
-        return self.out_proj(y * F.silu(z))
+                                       f32(self.D))
+        return self.out_proj((y * F.silu(z.float())).to(u.dtype))
 
 
 def _dt_bias_(bias: torch.Tensor, g: torch.Generator, dt_min=1e-3, dt_max=0.1) -> None:

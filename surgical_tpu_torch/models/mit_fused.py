@@ -55,6 +55,13 @@ _PACKED2_MIN_N_FOR_CHUNKING = 2048
 _FUSE_BT = {4: 8}
 
 
+def routes() -> tuple:
+    """The route settings above as they stand: part of the key of graphs
+    captured over ``fused_forward`` (``serving/feature_graph.py``)."""
+    return (_ROUTE_PACKED2, _PACKED2_ROW_CHUNKS, _PACKED2_MIN_N_FOR_CHUNKING,
+            tuple(sorted(_FUSE_BT.items())))
+
+
 def _check_supported(cfg) -> None:
     """Refuse what the fused graphs' kernels and prompt path do not compute:
     another prompt input type or adaptor, a tuning subset, no qkv bias."""

@@ -6,7 +6,7 @@ At B = 1 the serving graph (``train/extract.py::WireForward``) issues about
 PyTorch glue of ``models/mit_fused.py::fused_forward``, and the card waits
 on the host. ``FeatureGraph`` captures the glue once per key (the frame's
 shapes and dtypes, flow or not, ``state_key`` of the backbone, whose flow
-encoder's BatchNorm statistics are buffers) and replays it
+encoder's BatchNorm statistics are buffers, and ``mit_fused.routes()``) and replays it
 (``serving/graphs.py``):
 
 - the leg is cut into segments at every call of a MiT kernel entry
@@ -155,7 +155,7 @@ class FeatureGraph(GraphedLeg):
                                       for a in (img_u8, seg_u8, flow_f16)))
 
     def key(self, frame) -> tuple:
-        return layout(*frame), state_key(self.model)
+        return layout(*frame), state_key(self.model), mit_fused.routes()
 
     def eager(self, frame):
         return self.forward(*(None if a is None else a.to(self.device) for a in frame))

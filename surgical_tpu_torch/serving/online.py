@@ -13,6 +13,13 @@ models admit a constant-state streaming form:
   recurrence of ``kernels/selective_scan.py`` in plain tensor math:
       h_t = exp(dt_t * A) * h_{t-1} + (dt_t * x_t) * B_t,
       y_t = h_t @ C_t + D * x_t.
+- ``OnlineJamba``: two kinds of state side by side: each Mamba layer's
+  conv window and fp32 SSM state, stepped as ``OnlineMamba`` steps a block
+  (its dt, B and C norms included), and each attention layer's key and
+  value cache, preallocated at a fixed capacity and read through a mask of
+  the frames held so far, with the stream's length on the device: every
+  shape is static, so the session's temporal graph captures the step like
+  any other.
 - ``OnlineRefiner``: one ring buffer of the last ``len_q`` temporal logits,
   run through ``RefinementTransformer.refine_window`` per frame.
 
@@ -58,6 +65,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from surgical_tpu_torch.models import jamba
 from surgical_tpu_torch.serving.feature_graph import FeatureGraph
 from surgical_tpu_torch.serving.temporal_graph import TemporalGraph
 from surgical_tpu_torch.train.extract import WireForward, use_fused_default
@@ -158,15 +166,15 @@ class OnlineMamba:
         x, z = block.in_proj(u).chunk(2, dim=-1)
         window = torch.cat([conv_buf, x[None]])                 # [d_conv, d_in]
         k = block.conv1d.weight[:, 0, :].t()                    # [d_conv, d_in]
-        xc = F.silu((window * k).sum(0) + block.conv1d.bias)
-        dt, B, C = block.ssm_inputs(xc)
+        # the conv, softplus and gate in fp32, as MambaBlock.forward
+        xc = F.silu((window.float() * k.float()).sum(0) + block.conv1d.bias.float())
+        dt, B, C = block.ssm_inputs(xc.to(u.dtype))
         A = -torch.exp(block.A_log.float())                     # [d_in, N]
-        xc32, dt32 = xc.float(), dt.float()
-        a = torch.exp(dt32[:, None] * A)
-        b = (dt32 * xc32)[:, None] * B.float()[None, :]
+        a = torch.exp(dt[:, None] * A)
+        b = (dt * xc)[:, None] * B.float()[None, :]
         h = a * h + b
-        y = h @ C.float() + block.D.float() * xc32               # [d_in]
-        y = y.to(u.dtype) * F.silu(z)
+        y = h @ C.float() + block.D.float() * xc                 # [d_in]
+        y = (y * F.silu(z.float())).to(u.dtype)
         return (window[1:], h), block.out_proj(y)
 
     @torch.no_grad()
@@ -185,6 +193,97 @@ class OnlineMamba:
         """feats [T, f_dim] -> [T, out]."""
         state, outs = self.init_state(), []
         for feat in feats:
+            state, logits = self.step(state, feat)
+            outs.append(logits)
+        return torch.stack(outs)
+
+
+# ---------------------------------------------------------------- Jamba
+
+
+class OnlineJamba:
+    """Streaming ``JambaTemporalModel``. State: (per layer, in order, a Mamba
+    layer's (conv window [d_conv - 1, d_inner], SSM state [d_inner, d_state]
+    in fp32) or an attention layer's (keys, values [capacity, kv_heads *
+    head_dim])), and the frames held so far, an int64 scalar on the device.
+    A step writes the frame's key and value into their caches in place, at
+    the row of that count, and attends over the rows before and at it: rows
+    at and past a state's count are written before they are read, so an
+    earlier state stays valid to step from. ``capacity`` (frames; above
+    Cholec80's longest video) fixes the caches' rows; the owner of the frame
+    count refuses a frame past it (``admit``: ``run`` and
+    ``OnlineSession.advance``)."""
+
+    def __init__(self, model, capacity: int = 8192):
+        self.model = model
+        self.cfg = model.cfg
+        self.capacity = capacity
+        p = next(model.parameters())
+        self._rows = torch.arange(capacity, device=p.device)
+
+    def init_state(self):
+        cfg, p = self.cfg, next(self.model.parameters())
+        m = cfg.mamba()
+        zeros = lambda *shape, dtype=p.dtype: torch.zeros(shape, dtype=dtype, device=p.device)
+        kv = cfg.num_key_value_heads * cfg.head_dim
+        layers = [(zeros(self.capacity, kv), zeros(self.capacity, kv)) if kind == "attention"
+                  else (zeros(m.d_conv - 1, m.d_inner),
+                        zeros(m.d_inner, m.d_state, dtype=torch.float32))
+                  for kind in cfg.layer_types]
+        return layers, torch.zeros((), dtype=torch.int64, device=p.device)
+
+    def admit(self, frames: int) -> None:
+        """A stream reaching ``frames`` frames: refused past the capacity;
+        counted in ``counters()["jamba"]``."""
+        if frames > self.capacity:
+            raise ValueError(
+                f"frame {frames} of a stream is past OnlineJamba's K/V cache capacity of "
+                f"{self.capacity} frames: reset the stream or build OnlineJamba with a "
+                "larger capacity")
+        counts = jamba.COUNTS
+        counts["steps"] += 1
+        counts["kv_capacity"] = self.capacity
+        counts["kv_high_water"] = max(counts["kv_high_water"], frames)
+
+    def _attention_step(self, attn, cache, pos, x):
+        """One frame x [hidden] through causal MQA over the cached frames and
+        itself: (cache', [hidden])."""
+        keys, values = cache
+        q = attn.q_proj(x).view(attn.kv_heads, -1, attn.head_dim)   # [kv, group, hd]
+        at = pos.view(1)
+        keys.index_copy_(0, at, attn.k_proj(x)[None])
+        values.index_copy_(0, at, attn.v_proj(x)[None])
+        k = keys.view(-1, attn.kv_heads, attn.head_dim).transpose(0, 1)  # [kv, cap, hd]
+        v = values.view(-1, attn.kv_heads, attn.head_dim).transpose(0, 1)
+        s = (q @ k.transpose(1, 2)) * attn.head_dim ** -0.5           # [kv, group, cap]
+        s = s.float().masked_fill(self._rows > pos, float("-inf"))
+        p = torch.softmax(s, dim=-1).to(x.dtype)
+        return cache, attn.o_proj((p @ v).reshape(-1))
+
+    @torch.no_grad()
+    def step(self, state, feat):
+        """feat [f_dim] -> (state', logits [out_features] in fp32)."""
+        m = self.model
+        layers, pos = state
+        h = m.in_proj(feat.to(m.dtype)).float()  # the residual stream in fp32
+        new = []
+        for layer, st in zip(m.layers, layers):
+            with span("jamba." + layer.kind):
+                x = layer.input_layernorm(h)
+                if layer.kind == "attention":
+                    st, y = self._attention_step(layer.self_attn, st, pos, x)
+                else:
+                    st, y = OnlineMamba._block_step(layer.mamba, st, x)
+                h = h + y
+            h = layer.mlp(h)
+            new.append(st)
+        return (new, pos + 1), m.head(m.final_layernorm(h)).float()
+
+    def run(self, feats):
+        """feats [T, f_dim] -> [T, out]."""
+        state, outs = self.init_state(), []
+        for t, feat in enumerate(feats):
+            self.admit(t + 1)
             state, logits = self.step(state, feat)
             outs.append(logits)
         return torch.stack(outs)
@@ -232,7 +331,8 @@ class OnlineSession:
     features (the extraction contract, one B = 1 micro-batch per frame)
     chained into a streaming temporal model and, when given, the refiner.
 
-    ``temporal`` is an ``OnlineMSTCN`` or ``OnlineMamba``; frames follow
+    ``temporal`` is an ``OnlineMSTCN``, ``OnlineMamba`` or ``OnlineJamba``
+    (whose ``admit`` refuses a frame past its cache's capacity); frames follow
     ``train/extract.py``'s wire format (uint8 image and segmap, float16
     flow). ``use_fused`` picks the backbone's graph as ``make_raw_feature_fn``
     does (None: the kernels for a preset-size backbone on the card). The
@@ -303,6 +403,9 @@ class OnlineSession:
         the steps replay as CUDA graphs that update ``state`` and
         ``refiner_state`` in place, and the logits are a fresh tensor."""
         self.frame_idx += 1
+        admit = getattr(self.temporal, "admit", None)
+        if admit is not None:
+            admit(self.frame_idx)
         self.state, self.refiner_state, out = self._temporal_leg(
             self.state, self.refiner_state, feat)
         return out

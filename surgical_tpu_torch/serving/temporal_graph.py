@@ -1,7 +1,8 @@
 """The streaming session's temporal leg as CUDA graphs with static state
 buffers.
 
-Per frame the temporal step (``OnlineMamba`` or ``OnlineMSTCN``) and the
+Per frame the temporal step (``OnlineMamba``, ``OnlineMSTCN`` or
+``OnlineJamba``) and the
 refiner's (``OnlineRefiner``) issue a few hundred small device operations at
 fixed shapes and read nothing back, and the card waits on the host.
 ``TemporalGraph`` captures each step once per key (the feature's and the
@@ -9,8 +10,9 @@ state leaves' shapes and dtypes, ``state_key`` of both models, and the fp32
 matmul precision, which picks the kernels a capture records) and replays it
 (``serving/graphs.py``):
 
-- the static buffers are the feature, every leaf of the temporal state and
-  the refiner's ring buffer;
+- the static buffers are the feature, every leaf of the temporal state (for
+  Jamba its attention layers' K/V caches, which the step writes in place,
+  and the stream's frame count) and the refiner's ring buffer;
 - each graph runs its step on them (the refiner's on the temporal graph's
   final stage and the feature), then copies the new state into the static
   one: no read of the old state follows a write;
@@ -93,7 +95,8 @@ _Captured = namedtuple("_Captured", "graphs output feat state leaves refiner_sta
 
 
 class TemporalGraph(GraphedLeg):
-    """The leg of ``temporal`` (an ``OnlineMSTCN`` or ``OnlineMamba``) and
+    """The leg of ``temporal`` (an ``OnlineMSTCN``, ``OnlineMamba`` or
+    ``OnlineJamba``) and
     ``refiner`` (an ``OnlineRefiner`` or None): (state, refiner state,
     feature [E]) -> (state', refiner state', logits)."""
 
@@ -112,8 +115,11 @@ class TemporalGraph(GraphedLeg):
         return eager_leg(self.temporal, self.refiner, state, refiner_state, feat)
 
     def buffers(self, state, refiner_state, feat):
-        empty = lambda t: torch.empty(t.shape, dtype=t.dtype, device=t.device)
-        return pytree.tree_map_only(torch.Tensor, empty, (state, refiner_state, feat))
+        # zeros, not garbage: a step may index with its state (Jamba's K/V
+        # write at the frame count), and a capture that runs its operations
+        # (the CPU tests' stand-in) must stay in range
+        zeros = lambda t: torch.zeros(t.shape, dtype=t.dtype, device=t.device)
+        return pytree.tree_map_only(torch.Tensor, zeros, (state, refiner_state, feat))
 
     def capture(self, pool, buffers, state, refiner_state, feat):
         static, static_refiner, static_feat = buffers

@@ -15,10 +15,19 @@ JAX runs the flax graph.
 
 While the device computes batch i+1, batch i's features copy to pinned host
 memory on a side stream; the host waits on that copy only when it writes the
-features out. A ragged last batch is zero-padded to ``batch_size``, as the
-JAX package pads it: the batch size picks stage 4's route in
-``fused_forward`` (whole-stage kernel at a multiple of 8), so the tail runs
-the route the full batches run, as it does in JAX.
+features out. On the card (one process, float weights) a batch of host
+arrays is first copied into pinned memory (``PinnedStage``), on the host
+while the card still runs the batch before, so that its trip to the card is
+one DMA at the link's rate and not CUDA's pageable staging, which
+holds the stream for the host's memcpy; and the forward is replayed as the
+live session's CUDA graphs of the glue between the MiT kernel calls
+(``ExtractGraph``, ``serving/feature_graph.py``), captured at the first
+batch of a layout: the same operations, bit for bit, issued as a few graph
+launches instead of ~900 operations (b0) a batch. A ragged last batch is
+zero-padded to ``batch_size``, as the JAX package pads it: the batch size
+picks stage 4's route in ``fused_forward`` (whole-stage kernel at a
+multiple of 8), so the tail runs the route the full batches run, as it does
+in JAX.
 
 Over a process group (``make_raw_feature_fn(group=...)``, which
 ``extract-features`` passes as the default group under
@@ -34,6 +43,7 @@ on each rank's B / world frames: stage 4 takes the stage kernel only where
 from __future__ import annotations
 
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Iterable
 
 import numpy as np
@@ -46,6 +56,8 @@ from surgical_tpu_torch.core.device import DEFAULT_DEVICE, resolve_device
 from surgical_tpu_torch.data.feature_store import FeatureStore
 from surgical_tpu_torch.models.mit_fused import fused_forward, kernel_weights
 from surgical_tpu_torch.parallel import mesh
+from surgical_tpu_torch.serving.feature_graph import FeatureGraph
+from surgical_tpu_torch.serving.graphs import layout
 from surgical_tpu_torch.serving.quant import dequantize_state, quantize_state
 from surgical_tpu_torch.utils.trace import span
 
@@ -116,6 +128,61 @@ class WireForward(nn.Module):
         return tuple(o.to(self.out_dtype) for o in out)
 
 
+class ExtractGraph(FeatureGraph):
+    """``FeatureGraph`` over extraction's batches, counted apart from the
+    live session's frames (``counters()["extract_graph"]``)."""
+
+
+class PinnedStage:
+    """Pinned host copies of wire batches on their way to the card, in two
+    sets used in turn: ``stage(batch)`` copies the host arrays into the next
+    set (numpy arrays or CPU tensors; a batch with a tensor on the card
+    passes as it is) and ``done()`` marks, on the current stream, the end of
+    the work that reads that set. A set is written again only after its
+    mark has passed. A batch of another layout allocates the sets anew.
+
+    The copy is split by frames over ``COPIERS`` threads: on the H100 host
+    one thread copies a 200-frame 224-px batch in ~15 ms, as long as the
+    card's work on a b0 batch, and four make b0 extraction ~10% faster
+    (``PERF.md``, section 6), though the copy is bound by the host's memory."""
+
+    COPIERS = 4
+
+    def __init__(self):
+        self._layout, self._sets, self._marks = None, None, [None, None]
+        self._next, self._current = 0, None
+        self._pool = ThreadPoolExecutor(self.COPIERS, thread_name_prefix="pinned-stage")
+
+    def stage(self, batch):
+        batch = tuple(None if a is None else torch.as_tensor(a) for a in batch)
+        self._current = None
+        if any(a is not None and a.is_cuda for a in batch):
+            return batch
+        if layout(*batch) != self._layout:
+            self._sets = [tuple(None if a is None else
+                                torch.empty(a.shape, dtype=a.dtype, pin_memory=True)
+                                for a in batch) for _ in range(2)]
+            self._layout, self._marks, self._next = layout(*batch), [None, None], 0
+        i = self._current = self._next
+        self._next = 1 - i
+        if self._marks[i] is not None:
+            self._marks[i].synchronize()
+        copies = []
+        for buf, a in zip(self._sets[i], batch):
+            if buf is not None:
+                step = -(-a.shape[0] // self.COPIERS)
+                copies += [self._pool.submit(buf[lo:lo + step].copy_, a[lo:lo + step])
+                           for lo in range(0, a.shape[0], step)]
+        for c in copies:
+            c.result()
+        return self._sets[i]
+
+    def done(self):
+        if self._current is not None:
+            self._marks[self._current] = torch.cuda.Event()
+            self._marks[self._current].record()
+
+
 def make_raw_feature_fn(model, d2h_dtype=torch.float16, use_fused=None, weight_quant=None,
                         group=None):
     """Feature extractor over wire-format host batches (numpy or tensors):
@@ -138,7 +205,13 @@ def make_raw_feature_fn(model, d2h_dtype=torch.float16, use_fused=None, weight_q
     call takes the padded global batch of B frames (B % n == 0, else it
     raises), runs this rank's B / n frames (``mesh.shard_batch``) and
     returns all B features, gathered in rank order. ``fn.rank`` is this
-    rank within the group."""
+    rank within the group.
+
+    On the card, in one process and without ``weight_quant``, a batch of
+    host arrays goes through ``PinnedStage`` and the forward replays
+    ``ExtractGraph`` (``fn.graph``; None elsewhere), whose first batch of a
+    layout is eager and captures it; the features are a copy of the
+    graphs' output buffer, which the next batch overwrites."""
     device = next(model.parameters()).device
     if use_fused is None:
         use_fused = use_fused_default(model.cfg, device)
@@ -152,6 +225,8 @@ def make_raw_feature_fn(model, d2h_dtype=torch.float16, use_fused=None, weight_q
                 {f"model.{k}": s for k, s in scales.items()})
 
     rank, world = (0, 1) if group is None else mesh.rank_world(group)
+    card = device.type == "cuda" and held is None and world == 1
+    replay, pinned = (ExtractGraph(serve, model), PinnedStage()) if card else (None, None)
 
     def to_dev(a):
         return None if a is None else torch.as_tensor(a).to(device, non_blocking=True)
@@ -159,6 +234,13 @@ def make_raw_feature_fn(model, d2h_dtype=torch.float16, use_fused=None, weight_q
     @torch.no_grad()
     def feature_fn(img_u8, seg_u8, flow_f16):
         batch = (img_u8, seg_u8, flow_f16)
+        if replay is not None:
+            with span("extract.h2d"):
+                staged = pinned.stage(batch)
+            with span("extract.forward"):
+                feats = replay(*staged).clone()  # a replay's output is the graphs' buffer
+                pinned.done()
+            return feats
         if world > 1:
             batch = mesh.shard_batch(batch, group)
         with span("extract.h2d"):
@@ -171,6 +253,7 @@ def make_raw_feature_fn(model, d2h_dtype=torch.float16, use_fused=None, weight_q
         return mesh.all_gather(feats, group) if world > 1 else feats
 
     feature_fn.use_fused = use_fused
+    feature_fn.graph = replay
     feature_fn.held = held
     feature_fn.rank = rank
     return feature_fn

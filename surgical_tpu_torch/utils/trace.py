@@ -23,6 +23,11 @@ under ``torch.profiler.profile`` to see them:
   temporal step, the refiner step;
 - ``predict.temporal``, ``predict.refiner`` (``train/refiner.py``): the two
   models of ``predict_video``;
+- ``jamba.mamba``, ``jamba.attention``, ``jamba.mlp`` (``models/jamba.py``,
+  ``serving/online.py::OnlineJamba``): each Jamba layer's norm, mixer and
+  residual add, and its MLP half, inside ``predict.temporal`` offline and
+  inside ``session.temporal`` in an eager or captured step (a replayed
+  step fires only ``session.temporal``);
 - ``flow.h2d``, ``flow.forward``, ``flow.drain``
   (``models/raft.py::make_flow_fn``): the frames' copy to the device; the
   mapping, padding and RAFT's issue; the wait for the flows and their copy
@@ -40,8 +45,9 @@ kernels' launch counts, the streaming session's feature-leg graphs
 eagerly) and temporal-leg graphs (``serving/temporal_graph.py``: the
 same three), the backbone trainer's step graphs (``train/train_graph.py``:
 captures, replayed steps, eager steps), RAFT's batches, pairs, iterations and largest batch
-(``models/raft.py``), and the CUDA caching allocator's retries, device
-allocations and frees.
+(``models/raft.py``), Jamba's forward calls and frames, its streaming steps,
+its K/V cache's capacity and the longest stream it held (``models/jamba.py``),
+and the CUDA caching allocator's retries, device allocations and frees.
 """
 
 from __future__ import annotations
@@ -110,14 +116,16 @@ def counters() -> dict:
     "launches": each kernel wrapper's launch count, "feature_graph":
     {captures, replays, eager} of the session's feature leg,
     "temporal_graph": the same of its temporal leg, "train_graph": the same
-    of the backbone trainer's step, "raft":
-    {batches, pairs, iterations, largest_batch} of RAFT's forward, and with
+    of the backbone trainer's step, "extract_graph": the same of
+    extraction's batches, "raft":
+    {batches, pairs, iterations, largest_batch} of RAFT's forward, "jamba":
+    {forwards, frames, steps, kv_capacity, kv_high_water}, and with
     a card "cuda_alloc": {num_alloc_retries, num_device_alloc,
     num_device_free}}."""
     from surgical_tpu_torch.kernels import mit_block, selective_scan
-    from surgical_tpu_torch.models import raft
+    from surgical_tpu_torch.models import jamba, raft
     from surgical_tpu_torch.serving import feature_graph, temporal_graph
-    from surgical_tpu_torch.train import train_graph
+    from surgical_tpu_torch.train import extract, train_graph
 
     out = {"gc": GC.snapshot(),
            "launches": {**mit_block.launch_counts(),
@@ -126,7 +134,9 @@ def counters() -> dict:
                             selective_scan.selective_scan_backward.launches},
            "feature_graph": dict(feature_graph.COUNTS),
            "temporal_graph": dict(temporal_graph.COUNTS),
-           "train_graph": dict(train_graph.COUNTS), "raft": dict(raft.COUNTS)}
+           "train_graph": dict(train_graph.COUNTS),
+           "extract_graph": dict(extract.ExtractGraph.COUNTS), "raft": dict(raft.COUNTS),
+           "jamba": dict(jamba.COUNTS)}
     if torch.cuda.is_available():
         stats = torch.cuda.memory_stats_as_nested_dict()  # memory_stats() also flattens and sorts
         out["cuda_alloc"] = {k: stats.get(k, 0) for k in

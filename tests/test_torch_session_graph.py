@@ -6,9 +6,10 @@ On the CPU (tier 1):
 - the session stays eager there: ``counters()["feature_graph"]`` counts
   every frame as eager and no capture or replay;
 - the leg's key (``FeatureGraph.key``: the frame's layout and
-  ``core/state.py::state_key`` of the backbone) changes on an in-place
-  parameter write, a replaced parameter, an in-place buffer write, a frame
-  without flow and a frame of another size, and not on ``reset``;
+  ``core/state.py::state_key`` of the backbone, ``mit_fused.routes()``)
+  changes on an in-place parameter write, a replaced parameter, an
+  in-place buffer write, a frame without flow, a frame of another size and
+  the packed2 route set, and not on ``reset``;
 - ``record`` (the capture pass) with a stand-in for ``torch.cuda.CUDAGraph``
   that captures nothing, so the operations run: it cuts the leg at each
   kernel entry and at each span boundary that follows issued operations,
@@ -22,12 +23,15 @@ On the card (``cuda``; the file imports no JAX: ``python -m pytest
 
 - over 64 frames with a ``reset`` halfway, the graphed session's features
   and outputs equal an eager session's bit for bit, at b0 and b3, B = 1,
-  with flow and without (the eager session: ``make_raw_feature_fn`` at
-  batch 1 and the same temporal steps);
+  with flow and without (the eager session: ``WireForward`` at batch 1 and
+  the same temporal steps);
 - ``load_state_dict`` of new weights in place makes one new capture and the
   new weights' eager features;
 - the block kernel's ``.launches``, and a wrapper set on the entry after
   the capture, advance by the frame's 8 kernel calls on every replay;
+- extraction (``make_raw_feature_fn``, ``extract_features``) over host
+  batches of 24, the last ragged, staged in pinned memory and replayed,
+  equals the eager forward bit for bit at b0 and b3, with one capture;
 - the allocator's reserved bytes stay put over 500 replayed frames;
 - under ``torch.profiler`` each replayed frame's ``session.features`` holds
   ``mit.prompts`` and ``mit.stage1`` .. ``4``.
@@ -51,7 +55,8 @@ from surgical_tpu_torch.models.transsv import RefinementTransformer
 from surgical_tpu_torch.serving import feature_graph as fg
 from surgical_tpu_torch.serving.online import (OnlineMamba, OnlineMSTCN, OnlineRefiner,
                                                OnlineSession)
-from surgical_tpu_torch.train.extract import WireForward, make_raw_feature_fn
+from surgical_tpu_torch.parallel import mesh
+from surgical_tpu_torch.train.extract import WireForward, extract_features, make_raw_feature_fn
 from surgical_tpu_torch.utils.trace import counters
 
 S, E = 64, 16
@@ -125,8 +130,8 @@ CHANGES = {"param_inplace": _param_inplace, "param_replaced": _param_replaced,
            "buffer_inplace": _buffer_inplace, "load_state_dict": _load_state_dict}
 
 
-@pytest.mark.parametrize("change", [*CHANGES, "no_flow", "other_size"])
-def test_graph_key_changes(change):
+@pytest.mark.parametrize("change", [*CHANGES, "no_flow", "other_size", "route"])
+def test_graph_key_changes(change, monkeypatch):
     model = MiTEVP(TINY, HEAD, seed=0, device="cpu")
     leg = fg.FeatureGraph(WireForward(model, True), model)
     frame = tuple(None if a is None else torch.from_numpy(a) for a in one(wire(1), 0))
@@ -136,6 +141,8 @@ def test_graph_key_changes(change):
         frame = frame[:2] + (None,)
     elif change == "other_size":
         frame = tuple(torch.from_numpy(a) for a in one(wire(1, size=S + 32), 0))
+    elif change == "route":
+        monkeypatch.setattr(mit_fused, "_ROUTE_PACKED2", True)
     else:
         CHANGES[change](model)
     assert leg.key(frame) != key
@@ -290,6 +297,17 @@ def card_models(variant, flow, seed=11):
     return backbone, online, segments, kernels
 
 
+def eager_features(backbone):
+    """The serving forward run eagerly over host or card arrays."""
+    serve = WireForward(backbone, True)
+
+    @torch.no_grad()
+    def run(*frame):
+        return serve(*(None if a is None else torch.as_tensor(a).cuda() for a in frame))
+
+    return run
+
+
 def card_frames(n, flow, on_card, seed=12):
     frames = wire(n, size=224, seed=seed, flow=flow)
     if on_card:  # as the benchmark feeds them; else host arrays, as the CLI does
@@ -306,7 +324,7 @@ def test_graphed_session_equals_eager(variant, flow):
     backbone, online, segments, _ = card_models(variant, flow)
     frames = card_frames(n, flow, on_card=variant == "b0")
     graphed, eager = OnlineSession(backbone, *online()), OnlineSession(backbone, *online())
-    feature_fn = make_raw_feature_fn(backbone)
+    feature_fn = eager_features(backbone)
     before = counters()["feature_graph"]
     for t in range(n):
         if t == n // 2:
@@ -330,7 +348,7 @@ def test_load_state_dict_recaptures():
     backbone, online, _, _ = card_models("b0", True)
     frames = card_frames(4, True, on_card=True)
     session = OnlineSession(backbone, *online())
-    feature_fn = make_raw_feature_fn(backbone)
+    feature_fn = eager_features(backbone)
     frame = lambda t: tuple(a[t] for a in frames)
     for t in range(2):
         session.features(*frame(t))
@@ -363,6 +381,27 @@ def test_every_replay_calls_the_kernels_through_their_entries(monkeypatch):
         session.features(*(a[t] for a in frames))
         assert mb.fused_mit_block.launches - launches == kernels
         assert len(calls) == t * kernels
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["b0", "b3"])
+def test_extraction_replays_bit_for_bit(variant):
+    _needs_card()
+    backbone = card_models(variant, True)[0]
+    B, n = 24, 4 * 24 + 10
+    frames = wire(n, size=224, seed=5)
+    batches = [tuple(a[i:i + B] for a in frames) for i in range(0, n, B)]
+    fn, eager = make_raw_feature_fn(backbone), eager_features(backbone)
+    before = counters()["extract_graph"]
+    got, _ = extract_features(fn, batches, n, 2048, B)
+    after = counters()["extract_graph"]
+    want = torch.cat([eager(*mesh.pad_batch(b, B)[0])[:len(b[0])] for b in batches])
+    np.testing.assert_array_equal(got, want.float().cpu().numpy())
+    assert {k: after[k] - before[k] for k in after} == {"captures": 1,
+                                                        "replays": len(batches) - 1,
+                                                        "eager": 1}
+    # stage 4 on the whole-stage kernel at B = 24: fewer cuts than a streamed frame's
+    assert fn.graph.segments == {"b0": 14, "b3": 33}[variant]
 
 
 @pytest.mark.cuda

@@ -13,7 +13,8 @@ On the CPU (tier 1):
   that captures nothing, so the operations run: over 16 frames with a
   ``reset`` between, it writes the new state into the static buffers and
   gives the eager steps' logits and states bit for bit, for Mamba + refiner,
-  MS-TCN + refiner and Mamba alone;
+  MS-TCN + refiner, Mamba alone and Jamba + refiner (its K/V caches written
+  in place in the static buffers, its frame count among them);
 - ``serving/graphs.py::GraphedLeg`` on a toy leg of one linear layer on a
   stand-in card: eager on the CPU; on the card the static buffers made
   before the side stream, one capture, replays, and on a key change a new
@@ -51,8 +52,9 @@ import torch
 from torch.utils import _pytree as pytree
 from torch.utils._python_dispatch import TorchDispatchMode
 
-from surgical_tpu_torch.core.config import (BackboneConfig, HeadConfig, MambaConfig,
-                                            MSTCNConfig, RefinerConfig)
+from surgical_tpu_torch.core.config import (BackboneConfig, HeadConfig, JambaConfig,
+                                            MambaConfig, MSTCNConfig, RefinerConfig)
+from surgical_tpu_torch.models.jamba import JambaTemporalModel
 from surgical_tpu_torch.models.mamba import CausalMambaModel
 from surgical_tpu_torch.models.mit_evp import MiTEVP
 from surgical_tpu_torch.models.mstcn import MultiStageTCN
@@ -60,8 +62,8 @@ from surgical_tpu_torch.models.transsv import RefinementTransformer
 from surgical_tpu_torch.core.state import state_key
 from surgical_tpu_torch.serving import temporal_graph as tg
 from surgical_tpu_torch.serving.graphs import GraphedLeg, layout
-from surgical_tpu_torch.serving.online import (OnlineMamba, OnlineMSTCN, OnlineRefiner,
-                                               OnlineSession)
+from surgical_tpu_torch.serving.online import (OnlineJamba, OnlineMamba, OnlineMSTCN,
+                                               OnlineRefiner, OnlineSession)
 from surgical_tpu_torch.utils.trace import counters
 
 S, E = 64, 16
@@ -70,7 +72,11 @@ HEAD = HeadConfig(embedding_dim=E, hidden=8)
 MAMBA = MambaConfig(f_dim=E, d_model=16, d_state=8, layers=2)
 MSTCN = MSTCNConfig(stages=2, layers=3, f_maps=8, f_dim=E)
 REFINER = RefinerConfig(f_maps=8, f_dim=E, len_q=4)
-KINDS = ("mamba_refiner", "mstcn_refiner", "mamba")
+JAMBA = JambaConfig(hidden_size=32, num_hidden_layers=3, intermediate_size=48,
+                    num_attention_heads=4, num_key_value_heads=1, attn_layer_offset=1,
+                    attn_layer_period=3, mamba_d_state=8, mamba_dt_rank=2, f_dim=E,
+                    dtype="float32")
+KINDS = ("mamba_refiner", "mstcn_refiner", "mamba", "jamba_refiner")
 
 
 @pytest.fixture(autouse=True)
@@ -85,7 +91,9 @@ def legs(kind, seed=1, device="cpu"):
     """(temporal, refiner or None) of ``kind``, seeded: tiny on the CPU, at
     the default widths on the card (f_dim 2048)."""
     tiny = device == "cpu"
-    if kind.startswith("mamba"):
+    if kind.startswith("jamba"):  # the CPU's size only: tests/test_torch_jamba_card.py
+        temporal = OnlineJamba(JambaTemporalModel(JAMBA, seed=seed, device=device), capacity=32)
+    elif kind.startswith("mamba"):
         temporal = OnlineMamba(CausalMambaModel(MAMBA if tiny else MambaConfig(), seed=seed,
                                                 device=device))
     else:

@@ -225,10 +225,11 @@ def test_gc_counted_and_spanned():
 def test_counters_snapshot():
     c = trace.counters()
     assert set(c) == {"gc", "launches", "feature_graph", "temporal_graph", "train_graph",
-                      "raft"}  # no card
+                      "extract_graph", "raft", "jamba"}  # no card
+    assert set(c["jamba"]) == {"forwards", "frames", "steps", "kv_capacity", "kv_high_water"}
     assert set(c["gc"]) == {"gen0", "gen1", "gen2"}
     assert (set(c["feature_graph"]) == set(c["temporal_graph"]) == set(c["train_graph"])
-            == {"captures", "replays", "eager"})
+            == set(c["extract_graph"]) == {"captures", "replays", "eager"})
     before = c["raft"]
     run_flow()
     after = trace.counters()["raft"]
