@@ -13,7 +13,10 @@ nonzero without printing a result:
    the extraction batch B=200, the plain version timed at B=8 only; packed2
    at stage 1, B=8, with row_chunks 1 and 2, beside the block kernel's
    time; the block kernel at the streaming session's shapes, B=1 at all
-   four b3 stages and stage 4 at B=8, both versions timed), then the count of HGMMA (wgmma) instructions in the built
+   four b3 stages and stage 4 at B=8, both versions timed; the glue
+   LayerNorm at every glue LayerNorm shape of b3 and b0 extraction at
+   B=200, both timed), then the count of HGMMA (wgmma) instructions in the
+   built
    library's SASS, which must exceed the serving products' own; the
    selective scan in fp32 (d_inner 128, d_state 64; 2000 and 6000 frames,
    3 ragged videos of 777, and the chunk edges: 1, 63 and 65 frames at its
@@ -32,7 +35,10 @@ nonzero without printing a result:
 4. extraction slice: seeded random-init MiT-b3 EVP + MS-TCN + refiner; three
    synthetic 200-frame videos in the wire format -> make_raw_feature_fn ->
    extract_to_store -> predict_and_write -> relaxed evaluation, with the
-   kernel launch counts of that run and the kernel-vs-plain feature cosine;
+   kernel launch counts of that run, every glue LayerNorm of the
+   extraction graphs' capture on the glue LayerNorm kernel (route counts),
+   and the feature cosine against the plain versions of the MiT kernels
+   and of the glue LayerNorm;
    then the same batches with ``mit_fused._ROUTE_PACKED2`` set (3 packed2,
    22 block and 1 stage launches per batch; feature cosine against the
    route-off features), and the extraction rate over 3 runs of 12 batches
@@ -156,7 +162,8 @@ nonzero without printing a result:
    ``MambaConfig()``: the block kernel at MiT-b0's stages 1-3 and the stage
    kernel at its stage 4 (head width 32) at B=8 and 200 against their plain
    versions, a 200-frame b0 extraction batch on the kernels (6 block and 1
-   stage launch) against the plain serving graph, the b0 ``OnlineSession``
+   stage launch; every glue LayerNorm on its kernel) against the plain
+   serving graph, the b0 ``OnlineSession``
    (8 block launches per frame); the scan's forward and backward at the
    (d_state, d_inner) of ``WIDTH_SCAN`` (2000 frames) against the plain
    versions, with their launches; a refiner whose LayerNorms and FFN biases
@@ -678,6 +685,176 @@ def _compare(name, got, want, stage):
     return rel, mx
 
 
+def glue_ln_calls(cfg, stage4_kernel: bool) -> dict:
+    """{(tokens per image, C): calls} of the glue LayerNorms
+    (``models/_ops.py::layernorm``) of one forward of the fused graphs at
+    ``cfg.img_size``. At each stage's tokens: the backbone's patch embed,
+    the prompt cascade's handcrafted generator (at C / prompt_scale_factor),
+    LN1 of every block outside the stage kernel (``fused_forward`` runs
+    stage 4 on it at B % 8 == 0; the training forward never), the stage norm
+    and, at stages 3 and 4 with flow, the cross-attention's; at the keys of a
+    stage with sr > 1, the SR LayerNorm of each of those blocks."""
+    calls = {}
+    for s, (C, depth, sr) in enumerate(zip(cfg.embed_dims, cfg.depths, cfg.sr_ratios)):
+        n = (cfg.img_size // 2 ** (s + 2)) ** 2
+        blocks = 0 if s == 3 and stage4_kernel else depth
+        for key, k in (((n, C), 2 + blocks + (s >= 2 and cfg.with_flow)),
+                       ((n, C // cfg.prompt_scale_factor), 1),
+                       ((n // sr ** 2, C), blocks if sr > 1 else 0)):
+            if k:
+                calls[key] = calls.get(key, 0) + k
+    return calls
+
+
+def glue_layernorms(cfg, stage4_kernel: bool) -> int:
+    """The glue LayerNorm calls of one forward of the fused graphs
+    (``glue_ln_calls``)."""
+    return sum(glue_ln_calls(cfg, stage4_kernel).values())
+
+
+def graph_ms(fn, inputs, reps: int = 20) -> float:
+    """Device ms per call of ``fn(x)``: ``reps`` calls over the rotating
+    ``inputs`` captured in one CUDA graph and replayed three times, so no
+    host issue is timed."""
+    for x in inputs[:3]:
+        fn(x)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for x in inputs[:3]:
+            fn(x)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(reps):
+            fn(inputs[i % len(inputs)])
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    del graph
+    return start.elapsed_time(end) / (3 * reps)
+
+
+def _bf16_ulp(v):
+    """One bf16 ulp at |v| (v fp32), 2^-133 at 0."""
+    _, e = torch.frexp(v)
+    return torch.ldexp(torch.ones_like(v), (e - 8).clamp_min(-133))
+
+
+def glue_ln_gap(got, want, x, g, b) -> tuple:
+    """(elements past one bf16 ulp, elements past the bound, largest gap in
+    ulps) of the glue LayerNorm kernel's ``got`` against ``layer_norm``'s
+    ``want`` on x, g, b. The two compute the same fp32 function and differ
+    only in the order of the fp32 sums of the mean and the variance (and in
+    rsqrt's last bits), so each element's fp32 values differ by a round-off
+    of the terms that make it, |g| (|x_hat| + rstd |mean| + 1) + |b|, which
+    one bf16 rounding can widen to one bf16 ulp (of the larger of the two
+    outputs). The bound is that ulp plus 2^-16 of the terms: where y is near
+    1 the ulp alone; where x - mean or the affine cancels (|y| far under the
+    terms) the round-off, up to tens of the small y's ulps."""
+    got, want = got.float(), want.float()
+    gap = (got - want).abs()
+    one = _bf16_ulp(torch.maximum(got.abs(), want.abs()))
+    x64 = x.double()
+    m = x64.mean(-1, keepdim=True)
+    rstd = torch.rsqrt(((x64 - m) ** 2).mean(-1, keepdim=True) + 1e-6)
+    terms = (g.abs() * (((x64 - m) * rstd).abs() + rstd * m.abs() + 1) + b.abs()).float()
+    return (int((gap > one).sum()), int((gap > one + terms * 2.0 ** -16).sum()),
+            float((gap / one).max()))
+
+
+def _glue_ln_check(rng, variant: str, b: int, n: int, C: int, calls: int) -> dict:
+    """The glue LayerNorm kernel on b x n rows of C channels (rows with their
+    own offsets, an fp32 affine near (1, 0)) against ``layer_norm`` within
+    ``glue_ln_gap``'s bound and the same bits on a second call; both timed
+    in a CUDA graph (``graph_ms``) over inputs rotating through 256 MB, or
+    64 of them where a shape is smaller (then L2-warm), beside the bound of
+    a bf16 read and write of each element. ``calls``: the shape's calls per
+    forward."""
+    from surgical_tpu_torch.kernels import mit_block as mb
+
+    row = lambda: (_rand(rng, (b, n, 1), 2.0).float() + _rand(rng, (b, n, C), 2.0).float())
+    x = row().bfloat16()
+    g, bias = _rand(rng, (C,), 0.2, 1.0).float(), _rand(rng, (C,), 0.2).float()
+    launches = mb.glue_layer_norm.launches
+    got, want = mb.glue_layer_norm(x, g, bias), mb.layer_norm(x, g, bias)
+    same = torch.equal(got, mb.glue_layer_norm(x, g, bias))
+    torch.cuda.synchronize()
+    shape = f"{variant} [M={b * n}, C={C}]"
+    rel, mx, scale = _errors(f"glue layernorm {shape}", got, want)
+    past_ulp, past_bound, worst = glue_ln_gap(got, want, x, g, bias)
+    ok = past_bound == 0 and same and mb.glue_layer_norm.launches == launches + 2
+    print(f"check glue layernorm {shape}: rel_l2 {rel:.3e} max_abs {mx:.3e} max|plain| "
+          f"{scale:.3e}, {past_ulp} elements past one bf16 ulp (largest {worst:.2f} ulp), "
+          f"{past_bound} past the bound, repeatable {same} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"glue layernorm {shape}: kernel disagrees with its plain version")
+    del got, want
+    k = max(2, min(64, -(-2 ** 28 // (2 * x.numel()))))  # inputs rotating through 256 MB
+    inputs = [x] + [row().bfloat16() for _ in range(k - 1)]
+    ms = graph_ms(lambda t: mb.glue_layer_norm(t, g, bias), inputs)
+    plain_ms = graph_ms(lambda t: mb.layer_norm(t, g, bias), inputs)
+    bms, by = bound_ms(4 * x.numel() + 8 * C, 0.0)
+    print(f"time glue layernorm {shape}: kernel {ms:.4f} ms plain {plain_ms:.4f} ms bound "
+          f"{bms:.4f} ms ({by}; {100 * bms / ms:.1f}% of it; {calls} calls per forward; "
+          f"{len(inputs)} rotating inputs, in a CUDA graph)")
+    return {"variant": variant, "B": b, "shape": shape, "calls": calls, "rel_l2": rel,
+            "max_abs_err": mx, "past_ulp": past_ulp, "max_ulps": worst, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by}
+
+
+def _glue_ln_routes(before: tuple, forwards: int, cfg, stage4_kernel: bool, tag: str) -> dict:
+    """The glue LayerNorm calls since ``before`` (route counts and kernel
+    launches, ``_glue_ln_snapshot()``), held to ``forwards`` forwards of
+    ``glue_layernorms`` each, every one on the kernel."""
+    kernel, plain, launches = (a - b for a, b in zip(_glue_ln_snapshot(), before))
+    want = forwards * glue_layernorms(cfg, stage4_kernel)
+    print(f"{tag}: glue LayerNorms {kernel} on the kernel, {plain} plain, {launches} kernel "
+          f"launches (expected {want} on the kernel: {forwards} forwards)")
+    if (kernel, plain, launches) != (want, 0, want):
+        raise AssertionError(f"{tag}: a glue LayerNorm missed its kernel")
+    return {"kernel": kernel, "plain": plain, "launches": launches}
+
+
+def _glue_ln_snapshot() -> tuple:
+    from surgical_tpu_torch.kernels import mit_block as mb
+    from surgical_tpu_torch.models import _ops
+
+    return _ops.LAYERNORM_ROUTES["kernel"], _ops.LAYERNORM_ROUTES["plain"], \
+        mb.glue_layer_norm.launches
+
+
+def _plain_features(forward, batch) -> torch.Tensor:
+    """One wire batch through the eager serving graph ``forward`` (a
+    ``WireForward``; not a replay, whose segments hold the glue LayerNorm)
+    with the plain versions of the MiT kernels and of the glue LayerNorm in
+    their place: [B, E] fp32 features."""
+    import surgical_tpu_torch.models.mit_fused as mf
+    from surgical_tpu_torch.kernels import mit_block as mb
+    from surgical_tpu_torch.models import _ops
+
+    saved = (mf.fused_mit_block, mf.fused_mit_stage, _ops.layernorm, _ops.FUSED.layernorm)
+    mf.fused_mit_block, mf.fused_mit_stage = mb.fused_mit_block_plain, mb.fused_mit_stage_plain
+    # the patch embeds and cross-attentions reach it through _ops.FUSED
+    _ops.layernorm = _ops.FUSED.layernorm = lambda x, norm: mb.layer_norm(x, norm.weight,
+                                                                         norm.bias)
+    before = _glue_ln_snapshot()
+    try:
+        with torch.no_grad():
+            out = forward(*(torch.as_tensor(a).cuda() for a in batch))
+    finally:
+        (mf.fused_mit_block, mf.fused_mit_stage, _ops.layernorm,
+         _ops.FUSED.layernorm) = saved
+    if _glue_ln_snapshot() != before:
+        raise AssertionError("the plain features called the glue LayerNorm's route")
+    return out.float()
+
+
 def _block_check(rng, w, stage, heads, side, sr, b, plain: bool, bound_stage=None,
                  tag: str = "") -> dict:
     """The block kernel at one shape (random x, k, v of batch ``b``) against
@@ -828,6 +1005,16 @@ def phase_kernel_checks() -> dict:
             session_rows.append(_block_check(rng, w, stage, heads, side, sr, b, plain=True,
                                              bound_stage=min(stage, 3)))
     res["block_session"] = session_rows
+
+    # the glue LayerNorm at every glue LayerNorm shape of b3 and b0
+    # extraction at BATCH: the widths 8 to 512, one to 32 lanes a row,
+    # masked vectors at 40, 80 and 160
+    from surgical_tpu_torch.core.config import BackboneConfig
+
+    glue_rows = [_glue_ln_check(rng, variant, BATCH, n, C, calls)
+                 for variant, cfg in (("b3", BackboneConfig()), ("b0", BackboneConfig.preset("b0")))
+                 for (n, C), calls in sorted(glue_ln_calls(cfg, BATCH % 8 == 0).items())]
+    res["glue_layernorm"] = glue_rows
     return res
 
 
@@ -1230,8 +1417,12 @@ def phase_slice(workdir: str) -> dict:
           f"{time.perf_counter() - t0:.2f} s")
 
     feature_fn = make_raw_feature_fn(backbone)
-    feature_fn(*batches[0])  # warm-up: cuDNN algorithm choice, allocator
+    glue_before = _glue_ln_snapshot()
+    # warm-up: cuDNN algorithm choice, allocator, the capture of the
+    # extraction graphs (an eager forward and a recorded one)
+    feature_fn(*batches[0])
     torch.cuda.synchronize()
+    glue_ln = _glue_ln_routes(glue_before, 2, backbone.cfg, BATCH % 8 == 0, "slice")
     torch.cuda.reset_peak_memory_stats()
 
     mb.reset_launches()
@@ -1281,12 +1472,7 @@ def phase_slice(workdir: str) -> dict:
           f"frame acc {metrics['acc_frame']:.4f} (random weights: only finiteness is checked)")
 
     # the same first batch through the plain versions of the kernels
-    saved = (mf.fused_mit_block, mf.fused_mit_stage)
-    mf.fused_mit_block, mf.fused_mit_stage = mb.fused_mit_block_plain, mb.fused_mit_stage_plain
-    try:
-        plain = feature_fn(*batches[0]).float()
-    finally:
-        mf.fused_mit_block, mf.fused_mit_stage = saved
+    plain = _plain_features(feature_fn.graph.forward, batches[0])
     kern = torch.tensor(feats[:BATCH], device=dev)
     cos = torch.nn.functional.cosine_similarity(kern, plain, dim=-1)
     print(f"slice: per-frame cosine kernel vs plain features: min {cos.min().item():.6f} "
@@ -1348,7 +1534,7 @@ def phase_slice(workdir: str) -> dict:
               f"frames/s: " + ", ".join(f"{r:.1f}" for r in rates[route]) + f" (median {med:.1f})")
     return {"launches": launches, "route_launches": route_launches, "fps": fps,
             "fps_route": fps_route, "latency_ms": lat, "lfb": os.path.join(workdir, "lfb"),
-            "labels": labels}
+            "labels": labels, "glue_layernorm": glue_ln}
 
 
 def phase_online_session(device: str = "cuda", cfg=None, head_cfg=None, size: int = 224,
@@ -3515,7 +3701,6 @@ def phase_widths(workdir: str) -> dict:
     """Phase 17: the serving kernels at head width 32 (MiT-b0), b0 extraction
     and the b0 session on them, the scan at WIDTH_SCAN, and a refiner with
     LayerNorms and FFN biases away from identity (the constants above)."""
-    import surgical_tpu_torch.models.mit_fused as mf
     from surgical_tpu_torch.core.config import BackboneConfig, HeadConfig, RefinerConfig
     from surgical_tpu_torch.kernels import mit_block as mb
     from surgical_tpu_torch.models.mit_evp import MiTEVP
@@ -3544,8 +3729,10 @@ def phase_widths(workdir: str) -> dict:
              rng.integers(0, 256, (BATCH, 224, 224, 1), dtype=np.uint8),
              rng.standard_normal((BATCH, 224, 224, 2), dtype=np.float32).astype(np.float16))
     feature_fn = make_raw_feature_fn(backbone)
-    feature_fn(*batch)  # warm-up
+    glue_before = _glue_ln_snapshot()
+    feature_fn(*batch)  # warm-up and capture: an eager forward and a recorded one
     torch.cuda.synchronize()
+    glue_ln = _glue_ln_routes(glue_before, 2, cfg, BATCH % 8 == 0, "widths b0 extraction")
     mb.reset_launches()
     feats, st = extract_features(feature_fn, iter([batch]), BATCH, HeadConfig().embedding_dim,
                                  BATCH)
@@ -3556,19 +3743,15 @@ def phase_widths(workdir: str) -> dict:
           f"batch {launches} (expected {B0_BATCH_LAUNCHES})")
     if launches != B0_BATCH_LAUNCHES:
         raise AssertionError("b0 extraction did not launch the kernels as expected")
-    saved = (mf.fused_mit_block, mf.fused_mit_stage)
-    mf.fused_mit_block, mf.fused_mit_stage = mb.fused_mit_block_plain, mb.fused_mit_stage_plain
-    try:
-        plain = feature_fn(*batch).float()
-    finally:
-        mf.fused_mit_block, mf.fused_mit_stage = saved
+    plain = _plain_features(feature_fn.graph.forward, batch)
     cos = torch.nn.functional.cosine_similarity(torch.tensor(feats, device="cuda"), plain,
                                                 dim=-1)
     print(f"widths b0 extraction: per-frame cosine kernel vs plain features min "
           f"{cos.min().item():.6f} median {cos.median().item():.6f} (bound {COSINE_BOUND})")
     if not np.isfinite(feats).all() or cos.min().item() < COSINE_BOUND:
         raise AssertionError("b0 kernel-path features disagree with the plain path")
-    res["extraction"] = {"launches": launches, "fps": st["fps"], "cos_min": cos.min().item()}
+    res["extraction"] = {"launches": launches, "fps": st["fps"], "cos_min": cos.min().item(),
+                         "glue_layernorm_capture": glue_ln}
     del backbone, feature_fn, plain
 
     session = phase_online_session(cfg=cfg, frames=B0_SESSION_FRAMES,
@@ -3665,8 +3848,8 @@ def _limits_export(workdir: str) -> dict:
     of LIMIT_EXPORT_SIZES: the artifact loaded (``load_artifact``) and run on
     CHECK_B wire frames of S px, 6 block and 1 stage launch per call, each
     frame's features within COSINE_BOUND of the plain serving graph on the
-    same weights (``WireForward`` with the kernels' plain versions)."""
-    import surgical_tpu_torch.models.mit_fused as mf
+    same weights (``WireForward`` with the kernels' plain versions), every
+    glue LayerNorm through the artifact's op on its kernel."""
     from surgical_tpu_torch import cli
     from surgical_tpu_torch.core.config import BackboneConfig, HeadConfig
     from surgical_tpu_torch.kernels import mit_block as mb
@@ -3701,23 +3884,20 @@ def _limits_export(workdir: str) -> dict:
         torch.cuda.synchronize()
         launches = {"mit_block_forward": mb.fused_mit_block.launches,
                     "mit_stage_forward": mb.fused_mit_stage.launches}
-        saved = (mf.fused_mit_block, mf.fused_mit_stage)
-        mf.fused_mit_block, mf.fused_mit_stage = mb.fused_mit_block_plain, mb.fused_mit_stage_plain
-        try:
-            with torch.no_grad():
-                want = WireForward(model, True, out_dtype=torch.float32)(*wire).float()
-        finally:
-            mf.fused_mit_block, mf.fused_mit_stage = saved
+        glue = mb.glue_layer_norm.launches
+        want = _plain_features(WireForward(model, True, out_dtype=torch.float32), wire)
         cos = torch.nn.functional.cosine_similarity(got, want, dim=-1)
+        want_glue = glue_layernorms(model.cfg, CHECK_B % 8 == 0)
         print(f"limits export b0 --size {px} ({((px - 1) // 32 + 1) ** 2} keys per head): "
-              f"export {export_s:.2f} s; launches per call {launches} (expected "
-              f"{B0_BATCH_LAUNCHES}); per-frame cosine against the plain graph min "
-              f"{cos.min().item():.6f} (bound {COSINE_BOUND})")
-        if launches != B0_BATCH_LAUNCHES:
-            raise AssertionError(f"export --size {px}: launches {launches}")
+              f"export {export_s:.2f} s; launches per call {launches} and {glue} glue "
+              f"LayerNorms (expected {B0_BATCH_LAUNCHES} and {want_glue}); per-frame cosine "
+              f"against the plain graph min {cos.min().item():.6f} (bound {COSINE_BOUND})")
+        if launches != B0_BATCH_LAUNCHES or glue != want_glue:
+            raise AssertionError(f"export --size {px}: launches {launches}, glue {glue}")
         if not torch.isfinite(got).all() or cos.min().item() < COSINE_BOUND:
             raise AssertionError(f"export --size {px}: the artifact disagrees with the plain graph")
-        res[px] = {"export_s": export_s, "launches": launches, "cos_min": cos.min().item()}
+        res[px] = {"export_s": export_s, "launches": {**launches, "glue_layernorm": glue},
+                   "cos_min": cos.min().item()}
         del fn, wire
     return res
 
@@ -3916,6 +4096,23 @@ def main() -> int:
                     for r in wd["scan"] + lim["scan"]],
          "shapes": scan},
     ]
+    glue = {v: [r for r in checks["glue_layernorm"] if r["variant"] == v] for v in ("b3", "b0")}
+    per_batch = lambda rows, key: sum(r["calls"] * r[key] for r in rows)  # device ms per batch
+    glue_row = lambda rows: {f"ms_b{BATCH}": per_batch(rows, "ms"),
+                             f"plain_ms_b{BATCH}": per_batch(rows, "plain_ms"),
+                             f"bound_ms_b{BATCH}": per_batch(rows, "bound_ms")}
+    kernels.append({
+        "name": "glue_layernorm", "route": "cuda", "source": SOURCE,
+        "replaces": "none: XLA fuses the JAX graph's LayerNorms (no TPU kernel)",
+        "launches_capture": sl["glue_layernorm"]["launches"],
+        "launches_export_per_call": {px: e["launches"]["glue_layernorm"]
+                                     for px, e in lim["export"].items()},
+        "max_abs_err": max(r["max_abs_err"] for r in checks["glue_layernorm"]),
+        "max_ulps": max(r["max_ulps"] for r in checks["glue_layernorm"]),
+        **glue_row(glue["b3"]), "bound_by": by(glue["b3"]), "library_ms": None,
+        "b0": {**glue_row(glue["b0"]),
+               "launches_capture": wd["extraction"]["glue_layernorm_capture"]["launches"]},
+        "shapes": checks["glue_layernorm"]})
     bwd_main = [r for r in scan_bwd["shapes"] if "ms" in r]
     kernels.append({
         "name": "selective_scan_backward", "route": "cuda", "source": SCAN_SOURCE,

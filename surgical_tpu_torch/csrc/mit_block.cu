@@ -64,6 +64,7 @@
 
 #include <math_constants.h>
 
+#include <algorithm>
 #include <cmath>
 
 #include "common.cuh"
@@ -208,6 +209,120 @@ __global__ void layernorm_kernel(const bf16* __restrict__ x, const bf16* __restr
     const int c = lane + 32 * i;
     if (c < C) y[(size_t)row * C + c] = f2bf((vals[i] - mean) * rstd * bf2f(g[c]) + bf2f(b[c]));
   }
+}
+
+// ------------------------------------------------------- glue LayerNorm ----
+// The LayerNorms of the graph glue between the kernels of this file
+// (models/_ops.py::layernorm on the card: each block's LN1 and SR LayerNorm
+// ahead of mit_block_forward, the patch embeds', the stage norms, the
+// cross-attentions'). It replaces no TPU kernel: the JAX package leaves this
+// LayerNorm to XLA, which fuses it. In plain PyTorch it is ten full-size
+// kernels (casts, two reduces, five broadcast binaries, a square), ~68 bytes
+// of traffic per element; one pass needs 4 (a bf16 read and a bf16 write),
+// so the kernel is bound by memory, and its design is about moving those 4
+// bytes at full width:
+// - a row is spread over a group of L lanes (C/8 rounded up to a power of
+//   two, at most a warp), each holding V 16-byte vectors of 8 bf16 in
+//   registers: 4 lanes at C = 32, 8 at 64, 16 at 128, 32 from 160 (V = 2
+//   from 320; vectors past C masked). Every load and store is 16 bytes, and
+//   a warp holds 32 / L short rows at once, where layernorm_kernel walks one
+//   row with 2-byte lane-strided loads;
+// - the mean, then the centred variance, are summed over the registers and
+//   across the group by shuffles (the plain path's ((x - m)^2).mean()), with
+//   LN_EPS; the output is bf16(((x - m) * rstd) * g + b) with the fp32
+//   affine, in the plain path's order of operations, rounded once;
+// - CTAs are persistent and stride over rows: a thread keeps the same
+//   columns for its whole life, so its fp32 scale and bias are loaded once
+//   and stay in registers (the launch bounds keep 6 CTAs of 256 per SM at
+//   one vector per lane, 4 at two, without spills);
+// - no atomics and no split reductions: the same input gives the same bits.
+// x: [M, C] rows of stride ld elements; y: [M, C] contiguous.
+constexpr int LNR_THREADS = 256;
+
+template <int L, int V>
+__global__ void __launch_bounds__(LNR_THREADS, V == 1 ? 6 : 4)
+    glue_layernorm_rows(const bf16* __restrict__ x, const float* __restrict__ g,
+                        const float* __restrict__ b, bf16* __restrict__ y, int M, int C,
+                        int ld) {
+  constexpr int ROWS = LNR_THREADS / L;  // rows of a CTA per pass
+  const int lane = threadIdx.x % L, sub = threadIdx.x / L;
+  float gs[V][8], bs[V][8];
+  bool in[V];
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+    const int c = (lane + L * v) * 8;
+    in[v] = c < C;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      gs[v][j] = in[v] ? g[c + j] : 0.f;
+      bs[v][j] = in[v] ? b[c + j] : 0.f;
+    }
+  }
+  // every thread of the CTA makes the same passes, so the shuffles below
+  // see whole groups; a row past M loads zeros and stores nothing
+  for (int64_t base = (int64_t)blockIdx.x * ROWS; base < M; base += (int64_t)gridDim.x * ROWS) {
+    const int64_t row = base + sub;
+    const bool ok = row < M;
+    uint4 raw[V];
+    float s = 0.f;
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      raw[v] = make_uint4(0, 0, 0, 0);
+      if (ok && in[v]) raw[v] = load8(x + row * ld + (lane + L * v) * 8);
+      const bf16* e = lanes8(raw[v]);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) s += bf2f(e[j]);
+    }
+#pragma unroll
+    for (int o = L / 2; o > 0; o >>= 1) s += __shfl_xor_sync(FULL_MASK, s, o);
+    const float mean = s / C;
+    float ss = 0.f;
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      if (!in[v]) continue;
+      const bf16* e = lanes8(raw[v]);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float d = bf2f(e[j]) - mean;
+        ss += d * d;
+      }
+    }
+#pragma unroll
+    for (int o = L / 2; o > 0; o >>= 1) ss += __shfl_xor_sync(FULL_MASK, ss, o);
+    const float rstd = rsqrtf(ss / C + LN_EPS);
+    if (!ok) continue;
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      if (!in[v]) continue;
+      bf16* e = lanes8(raw[v]);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        e[j] = f2bf(__fadd_rn(__fmul_rn(__fmul_rn(bf2f(e[j]) - mean, rstd), gs[v][j]), bs[v][j]));
+      store8(y + row * C + (lane + L * v) * 8, raw[v]);
+    }
+  }
+}
+
+// One launch on as many persistent CTAs as stay resident on every SM (read
+// once per instance from the occupancy API, so the grid follows the launch
+// bounds), or fewer where the rows fill fewer.
+template <int L, int V>
+int glue_layernorm_launch(cudaStream_t s, const bf16* x, const float* g, const float* b,
+                          bf16* y, int M, int C, int ld) {
+  static int per_sm = 0;
+  if (!per_sm) {
+    cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, glue_layernorm_rows<L, V>, LNR_THREADS, 0);
+    if (e != cudaSuccess) return (int)e;
+  }
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  constexpr int ROWS = LNR_THREADS / L;
+  const int grid = (int)std::min<int64_t>(((int64_t)M + ROWS - 1) / ROWS, (int64_t)sms * per_sm);
+  glue_layernorm_rows<L, V><<<grid, LNR_THREADS, 0, s>>>(x, g, b, y, M, C, ld);
+  return (int)cudaGetLastError();
 }
 
 // ------------------------------------------------------ SR patch regroup ----
@@ -1861,6 +1976,28 @@ int mit_block_train_attn_backward(const void* xln, const void* k, const void* v,
   TRY((wg_linear<Pro::kPlain, Epi::kPlain, true>(s, pl + 2 * GEMM_PLAN, (P)dq, (P)wq, nullptr,
                                                  nullptr, nullptr, nullptr, 0, dxln, C, M, C, C)));
   return (int)cudaGetLastError();
+}
+
+// The graph glue's LayerNorm (glue_layernorm_rows): x [M, C] bf16 in rows of
+// stride ld (a multiple of 8, 16-byte aligned), g, b [C] fp32 -> y [M, C]
+// bf16, for C a multiple of 8 up to LN_MAX_K. The lane group follows C: the
+// C/8 vectors of a row rounded up to a power of two lanes, at most a warp,
+// with two vectors per lane past 256.
+int glue_layernorm(const void* x, const void* g, const void* b, void* y, int M, int C, int ld,
+                   void* stream) {
+  if (M < 1 || C < 8 || C > LN_MAX_K || C % 8 || ld < C || ld % 8)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  typedef const bf16* P;
+  typedef const float* F;
+  const int nvec = C / 8;
+  if (nvec <= 1) return glue_layernorm_launch<1, 1>(s, (P)x, (F)g, (F)b, (bf16*)y, M, C, ld);
+  if (nvec <= 2) return glue_layernorm_launch<2, 1>(s, (P)x, (F)g, (F)b, (bf16*)y, M, C, ld);
+  if (nvec <= 4) return glue_layernorm_launch<4, 1>(s, (P)x, (F)g, (F)b, (bf16*)y, M, C, ld);
+  if (nvec <= 8) return glue_layernorm_launch<8, 1>(s, (P)x, (F)g, (F)b, (bf16*)y, M, C, ld);
+  if (nvec <= 16) return glue_layernorm_launch<16, 1>(s, (P)x, (F)g, (F)b, (bf16*)y, M, C, ld);
+  if (nvec <= 32) return glue_layernorm_launch<32, 1>(s, (P)x, (F)g, (F)b, (bf16*)y, M, C, ld);
+  return glue_layernorm_launch<32, 2>(s, (P)x, (F)g, (F)b, (bf16*)y, M, C, ld);
 }
 
 }  // extern "C"

@@ -40,6 +40,7 @@ _ENTRY_POINTS = {
     "mit_block_train_forward": (25, 7),
     "mit_block_train_mlp_backward": (11, 5),
     "mit_block_train_attn_backward": (17, 5),
+    "glue_layernorm": (4, 3),
     "selective_scan_forward": (9, 6),
     "selective_scan_backward": (15, 6),
 }

@@ -22,11 +22,17 @@ kernels have no backward of their own, and only ``fused_mit_block_train``
 differentiates, through its backward kernels. Each wrapper counts its kernel
 launches in ``<wrapper>.launches``.
 
-The three serving wrappers reach their kernels through ``torch.library``
-custom ops (``kernels/ops.py``), whose CPU implementation is the plain
-version and whose CUDA implementation is the ``*_cuda`` launch here: so
-``torch.export`` keeps them as opaque calls in a serving graph, and the
-count sits in the launch, where a loaded artifact's calls reach it too.
+``glue_layer_norm`` is the one kernel here with no TPU counterpart: the
+LayerNorm of the graph glue between the MiT kernels, which the JAX package
+leaves to XLA, as one pass over bf16 rows (``models/_ops.py::layernorm``
+takes it on the card where no gradient is needed).
+
+The three serving wrappers and ``glue_layer_norm`` reach their kernels
+through ``torch.library`` custom ops (``kernels/ops.py``), whose CPU
+implementation is the plain version and whose CUDA implementation is the
+``*_cuda`` launch here: so ``torch.export`` keeps them as opaque calls in a
+serving graph, and the count sits in the launch, where a loaded artifact's
+calls reach it too.
 The training kernels and the scan are plain ctypes calls: no exported graph
 reaches them.
 
@@ -830,6 +836,71 @@ def mit_stage_forward_cuda(x, base, sw, *, heads: int, H: int, W: int, sr: int):
 fused_mit_stage.launches = 0
 
 
+def glue_layer_norm_fits(C: int) -> bool:
+    """Whether the glue LayerNorm kernel takes rows of C channels: C a
+    multiple of 8 (one 16-byte vector) from 8 up to LN_MAX_C."""
+    return 8 <= C <= LN_MAX_C and C % 8 == 0
+
+
+def _glue_ln_width(x, scale, bias) -> int:
+    """C of a glue LayerNorm call, raising ValueError for what the kernel does
+    not take: a non-bf16 input, an affine that is not fp32 [C], or a C that
+    ``glue_layer_norm_fits`` refuses."""
+    C = x.shape[-1]
+    if x.dtype != torch.bfloat16:
+        raise ValueError(f"glue LayerNorm takes bf16 rows, got {x.dtype}")
+    for name, t in (("scale", scale), ("bias", bias)):
+        if t.dtype != torch.float32 or tuple(t.shape) != (C,):
+            raise ValueError(f"glue LayerNorm takes an fp32 {name} of shape ({C},), got "
+                             f"{t.dtype} {tuple(t.shape)}")
+    if not glue_layer_norm_fits(C):
+        raise ValueError(f"glue LayerNorm takes C a multiple of 8 up to {LN_MAX_C}, got {C}")
+    return C
+
+
+def glue_layer_norm(x, scale, bias):
+    """``layer_norm(x, scale, bias)`` (eps 1e-6, fp32 statistics and affine,
+    one rounding) of bf16 x [..., C] with fp32 scale and bias [C], through the
+    op ``surgical_tpu::glue_layernorm``: on the card one pass of the glue
+    LayerNorm kernel, on the CPU the plain version. The output is
+    contiguous."""
+    _glue_ln_width(x, scale, bias)
+    _serving_device("glue_layer_norm", x)
+    if x.is_cuda:
+        _build.refuse_grad("glue_layer_norm", x, scale, bias)
+    return _ops().glue_layernorm(x, scale, bias)
+
+
+def glue_layernorm_cuda(x, scale, bias):
+    """The glue LayerNorm kernel's launch, the op's CUDA implementation;
+    counted in ``glue_layer_norm.launches``. The kernel reads the rows in
+    place where x's last axis is contiguous and its row stride is a multiple
+    of 8 elements from a 16-byte aligned start; any other x goes in as one
+    contiguous copy."""
+    C = _glue_ln_width(x, scale, bias)
+    if not (x.is_cuda and scale.is_cuda and bias.is_cuda):
+        raise ValueError(f"glue_layernorm: kernel takes CUDA tensors, got {x.device}, "
+                         f"{scale.device}, {bias.device}")
+    rows = x.reshape(-1, C)
+    if rows.stride(1) != 1 or rows.stride(0) % 8 or rows.data_ptr() % 16:
+        rows = rows.clone(memory_format=torch.contiguous_format)
+    y = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    M = rows.shape[0]
+    if M == 0:
+        return y
+    with torch.cuda.device(x.device):  # the launch's current device
+        err = _build.load().glue_layernorm(
+            rows.data_ptr(), _ptr(scale, (C,), "scale", torch.float32),
+            _ptr(bias, (C,), "bias", torch.float32), y.data_ptr(), M, C, rows.stride(0),
+            torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, "glue_layernorm")
+    glue_layer_norm.launches += 1
+    return y
+
+
+glue_layer_norm.launches = 0
+
+
 def block_train_forward(x, xln, k, v, weights, m1, m2, *, heads: int, H: int, W: int):
     """The train-forward kernel: (y, x1) from x, xln = LN1(x) [B, N, C], k/v
     [B, Nkv, C] and the DropPath factors m1, m2 [B] (fp32)."""
@@ -979,7 +1050,8 @@ def launch_counts() -> dict:
             "mit_stage_forward": fused_mit_stage.launches,
             "mit_block_train_forward": block_train_forward.launches,
             "mit_block_train_mlp_backward": block_train_mlp_backward.launches,
-            "mit_block_train_attn_backward": block_train_attn_backward.launches}
+            "mit_block_train_attn_backward": block_train_attn_backward.launches,
+            "glue_layernorm": glue_layer_norm.launches}
 
 
 def reset_launches() -> None:
@@ -990,3 +1062,4 @@ def reset_launches() -> None:
     block_train_forward.launches = 0
     block_train_mlp_backward.launches = 0
     block_train_attn_backward.launches = 0
+    glue_layer_norm.launches = 0

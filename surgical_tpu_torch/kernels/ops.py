@@ -6,7 +6,9 @@ Mosaic custom calls that a JAX export of the Pallas-fused graph embeds: the
 wrappers of ``kernels/mit_block.py`` (``fused_mit_block``,
 ``fused_mit_block_packed2``, ``fused_mit_stage``) call them, so
 ``torch.export`` records each as one opaque node of the serving graph, and a
-loaded artifact launches the hand-written kernels. Per op:
+loaded artifact launches the hand-written kernels. ``surgical_tpu::glue_layernorm``
+(``glue_layer_norm``) does the same for the graph glue's LayerNorm on the
+card, which a JAX export leaves to XLA. Per op:
 
 - the ``"cpu"`` implementation is the kernel's plain PyTorch version;
 - the ``"cuda"`` implementation is the ctypes launch (``*_cuda`` in
@@ -106,3 +108,18 @@ def _(x, base, sw, heads, H, W, sr):
 @mit_stage_forward.register_fake
 def _(x, base, sw, heads, H, W, sr):
     return torch.empty_like(x)
+
+
+@torch.library.custom_op("surgical_tpu::glue_layernorm", mutates_args=(), device_types="cpu")
+def glue_layernorm(x: Tensor, scale: Tensor, bias: Tensor) -> Tensor:
+    return mb.layer_norm(x, scale, bias).contiguous()  # contiguous, as the kernel's output
+
+
+@glue_layernorm.register_kernel("cuda")
+def _(x, scale, bias):
+    return mb.glue_layernorm_cuda(x, scale, bias)
+
+
+@glue_layernorm.register_fake
+def _(x, scale, bias):
+    return torch.empty_like(x, memory_format=torch.contiguous_format)

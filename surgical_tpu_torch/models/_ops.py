@@ -21,14 +21,33 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from surgical_tpu_torch.kernels.mit_block import layer_norm
+from surgical_tpu_torch.kernels.mit_block import (glue_layer_norm, glue_layer_norm_fits,
+                                                  layer_norm)
 from surgical_tpu_torch.parallel.mesh import all_reduce_autograd
+
+# Calls of ``layernorm`` by route: "kernel" (the glue LayerNorm kernel) and
+# "plain" (``layer_norm``); ``utils/trace.py::counters()`` shows them.
+LAYERNORM_ROUTES = {"kernel": 0, "plain": 0}
 
 
 def layernorm(x, norm: nn.LayerNorm):
     """LayerNorm in fp32 with eps 1e-6 (the fused graph's value for every
-    LayerNorm, whatever ``norm.eps`` says) and fp32 parameters."""
-    return layer_norm(x, norm.weight, norm.bias)
+    LayerNorm, whatever ``norm.eps`` says) and fp32 parameters, rounded once
+    to x.dtype. A bf16 x on the card of a width the kernel takes
+    (``glue_layer_norm_fits``) whose result needs no gradient (grad mode
+    off, or neither x nor the affine requires grad) takes one pass of the
+    glue LayerNorm kernel (``glue_layer_norm``); every other call, on the
+    CPU or under autograd, the plain ``layer_norm``. The two differ only in
+    the order of the fp32 sums."""
+    w, b = norm.weight, norm.bias
+    needs_grad = torch.is_grad_enabled() and (x.requires_grad or w.requires_grad
+                                              or b.requires_grad)
+    if (x.is_cuda and x.dtype == torch.bfloat16 and glue_layer_norm_fits(x.shape[-1])
+            and not needs_grad):
+        LAYERNORM_ROUTES["kernel"] += 1
+        return glue_layer_norm(x, w.float(), b.float())
+    LAYERNORM_ROUTES["plain"] += 1
+    return layer_norm(x, w, b)
 
 
 def dense(x, lin: nn.Linear):

@@ -55,6 +55,7 @@ KINDS = (
     ("attention backward kernels (+ dk/dv reduce)", ("attention_bwd", "dkv_reduce")),
     ("dwconv kernels (+ GELU; transposed)", ("dwconv3x3",)),
     ("stage LN / SR regroup kernels", ("layernorm_kernel", "sr_patches")),
+    ("glue LayerNorm kernel", ("glue_layernorm",)),
     ("packed2 lane pack/unpack kernels", ("lane_pack2",)),
     ("H2D copy", ("Memcpy HtoD",)),
     ("D2H copy", ("Memcpy DtoH",)),

@@ -40,14 +40,15 @@ under ``torch.profiler.profile`` to see them:
 
 ``counters()`` is a snapshot for an operator: the collector's collections
 and pauses per generation (counted whether or not a profiler runs), the
-kernels' launch counts, the streaming session's feature-leg graphs
-(``serving/feature_graph.py``: captures made, frames replayed, frames run
-eagerly) and temporal-leg graphs (``serving/temporal_graph.py``: the
-same three), the backbone trainer's step graphs (``train/train_graph.py``:
-captures, replayed steps, eager steps), RAFT's batches, pairs, iterations and largest batch
-(``models/raft.py``), Jamba's forward calls and frames, its streaming steps,
-its K/V cache's capacity and the longest stream it held (``models/jamba.py``),
-and the CUDA caching allocator's retries, device allocations and frees.
+kernels' launch counts and the glue LayerNorm's calls by route, the
+streaming session's feature-leg graphs (``serving/feature_graph.py``:
+captures made, frames replayed, frames run eagerly) and temporal-leg graphs
+(``serving/temporal_graph.py``: the same three), the backbone trainer's step
+graphs (``train/train_graph.py``: captures, replayed steps, eager steps),
+RAFT's batches, pairs, iterations and largest batch (``models/raft.py``),
+Jamba's forward calls and frames, its streaming steps, its K/V cache's
+capacity and the longest stream it held (``models/jamba.py``), and the CUDA
+caching allocator's retries, device allocations and frees.
 """
 
 from __future__ import annotations
@@ -113,7 +114,9 @@ gc.callbacks.append(GC)
 
 def counters() -> dict:
     """{"gc": per generation {collections, pause_ms, max_pause_ms},
-    "launches": each kernel wrapper's launch count, "feature_graph":
+    "launches": each kernel wrapper's launch count and the graph glue's
+    LayerNorm calls by route (``layernorm_route_kernel``,
+    ``layernorm_route_plain``: ``models/_ops.py::layernorm``), "feature_graph":
     {captures, replays, eager} of the session's feature leg,
     "temporal_graph": the same of its temporal leg, "train_graph": the same
     of the backbone trainer's step, "extract_graph": the same of
@@ -123,7 +126,7 @@ def counters() -> dict:
     a card "cuda_alloc": {num_alloc_retries, num_device_alloc,
     num_device_free}}."""
     from surgical_tpu_torch.kernels import mit_block, selective_scan
-    from surgical_tpu_torch.models import jamba, raft
+    from surgical_tpu_torch.models import _ops, jamba, raft
     from surgical_tpu_torch.serving import feature_graph, temporal_graph
     from surgical_tpu_torch.train import extract, train_graph
 
@@ -131,7 +134,9 @@ def counters() -> dict:
            "launches": {**mit_block.launch_counts(),
                         "selective_scan": selective_scan.selective_scan.launches,
                         "selective_scan_backward":
-                            selective_scan.selective_scan_backward.launches},
+                            selective_scan.selective_scan_backward.launches,
+                        "layernorm_route_kernel": _ops.LAYERNORM_ROUTES["kernel"],
+                        "layernorm_route_plain": _ops.LAYERNORM_ROUTES["plain"]},
            "feature_graph": dict(feature_graph.COUNTS),
            "temporal_graph": dict(temporal_graph.COUNTS),
            "train_graph": dict(train_graph.COUNTS),

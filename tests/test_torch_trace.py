@@ -237,7 +237,8 @@ def test_counters_snapshot():
         "batches": 2, "pairs": 3, "iterations": 2 * RAFT_ITERS}
     assert after["largest_batch"] >= 2
     assert {"mit_block_forward", "mit_stage_forward", "selective_scan",
-            "selective_scan_backward"} <= set(c["launches"])
+            "selective_scan_backward", "glue_layernorm", "layernorm_route_kernel",
+            "layernorm_route_plain"} <= set(c["launches"])
 
 
 def test_exported_serving_graph_holds_no_profiler_op():
